@@ -1,0 +1,13 @@
+"""Model configs: the paper's KWS and PTB LSTM workloads.
+
+``get(name)`` returns the published config, ``get_smoke(name)`` a reduced
+same-family variant for CPU tests.
+"""
+
+from repro_torch.configs.base import (  # noqa: F401
+    ARCH_NAMES,
+    AnalogSpec,
+    ModelConfig,
+    get,
+    get_smoke,
+)

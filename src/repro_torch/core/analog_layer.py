@@ -1,0 +1,237 @@
+"""Analog crossbar layers: config, NL-ADC activations, matmul orchestration.
+
+The paper's technique as torch pieces:
+
+    y = NLADC_g( PWM_quant(x) @ (W + noise) + b )
+
+Operating modes:
+
+* ``exact``  — quantized inputs and NL-ADC activations, no device noise;
+               with ``enabled=False`` the float software baseline;
+* ``infer``  — deployment simulation: the device model's build stage
+               (programmed ramps: write noise + redundancy + calibration +
+               drift, drawn once, host-side) + per-step read noise + NL-ADC.
+
+Hardware-aware training (``mode="train"``, Alg. 1) is not ported yet.
+
+This module is orchestration only: mode logic, quantization and the noise
+draws are shared code, and the LSTM tail dispatches through
+:mod:`repro_torch.core.backend` (``ref`` torch, or the ``cuda`` kernels).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import backend as BK
+from repro_torch.core import crossbar
+from repro_torch.core.crossbar import NoiseSource
+from repro_torch.core.device import IDEAL, DeviceModel, resolve_device
+from repro_torch.core.nladc import (NLADC, BankedThresholds, Ramp,
+                                    bank_map_for, build_ramp,
+                                    check_threshold_degeneracy, pwm_quantize)
+
+MODES = ("exact", "infer")
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogConfig:
+    """Knobs for the analog-hardware simulation (paper Methods).
+
+    ``device`` accepts a :class:`DeviceModel` or a preset name; a name
+    (including the default, which honors ``REPRO_DEVICE``) is resolved to
+    the model at construction time.  ``bank_cols`` > 0 gives one
+    independently programmed ramp per group of ``bank_cols`` output columns
+    (the ``(n_col_tiles, P)`` banked layout); 0 shares one ``(P,)`` ramp.
+    """
+
+    enabled: bool = True
+    adc_bits: int = 5
+    input_bits: Optional[int] = 5
+    input_clip: float = 1.0
+    mode: str = "exact"                   # exact | infer
+    backend: str = ""                     # "" = auto (env) | ref | cuda
+    device: DeviceModel = ""              # model | preset name | "" = auto
+    bank_cols: int = 0
+
+    def __post_init__(self):
+        if self.mode == "train":
+            raise NotImplementedError(
+                "mode='train' (Alg. 1 hardware-aware training) is not "
+                "ported to repro_torch yet")
+        if self.mode not in MODES:
+            raise ValueError(f"unknown analog mode {self.mode!r}; "
+                             f"known: {MODES}")
+        if not isinstance(self.device, DeviceModel):
+            object.__setattr__(self, "device", resolve_device(self.device))
+
+    def replace(self, **kw) -> "AnalogConfig":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_spec(cls, spec, **kw) -> "AnalogConfig":
+        """Build from a :class:`repro_torch.configs.base.AnalogSpec`;
+        ``**kw`` may override ``input_clip``, ``device`` and
+        ``bank_cols``."""
+        fixed = ("enabled", "adc_bits", "input_bits", "mode", "backend")
+        valid = {f.name for f in dataclasses.fields(cls)} - set(fixed)
+        for k in kw:
+            if k not in valid:
+                where = "is fixed by the spec" if k in fixed else "is unknown"
+                raise TypeError(
+                    f"AnalogConfig.from_spec: {k!r} {where}; "
+                    f"overridable fields: {sorted(valid)}")
+        kw.setdefault("device", resolve_device(spec.device))
+        kw.setdefault("bank_cols", spec.bank_cols)
+        return cls(enabled=spec.enabled, adc_bits=spec.adc_bits,
+                   input_bits=spec.input_bits, mode=spec.mode,
+                   backend=spec.backend, **kw)
+
+
+# Explicit device=IDEAL: constructed at import time, where consulting
+# REPRO_DEVICE could name a preset that is registered later.
+EXACT = AnalogConfig(enabled=False, mode="exact", device=IDEAL)
+
+
+class DeployedBank:
+    """One activation's ``(n_col_tiles, P)`` threshold bank at one width.
+
+    Holds the per-col-tile programmed ramps, their float64 stack (the
+    ground truth) and the float32 operand the backends consume.
+    """
+
+    def __init__(self, ramps, width: int, bank_cols: int, device=None):
+        self.width = width
+        self.bank_map = bank_map_for(width, bank_cols)
+        ramps = tuple(ramps)
+        if len(ramps) != self.bank_map.n_banks:
+            raise ValueError(f"expected {self.bank_map.n_banks} bank ramps, "
+                             f"got {len(ramps)}")
+        self.ramps = ramps
+        self.thresholds_f64 = np.stack(
+            [np.asarray(r.thresholds, np.float64) for r in ramps])
+        for j, r in enumerate(ramps):
+            check_threshold_degeneracy(
+                self.thresholds_f64[j], f"{r.name}[bank {j}]", np.float32)
+        thr = torch.from_numpy(self.thresholds_f64.astype(np.float32))
+        self.thresholds = BankedThresholds(thr.to(device), self.bank_map)
+
+
+_EXACT_ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh}
+
+
+class AnalogActivation:
+    """An activation realized by an NL-ADC ramp (or exactly, per config).
+
+    In ``infer`` mode the device model's build stage programs the ramp
+    (and, per width, the col-tile banks) once, host-side.
+    """
+
+    def __init__(self, name: str, cfg: AnalogConfig, device=None):
+        self.name = name
+        self.cfg = cfg
+        self.device = device
+        self._adc: Optional[NLADC] = None
+        self._ideal_ramp: Optional[Ramp] = None
+        self._banks: dict = {}              # width -> DeployedBank
+        if cfg.enabled:
+            ramp = build_ramp(name, cfg.adc_bits)
+            self._ideal_ramp = ramp
+            if cfg.mode == "infer":
+                ramp = cfg.device.deploy_ramp(ramp)
+            self._adc = NLADC(ramp, device)
+
+    @property
+    def adc(self) -> Optional[NLADC]:
+        return self._adc
+
+    @property
+    def ramp(self) -> Optional[Ramp]:
+        return self._adc.ramp if self._adc is not None else None
+
+    def n_banks(self, width: int) -> int:
+        """Col-tiles an application of this activation at ``width`` spans."""
+        if self.cfg.bank_cols <= 0 or width <= 0:
+            return 1
+        return -(-width // self.cfg.bank_cols)
+
+    def bank_for(self, width: int) -> Optional[DeployedBank]:
+        """The deployed threshold bank for one application width.
+
+        ``None`` when banking is off, the activation carries no ramp, or
+        the width fits one col-tile (the ``(P,)`` layout).  The per-bank
+        draws are keyed purely by the bank index, so realization order
+        never changes a bank's chip.
+        """
+        if self._adc is None or self.n_banks(width) <= 1:
+            return None
+        bank = self._banks.get(width)
+        if bank is None:
+            n = self.n_banks(width)
+            if self.cfg.mode == "infer":
+                ramps = self.cfg.device.deploy_ramp_bank(self._ideal_ramp, n)
+            else:
+                ramps = (self._ideal_ramp,) * n
+            bank = self._banks[width] = DeployedBank(
+                ramps, width, self.cfg.bank_cols, self.device)
+        return bank
+
+    def thresholds_for(self, width: int = 0):
+        """Comparator thresholds for one call at ``width`` output columns:
+        a :class:`BankedThresholds` when the width spans several banked
+        col-tiles, else the ``(P,)`` tensor."""
+        bank = self.bank_for(width) if width else None
+        if bank is not None:
+            return bank.thresholds
+        return self._adc.thresholds
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.cfg.enabled or self._adc is None:
+            return _EXACT_ACTS[self.name](x)
+        bk = BK.get_backend(self.cfg.backend)
+        return bk.nladc(x, self._adc,
+                        thresholds=self.thresholds_for(x.shape[-1]))
+
+
+def _noisy_weights(w: torch.Tensor, cfg: AnalogConfig,
+                   noise: Optional[NoiseSource]) -> torch.Tensor:
+    """Clip to the programmable range and add the mode's read noise.
+
+    One standard-normal draw of ``w``'s shape per call when ``noise`` is
+    given and the device model has a read-noise stage in ``infer`` mode.
+    """
+    dev = cfg.device
+    if cfg.mode != "exact" and (dev.line is not None
+                                or dev.nonlinear_iv is not None):
+        raise NotImplementedError(
+            f"device {dev.name!r}: the LineResistance / NonlinearIV stages "
+            f"are not ported to repro_torch yet")
+    w = crossbar.clip_weights(w)
+    sigma_w = dev.weight_sigma_w(cfg.mode)
+    if noise is not None and sigma_w > 0:
+        if dev.paired_noise:
+            raise NotImplementedError(
+                f"device {dev.name!r}: paired (per-device) read noise is "
+                f"not ported to repro_torch yet")
+        w = w + crossbar.read_noise_weights(noise, w.shape, w.device, sigma_w)
+    return w
+
+
+def analog_matmul_act(x: torch.Tensor, w: torch.Tensor, cfg: AnalogConfig,
+                      *, noise: Optional[NoiseSource] = None,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Crossbar MAC: PWM-quantized inputs times clipped, read-noisy weights,
+    float32 accumulation.  ``noise`` supplies the per-step draws; ``None``
+    draws nothing (exact mode)."""
+    if cfg.enabled:
+        if cfg.input_bits is not None:
+            x = pwm_quantize(x, cfg.input_bits, cfg.input_clip)
+        w = _noisy_weights(w, cfg, noise)
+    y = torch.matmul(x, w)
+    if bias is not None:
+        y = y + bias
+    return y

@@ -1,0 +1,121 @@
+"""Pluggable analog-execution backends: the single dispatch seam.
+
+* ``"ref"``  — plain torch on any device; its semantics define the
+  contract (strict-comparator ``searchsorted`` + ``y_table`` decode, and
+  the cell update ``c' = fma(f, c, i*a)`` rounded once).
+* ``"cuda"`` — the hand-written kernels of :mod:`repro_torch.kernels`.  It
+  takes CUDA tensors only and raises on anything else; it never falls
+  back to the plain version.
+
+Selection: ``AnalogConfig.backend`` (empty string = auto), else the
+``REPRO_TORCH_BACKEND`` env var, else ``ref``.  Third-party backends can be
+added with :func:`register_backend`.
+
+Threshold operands are ``(P,)`` tensors or :class:`BankedThresholds` (the
+``(n_col_tiles, P)`` per-col-tile layout, each output column compared
+against its own bank's ramp).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import torch
+
+from repro_torch.core.nladc import (NLADC, BankedThresholds,
+                                    nladc_banked_codes, nladc_forward)
+from repro_torch.kernels import lstm_cell
+from repro_torch.kernels.ref import fma_f32
+
+DEFAULT_BACKEND = "ref"
+
+
+def resolve_backend(name: str = "") -> str:
+    """Explicit name, else the ``REPRO_TORCH_BACKEND`` env var, else ref."""
+    if name:
+        return name
+    return os.environ.get("REPRO_TORCH_BACKEND", "") or DEFAULT_BACKEND
+
+
+class RefBackend:
+    """The plain-torch path; its semantics define the contract."""
+
+    name = "ref"
+
+    def nladc(self, x: torch.Tensor, adc: NLADC, thresholds=None):
+        """Elementwise NL-ADC: thermometer count + ``y_table`` decode."""
+        thr = adc.thresholds if thresholds is None else thresholds
+        if isinstance(thr, BankedThresholds):
+            return adc.y_table[nladc_banked_codes(x, thr)].to(x.dtype)
+        return nladc_forward(x, thr, adc.y_table)
+
+    def lstm_gates(self, gates: torch.Tensor, c: torch.Tensor,
+                   sig_adc: NLADC, tanh_adc: NLADC,
+                   sig_thr=None, tanh_thr=None):
+        """The LSTM elementwise tail (Eq. 5): 5 NL-ADCs + cell update.
+
+        gates: (B, 4H) raw MAC results in [f|a|i|o] order; c: (B, H).
+        """
+        hf, ha, hi, ho = torch.split(gates, gates.shape[-1] // 4, dim=-1)
+        f = self.nladc(hf, sig_adc, sig_thr)
+        a = self.nladc(ha, tanh_adc, tanh_thr)
+        i = self.nladc(hi, sig_adc, sig_thr)
+        o = self.nladc(ho, sig_adc, sig_thr)
+        c_new = fma_f32(f, c, i * a)
+        return o * self.nladc(c_new, tanh_adc, tanh_thr), c_new
+
+
+def _dense(thr, adc: NLADC) -> torch.Tensor:
+    """A ``(P,)`` or per-column ``(H, P)`` kernel operand."""
+    thr = adc.thresholds if thr is None else thr
+    if isinstance(thr, BankedThresholds):
+        return thr.per_column
+    return thr
+
+
+class CudaBackend(RefBackend):
+    """Hand-written CUDA kernels for the primitives that have one."""
+
+    name = "cuda"
+
+    def nladc(self, x, adc, thresholds=None):
+        raise NotImplementedError(
+            "the elementwise NL-ADC kernel (kernels/nladc_kernel.py::"
+            "nladc_pallas) is not ported to CUDA yet")
+
+    def lstm_gates(self, gates, c, sig_adc, tanh_adc,
+                   sig_thr=None, tanh_thr=None):
+        if not gates.is_cuda:
+            raise ValueError(f"the cuda backend takes CUDA tensors; gates "
+                             f"are on {gates.device}")
+        return lstm_cell.lstm_gates(
+            gates, c, _dense(sig_thr, sig_adc), sig_adc.y_table,
+            _dense(tanh_thr, tanh_adc), tanh_adc.y_table)
+
+
+_REGISTRY: Dict[str, object] = {}
+
+
+def register_backend(name: str, impl) -> None:
+    """Register an analog backend implementation under ``name``."""
+    _REGISTRY[name] = impl
+
+
+register_backend("ref", RefBackend())
+register_backend("cuda", CudaBackend())
+
+
+def get_backend(name: str = ""):
+    """Resolve (explicit / env / default) and return the backend object."""
+    resolved = resolve_backend(name)
+    try:
+        return _REGISTRY[resolved]
+    except KeyError:
+        raise KeyError(
+            f"unknown analog backend {resolved!r}; registered: "
+            f"{sorted(_REGISTRY)}") from None
+
+
+def backend_names():
+    return tuple(sorted(_REGISTRY))

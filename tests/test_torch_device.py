@@ -1,0 +1,112 @@
+"""repro_torch's device model, calibration and drift against the JAX
+package's, bitwise.
+
+The build stage draws from ``numpy.random.Generator`` streams salted with
+``zlib.crc32`` of the ramp identity in both packages, so programmed
+thresholds (and every intermediate) must be identical.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from repro.core import calibration as JCAL
+from repro.core import crossbar as JCB
+from repro.core import device as JD
+from repro.core import nladc as JN
+from repro_torch.core import calibration as TCAL
+from repro_torch.core import crossbar as TCB
+from repro_torch.core import device as TD
+from repro_torch.core import nladc as TN
+
+PRESETS = ("paper-infer", "aged-1day", "stressed")
+
+
+@pytest.mark.parametrize("act", ("sigmoid", "tanh"))
+@pytest.mark.parametrize("preset", PRESETS)
+def test_deploy_ramp_bitwise(preset, act):
+    jd, td = JD.get_device(preset), TD.get_device(preset)
+    for bits in (4, 5):
+        a = jd.deploy_ramp(JN.build_ramp(act, bits))
+        b = td.deploy_ramp(TN.build_ramp(act, bits))
+        np.testing.assert_array_equal(a.thresholds, b.thresholds)
+        np.testing.assert_array_equal(a.y_table, b.y_table)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_deploy_ramp_bank_bitwise(preset):
+    jd, td = JD.get_device(preset), TD.get_device(preset)
+    a = jd.deploy_ramp_bank(JN.build_ramp("tanh", 5), 4)
+    b = td.deploy_ramp_bank(TN.build_ramp("tanh", 5), 4)
+    assert len(a) == len(b) == 4
+    for ra, rb in zip(a, b):
+        np.testing.assert_array_equal(ra.thresholds, rb.thresholds)
+    # distinct col-tiles are distinct chips
+    assert not np.array_equal(b[0].thresholds, b[1].thresholds)
+
+
+@pytest.mark.parametrize("name", sorted(JD.device_names()))
+def test_to_dict_matches_and_round_trips(name):
+    jd, td = JD.get_device(name), TD.get_device(name)
+    assert td.to_dict() == jd.to_dict()
+    wire = json.loads(json.dumps(td.to_dict()))
+    assert TD.device_from_dict(wire) == td
+    assert JD.device_from_dict(wire) == jd
+
+
+def test_registry_and_resolution_match(monkeypatch):
+    assert TD.device_names() == JD.device_names()
+    monkeypatch.setenv("REPRO_DEVICE", "stressed")
+    assert TD.resolve_device("").name == "stressed"
+    assert TD.resolve_device("paper-infer") is TD.PAPER_INFER
+    with pytest.raises(KeyError):
+        TD.get_device("no-such-chip")
+
+
+def test_line_stage_not_ported_raises():
+    with pytest.raises(NotImplementedError, match="LineResistance"):
+        TD.get_device("paper-ir").deploy_ramp(TN.build_ramp("tanh", 5))
+
+
+@pytest.mark.parametrize("copies", (1, 4))
+def test_calibration_pipeline_bitwise(copies):
+    ja, ta = JN.build_ramp("sigmoid", 5), TN.build_ramp("sigmoid", 5)
+    jr, tr = np.random.default_rng(11), np.random.default_rng(11)
+    if copies > 1:
+        a = JCAL.program_with_redundancy(ja, jr, copies=copies,
+                                         stuck_off_prob=0.02)
+        b = TCAL.program_with_redundancy(ta, tr, copies=copies,
+                                         stuck_off_prob=0.02)
+    else:
+        a = JCAL.program_ramp(ja, jr, stuck_off_prob=0.02)
+        b = TCAL.program_ramp(ta, tr, stuck_off_prob=0.02)
+    np.testing.assert_array_equal(a.programmed.thresholds,
+                                  b.programmed.thresholds)
+    np.testing.assert_array_equal(a.conductances_us, b.conductances_us)
+    assert a.n_cali_devices == b.n_cali_devices
+    assert a.inl() == b.inl()
+
+
+def test_one_point_calibrate_bank_bitwise():
+    ja, ta = JN.build_ramp("tanh", 5), TN.build_ramp("tanh", 5)
+    g = np.random.default_rng(5).uniform(0, 150, (3, 32))
+    progs_j = [JN.ramp_from_conductances(ja, gi) for gi in g]
+    progs_t = [TN.ramp_from_conductances(ta, gi) for gi in g]
+    a, na = JCAL.one_point_calibrate_bank(progs_j, ja,
+                                          np.random.default_rng(2))
+    b, nb = TCAL.one_point_calibrate_bank(progs_t, ta,
+                                          np.random.default_rng(2))
+    assert na == nb
+    for ra, rb in zip(a, b):
+        np.testing.assert_array_equal(ra.thresholds, rb.thresholds)
+
+
+def test_drift_model_bitwise():
+    g = np.random.default_rng(1).uniform(0, 150, 256)
+    g[:3] = (0.0, 150.0, 75.0)
+    a = JCB.DriftModel().drift(g, 86_400.0, np.random.default_rng(4))
+    b = TCB.DriftModel().drift(g, 86_400.0, np.random.default_rng(4))
+    np.testing.assert_array_equal(a, b)
+    assert (TCB.W_CLIP, TCB.GAMMA_US, TCB.READ_SIGMA_W) == \
+        (JCB.W_CLIP, JCB.GAMMA_US, JCB.READ_SIGMA_W)

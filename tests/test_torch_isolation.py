@@ -1,0 +1,77 @@
+"""repro_torch stands on its own: it imports neither JAX nor the JAX
+package, and its entry point runs on the GPU unless asked for the CPU."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.launch import lstm_eval
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.launch.lstm_eval" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "    if k == 'jax' or k.startswith('jax.') or k == 'repro'\n"
+        "    or k.startswith('repro.'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|"
+    r"from\s+repro(\.|\s+import)(?!_))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+def test_source_has_no_jax_or_repro_import(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), path
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("import jax", True), ("import jax.numpy as jnp", True),
+    ("    from jax import random", True), ("import repro", True),
+    ("from repro.core import nladc", True), ("from repro import x", True),
+    ("import repro_torch", False), ("from repro_torch.core import x", False),
+    ("import jaxlib_free_name_is_fine", False)])
+def test_import_scan_pattern(line, bad):
+    assert bool(_FORBIDDEN.search(line)) == bad
+
+
+def test_lstm_eval_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        lstm_eval.main(["--config", "kws_lstm"])
+
+
+def test_lstm_eval_runs_on_cpu(capsys):
+    out = lstm_eval.main(["--config", "kws_lstm", "--device", "cpu",
+                          "--batches", "1", "--batch", "4"])
+    assert out["launches"] == 0 and out["device"] == "cpu"
+    assert 0.0 <= out["accuracy"] <= 1.0 and out["nll"] > 0
+    header = capsys.readouterr().out.splitlines()[0]
+    assert "TF32 off" in header and "backend ref" in header
