@@ -1,4 +1,4 @@
-"""Model configs: the paper's KWS and PTB LSTM workloads.
+"""Model configs: the paper's KWS and PTB LSTM workloads and qwen2.5-3b.
 
 ``get(name)`` returns the published config, ``get_smoke(name)`` a reduced
 same-family variant for CPU tests.

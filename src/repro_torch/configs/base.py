@@ -201,14 +201,18 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The paper's two LSTM workloads; the LM families are not ported yet.
-ARCH_NAMES = ("kws_lstm", "ptb_lstm")
+# The paper's two LSTM workloads and the dense LM served so far; the other
+# LM families are not ported yet.
+ARCH_NAMES = ("kws_lstm", "ptb_lstm", "qwen2.5-3b")
+
+_MODULE_FOR = {n: "repro_torch.configs." + n.replace("-", "_")
+               .replace(".", "_") for n in ARCH_NAMES}
 
 
 def _load(name: str):
-    if name not in ARCH_NAMES:
+    if name not in _MODULE_FOR:
         raise KeyError(f"unknown config {name!r}; known: {ARCH_NAMES}")
-    return importlib.import_module("repro_torch.configs." + name)
+    return importlib.import_module(_MODULE_FOR[name])
 
 
 def get(name: str) -> ModelConfig:

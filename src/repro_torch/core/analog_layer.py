@@ -7,7 +7,8 @@ The paper's technique as torch pieces:
 Operating modes:
 
 * ``exact``  — quantized inputs and NL-ADC activations, no device noise;
-               with ``enabled=False`` the float software baseline;
+               with ``enabled=False`` the float software baseline (the
+               exact activations of :mod:`repro_torch.nn.activations`);
 * ``infer``  — deployment simulation: the device model's build stage
                (programmed ramps: write noise + redundancy + calibration +
                drift, drawn once, host-side) + per-step read noise + NL-ADC.
@@ -15,7 +16,8 @@ Operating modes:
 Hardware-aware training (``mode="train"``, Alg. 1) is not ported yet.
 
 This module is orchestration only: mode logic, quantization and the noise
-draws are shared code, and the LSTM tail dispatches through
+draws are shared code, and the LSTM tail and the LM's fused gate
+projection (:func:`dense_nladc`) dispatch through
 :mod:`repro_torch.core.backend` (``ref`` torch, or the ``cuda`` kernels).
 """
 
@@ -34,6 +36,7 @@ from repro_torch.core.device import IDEAL, DeviceModel, resolve_device
 from repro_torch.core.nladc import (NLADC, BankedThresholds, Ramp,
                                     bank_map_for, build_ramp,
                                     check_threshold_degeneracy, pwm_quantize)
+from repro_torch.nn import activations
 
 MODES = ("exact", "infer")
 
@@ -121,9 +124,6 @@ class DeployedBank:
         self.thresholds = BankedThresholds(thr.to(device), self.bank_map)
 
 
-_EXACT_ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh}
-
-
 class AnalogActivation:
     """An activation realized by an NL-ADC ramp (or exactly, per config).
 
@@ -191,7 +191,7 @@ class AnalogActivation:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if not self.cfg.enabled or self._adc is None:
-            return _EXACT_ACTS[self.name](x)
+            return activations.exact(self.name)(x)
         bk = BK.get_backend(self.cfg.backend)
         return bk.nladc(x, self._adc,
                         thresholds=self.thresholds_for(x.shape[-1]))
@@ -235,3 +235,24 @@ def analog_matmul_act(x: torch.Tensor, w: torch.Tensor, cfg: AnalogConfig,
     if bias is not None:
         y = y + bias
     return y
+
+
+def dense_nladc(p, x: torch.Tensor,
+                act: Optional[AnalogActivation]) -> torch.Tensor:
+    """Dense layer (params dict ``{w[, b]}``) with a fused NL-ADC epilogue.
+
+    The LM-family path: the analog spec quantizes activations only (no
+    crossbar weight or input noise), so this is dense -> NL-ADC, one
+    kernel on the ``cuda`` backend.  Matches
+    ``act(layers.dense_apply(p, x))`` on the ``ref`` backend (matmul in
+    x's compute dtype).
+    """
+    w, b = p["w"], p.get("b")
+    if act is None or not act.cfg.enabled or act.ramp is None:
+        y = x @ w.to(x.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return act(y) if act is not None else y
+    bk = BK.get_backend(act.cfg.backend)
+    return bk.matmul_nladc(x, w, act.adc, bias=b,
+                           thresholds=act.thresholds_for(w.shape[-1]))

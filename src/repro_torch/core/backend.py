@@ -1,11 +1,17 @@
 """Pluggable analog-execution backends: the single dispatch seam.
 
 * ``"ref"``  — plain torch on any device; its semantics define the
-  contract (strict-comparator ``searchsorted`` + ``y_table`` decode, and
-  the cell update ``c' = fma(f, c, i*a)`` rounded once).
+  contract (strict-comparator ``searchsorted`` + ``y_table`` decode, the
+  cell update ``c' = fma(f, c, i*a)`` rounded once, the LM's gate matmul
+  in the compute dtype, and ``attend_full`` for cached attention).
 * ``"cuda"`` — the hand-written kernels of :mod:`repro_torch.kernels`.  It
   takes CUDA tensors only and raises on anything else; it never falls
-  back to the plain version.
+  back to the plain version.  Its gate matmul is the Pallas kernel's
+  function: float32 operands and accumulator, the NL-ADC on the
+  accumulator, then the cast to x's dtype.  In float32 the two backends
+  compute the same function; in bfloat16 the ``ref`` backend rounds the
+  weights and the matmul output to bfloat16 first, as the JAX package's
+  ``ref`` backend does against its ``pallas`` backend.
 
 Selection: ``AnalogConfig.backend`` (empty string = auto), else the
 ``REPRO_TORCH_BACKEND`` env var, else ``ref``.  Third-party backends can be
@@ -25,8 +31,13 @@ import torch
 
 from repro_torch.core.nladc import (NLADC, BankedThresholds,
                                     nladc_banked_codes, nladc_forward)
+from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import lstm_cell
+from repro_torch.kernels import prefill_attention as pa
 from repro_torch.kernels.ref import fma_f32
+
+_INT8_KV = ("the int8 KV cache (kernels/flash_decode.py::flash_decode_int8) "
+            "is not ported yet; ROADMAP.md queue A item N1 brings it")
 
 DEFAULT_BACKEND = "ref"
 
@@ -65,6 +76,28 @@ class RefBackend:
         c_new = fma_f32(f, c, i * a)
         return o * self.nladc(c_new, tanh_adc, tanh_thr), c_new
 
+    def matmul_nladc(self, x: torch.Tensor, w: torch.Tensor, adc: NLADC,
+                     bias=None, thresholds=None):
+        """NLADC(x @ w + bias), the matmul in x's compute dtype (the LM
+        dense path)."""
+        y = x @ w.to(x.dtype)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return self.nladc(y, adc, thresholds).to(x.dtype)
+
+    def prefill_attention(self, q, k, v, mask):
+        """One-query cached attention (scan prefill / decode step).
+
+        q: (B, 1, H, D); k, v: (B, S, Hkv, D); mask broadcastable to
+        (B, 1, S).  The ref path is ``nn.attention.attend_full`` itself.
+        """
+        from repro_torch.nn.attention import attend_full   # nn imports core
+
+        return attend_full(q, k, v, mask)
+
+    def decode_attention_int8(self, q, k8, k_scale, v8, v_scale, length):
+        raise NotImplementedError(_INT8_KV)
+
 
 def _dense(thr, adc: NLADC) -> torch.Tensor:
     """A ``(P,)`` or per-column ``(H, P)`` kernel operand."""
@@ -92,6 +125,29 @@ class CudaBackend(RefBackend):
         return lstm_cell.lstm_gates(
             gates, c, _dense(sig_thr, sig_adc), sig_adc.y_table,
             _dense(tanh_thr, tanh_adc), tanh_adc.y_table)
+
+    def matmul_nladc(self, x, w, adc, bias=None, thresholds=None):
+        if not x.is_cuda:
+            raise ValueError(f"the cuda backend takes CUDA tensors; x is on "
+                             f"{x.device}")
+        lead = x.shape[:-1]
+        y = fmn.fused_matmul_nladc(
+            x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous(), bias,
+            _dense(thresholds, adc), adc.y_table)
+        return y.reshape(lead + (w.shape[-1],))
+
+    def prefill_attention(self, q, k, v, mask):
+        if not q.is_cuda:
+            raise ValueError(f"the cuda backend takes CUDA tensors; q is on "
+                             f"{q.device}")
+        b, q_len, _, _ = q.shape
+        if q_len != 1:
+            raise ValueError(f"prefill_attention is one-query; got q_len "
+                             f"{q_len}")
+        mask2 = torch.broadcast_to(mask, (b, 1, k.shape[1]))[:, 0]
+        out = pa.prefill_attention(q[:, 0].contiguous(), k, v,
+                                   mask2.to(torch.int32).contiguous())
+        return out[:, None]
 
 
 _REGISTRY: Dict[str, object] = {}

@@ -39,27 +39,48 @@ def nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this source exists.
-
-    The compiler's output (ptxas register and shared-memory report) is
-    kept beside the library as ``<library>.log``.
-    """
+def _output(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)          # atomic: a concurrent build never half-loads
-    return out
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` that has no build of its source
+    yet, one ``nvcc`` each, all started together; wait for all of them.
+
+    The compiler's output (ptxas register and shared-memory report) is
+    kept beside each library as ``<library>.log``.
+    """
+    jobs = {}
+    for name in names:
+        out = _output(name)
+        if out.exists() or name in jobs:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {CSRC / name}.cu:\n"
+                          f"{stderr}")
+            continue
+        out.with_name(out.name + ".log").write_text(stdout + stderr)
+        os.replace(tmp, out)      # atomic: a concurrent build never half-loads
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _output(name) for name in names}
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of this source exists."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

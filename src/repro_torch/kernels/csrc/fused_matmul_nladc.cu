@@ -1,0 +1,196 @@
+// Matmul with a fused NL-ADC epilogue for sm_90a.
+//
+// Replaces the TPU kernel
+// src/repro/kernels/fused_matmul_nladc.py::fused_matmul_nladc_pallas:
+//
+//   acc[m, n] = sum_k float(x[m, k]) * w[k, n]   (+ bias[n])     in float32
+//   out[m, n] = y_table[#{j : acc[m, n] > thr[j]}]  rounded to x's type
+//
+// x is (M, K) float32 or bfloat16, w the (K, N) float32 master weights,
+// thr one (P,) ramp for every column (stride 0) or one row of an (N, P)
+// per-column matrix (stride P, the threshold-bank layout).  The comparator
+// is strict, and the decode is a lookup in the ramp's y table, as the
+// port's reference backend decodes.
+//
+// Bound on this card: the LM's MLP gate (qwen2.5-3b, K 2048, N 11008) runs
+// with M = 4 (a decode step) or M = 1 (a prefill step).  Each call then
+// reads the 90.2 MB float32 weight once and does 2*M*K*N = 180 MFLOP, so
+// it is bound by bytes: 27 us at 3.35 TB/s, against 2.7 us of float32
+// operations at 67 TFLOP/s.  Tensor cores would not help a GEMV.  The
+// design streams w through the card once, with every load coalesced:
+//
+//   * a block owns 32 columns and 4 rows of x; each of its 16 warps walks
+//     its own share of K (rows k = warp, warp + 16, ...), each lane reading
+//     one column of a weight row (one 128-byte warp load per row, 16 rows
+//     unrolled so their loads are in flight together), so one block reads
+//     a 32-column strip of w and the grid covers N with 344 blocks at
+//     N = 11008 (splitting K over 16 warps keeps enough loads in flight
+//     per SM; the 4-row block also serves M = 1 at the same weight
+//     traffic);
+//   * x is staged in shared memory as float32, 512 columns of K at a
+//     time, and read by broadcast;
+//   * each thread keeps its 4 accumulators in registers; the 16 warps'
+//     partial sums meet in shared memory and are added in warp order, so
+//     the result does not depend on scheduling;
+//   * the epilogue (bias, P compares, table lookup, round to nearest even)
+//     runs on the float32 sum, one thread per output; a per-column
+//     threshold strip is staged in shared memory with a padded stride so
+//     the threads' row reads do not collide in one bank.
+//
+// Products and sums are written as __fmaf_rn / __fadd_rn so nvcc's --fmad
+// choice cannot change the rounding.  Rows of x past M (the ragged edge)
+// are staged as zeros and their outputs are not written.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kColsPerLane = 1;
+constexpr int kCols = 32 * kColsPerLane;  // columns per block
+constexpr int kRows = 4;                  // rows of x per block
+constexpr int kTileK = 512;               // x columns staged at a time
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
+    const T* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ thr,
+    const float* __restrict__ y_table, T* __restrict__ out, int m_dim,
+    int k_dim, int n_dim, int p, int thr_stride) {
+  extern __shared__ float smem[];
+  const int thr_pitch = thr_stride ? p + 1 : p;
+  float* s_x = smem;                                  // kRows x kTileK
+  float* s_part = s_x + kRows * kTileK;               // kWarps x kRows x kCols
+  float* s_thr = s_part + kWarps * kRows * kCols;     // kCols x (P+1), or P
+  float* s_y = s_thr + (thr_stride ? kCols : 1) * thr_pitch;  // P + 1
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * kCols;
+  const int m0 = blockIdx.y * kRows;
+  const int rows = min(kRows, m_dim - m0);
+
+  float acc[kRows][kColsPerLane];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.f;
+
+  for (int k0 = 0; k0 < k_dim; k0 += kTileK) {
+    const int kt = min(kTileK, k_dim - k0);
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < kRows * kTileK; i += kThreads) {
+      const int r = i / kTileK, kk = i % kTileK;
+      s_x[i] = (r < rows && kk < kt)
+                   ? to_float(x[(size_t)(m0 + r) * k_dim + k0 + kk])
+                   : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 16
+    for (int kk = warp; kk < kt; kk += kWarps) {
+      const float* wrow = w + (size_t)(k0 + kk) * n_dim;
+      float wv[kColsPerLane];
+#pragma unroll
+      for (int c = 0; c < kColsPerLane; ++c) {
+        const int n = n0 + lane + 32 * c;
+        wv[c] = n < n_dim ? __ldg(wrow + n) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float xv = s_x[r * kTileK + kk];
+#pragma unroll
+        for (int c = 0; c < kColsPerLane; ++c)
+          acc[r][c] = __fmaf_rn(xv, wv[c], acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c)
+      s_part[(warp * kRows + r) * kCols + lane + 32 * c] = acc[r][c];
+  if (thr_stride) {
+    // the block's columns n0 .. n0+kCols-1 are one contiguous strip of (N, P)
+    const int n_here = min(kCols, n_dim - n0);
+    for (int i = threadIdx.x; i < n_here * p; i += kThreads)
+      s_thr[(i / p) * thr_pitch + i % p] = thr[(size_t)n0 * p + i];
+  } else {
+    for (int i = threadIdx.x; i < p; i += kThreads) s_thr[i] = thr[i];
+  }
+  for (int i = threadIdx.x; i <= p; i += kThreads) s_y[i] = y_table[i];
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+    const int r = i / kCols, col = i % kCols;
+    const int n = n0 + col;
+    if (r >= rows || n >= n_dim) continue;
+    float s = s_part[r * kCols + col];
+#pragma unroll
+    for (int wi = 1; wi < kWarps; ++wi)
+      s = __fadd_rn(s, s_part[(wi * kRows + r) * kCols + col]);
+    if (bias != nullptr) s = __fadd_rn(s, bias[n]);
+    const float* t = thr_stride ? s_thr + col * thr_pitch : s_thr;
+    int count = 0;
+    for (int j = 0; j < p; ++j) count += (s > t[j]) ? 1 : 0;
+    store(out + (size_t)(m0 + r) * n_dim + n, s_y[count]);
+  }
+}
+
+template <typename T>
+int launch(const void* x, const float* w, const float* bias,
+           const float* thr, const float* y_table, void* out, int m_dim,
+           int k_dim, int n_dim, int p, int thr_stride, cudaStream_t stream) {
+  const int thr_pitch = thr_stride ? p + 1 : p;
+  const size_t smem =
+      sizeof(float) * ((size_t)kRows * kTileK + (size_t)kWarps * kRows * kCols +
+                       (size_t)(thr_stride ? kCols : 1) * thr_pitch + p + 1);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_matmul_nladc_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n_dim + kCols - 1) / kCols, (m_dim + kRows - 1) / kRows);
+  fused_matmul_nladc_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), w, bias, thr, y_table, static_cast<T*>(out),
+      m_dim, k_dim, n_dim, p, thr_stride);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x and out are bfloat16 when x_bf16 is nonzero, else float32.  bias may
+// be null.  Launches on `stream`; allocates nothing.  Returns
+// cudaGetLastError().
+int fused_matmul_nladc_launch(const void* x, const float* w,
+                              const float* bias, const float* thr,
+                              const float* y_table, void* out, int m_dim,
+                              int k_dim, int n_dim, int p, int thr_stride,
+                              int x_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_bf16)
+    return launch<__nv_bfloat16>(x, w, bias, thr, y_table, out, m_dim, k_dim,
+                                 n_dim, p, thr_stride, s);
+  return launch<float>(x, w, bias, thr, y_table, out, m_dim, k_dim, n_dim, p,
+                       thr_stride, s);
+}
+
+const char* cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

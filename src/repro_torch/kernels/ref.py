@@ -1,4 +1,5 @@
-"""Plain-torch oracles for the kernels, and the LSTM tail's rounding contract.
+"""Plain-torch oracles for the kernels, the plain versions of the LM
+kernels, and the LSTM tail's rounding contract.
 
 The closed-form decode (thermometer count -> affine / split-affine y) is
 how the TPU kernels decode; the port's kernels decode by a lookup in the
@@ -8,6 +9,11 @@ The two agree on every code and differ by float rounding only.
 :func:`fma_f32` is the LSTM tail's cell-update contract,
 ``c' = fma(f, c, i*a)`` with one rounding, shared by every torch path that
 computes ``c'``.
+
+:func:`fused_matmul_nladc_plain` and :func:`prefill_attention_plain` are
+the plain torch versions of the LM path's two kernels, in the kernels'
+signatures: the CPU wrappers run them, and the tests and ``chip_smoke.py``
+hold the kernels against them.
 """
 
 from __future__ import annotations
@@ -113,3 +119,29 @@ def lstm_gates(gates: torch.Tensor, c: torch.Tensor, sig_ramp: Ramp,
     o = nladc(go, sig_ramp, sig_thr)
     c_new = fma_f32(f, c, i * a)
     return o * nladc(c_new, tanh_ramp, tanh_thr), c_new
+
+
+def fused_matmul_nladc_plain(x: torch.Tensor, w: torch.Tensor, bias,
+                             thr: torch.Tensor,
+                             y_table: torch.Tensor) -> torch.Tensor:
+    """``NLADC(f32(x) @ f32(w) + bias)`` cast to ``x.dtype``: the Pallas
+    kernel's function (both operands promoted to float32, float32
+    accumulation, the NL-ADC on the accumulator), decoded by ``y_table``
+    lookup.  x: (M, K); w: (K, N); bias: (N,) or None; thr: (P,) or
+    per-column (N, P)."""
+    acc = x.float() @ w.float()
+    if bias is not None:
+        acc = acc + bias.float()
+    return y_table[thermometer_count(acc, thr)].to(x.dtype)
+
+
+def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: torch.Tensor):
+    """One-query cached attention, ``attend_full`` op for op.
+
+    q: (B, H, D); k, v: (B, S, Hkv, D); mask: (B, S), nonzero where valid.
+    Returns (B, H, D) in q.dtype.
+    """
+    from repro_torch.nn.attention import attend_full   # nn imports kernels
+
+    return attend_full(q[:, None], k, v, (mask != 0)[:, None, :])[:, 0]

@@ -14,7 +14,7 @@ or are drawn from ``--seed``.
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise.  TF32 is switched off for matmuls and cuDNN, so
-every matmul is full float32.
+every matmul is full float32 (``launch.common.configure_numerics``).
 """
 
 from __future__ import annotations
@@ -34,7 +34,11 @@ from repro_torch.core.analog_layer import AnalogConfig
 from repro_torch.core.crossbar import GeneratorNoise
 from repro_torch.data.pipeline import CharCorpus, SyntheticKWS
 from repro_torch.kernels import lstm_cell
+from repro_torch.launch.common import (configure_numerics, device_profile,
+                                      resolve_device)
 from repro_torch.nn.lstm import LSTMClassifier, LSTMSpec
+
+CONFIGS = ("kws_lstm", "ptb_lstm")
 
 # fig5c's corpus size and eval offset; fig4d's quick-mode split sizes
 PTB_CORPUS_LEN = 60_000
@@ -42,26 +46,6 @@ PTB_EVAL_STEP0 = 10_000
 KWS_SPLITS = (768, 384)
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
-
-
-def configure_numerics() -> dict:
-    """Full float32 matmuls and convolutions (TF32 off); returns the flags."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` (the default) or ``cpu``; a missing GPU raises."""
-    if name == "cpu":
-        return torch.device("cpu")
-    if name != "cuda":
-        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to run on the CPU")
-    return torch.device("cuda")
 
 
 def build_model(config: str, device: torch.device, *, backend: str = "",
@@ -146,35 +130,17 @@ def evaluate(model: LSTMClassifier, data: List[Batch], *, all_steps: bool,
 
 def profile_device(model: LSTMClassifier, data: List[Batch], *,
                    all_steps: bool, seed: int = 0, top: int = 12) -> dict:
-    """:func:`evaluate` under ``torch.profiler``: device time per kernel
-    name (largest first), the device's busy time, and its idle share of
-    the profiled wall time.  The profiler adds host time of its own, so
-    the idle share it reports is an upper bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = evaluate(model, data, all_steps=all_steps, seed=seed)
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
-    busy_us = sum(k[1] for k in kernels)
-    wall_us = 1e6 * res["seconds"]
-    return {"steps": res["steps"], "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-            "kernels": [{"name": name[:80], "device_ms": t / 1e3,
-                         "calls": n, "share_of_busy": t / busy_us}
-                        for name, t, n in kernels[:top]]}
+    """:func:`evaluate` under ``torch.profiler``
+    (:func:`~repro_torch.launch.common.device_profile`)."""
+    res, prof = device_profile(
+        lambda: evaluate(model, data, all_steps=all_steps, seed=seed),
+        top=top)
+    return {"steps": res["steps"], **prof}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default="ptb_lstm",
-                    choices=configs.ARCH_NAMES)
+    ap.add_argument("--config", default="ptb_lstm", choices=CONFIGS)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--backend", default=None, choices=("cuda", "ref"),
                     help="default: cuda on the GPU, ref on the CPU")

@@ -1,0 +1,147 @@
+"""Serve a dense LM on the GPU: ``python -m repro_torch.launch.serve --arch
+qwen2.5-3b``.
+
+The torch twin of the JAX package's ``repro.launch.serve`` on its scan
+prefill: builds the model at the config's published widths (or its SMOKE
+variant with ``--smoke``), submits a wave of synthetic requests made as
+the JAX launcher makes them (``np.random.default_rng(0)``, prompt lengths
+4-11, tokens below ``cfg.vocab``), drains them through the
+:class:`~repro_torch.serve.engine.ServingEngine`, and prints one JSON
+summary line.  Weights come from ``--params`` (an LM tree saved by
+:func:`repro_torch.convert.save_npz`) or are drawn from ``--seed``.
+
+    python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        [--smoke] [--requests 6] [--max-new 16] [--max-batch 4] \\
+        [--max-len 128] [--backend cuda|ref] [--bank-cols N] \\
+        [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile]
+
+It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
+without a GPU otherwise.  On the GPU the backend defaults to ``cuda`` (the
+MLP gate and every cached attention in the hand-written kernels), on the
+CPU to ``ref``.  A one-request warm-up wave builds the kernels and
+initialises cuBLAS before the measured run.  ``--profile`` serves the
+wave once more under ``torch.profiler`` and prints the device time per
+kernel name and the device's idle share.  Only exact analog mode is
+ported; ``--analog-mode infer|train`` raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import load_npz
+from repro_torch.kernels import fused_matmul_nladc as fmn
+from repro_torch.kernels import prefill_attention as pa
+from repro_torch.launch.common import (configure_numerics, device_profile,
+                                      resolve_device)
+from repro_torch.nn.model import build
+from repro_torch.serve.engine import Request, ServingEngine
+
+ARCHS = ("qwen2.5-3b",)
+
+
+def make_config(arch: str, *, smoke: bool = False, backend: str = "",
+                bank_cols: int = 0, analog_mode: str = "") -> ModelConfig:
+    """The arch's config (or SMOKE variant) with the CLI's analog knobs."""
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    spec_kw = {"backend": backend, "bank_cols": bank_cols}
+    if analog_mode:
+        spec_kw["mode"] = analog_mode
+    return cfg.replace(analog=dataclasses.replace(cfg.analog, **spec_kw))
+
+
+def make_requests(cfg: ModelConfig, n: int, max_new: int) -> List[Request]:
+    """The JAX launcher's synthetic requests, draw for draw."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for uid in range(n):
+        prompt = rng.integers(0, cfg.vocab,
+                              size=rng.integers(4, 12)).astype(np.int32)
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=max_new))
+    return reqs
+
+
+def build_lm(cfg: ModelConfig, device: torch.device, *,
+             params_path: str = "", seed: int = 0):
+    """(model, params): params from ``params_path``, else seeded."""
+    model = build(cfg, device)
+    if params_path:
+        return model, load_npz(params_path, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return model, model.init(gen)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the config's reduced SMOKE variant")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--backend", default=None, choices=("cuda", "ref"),
+                    help="default: cuda on the GPU, ref on the CPU")
+    ap.add_argument("--bank-cols", type=int, default=0,
+                    help="columns per threshold bank (0 = one shared ramp)")
+    ap.add_argument("--analog-mode", default="",
+                    choices=("", "exact", "infer", "train"),
+                    help="override the spec's mode (only exact is ported)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--params", default="",
+                    help=".npz LM tree (convert.save_npz)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights (without --params)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print device time per kernel (GPU only)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    if args.profile and device.type != "cuda":
+        raise ValueError("--profile measures the GPU; it needs --device cuda")
+    backend = args.backend or ("cuda" if device.type == "cuda" else "ref")
+    flags = configure_numerics()
+    cfg = make_config(args.arch, smoke=args.smoke, backend=backend,
+                      bank_cols=args.bank_cols, analog_mode=args.analog_mode)
+    model, params = build_lm(cfg, device, params_path=args.params,
+                             seed=args.seed)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"[serve] {cfg.name} on {name}, backend {backend}, "
+          f"{cfg.dtype} compute, bank_cols {cfg.analog.bank_cols}; TF32 and "
+          f"reduced-precision bf16 sums off ({flags})", flush=True)
+    engine = ServingEngine(model, params, max_batch=args.max_batch,
+                           max_len=args.max_len)
+    engine.run_offline(make_requests(cfg, 1, 2))              # warm-up
+    launches0 = (fmn.fused_matmul_nladc.launches,
+                 pa.prefill_attention.launches)
+    stats = engine.run_offline(make_requests(cfg, args.requests,
+                                             args.max_new))
+    out = {"arch": cfg.name, "device": name, "backend": backend,
+           "requests": args.requests, **stats,
+           "launches": {
+               "fused_matmul_nladc":
+                   fmn.fused_matmul_nladc.launches - launches0[0],
+               "prefill_attention":
+                   pa.prefill_attention.launches - launches0[1]}}
+    print(json.dumps(out), flush=True)
+    if args.profile:
+        res, prof = device_profile(lambda: engine.run_offline(
+            make_requests(cfg, args.requests, args.max_new)), top=16)
+        out["profile"] = {"decode_steps": res["decode_steps"],
+                          "prefill_steps": res["prefill_steps"], **prof}
+        print(json.dumps({"profile": out["profile"]}), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

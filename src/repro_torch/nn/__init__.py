@@ -1,1 +1,1 @@
-"""Model families: the paper's analog LSTM."""
+"""Model families: the paper's analog LSTM and the dense LM."""

@@ -1,8 +1,11 @@
-"""Primitive layers: seeded init helpers and Dense.
+"""Primitive layers: seeded init helpers, Dense, Embedding, RMSNorm, RoPE.
 
-Params are plain dicts of float32 tensors; every layer is an
-``init(generator, ...) -> params`` + ``apply(params, x)`` pair.  Draws come
-from a ``torch.Generator`` and land on that generator's device.
+Params are plain dicts of float32 tensors (the master weights); every
+layer is an ``init(generator, ...) -> params`` + ``apply(params, x)`` pair.
+Draws come from a ``torch.Generator`` and land on that generator's device.
+Compute runs in the model's dtype (bf16 by default) with params cast at
+use; norms accumulate in float32.  Each apply mirrors the JAX package's
+``repro/nn/layers.py`` op for op.
 """
 
 from __future__ import annotations
@@ -34,8 +37,60 @@ def dense_init(generator: torch.Generator, n_in: int, n_out: int, *,
     return p
 
 
-def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+def dense_apply(p, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
+    """Matmul in x's dtype by default (params are f32 master weights)."""
+    dt = compute_dtype or x.dtype
+    y = x.to(dt) @ p["w"].to(dt)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d_model: int):
+    return {"table": trunc_normal(generator, (vocab, d_model), 1.0)}
+
+
+def embedding_apply(p, tokens: torch.Tensor, *,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    return p["table"][tokens].to(compute_dtype)
+
+
+def embedding_attend(p, x: torch.Tensor) -> torch.Tensor:
+    """Tied readout: logits = x @ table.T, with x promoted to float32 as
+    the reference's mixed-dtype einsum promotes it."""
+    return x.float() @ p["table"].T
+
+
+def rmsnorm_init(d: int, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    """Inverse frequencies, shape (head_dim // 2,)."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate pairs (x[..., ::2], x[..., 1::2]).
+
+    x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
+    """
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)

@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.launch import lstm_eval
+from repro_torch.launch import lstm_eval, serve
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -25,6 +25,7 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.launch.lstm_eval" in mods
+    assert "repro_torch.launch.serve" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -66,6 +67,15 @@ def test_lstm_eval_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         lstm_eval.main(["--config", "kws_lstm"])
+
+
+def test_serve_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "qwen2.5-3b", "--smoke"])
+    out = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                      "--requests", "1", "--max-new", "1"])
+    assert out["device"] == "cpu" and out["backend"] == "ref"
 
 
 def test_lstm_eval_runs_on_cpu(capsys):

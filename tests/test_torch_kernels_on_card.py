@@ -1,0 +1,147 @@
+"""The LM path's kernels on the card, against their plain versions.
+
+This file imports nothing of JAX, so it runs on a GPU host that has only
+PyTorch: ``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
+
+* ``fused_matmul_nladc``: the kernel's codes (read from a launch with the
+  counting table ``y(n) = n``) equal the plain version's except where the
+  float64 accumulator lies within the float32 summation bound of a crossed
+  threshold (at most 1% of outputs); its outputs are the table at its
+  codes.  SMOKE shapes and the serving path's (4 and 1 rows, K 2048,
+  N 11008), flat and banked thresholds, float32 and bfloat16 x.
+* ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
+  bfloat16, ragged masks, at a SMOKE shape and the serving path's.
+* The SMOKE LM in float32 on the ``cuda`` and ``ref`` backends: logits
+  within LSB/2 of the silu ramp, and each kernel launched once per layer
+  per step.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.core import nladc as TN
+from repro_torch.kernels import fused_matmul_nladc as TFM
+from repro_torch.kernels import prefill_attention as TPA
+from repro_torch.kernels.ref import thermometer_count
+from repro_torch.launch.common import configure_numerics
+from repro_torch.nn.model import build
+
+MAX_FLIP_SHARE = 0.01
+F32_ATOL = 1e-6
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    configure_numerics()
+    return torch.device("cuda")
+
+
+MATMUL_CASES = [(m, k, n, name, dt, bias, tiles)
+                for (m, k, n) in [(33, 40, 24), (4, 64, 160), (4, 2048, 11008),
+                                  (1, 2048, 11008)]
+                for name in ("sigmoid", "silu")
+                for dt in (torch.float32, torch.bfloat16)
+                for bias, tiles in [(False, 0), (True, 16), (False, 512)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,name,dtype,bias,tile_cols", MATMUL_CASES)
+def test_fused_matmul_kernel_matches_plain(m, k, n, name, dtype, bias,
+                                           tile_cols):
+    dev = _card()
+    rng = np.random.default_rng(m * 100_000 + n)
+    ramp = TN.build_ramp(name, 5)
+    x = torch.tensor(rng.normal(0, 1.0, (m, k)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(0, 2.0 / np.sqrt(k), (k, n)),
+                     dtype=torch.float32)
+    b = torch.tensor(rng.normal(0, 0.5, (n,)), dtype=torch.float32) \
+        if bias else None
+    thr = torch.tensor(ramp.thresholds, dtype=torch.float32)
+    if tile_cols and n > tile_cols:
+        bm = TN.bank_map_for(n, tile_cols)
+        banks = thr[None] + torch.tensor(
+            rng.normal(0, 0.03, (bm.n_banks, 1)), dtype=torch.float32)
+        thr = TN.BankedThresholds(banks, bm).per_column
+    x, w, thr = x.to(dev, dtype), w.to(dev), thr.to(dev)
+    b = b.to(dev) if b is not None else None
+    y_table = torch.tensor(ramp.y_table, dtype=torch.float32, device=dev)
+    count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32, device=dev)
+
+    n0 = TFM.fused_matmul_nladc.launches
+    yk = TFM.fused_matmul_nladc(x, w, b, thr, y_table)
+    nk = TFM.fused_matmul_nladc(x, w, b, thr, count).long()
+    torch.cuda.synchronize()
+    assert TFM.fused_matmul_nladc.launches == n0 + 2
+    assert yk.dtype == dtype and torch.equal(yk, y_table[nk].to(dtype))
+    n_plain = thermometer_count(x.float() @ w + (b if bias else 0.0), thr)
+    acc, bound = TFM.accumulator_bound(x, w, b)
+    flips, unexplained = TFM.code_flips(nk, n_plain, acc, bound, thr)
+    assert unexplained == 0 and flips <= MAX_FLIP_SHARE * nk.numel()
+
+
+def _bf16_ulp(a):
+    a = a.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [(3, 12, 8, 2, 16),
+                                         (4, 128, 16, 2, 128)])
+def test_prefill_attention_kernel_matches_plain(dtype, b, s, h, hkv, d):
+    dev = _card()
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.tensor(rng.normal(0, 1.0, shape), dtype=torch.float32)
+               .to(dev, dtype)
+               for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lengths = torch.tensor(rng.integers(1, s + 1, size=b), device=dev)
+    lengths[0] = s
+    mask = (torch.arange(s, device=dev)[None] < lengths[:, None]).to(
+        torch.int32)
+    n0 = TPA.prefill_attention.launches
+    got = TPA.prefill_attention(q, k, v, mask).float()
+    want = TPA.prefill_attention_plain(q, k, v, mask).float()
+    torch.cuda.synchronize()
+    assert TPA.prefill_attention.launches == n0 + 1
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= F32_ATOL
+    else:
+        assert bool((diff <= _bf16_ulp(torch.maximum(got.abs(),
+                                                     want.abs()))).all())
+
+
+@pytest.mark.cuda
+def test_smoke_lm_cuda_backend_matches_ref():
+    dev = _card()
+    models = {}
+    for bk in ("cuda", "ref"):
+        cfg = configs.get_smoke("qwen2.5-3b")
+        cfg = cfg.replace(dtype="float32", analog=dataclasses.replace(
+            cfg.analog, backend=bk))
+        models[bk] = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = models["cuda"].init(gen)
+    tokens = torch.randint(0, cfg.vocab, (8, 2, 1), generator=gen,
+                           device=dev)
+    states = {bk: m.init_decode_state(2, 16) for bk, m in models.items()}
+    n0 = (TFM.fused_matmul_nladc.launches, TPA.prefill_attention.launches)
+    worst = 0.0
+    for t in range(tokens.shape[0]):
+        logits = {}
+        for bk, m in models.items():
+            logits[bk], states[bk] = m.decode_step(params, states[bk],
+                                                   tokens[t])
+        worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
+                                 .max()))
+    assert (TFM.fused_matmul_nladc.launches - n0[0],
+            TPA.prefill_attention.launches - n0[1]) == \
+        (cfg.n_layers * 8, cfg.n_layers * 8)
+    assert worst < models["cuda"].act.ramp.lsb / 2
