@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA
-              versions, and the build of the three kernels from
+              versions, and the build of the five kernel sources from
               ``kernels/csrc`` (one nvcc each, started together).
 2. kernel   — the ``lstm_gates`` kernel against its plain torch version and
               the ``ref`` backend on the card, at (B=16, H=2016) with one
@@ -41,11 +41,38 @@ Phases, one JSON line each:
 8. agreement — a 2-layer, full-width, float32 variant decoded on the
               ``cuda`` and ``ref`` backends on the card: max |delta logits|
               < LSB/2 of the silu ramp.
-9. kernel_time — device time per call of each kernel, of its plain
+9. nladc    — the elementwise ``nladc`` kernel against its plain version
+              at the router's (4, 64) bfloat16 with one (P,) ramp, at
+              (4, 11008) bfloat16 with 512-column banks, and a ragged
+              float32 (33, 1000): codes bitwise, values equal.
+10. moe_matmul — the grouped ``moe_fused_matmul`` kernel against its
+              plain version at the expert gate's shape (64 experts, C 6,
+              d 2048, f 1408, bfloat16 x, float32 w), flat and banked-512,
+              and a ragged float32 (5, 7, 300, 1000): the fused matmul's
+              flip contract (at most 1%), outputs equal to the table at
+              the kernel's codes.
+11. flash_decode — the int8 ``flash_decode_int8`` kernel against its
+              plain version at the serving shape (B 4, H = Hkv = 16, D 128,
+              S 128), a GQA case (H 16, Hkv 2) and ragged S and lengths:
+              max abs diff 1e-5.
+12. serve_moe — moonshot-v1-16b-a3b at full width, 24 of its 48 layers
+              (f32 weights, 59.1 GB, drawn on the card), int8 KV cache,
+              bfloat16 compute, ``cuda`` backend: 4 requests, max_batch 4,
+              max_len 128, max_new 16.  ``nladc``, ``moe_fused_matmul``,
+              ``flash_decode_int8`` and ``fused_matmul_nladc`` (the shared
+              experts) each launch 24 x (prefill steps + decode steps)
+              times, ``prefill_attention`` never; every step's logits are
+              finite; peak device memory.
+13. agreement_moe — a 2-layer, full-width, float32 moonshot with an int8
+              cache on the ``cuda`` and ``ref`` backends: max |delta
+              logits| < LSB/2.
+14. kernel_time — device time per call of each kernel, of its plain
               version and of the PyTorch call used as a yardstick
-              (torch.profiler), after the main paths.
-10. kernels — one line listing every ported kernel with its launches on
-              the main path, its error against the plain version and times.
+              (torch.profiler; CUDA events where three profiler sessions
+              in a row record no device time), after the main paths.
+15. kernels — one line listing every ported kernel with its launches on
+              the main paths, its error against the plain version and
+              times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises.  Without a GPU, or without the repository's ``src/repro_torch``
@@ -72,12 +99,17 @@ KWS_BATCHES, KWS_BATCH = 2, 16
 TIMING_REPEATS = 4
 LOGIT_ATOL = 1e-6   # cuda vs ref backend: the tails are bitwise equal, so
 #                     any code flip would show as an LSB-sized jump
-KERNELS = ("lstm_cell", "fused_matmul_nladc", "prefill_attention")
+KERNELS = ("lstm_cell", "fused_matmul_nladc", "prefill_attention", "nladc",
+           "flash_decode_int8")
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
              max_new=16, repeats=5)
 AGREE_LAYERS, AGREE_STEPS = 2, 8
+SERVE_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=24,
+                 kv_cache_dtype="int8", requests=4, max_batch=4, max_len=128,
+                 max_new=16, repeats=3)
+FLASH_ATOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -108,10 +140,14 @@ def cuda_ms(fn, *, reps: int = 20, inner: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, *, calls: int = 50) -> float:
+def device_ms(fn, *, calls: int = 50, tries: int = 3) -> tuple[float, str]:
     """Device time per call under ``torch.profiler``: the summed device
     time of every kernel ``fn`` launched, over ``calls`` calls (ms).  Host
-    time between launches is not counted."""
+    time between launches is not counted.  The profiler now and then hands
+    back a session without a single device event; such a session is tried
+    again, and after ``tries`` empty ones the time is taken with CUDA events
+    around back-to-back calls instead (host gaps then count).  Returns the
+    time and which clock gave it: ``"profiler"`` or ``"cuda_events"``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -119,14 +155,18 @@ def device_ms(fn, *, calls: int = 50) -> float:
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / calls / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3, "profiler"
+    ms = cuda_ms(fn, inner=calls)
+    check(ms > 0, "neither the profiler nor CUDA events timed the call")
+    return ms, "cuda_events"
 
 
 def tail_bound(b: int, h: int, p: int, banked: bool) -> dict:
@@ -212,13 +252,17 @@ def phase_kernel_time(case: dict, kernel, plain, library=None) -> dict:
     and, where there is one, the PyTorch call used as a yardstick.  Run
     after the main paths: once the profiler has attached in a process,
     host launches there are slower, which would skew the step times."""
-    out = {"phase": "kernel_time", "case": case["case"],
-           "ms": device_ms(kernel), "plain_ms": device_ms(plain, calls=10),
-           "library_ms": device_ms(library) if library else None,
-           "bound_ms": case["bound_ms"], "bound_by": case["bound_by"]}
+    ms, ms_by = device_ms(kernel)
+    plain_ms, plain_by = device_ms(plain, calls=10)
+    library_ms, library_by = device_ms(library) if library else (None, None)
+    timed_by = {"ms": ms_by, "plain_ms": plain_by, "library_ms": library_by}
+    out = {"phase": "kernel_time", "case": case["case"], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+           "timed_by": timed_by}
     emit(out)
-    case.update(ms=out["ms"], plain_ms=out["plain_ms"],
-                library_ms=out["library_ms"])
+    case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                timed_by=timed_by)
     return case
 
 
@@ -450,8 +494,6 @@ def phase_attention(torch, dev, name: str, dtype):
 
 def phase_serve(torch, dev) -> dict:
     """qwen2.5-3b at full width and depth on the cuda backend."""
-    from repro_torch.kernels import fused_matmul_nladc as fmn
-    from repro_torch.kernels import prefill_attention as pa
     from repro_torch.launch import serve
     from repro_torch.serve.engine import ServingEngine
 
@@ -475,17 +517,18 @@ def phase_serve(torch, dev) -> dict:
 
     model.decode_step = checked
     reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
-    fmn.fused_matmul_nladc.launches = 0
-    pa.prefill_attention.launches = 0
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
     stats = engine.run_offline(reqs)
-    launches = {"fused_matmul_nladc": fmn.fused_matmul_nladc.launches,
-                "prefill_attention": pa.prefill_attention.launches}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
     del model.decode_step
     steps = stats["prefill_steps"] + stats["decode_steps"]
-    for kname, count in launches.items():
-        check(count == cfg.n_layers * steps,
-              f"serve: {kname} launched {count} times, expected "
-              f"{cfg.n_layers} x {steps}")
+    expected = {k: cfg.n_layers * steps
+                if k in ("fused_matmul_nladc", "prefill_attention") else 0
+                for k in wrappers}
+    check(launches == expected,
+          f"serve: launches {launches}, expected {expected}")
     check(len(finite) == steps and all(bool(f) for f in finite),
           "serve: non-finite logits")
     check(all(len(r.generated) == SERVE["max_new"] for r in reqs),
@@ -505,7 +548,7 @@ def phase_serve(torch, dev) -> dict:
            "setup_s": setup_s, "tokens": stats["tokens"],
            "prefill_steps": stats["prefill_steps"],
            "decode_steps": stats["decode_steps"], "launches": launches,
-           "expected_launches": cfg.n_layers * steps,
+           "expected_launches": expected,
            "streams": {r.uid: r.generated for r in reqs},
            "repeats": len(runs),
            "tokens_per_s": statistics.median(tps),
@@ -558,6 +601,381 @@ def phase_agreement(torch, dev) -> dict:
     return out
 
 
+def nladc_bound(numel: int, n_cols: int, p: int, banked: bool,
+                x_bytes: int) -> dict:
+    """The least time the card needs for one nladc call: x, thresholds and
+    table read once and the output written once, against the P compares
+    of every element at the float32 rate."""
+    n_bytes = 2 * x_bytes * numel + 4 * (n_cols * p if banked else p) \
+        + 4 * (p + 1)
+    n_ops = numel * p
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_nladc(torch, dev, name: str, shape, act_name: str, x_dtype,
+                bank_cols: int):
+    """The elementwise NL-ADC kernel against its plain version: codes
+    (from a launch with the counting table) and values bitwise."""
+    from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+    from repro_torch.kernels import nladc as nk
+    from repro_torch.kernels.ref import thermometer_count
+
+    cfg = AnalogConfig(enabled=True, adc_bits=5, input_bits=None,
+                       mode="exact", device="ideal", bank_cols=bank_cols)
+    act = AnalogActivation(act_name, cfg, dev)
+    thr = act.thresholds_for(shape[-1])
+    banked = not isinstance(thr, torch.Tensor)
+    thr = thr.per_column if banked else thr
+    p = thr.shape[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(shape))
+    x = 2.5 * torch.randn(shape, generator=gen, device=dev)
+    # inputs exactly on thresholds exercise the strict comparator
+    x.view(-1)[:p] = thr.reshape(-1, p)[0]
+    x = x.to(x_dtype)
+    y_table = act.adc.y_table
+    count = torch.arange(p + 1, dtype=torch.float32, device=dev)
+    yk = nk.nladc(x, thr, y_table)
+    ck = nk.nladc(x, thr, count)
+    yp = nk.nladc_plain(x, thr, y_table)
+    cp = thermometer_count(x, thr)
+    torch.cuda.synchronize()
+    mismatches = int((ck.long() != cp).sum())
+    err = float((yk.float() - yp.float()).abs().max())
+    check(yk.dtype == x_dtype and yk.shape == x.shape,
+          f"nladc/{name}: output {yk.dtype} {tuple(yk.shape)}")
+    check(mismatches == 0, f"nladc/{name}: {mismatches} codes differ")
+    check(torch.equal(yk, yp), f"nladc/{name}: values differ (max {err})")
+
+    def kernel():
+        return nk.nladc(x, thr, y_table)
+
+    def plain():
+        return nk.nladc_plain(x, thr, y_table)
+
+    out = {"phase": "nladc", "case": name, "shape": list(shape), "P": p,
+           "x_dtype": str(x_dtype).replace("torch.", ""),
+           "layout": "(N,P)" if banked else "(P,)",
+           "code_mismatches": mismatches, "max_abs_err": err,
+           "call_ms": cuda_ms(kernel),
+           "plain_call_ms": cuda_ms(plain, inner=5),
+           **nladc_bound(x.numel(), shape[-1], p, banked, x.element_size())}
+    emit(out)
+    return out, kernel, plain, None
+
+
+def moe_bound(e: int, c: int, k: int, n: int, p: int, banked: bool,
+              x_bytes: int) -> dict:
+    """The least time the card needs for one moe_fused_matmul call: every
+    expert's x and w read once, thresholds and table once, the output
+    written once, against the 2*E*C*K*N multiply-adds and E*C*N*P compares
+    at the float32 rate (the weight is float32)."""
+    n_bytes = (x_bytes * e * c * k + 4 * e * k * n
+               + 4 * (n * p if banked else p) + 4 * (p + 1)
+               + x_bytes * e * c * n)
+    n_ops = 2 * e * c * k * n + e * c * n * p
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_moe_matmul(torch, dev, name: str, e: int, c: int, k: int, n: int,
+                     x_dtype, bank_cols: int):
+    """The grouped expert-gate kernel against its plain version, with the
+    fused matmul's contract; codes from a launch with the counting
+    table."""
+    from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels.ref import thermometer_count
+
+    cfg = AnalogConfig(enabled=True, adc_bits=5, input_bits=None,
+                       mode="infer", device="paper-infer",
+                       bank_cols=bank_cols)
+    act = AnalogActivation("silu", cfg, dev)
+    thr = act.thresholds_for(n)
+    banked = not isinstance(thr, torch.Tensor)
+    thr = thr.per_column if banked else thr
+    p = thr.shape[-1]
+    y_table = act.adc.y_table
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(e * 100_000 + n)
+    x = torch.randn((e, c, k), generator=gen, device=dev).to(x_dtype)
+    x[0, -1] = 0                                  # an empty capacity row
+    w = (2.0 / math.sqrt(k)) * torch.randn((e, k, n), generator=gen,
+                                           device=dev)
+    count = torch.arange(p + 1, dtype=torch.float32, device=dev)
+    yk = fmn.moe_fused_matmul(x, w, thr, y_table)
+    nk = fmn.moe_fused_matmul(x, w, thr, count).long()
+    yp = fmn.moe_fused_matmul_plain(x, w, thr, y_table)
+    xf = x.float()
+    n_plain = thermometer_count(torch.bmm(xf, w), thr)
+    torch.cuda.synchronize()
+    acc, bound = fmn.accumulator_bound(x, w)
+    flips, unexplained = fmn.code_flips(nk, n_plain, acc, bound, thr)
+    del acc, bound
+    err = float((yk.float() - yp.float()).abs().max())
+    check(yk.dtype == x_dtype and bool(torch.isfinite(yk.float()).all()),
+          f"{name}: output dtype {yk.dtype} or non-finite values")
+    check(torch.equal(yk, y_table[nk].to(x_dtype)),
+          f"{name}: kernel output is not the table at its codes")
+    check(unexplained == 0,
+          f"{name}: {unexplained} code flips beyond float32 rounding")
+    check(flips <= MAX_FLIP_SHARE * nk.numel(),
+          f"{name}: {flips} code flips of {nk.numel()}")
+
+    def kernel():
+        return fmn.moe_fused_matmul(x, w, thr, y_table)
+
+    def plain():
+        return fmn.moe_fused_matmul_plain(x, w, thr, y_table)
+
+    def library():
+        return torch.bmm(xf, w)
+
+    out = {"phase": "moe_matmul", "case": name, "E": e, "C": c, "K": k,
+           "N": n, "P": p, "x_dtype": str(x_dtype).replace("torch.", ""),
+           "layout": "(N,P)" if banked else "(P,)",
+           "code_flips": flips, "unexplained_flips": unexplained,
+           "elements": nk.numel(), "max_abs_err": err,
+           "call_ms": cuda_ms(kernel, reps=10, inner=10),
+           "plain_call_ms": cuda_ms(plain, reps=5, inner=2),
+           **moe_bound(e, c, k, n, p, banked, x.element_size())}
+    emit(out)
+    return out, kernel, plain, library
+
+
+def flash_bound(lengths, h: int, hkv: int, d: int, q_bytes: int) -> dict:
+    """The least time the card needs for one flash_decode_int8 call with
+    these lengths: q, the valid slots' int8 K/V and their bfloat16 scales
+    and the lengths read once, the float32 output written once, against
+    the QK and PV multiply-adds (and ~5 softmax operations a score) at the
+    rate of q's type (bfloat16 tensor cores, or float32)."""
+    b = len(lengths)
+    slots = sum(lengths)
+    n_bytes = q_bytes * b * h * d + slots * hkv * (2 * d + 2 * 2) + 4 * b \
+        + 4 * b * h * d
+    n_ops = 4 * h * d * slots + 5 * h * slots
+    rate = H100_BF16_OPS_PER_S if q_bytes == 2 else H100_F32_OPS_PER_S
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / rate * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_flash_decode(torch, dev, name: str, b: int, h: int, hkv: int,
+                       d: int, s_len: int, lengths, q_dtype):
+    """The int8 flash-decode kernel against its plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import inv_sqrt_d
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s_len * 100 + hkv)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
+    k8, v8 = (torch.randint(-127, 128, (b, s_len, hkv, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((1e-3 + 2e-2 * torch.rand((b, s_len, hkv), generator=gen,
+                                        device=dev)).bfloat16()
+              for _ in range(2))
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ok = fd.flash_decode_int8(q, k8, ks, v8, vs, length)
+    op = fd.flash_decode_int8_plain(q, k8, ks, v8, vs, length)
+    torch.cuda.synchronize()
+    err = float((ok - op).abs().max())
+    check(ok.dtype == torch.float32 and bool(torch.isfinite(ok).all()),
+          f"flash_decode/{name}: output dtype {ok.dtype} or non-finite")
+    check(err <= FLASH_ATOL, f"flash_decode/{name}: max abs diff {err}")
+
+    # the yardstick: one PyTorch call for the attention alone, over K/V
+    # dequantized beforehand, in its layout
+    qs = q.float()[:, :, None]
+    kd = (k8.float() * ks.float()[..., None]).transpose(1, 2).contiguous()
+    vd = (v8.float() * vs.float()[..., None]).transpose(1, 2).contiguous()
+    ms = (torch.arange(s_len, device=dev)[None] < length[:, None])[
+        :, None, None, :]
+    scale = float(inv_sqrt_d(d))
+
+    def kernel():
+        return fd.flash_decode_int8(q, k8, ks, v8, vs, length)
+
+    def plain():
+        return fd.flash_decode_int8_plain(q, k8, ks, v8, vs, length)
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kd, vd, attn_mask=ms,
+                                              enable_gqa=True, scale=scale)
+
+    lib_diff = float((library()[:, :, 0] - op).abs().max())
+    out = {"phase": "flash_decode", "case": name, "B": b, "H": h,
+           "Hkv": hkv, "D": d, "S": s_len, "lengths": list(lengths),
+           "q_dtype": str(q_dtype).replace("torch.", ""),
+           "max_abs_err": err, "atol": FLASH_ATOL,
+           "library_max_abs_diff": lib_diff,
+           "call_ms": cuda_ms(kernel),
+           "plain_call_ms": cuda_ms(plain, inner=5),
+           **flash_bound(lengths, h, hkv, d, q.element_size())}
+    emit(out)
+    return out, kernel, plain, library
+
+
+def _wrappers():
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels import nladc as nk
+    from repro_torch.kernels import prefill_attention as pa
+
+    return {"nladc": nk.nladc, "moe_fused_matmul": fmn.moe_fused_matmul,
+            "flash_decode_int8": fd.flash_decode_int8,
+            "fused_matmul_nladc": fmn.fused_matmul_nladc,
+            "prefill_attention": pa.prefill_attention}
+
+
+def phase_serve_moe(torch, dev) -> dict:
+    """moonshot-v1-16b-a3b at full width, 24 layers, int8 KV cache, on the
+    cuda backend."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = serve.make_config(SERVE_MOE["arch"], backend="cuda", overrides={
+        "n_layers": SERVE_MOE["n_layers"],
+        "kv_cache_dtype": SERVE_MOE["kv_cache_dtype"]})
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    engine = ServingEngine(model, params, max_batch=SERVE_MOE["max_batch"],
+                           max_len=SERVE_MOE["max_len"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    engine.run_offline(serve.make_requests(cfg, 1, 2))          # warm-up
+
+    finite = []
+    decode_step = model.decode_step
+
+    def checked(p, state, tokens):
+        logits, state = decode_step(p, state, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, state
+
+    model.decode_step = checked
+    reqs = serve.make_requests(cfg, SERVE_MOE["requests"],
+                               SERVE_MOE["max_new"])
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = engine.run_offline(reqs)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    del model.decode_step
+    steps = stats["prefill_steps"] + stats["decode_steps"]
+    expected = {k: 0 if k == "prefill_attention" else cfg.n_layers * steps
+                for k in wrappers}
+    check(launches == expected,
+          f"serve_moe: launches {launches}, expected {expected}")
+    check(len(finite) == steps and all(bool(f) for f in finite),
+          "serve_moe: non-finite logits")
+    check(all(len(r.generated) == SERVE_MOE["max_new"] for r in reqs),
+          f"serve_moe: token counts {[len(r.generated) for r in reqs]}")
+    check(all(t["k"].dtype == torch.int8 for t in engine.state["layers"]),
+          "serve_moe: the KV cache is not int8")
+
+    runs = [engine.run_offline(serve.make_requests(
+        cfg, SERVE_MOE["requests"], SERVE_MOE["max_new"]))
+        for _ in range(SERVE_MOE["repeats"])]
+    tps = [r["tokens_per_s"] for r in runs]
+    dms = [r["decode_step_ms"] for r in runs]
+    pms = [r["prefill_step_ms"] for r in runs]
+    out = {"phase": "serve_moe", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+           "top_k": cfg.top_k, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "params": n_params, "params_gb_f32": 4 * n_params / 1e9,
+           "kv_cache_dtype": cfg.kv_cache_dtype, "dtype": cfg.dtype,
+           "backend": "cuda", **{k: SERVE_MOE[k] for k in (
+               "requests", "max_batch", "max_len", "max_new")},
+           "setup_s": setup_s, "tokens": stats["tokens"],
+           "prefill_steps": stats["prefill_steps"],
+           "decode_steps": stats["decode_steps"], "launches": launches,
+           "expected_launches": expected,
+           "streams": {r.uid: r.generated for r in reqs},
+           "repeats": len(runs),
+           "tokens_per_s": statistics.median(tps),
+           "tokens_per_s_min": min(tps), "tokens_per_s_max": max(tps),
+           "decode_step_ms": statistics.median(dms),
+           "decode_step_ms_min": min(dms), "decode_step_ms_max": max(dms),
+           "prefill_step_ms": statistics.median(pms),
+           "prefill_step_ms_min": min(pms), "prefill_step_ms_max": max(pms),
+           "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(out)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_agreement_moe(torch, dev) -> dict:
+    """A 2-layer, full-width, float32 moonshot with an int8 cache on the
+    cuda and ref backends: the same weights and tokens, max |delta logits|
+    < LSB/2."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+
+    models = {}
+    for bk in ("cuda", "ref"):
+        cfg = serve.make_config(SERVE_MOE["arch"], backend=bk, overrides={
+            "n_layers": AGREE_LAYERS,
+            "kv_cache_dtype": SERVE_MOE["kv_cache_dtype"]}).replace(
+                dtype="float32")
+        models[bk] = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    params = models["cuda"].init(gen)
+    b = SERVE_MOE["max_batch"]
+    tokens = torch.randint(0, cfg.vocab, (AGREE_STEPS, b, 1), generator=gen,
+                           device=dev)
+    states = {bk: m.init_decode_state(b, SERVE_MOE["max_len"])
+              for bk, m in models.items()}
+    worst = 0.0
+    for t in range(AGREE_STEPS):
+        logits = {}
+        for bk, m in models.items():
+            logits[bk], states[bk] = m.decode_step(params, states[bk],
+                                                   tokens[t])
+        check(bool(torch.isfinite(logits["cuda"]).all()),
+              "agreement_moe: non-finite logits")
+        worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
+                                 .max()))
+    lsb = models["cuda"].act.ramp.lsb
+    check(worst < lsb / 2, f"agreement_moe: logits differ by {worst} >= "
+          f"LSB/2 = {lsb / 2}")
+    out = {"phase": "agreement_moe", "arch": SERVE_MOE["arch"],
+           "n_layers": AGREE_LAYERS, "dtype": "float32",
+           "kv_cache_dtype": SERVE_MOE["kv_cache_dtype"], "B": b,
+           "steps": AGREE_STEPS, "max_abs_logit_diff": worst,
+           "lsb_half": lsb / 2}
+    emit(out)
+    return out
+
+
+def free_device(torch) -> None:
+    """Return the memory of a finished phase to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  cases: list, main_case: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -567,7 +985,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
-            "library_ms": main_case.get("library_ms"), **extra}
+            "library_ms": main_case.get("library_ms"),
+            "timed_by": main_case["timed_by"], **extra}
 
 
 def main() -> int:
@@ -582,8 +1001,9 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import _build, fused_matmul_nladc, lstm_cell
-    from repro_torch.kernels import prefill_attention
+    from repro_torch.kernels import (_build, flash_decode,
+                                     fused_matmul_nladc, lstm_cell, nladc,
+                                     prefill_attention)
     from repro_torch.launch.common import configure_numerics
 
     dev = torch.device("cuda", 0)
@@ -596,7 +1016,8 @@ def main() -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     lib_paths = _build.build_all(KERNELS)
-    for mod in (lstm_cell, fused_matmul_nladc, prefill_attention):
+    for mod in (lstm_cell, fused_matmul_nladc, prefill_attention, nladc,
+                flash_decode):
         mod.library()
     build_s = time.perf_counter() - t0
     ptxas = {}
@@ -634,13 +1055,40 @@ def main() -> int:
     attn_checked = [phase_attention(torch, dev, "serve_bf16", bf16),
                     phase_attention(torch, dev, "serve_f32", f32)]
 
+    nladc_checked = [
+        phase_nladc(torch, dev, "router_bf16", (4, 64), "sigmoid", bf16, 0),
+        phase_nladc(torch, dev, "mlp_banked_bf16", (4, 11008), "silu", bf16,
+                    512),
+        phase_nladc(torch, dev, "ragged_f32", (33, 1000), "tanh", f32, 0)]
+    moe_checked = [
+        phase_moe_matmul(torch, dev, "gate_flat", 64, 6, 2048, 1408, bf16, 0),
+        phase_moe_matmul(torch, dev, "gate_banked", 64, 6, 2048, 1408, bf16,
+                         512),
+        phase_moe_matmul(torch, dev, "ragged_f32", 5, 7, 300, 1000, f32, 0)]
+    flash_checked = [
+        phase_flash_decode(torch, dev, "serve", 4, 16, 16, 128, 128,
+                           [128, 128, 128, 128], bf16),
+        phase_flash_decode(torch, dev, "gqa", 4, 16, 2, 128, 128,
+                           [128, 1, 37, 100], bf16),
+        phase_flash_decode(torch, dev, "ragged_f32", 3, 8, 8, 64, 200,
+                           [200, 65, 1], f32)]
+    free_device(torch)
+
     served = phase_serve(torch, dev)
-    torch.cuda.empty_cache()
+    free_device(torch)
     phase_agreement(torch, dev)
+    free_device(torch)
+    served_moe = phase_serve_moe(torch, dev)
+    free_device(torch)
+    phase_agreement_moe(torch, dev)
+    free_device(torch)
 
     cases = [phase_kernel_time(*c) for c in checked]
     fm_cases = [phase_kernel_time(*c) for c in fm_checked]
     attn_cases = [phase_kernel_time(*c) for c in attn_checked]
+    nladc_cases = [phase_kernel_time(*c) for c in nladc_checked]
+    moe_cases = [phase_kernel_time(*c) for c in moe_checked]
+    flash_cases = [phase_kernel_time(*c) for c in flash_checked]
 
     main_case = cases[0]
     lstm = kernel_entry(
@@ -654,11 +1102,14 @@ def main() -> int:
         shape={"B": main_case["B"], "H": main_case["H"],
                "P": main_case["P"], "layout": main_case["layout"]})
     fm_main = fm_cases[0]
+    fm_paths = {"serve": served["launches"]["fused_matmul_nladc"],
+                "serve_moe": served_moe["launches"]["fused_matmul_nladc"]}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
         "src/repro/kernels/fused_matmul_nladc.py:59",
-        served["launches"]["fused_matmul_nladc"], fm_cases, fm_main,
+        sum(fm_paths.values()), fm_cases, fm_main,
+        launches_per_path=fm_paths,
         code_flips=sum(c["code_flips"] for c in fm_cases),
         shape={k: fm_main[k] for k in ("M", "K", "N", "P", "x_dtype",
                                        "layout")})
@@ -669,7 +1120,32 @@ def main() -> int:
         "src/repro/kernels/prefill_attention.py:51",
         served["launches"]["prefill_attention"], attn_cases, at_main,
         shape={k: at_main[k] for k in ("B", "H", "Hkv", "D", "S", "dtype")})
-    emit({"kernels": [lstm, fused, attention]})
+    nl_main = nladc_cases[0]
+    nl = kernel_entry(
+        "nladc", "src/repro_torch/kernels/csrc/nladc.cu",
+        "src/repro/kernels/nladc_kernel.py:56",
+        served_moe["launches"]["nladc"], nladc_cases, nl_main,
+        bitwise=all(c["max_abs_err"] == 0 and c["code_mismatches"] == 0
+                    for c in nladc_cases),
+        shape={k: nl_main[k] for k in ("shape", "P", "x_dtype", "layout")})
+    moe_main = moe_cases[0]
+    moe = kernel_entry(
+        "moe_fused_matmul",
+        "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
+        "src/repro/kernels/ops.py:238",
+        served_moe["launches"]["moe_fused_matmul"], moe_cases, moe_main,
+        code_flips=sum(c["code_flips"] for c in moe_cases),
+        shape={k: moe_main[k] for k in ("E", "C", "K", "N", "P", "x_dtype",
+                                        "layout")})
+    fl_main = flash_cases[0]
+    flash = kernel_entry(
+        "flash_decode_int8",
+        "src/repro_torch/kernels/csrc/flash_decode_int8.cu",
+        "src/repro/kernels/flash_decode.py:76",
+        served_moe["launches"]["flash_decode_int8"], flash_cases, fl_main,
+        shape={k: fl_main[k] for k in ("B", "H", "Hkv", "D", "S",
+                                       "q_dtype")})
+    emit({"kernels": [lstm, fused, attention, nl, moe, flash]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -201,9 +201,10 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The paper's two LSTM workloads and the dense LM served so far; the other
-# LM families are not ported yet.
-ARCH_NAMES = ("kws_lstm", "ptb_lstm", "qwen2.5-3b")
+# The paper's two LSTM workloads, the dense LM and the two MoE LMs served
+# so far; the other LM families are not ported yet.
+ARCH_NAMES = ("kws_lstm", "ptb_lstm", "qwen2.5-3b", "moonshot-v1-16b-a3b",
+              "deepseek-moe-16b")
 
 _MODULE_FOR = {n: "repro_torch.configs." + n.replace("-", "_")
                .replace(".", "_") for n in ARCH_NAMES}

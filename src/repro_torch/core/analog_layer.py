@@ -16,9 +16,11 @@ Operating modes:
 Hardware-aware training (``mode="train"``, Alg. 1) is not ported yet.
 
 This module is orchestration only: mode logic, quantization and the noise
-draws are shared code, and the LSTM tail and the LM's fused gate
-projection (:func:`dense_nladc`) dispatch through
-:mod:`repro_torch.core.backend` (``ref`` torch, or the ``cuda`` kernels).
+draws are shared code, and the LSTM tail, the elementwise NL-ADC
+(:class:`AnalogActivation`), the LM's fused gate projection
+(:func:`dense_nladc`) and the MoE's per-expert gate
+(:func:`moe_gate_nladc`) dispatch through :mod:`repro_torch.core.backend`
+(``ref`` torch, or the ``cuda`` kernels).
 """
 
 from __future__ import annotations
@@ -256,3 +258,22 @@ def dense_nladc(p, x: torch.Tensor,
     bk = BK.get_backend(act.cfg.backend)
     return bk.matmul_nladc(x, w, act.adc, bias=b,
                            thresholds=act.thresholds_for(w.shape[-1]))
+
+
+def moe_gate_nladc(x_buf: torch.Tensor, w_gate: torch.Tensor,
+                   act: Optional[AnalogActivation]) -> torch.Tensor:
+    """Per-expert MoE gate einsum with a fused NL-ADC epilogue.
+
+    x_buf: (E, C, d) dispatched expert buffers, w_gate: (E, d, f) stacked
+    expert weights.  Matches ``act(einsum("ecd,edf->ecf", x_buf,
+    w_gate.to(x_buf.dtype)))`` on the ``ref`` backend; on ``cuda`` the
+    einsum and the NL-ADC are one grouped kernel over the experts (the
+    backend's ``moe_matmul_nladc``).
+    """
+    if act is None or not act.cfg.enabled or act.ramp is None:
+        h = torch.einsum("ecd,edf->ecf", x_buf, w_gate.to(x_buf.dtype))
+        return act(h) if act is not None else h
+    bk = BK.get_backend(act.cfg.backend)
+    return bk.moe_matmul_nladc(
+        x_buf, w_gate, act.adc,
+        thresholds=act.thresholds_for(w_gate.shape[-1]))

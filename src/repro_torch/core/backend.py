@@ -3,7 +3,9 @@
 * ``"ref"``  — plain torch on any device; its semantics define the
   contract (strict-comparator ``searchsorted`` + ``y_table`` decode, the
   cell update ``c' = fma(f, c, i*a)`` rounded once, the LM's gate matmul
-  in the compute dtype, and ``attend_full`` for cached attention).
+  and the MoE's expert-gate einsum in the compute dtype, ``attend_full``
+  for cached attention, and the dequantize-all oracle for attention over
+  an int8 cache).
 * ``"cuda"`` — the hand-written kernels of :mod:`repro_torch.kernels`.  It
   takes CUDA tensors only and raises on anything else; it never falls
   back to the plain version.  Its gate matmul is the Pallas kernel's
@@ -31,13 +33,12 @@ import torch
 
 from repro_torch.core.nladc import (NLADC, BankedThresholds,
                                     nladc_banked_codes, nladc_forward)
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import lstm_cell
+from repro_torch.kernels import nladc as nk
 from repro_torch.kernels import prefill_attention as pa
-from repro_torch.kernels.ref import fma_f32
-
-_INT8_KV = ("the int8 KV cache (kernels/flash_decode.py::flash_decode_int8) "
-            "is not ported yet; ROADMAP.md queue A item N1 brings it")
+from repro_torch.kernels.ref import fma_f32, flash_decode_int8_plain
 
 DEFAULT_BACKEND = "ref"
 
@@ -85,6 +86,16 @@ class RefBackend:
             y = y + bias.to(y.dtype)
         return self.nladc(y, adc, thresholds).to(x.dtype)
 
+    def moe_matmul_nladc(self, x: torch.Tensor, w: torch.Tensor,
+                         adc: NLADC, thresholds=None):
+        """Per-expert fused gate: NLADC(x[e] @ w[e]) for every expert.
+
+        x: (E, C, d) dispatched expert buffers, w: (E, d, f) expert
+        weights -> (E, C, f).  The einsum runs in x's compute dtype, then
+        the elementwise NL-ADC, as the reference's ``ref`` backend."""
+        h = torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
+        return self.nladc(h, adc, thresholds)
+
     def prefill_attention(self, q, k, v, mask):
         """One-query cached attention (scan prefill / decode step).
 
@@ -96,7 +107,17 @@ class RefBackend:
         return attend_full(q, k, v, mask)
 
     def decode_attention_int8(self, q, k8, k_scale, v8, v_scale, length):
-        raise NotImplementedError(_INT8_KV)
+        """One-token attention over an int8 KV cache (dequantize-all).
+
+        q: (B, H, D); k8/v8: (B, S, H_kv, D) int8; scales (B, S, H_kv);
+        length: (B,) valid-slot counts.  Returns (B, H, D) float32."""
+        return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, length)
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"the cuda backend takes CUDA tensors; {name} is on "
+                         f"{t.device}")
 
 
 def _dense(thr, adc: NLADC) -> torch.Tensor:
@@ -113,33 +134,36 @@ class CudaBackend(RefBackend):
     name = "cuda"
 
     def nladc(self, x, adc, thresholds=None):
-        raise NotImplementedError(
-            "the elementwise NL-ADC kernel (kernels/nladc_kernel.py::"
-            "nladc_pallas) is not ported to CUDA yet")
+        _on_cuda(x, "x")
+        return nk.nladc(x.contiguous(), _dense(thresholds, adc), adc.y_table)
 
     def lstm_gates(self, gates, c, sig_adc, tanh_adc,
                    sig_thr=None, tanh_thr=None):
-        if not gates.is_cuda:
-            raise ValueError(f"the cuda backend takes CUDA tensors; gates "
-                             f"are on {gates.device}")
+        _on_cuda(gates, "gates")
         return lstm_cell.lstm_gates(
             gates, c, _dense(sig_thr, sig_adc), sig_adc.y_table,
             _dense(tanh_thr, tanh_adc), tanh_adc.y_table)
 
     def matmul_nladc(self, x, w, adc, bias=None, thresholds=None):
-        if not x.is_cuda:
-            raise ValueError(f"the cuda backend takes CUDA tensors; x is on "
-                             f"{x.device}")
+        _on_cuda(x, "x")
         lead = x.shape[:-1]
         y = fmn.fused_matmul_nladc(
             x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous(), bias,
             _dense(thresholds, adc), adc.y_table)
         return y.reshape(lead + (w.shape[-1],))
 
+    def moe_matmul_nladc(self, x, w, adc, thresholds=None):
+        _on_cuda(x, "x")
+        return fmn.moe_fused_matmul(x.contiguous(), w.contiguous(),
+                                    _dense(thresholds, adc), adc.y_table)
+
+    def decode_attention_int8(self, q, k8, k_scale, v8, v_scale, length):
+        _on_cuda(q, "q")
+        return fd.flash_decode_int8(q.contiguous(), k8, k_scale, v8, v_scale,
+                                    length)
+
     def prefill_attention(self, q, k, v, mask):
-        if not q.is_cuda:
-            raise ValueError(f"the cuda backend takes CUDA tensors; q is on "
-                             f"{q.device}")
+        _on_cuda(q, "q")
         b, q_len, _, _ = q.shape
         if q_len != 1:
             raise ValueError(f"prefill_attention is one-query; got q_len "

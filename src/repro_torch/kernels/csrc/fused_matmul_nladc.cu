@@ -1,35 +1,47 @@
-// Matmul with a fused NL-ADC epilogue for sm_90a.
+// Matmul with a fused NL-ADC epilogue for sm_90a, dense and per expert.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/fused_matmul_nladc.py::fused_matmul_nladc_pallas:
+// Replaces two TPU kernels:
+//  * src/repro/kernels/fused_matmul_nladc.py::fused_matmul_nladc_pallas
+//    (the dense LM's MLP gate and the MoE's shared-expert gate):
 //
-//   acc[m, n] = sum_k float(x[m, k]) * w[k, n]   (+ bias[n])     in float32
-//   out[m, n] = y_table[#{j : acc[m, n] > thr[j]}]  rounded to x's type
+//      acc[m, n] = sum_k float(x[m, k]) * w[k, n]   (+ bias[n])     in float32
+//      out[m, n] = y_table[#{j : acc[m, n] > thr[j]}]  rounded to x's type
 //
-// x is (M, K) float32 or bfloat16, w the (K, N) float32 master weights,
-// thr one (P,) ramp for every column (stride 0) or one row of an (N, P)
-// per-column matrix (stride P, the threshold-bank layout).  The comparator
-// is strict, and the decode is a lookup in the ramp's y table, as the
-// port's reference backend decodes.
+//  * src/repro/kernels/ops.py::moe_fused_matmul, the same vmapped over the
+//    experts (the MoE's routed-expert gate): out[e] = NLADC(x[e] @ w[e]),
+//    one threshold set shared by every expert.  Here it is one grouped
+//    launch with the expert on the grid's z axis: the block's x, w and out
+//    pointers step by one expert's (C, K), (K, N) and (C, N) slabs.
+//
+// x is (M, K) or (E, C, K) float32 or bfloat16, w the (K, N) or (E, K, N)
+// float32 master weights, thr one (P,) ramp for every column (stride 0) or
+// one row of an (N, P) per-column matrix (stride P, the threshold-bank
+// layout).  The comparator is strict, and the decode is a lookup in the
+// ramp's y table, as the port's reference backend decodes.
 //
 // Bound on this card: the LM's MLP gate (qwen2.5-3b, K 2048, N 11008) runs
 // with M = 4 (a decode step) or M = 1 (a prefill step).  Each call then
 // reads the 90.2 MB float32 weight once and does 2*M*K*N = 180 MFLOP, so
 // it is bound by bytes: 27 us at 3.35 TB/s, against 2.7 us of float32
-// operations at 67 TFLOP/s.  Tensor cores would not help a GEMV.  The
-// design streams w through the card once, with every load coalesced:
+// operations at 67 TFLOP/s.  The routed-expert gate (moonshot-v1-16b-a3b,
+// E 64, C 6, K 2048, N 1408) reads all 64 experts' 738 MB of weight (the
+// reference's einsum runs over every expert, empty capacity rows
+// included): 220 us of bytes against 33 us of operations.  Tensor cores
+// would not help a GEMV.  The design streams w through the card once, with
+// every load coalesced:
 //
-//   * a block owns 32 columns and 4 rows of x; each of its 16 warps walks
-//     its own share of K (rows k = warp, warp + 16, ...), each lane reading
-//     one column of a weight row (one 128-byte warp load per row, 16 rows
+//   * a block owns 32 columns and kRows rows of x (4 for the dense gate,
+//     8 for the expert gate, so an expert's C = 6 rows take one block and
+//     its weight strip is read once); each of its 16 warps walks its own
+//     share of K (rows k = warp, warp + 16, ...), each lane reading one
+//     column of a weight row (one 128-byte warp load per row, 16 rows
 //     unrolled so their loads are in flight together), so one block reads
 //     a 32-column strip of w and the grid covers N with 344 blocks at
-//     N = 11008 (splitting K over 16 warps keeps enough loads in flight
-//     per SM; the 4-row block also serves M = 1 at the same weight
-//     traffic);
+//     N = 11008, or 44 x 64 = 2816 blocks for the experts (splitting K
+//     over 16 warps keeps enough loads in flight per SM);
 //   * x is staged in shared memory as float32, 512 columns of K at a
 //     time, and read by broadcast;
-//   * each thread keeps its 4 accumulators in registers; the 16 warps'
+//   * each thread keeps its kRows accumulators in registers; the 16 warps'
 //     partial sums meet in shared memory and are added in warp order, so
 //     the result does not depend on scheduling;
 //   * the epilogue (bias, P compares, table lookup, round to nearest even)
@@ -50,7 +62,8 @@ constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kColsPerLane = 1;
 constexpr int kCols = 32 * kColsPerLane;  // columns per block
-constexpr int kRows = 4;                  // rows of x per block
+constexpr int kDenseRows = 4;             // rows of x per block: dense gate
+constexpr int kExpertRows = 8;            // rows of x per block: expert gate
 constexpr int kTileK = 512;               // x columns staged at a time
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -62,12 +75,17 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
+// One block: columns n0 .. n0+kCols-1 and rows m0 .. m0+kRows-1 of the
+// (M, K) @ (K, N) product of expert blockIdx.z (0 for the dense gate).
+template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ thr,
     const float* __restrict__ y_table, T* __restrict__ out, int m_dim,
     int k_dim, int n_dim, int p, int thr_stride) {
+  x += (size_t)blockIdx.z * m_dim * k_dim;
+  w += (size_t)blockIdx.z * k_dim * n_dim;
+  out += (size_t)blockIdx.z * m_dim * n_dim;
   extern __shared__ float smem[];
   const int thr_pitch = thr_stride ? p + 1 : p;
   float* s_x = smem;                                  // kRows x kTileK
@@ -148,22 +166,24 @@ __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int kRows>
 int launch(const void* x, const float* w, const float* bias,
-           const float* thr, const float* y_table, void* out, int m_dim,
-           int k_dim, int n_dim, int p, int thr_stride, cudaStream_t stream) {
+           const float* thr, const float* y_table, void* out, int n_experts,
+           int m_dim, int k_dim, int n_dim, int p, int thr_stride,
+           cudaStream_t stream) {
   const int thr_pitch = thr_stride ? p + 1 : p;
   const size_t smem =
       sizeof(float) * ((size_t)kRows * kTileK + (size_t)kWarps * kRows * kCols +
                        (size_t)(thr_stride ? kCols : 1) * thr_pitch + p + 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_matmul_nladc_kernel<T>,
+        fused_matmul_nladc_kernel<T, kRows>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((n_dim + kCols - 1) / kCols, (m_dim + kRows - 1) / kRows);
-  fused_matmul_nladc_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((n_dim + kCols - 1) / kCols, (m_dim + kRows - 1) / kRows,
+                  n_experts);
+  fused_matmul_nladc_kernel<T, kRows><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), w, bias, thr, y_table, static_cast<T*>(out),
       m_dim, k_dim, n_dim, p, thr_stride);
   return (int)cudaGetLastError();
@@ -183,10 +203,27 @@ int fused_matmul_nladc_launch(const void* x, const float* w,
                               int x_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16)
-    return launch<__nv_bfloat16>(x, w, bias, thr, y_table, out, m_dim, k_dim,
-                                 n_dim, p, thr_stride, s);
-  return launch<float>(x, w, bias, thr, y_table, out, m_dim, k_dim, n_dim, p,
-                       thr_stride, s);
+    return launch<__nv_bfloat16, kDenseRows>(x, w, bias, thr, y_table, out, 1,
+                                             m_dim, k_dim, n_dim, p,
+                                             thr_stride, s);
+  return launch<float, kDenseRows>(x, w, bias, thr, y_table, out, 1, m_dim,
+                                   k_dim, n_dim, p, thr_stride, s);
+}
+
+// The expert gate: x (E, C, K), w (E, K, N), out (E, C, N), one threshold
+// set for every expert, no bias.  Otherwise as above.
+int moe_fused_matmul_launch(const void* x, const float* w, const float* thr,
+                            const float* y_table, void* out, int n_experts,
+                            int c_dim, int k_dim, int n_dim, int p,
+                            int thr_stride, int x_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_bf16)
+    return launch<__nv_bfloat16, kExpertRows>(x, w, nullptr, thr, y_table,
+                                              out, n_experts, c_dim, k_dim,
+                                              n_dim, p, thr_stride, s);
+  return launch<float, kExpertRows>(x, w, nullptr, thr, y_table, out,
+                                    n_experts, c_dim, k_dim, n_dim, p,
+                                    thr_stride, s);
 }
 
 const char* cuda_error_string(int code) {

@@ -1,4 +1,5 @@
-"""Matmul with a fused NL-ADC epilogue as a CUDA kernel.
+"""Matmul with a fused NL-ADC epilogue as a CUDA kernel, dense and per
+expert.
 
 Replaces the TPU kernel
 ``repro/kernels/fused_matmul_nladc.py::fused_matmul_nladc_pallas``:
@@ -6,8 +7,11 @@ Replaces the TPU kernel
     out = y_table[#{j : f32(x) @ f32(w) + b > thr_j}]   cast to x.dtype
 
 the LM's MLP gate projection with its silu NL-ADC in one pass over the
-weight.  Like the Pallas kernel it promotes both operands to float32 and
-quantizes the float32 accumulator; it decodes by a lookup in the ramp's
+weight, and ``repro/kernels/ops.py::moe_fused_matmul``, the same vmapped
+over the experts of a MoE layer (:func:`moe_fused_matmul`: one grouped
+launch, the expert on the grid, one threshold set for every expert).
+Like the Pallas kernel it promotes both operands to float32 and quantizes
+the float32 accumulator; it decodes by a lookup in the ramp's
 ``y_table``, as the reference backend does.  The kernel
 (``csrc/fused_matmul_nladc.cu``) is bound by the bytes of the weight at
 the serving path's GEMV shapes; the source says how it streams them.
@@ -19,9 +23,11 @@ the float32 summation error bound ``(K+1) * 2**-24 * (sum|x*w| + |b|)`` of
 a threshold between the two codes (:func:`accumulator_bound`,
 :func:`code_flips`).
 
-:func:`fused_matmul_nladc` sends CPU tensors to
-:func:`fused_matmul_nladc_plain` and CUDA tensors to the kernel; anything
-else raises.  ``fused_matmul_nladc.launches`` counts kernel launches.
+:func:`fused_matmul_nladc` and :func:`moe_fused_matmul` send CPU tensors
+to their plain versions (:func:`fused_matmul_nladc_plain`,
+:func:`moe_fused_matmul_plain`) and CUDA tensors to the kernel; anything
+else raises.  Each keeps its own count of kernel launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -31,14 +37,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import fused_matmul_nladc_plain
+from repro_torch.kernels.ref import (fused_matmul_nladc_plain,
+                                    moe_fused_matmul_plain)
 
-_ROWS_PER_BLOCK = 4        # csrc: kRows
+_ROWS_PER_BLOCK = 4        # csrc: kDenseRows
+_EXPERT_ROWS_PER_BLOCK = 8  # csrc: kExpertRows
 _GRID_Y_MAX = 65535
+_GRID_Z_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 
 __all__ = ["accumulator_bound", "code_flips", "fused_matmul_nladc",
-           "fused_matmul_nladc_plain", "library"]
+           "fused_matmul_nladc_plain", "library", "moe_fused_matmul",
+           "moe_fused_matmul_plain"]
 
 
 def accumulator_bound(x, w, bias=None):
@@ -111,6 +121,9 @@ def library() -> ctypes.CDLL:
     lib.fused_matmul_nladc_launch.argtypes = [ctypes.c_void_p] * 6 + \
         [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.fused_matmul_nladc_launch.restype = ctypes.c_int
+    lib.moe_fused_matmul_launch.argtypes = [ctypes.c_void_p] * 5 + \
+        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.moe_fused_matmul_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -152,3 +165,56 @@ def fused_matmul_nladc(x, w, bias, thr, y_table):
 
 
 fused_matmul_nladc.launches = 0
+
+
+def _check_moe(x, w, thr, y_table):
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"moe_fused_matmul: x (E, C, d) and w (E, d, f) do "
+                         f"not match: {tuple(x.shape)}, {tuple(w.shape)}")
+    # the per-expert (C, d) @ (d, f) slabs obey the dense kernel's rules
+    _check(x[0], w[0], None, thr, y_table)
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"moe_fused_matmul: {name} must be contiguous")
+    return x.shape[0], x.shape[1], x.shape[2], w.shape[2], thr.shape[-1]
+
+
+def moe_fused_matmul(x, w, thr, y_table):
+    """``NLADC(f32(x[e]) @ w[e])`` for every expert e, in x.dtype.  x:
+    (E, C, d) float32 or bfloat16 dispatched expert buffers; w: (E, d, f)
+    float32 expert weights; thr: (P,) or per-column (f, P) float32, shared
+    by every expert; y_table: (P+1,) float32.  Returns (E, C, f).
+
+    CPU tensors take :func:`moe_fused_matmul_plain`; CUDA tensors launch
+    one grouped kernel (the expert on the grid) on the current stream, and
+    a refused launch raises.
+    """
+    e_dim, c_dim, k_dim, n_dim, p = _check_moe(x, w, thr, y_table)
+    if x.device.type == "cpu":
+        return moe_fused_matmul_plain(x, w, thr, y_table)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_fused_matmul: no kernel for {x.device}")
+    if e_dim > _GRID_Z_MAX or \
+            -(-c_dim // _EXPERT_ROWS_PER_BLOCK) > _GRID_Y_MAX:
+        raise ValueError(f"moe_fused_matmul: {e_dim} experts of capacity "
+                         f"{c_dim} exceed the grid")
+    out = torch.empty((e_dim, c_dim, n_dim), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.moe_fused_matmul_launch(
+            x.data_ptr(), w.data_ptr(), thr.data_ptr(), y_table.data_ptr(),
+            out.data_ptr(), e_dim, c_dim, k_dim, n_dim, p,
+            p if thr.dim() == 2 else 0, int(x.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"moe_fused_matmul kernel launch failed: "
+                           f"{lib.cuda_error_string(err).decode()}")
+    moe_fused_matmul.launches += 1
+    return out
+
+
+moe_fused_matmul.launches = 0

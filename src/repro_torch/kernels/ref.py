@@ -10,10 +10,11 @@ The two agree on every code and differ by float rounding only.
 ``c' = fma(f, c, i*a)`` with one rounding, shared by every torch path that
 computes ``c'``.
 
-:func:`fused_matmul_nladc_plain` and :func:`prefill_attention_plain` are
-the plain torch versions of the LM path's two kernels, in the kernels'
-signatures: the CPU wrappers run them, and the tests and ``chip_smoke.py``
-hold the kernels against them.
+:func:`nladc_plain`, :func:`fused_matmul_nladc_plain`,
+:func:`moe_fused_matmul_plain`, :func:`prefill_attention_plain` and
+:func:`flash_decode_int8_plain` are the plain torch versions of the LM
+paths' kernels, in the kernels' signatures: the CPU wrappers run them, and
+the tests and ``chip_smoke.py`` hold the kernels against them.
 """
 
 from __future__ import annotations
@@ -121,6 +122,14 @@ def lstm_gates(gates: torch.Tensor, c: torch.Tensor, sig_ramp: Ramp,
     return o * nladc(c_new, tanh_ramp, tanh_thr), c_new
 
 
+def nladc_plain(x: torch.Tensor, thr: torch.Tensor,
+                y_table: torch.Tensor) -> torch.Tensor:
+    """``y_table[#{j : x > thr_j}]`` cast to ``x.dtype``: the reference
+    backend's elementwise NL-ADC (strict comparator, table decode).  x: any
+    shape; thr: (P,) or per-column (N, P) over x's last axis."""
+    return y_table[thermometer_count(x, thr)].to(x.dtype)
+
+
 def fused_matmul_nladc_plain(x: torch.Tensor, w: torch.Tensor, bias,
                              thr: torch.Tensor,
                              y_table: torch.Tensor) -> torch.Tensor:
@@ -145,3 +154,52 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
     from repro_torch.nn.attention import attend_full   # nn imports kernels
 
     return attend_full(q[:, None], k, v, (mask != 0)[:, None, :])[:, 0]
+
+
+def moe_fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                           thr: torch.Tensor,
+                           y_table: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_matmul_nladc_plain` over the expert axis, one threshold
+    set shared by every expert: ``NLADC(f32(x[e]) @ f32(w[e]))`` cast to
+    ``x.dtype``.  x: (E, C, d); w: (E, d, f); thr: (P,) or per-column
+    (f, P).  Returns (E, C, f)."""
+    return fused_matmul_nladc_plain(x, w, None, thr, y_table)
+
+
+def inv_sqrt_d(d: int, device=None) -> torch.Tensor:
+    """``1/sqrt(d)`` rounded to float32, as a tensor on ``device`` (a
+    Python scalar would be rounded per device's kernel)."""
+    return torch.tensor(np.float32(1.0) / np.sqrt(np.float32(d)),
+                        dtype=torch.float32, device=device)
+
+
+def flash_decode_int8_plain(q: torch.Tensor, k8: torch.Tensor,
+                            k_scale: torch.Tensor, v8: torch.Tensor,
+                            v_scale: torch.Tensor,
+                            length: torch.Tensor) -> torch.Tensor:
+    """One-token attention over an int8 KV cache, the reference's
+    dequantize-all oracle (``repro/kernels/ref.py::flash_decode_int8``)
+    op for op as XLA compiles it: K and V dequantized in float32, q scaled
+    by ``1/sqrt(D)`` (the oracle's ``q / sqrt(d)`` is a division by a
+    constant, which the jitted HLO computes as a multiplication by its
+    float32 reciprocal, 0.0883883461 at D 128, as the Pallas kernel
+    does), float32 scores, slots at or past ``length`` set to -1e30,
+    ``exp(s - max) / sum`` and the float32 PV sum.
+
+    q: (B, H, D); k8, v8: (B, S, Hkv, D) int8; scales: (B, S, Hkv);
+    length: (B,) valid-slot counts.  Returns (B, H, D) float32.
+    """
+    b, h, d = q.shape
+    hkv = k8.shape[2]
+    g = h // hkv
+    k = k8.float() * k_scale.float()[..., None]
+    v = v8.float() * v_scale.float()[..., None]
+    qg = q.float().reshape(b, hkv, g, d) * inv_sqrt_d(d, q.device)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k)
+    slot = torch.arange(k8.shape[1], device=q.device)
+    valid = slot[None, :] < length[:, None]
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = e / torch.sum(e, dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v)
+    return o.reshape(b, h, d)

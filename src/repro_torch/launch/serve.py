@@ -1,25 +1,34 @@
-"""Serve a dense LM on the GPU: ``python -m repro_torch.launch.serve --arch
-qwen2.5-3b``.
+"""Serve an LM on the GPU: ``python -m repro_torch.launch.serve --arch
+qwen2.5-3b``, or a MoE LM with an int8 KV cache::
+
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+        --override n_layers=24 --override kv_cache_dtype=int8
 
 The torch twin of the JAX package's ``repro.launch.serve`` on its scan
 prefill: builds the model at the config's published widths (or its SMOKE
-variant with ``--smoke``), submits a wave of synthetic requests made as
-the JAX launcher makes them (``np.random.default_rng(0)``, prompt lengths
-4-11, tokens below ``cfg.vocab``), drains them through the
+variant with ``--smoke``; ``--override key=value`` replaces config
+fields, as the JAX ``repro.launch.dryrun --override`` does), submits a
+wave of synthetic requests made as the JAX launcher makes them
+(``np.random.default_rng(0)``, prompt lengths 4-11, tokens below
+``cfg.vocab``), drains them through the
 :class:`~repro_torch.serve.engine.ServingEngine`, and prints one JSON
 summary line.  Weights come from ``--params`` (an LM tree saved by
 :func:`repro_torch.convert.save_npz`) or are drawn from ``--seed``.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b \\
-        [--smoke] [--requests 6] [--max-new 16] [--max-batch 4] \\
-        [--max-len 128] [--backend cuda|ref] [--bank-cols N] \\
+        [--smoke] [--override key=value ...] [--requests 6] \\
+        [--max-new 16] [--max-batch 4] [--max-len 128] \\
+        [--backend cuda|ref] [--bank-cols N] \\
         [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
-without a GPU otherwise.  On the GPU the backend defaults to ``cuda`` (the
-MLP gate and every cached attention in the hand-written kernels), on the
-CPU to ``ref``.  A one-request warm-up wave builds the kernels and
-initialises cuBLAS before the measured run.  ``--profile`` serves the
+without a GPU otherwise; seeded weights are drawn on that device (a
+host-side draw of moonshot's 14.8 B parameters at 24 layers would take
+minutes).  On the GPU the backend defaults to ``cuda`` (the MLP gate,
+every cached attention, and for a MoE the router's NL-ADC and the grouped
+expert gate in the hand-written kernels), on the CPU to ``ref``.  A
+one-request warm-up wave builds the kernels and initialises cuBLAS before
+the measured run.  ``--profile`` serves the
 wave once more under ``torch.profiler`` and prints the device time per
 kernel name and the device's idle share.  Only exact analog mode is
 ported; ``--analog-mode infer|train`` raises.
@@ -28,9 +37,10 @@ ported; ``--analog-mode infer|train`` raises.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import json
-from typing import List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -38,20 +48,50 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import load_npz
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
+from repro_torch.kernels import nladc as nk
 from repro_torch.kernels import prefill_attention as pa
 from repro_torch.launch.common import (configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.nn.model import build
 from repro_torch.serve.engine import Request, ServingEngine
 
-ARCHS = ("qwen2.5-3b",)
+ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b", "deepseek-moe-16b")
+
+# the kernel wrappers whose launches the summary counts
+KERNELS = {"fused_matmul_nladc": fmn.fused_matmul_nladc,
+           "prefill_attention": pa.prefill_attention,
+           "nladc": nk.nladc,
+           "moe_fused_matmul": fmn.moe_fused_matmul,
+           "flash_decode_int8": fd.flash_decode_int8}
+
+
+def parse_overrides(items: Sequence[str]) -> Dict[str, object]:
+    """``key=value`` strings into config fields, the value read as a
+    Python literal where it is one (``n_layers=24``) and kept as a string
+    otherwise (``kv_cache_dtype=int8``)."""
+    overrides = {}
+    for kv in items:
+        if "=" not in kv:
+            raise ValueError(f"--override wants key=value, got {kv!r}")
+        k, v = kv.split("=", 1)
+        try:
+            v = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass
+        overrides[k] = v
+    return overrides
 
 
 def make_config(arch: str, *, smoke: bool = False, backend: str = "",
-                bank_cols: int = 0, analog_mode: str = "") -> ModelConfig:
-    """The arch's config (or SMOKE variant) with the CLI's analog knobs."""
+                bank_cols: int = 0, analog_mode: str = "",
+                overrides=None) -> ModelConfig:
+    """The arch's config (or SMOKE variant) with ``overrides`` applied and
+    the CLI's analog knobs."""
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     spec_kw = {"backend": backend, "bank_cols": bank_cols}
     if analog_mode:
         spec_kw["mode"] = analog_mode
@@ -85,6 +125,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", required=True, choices=ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="the config's reduced SMOKE variant")
+    ap.add_argument("--override", action="append", default=[],
+                    help="config override key=value (e.g. n_layers=24, "
+                         "kv_cache_dtype=int8); repeatable")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -111,28 +154,27 @@ def main(argv=None) -> dict:
     backend = args.backend or ("cuda" if device.type == "cuda" else "ref")
     flags = configure_numerics()
     cfg = make_config(args.arch, smoke=args.smoke, backend=backend,
-                      bank_cols=args.bank_cols, analog_mode=args.analog_mode)
+                      bank_cols=args.bank_cols, analog_mode=args.analog_mode,
+                      overrides=parse_overrides(args.override))
     model, params = build_lm(cfg, device, params_path=args.params,
                              seed=args.seed)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"[serve] {cfg.name} on {name}, backend {backend}, "
-          f"{cfg.dtype} compute, bank_cols {cfg.analog.bank_cols}; TF32 and "
-          f"reduced-precision bf16 sums off ({flags})", flush=True)
+    print(f"[serve] {cfg.name} ({cfg.n_layers} layers, {cfg.kv_cache_dtype} "
+          f"KV cache) on {name}, backend {backend}, {cfg.dtype} compute, "
+          f"bank_cols {cfg.analog.bank_cols}; TF32 and reduced-precision "
+          f"bf16 sums off ({flags})", flush=True)
     engine = ServingEngine(model, params, max_batch=args.max_batch,
                            max_len=args.max_len)
     engine.run_offline(make_requests(cfg, 1, 2))              # warm-up
-    launches0 = (fmn.fused_matmul_nladc.launches,
-                 pa.prefill_attention.launches)
+    launches0 = {k: fn.launches for k, fn in KERNELS.items()}
     stats = engine.run_offline(make_requests(cfg, args.requests,
                                              args.max_new))
-    out = {"arch": cfg.name, "device": name, "backend": backend,
-           "requests": args.requests, **stats,
-           "launches": {
-               "fused_matmul_nladc":
-                   fmn.fused_matmul_nladc.launches - launches0[0],
-               "prefill_attention":
-                   pa.prefill_attention.launches - launches0[1]}}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "kv_cache_dtype": cfg.kv_cache_dtype, "device": name,
+           "backend": backend, "requests": args.requests, **stats,
+           "launches": {k: fn.launches - launches0[k]
+                        for k, fn in KERNELS.items()}}
     print(json.dumps(out), flush=True)
     if args.profile:
         res, prof = device_profile(lambda: engine.run_offline(

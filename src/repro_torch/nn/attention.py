@@ -2,13 +2,16 @@
 
 The serving slice of the JAX package's ``repro/nn/attention.py``: the
 parameter init, the grouped layout, ``attend_full`` (unchunked attention,
-the reference for the cached-attention kernel), the bf16/f32 decode cache,
-and the non-int8, global-attention branch of ``decode_self_attention``,
-whose attention goes through the analog backend's ``prefill_attention``
-primitive (``ref``: ``attend_full``; ``cuda``: the hand-written kernel).
+the reference for the cached-attention kernel), the bf16/f32 and int8
+decode caches, and the global-attention branches of
+``decode_self_attention``.  A bf16/f32 cache attends through the analog
+backend's ``prefill_attention`` primitive (``ref``: ``attend_full``;
+``cuda``: the hand-written kernel), an int8 cache through
+``decode_attention_int8`` (``ref``: the dequantize-all oracle; ``cuda``:
+the flash-decode kernel, which dequantizes per tile inside the kernel).
 Chunked attention and the full-sequence ``self_attention`` belong to the
-forward/training slice, the rolling-window cache to the hybrid family, the
-int8 cache to the int8-KV slice.
+forward/training slice, the rolling-window cache (and its int8
+dequantize-all fallback) to the hybrid family.
 
 GQA is computed in the grouped layout ``(B, S, H_kv, G, D)`` so KV heads
 are never repeated.  RoPE is applied before caching.
@@ -75,26 +78,66 @@ def attend_full(q, k, v, mask, *, scale: Optional[float] = None):
 def init_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
                *, dtype=torch.bfloat16, quantized: bool = False,
                device=None):
-    """Decode cache for one layer: ``max_len`` slots of K and V."""
-    if quantized:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet; ROADMAP.md queue A item "
-            "N1 (the int8-KV decode slice) brings it")
+    """Decode cache for one layer: ``max_len`` slots of K and V.
+
+    ``quantized``: int8 codes with one bfloat16 scale per (slot, KV head)
+    (per-token-per-head symmetric quantization, as the reference)."""
     shape = (batch, max_len, n_kv_heads, head_dim)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=device),
+        }
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _quant_kv(x: torch.Tensor):
+    """(B, 1, H, D) -> int8 codes + (B, 1, H) bfloat16 scales.
+
+    The reference writes ``amax / 127.0``; XLA compiles that division by a
+    constant into a multiplication by its float32 reciprocal
+    (``multiply(amax, 0.00787401572)`` in the jitted HLO, which is how the
+    serving engine runs it), and about 4% of float32 values round
+    differently than under a true division.  The port multiplies by the
+    same float32 reciprocal, a tensor on x's device, so CPU and CUDA
+    compute the same bits as the served reference.  The codes are
+    computed with the float32 scale and rounded half to even; only then is
+    the scale rounded to bfloat16.
+    """
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    inv_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    scale = torch.clamp_min(amax * inv_127, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
 def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
                           n_kv_heads: int, head_dim: int, rope_theta: float,
-                          analog_backend: str = ""):
+                          window: int = 0, analog_backend: str = ""):
     """One-token decode step.  ``index`` = absolute position of the new
     token.  x: (B, 1, d_model).  Returns (y, cache).
 
-    The new K/V land in ``cache`` in place, at slot ``index``, for every
-    batch row: the reference returns an updated copy, and the engine only
-    ever keeps the new state.
+    The new K/V (or their int8 codes and scales) land in ``cache`` in
+    place, at slot ``index``, for every batch row: the reference returns
+    an updated copy, and the engine only ever keeps the new state.  An
+    int8 cache attends through the backend's ``decode_attention_int8``
+    over the first ``index + 1`` slots.
     """
+    if window > 0:
+        raise NotImplementedError(
+            "the rolling-window cache (and its int8 dequantize-all "
+            "fallback) belongs to the hybrid family; ROADMAP.md queue A "
+            "item 5 (LM families) brings it")
     b = x.shape[0]
     q = _split_heads(L.dense_apply(p["wq"], x), n_heads, head_dim)
     k = _split_heads(L.dense_apply(p["wk"], x), n_kv_heads, head_dim)
@@ -104,9 +147,20 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
     k = L.apply_rope(k, pos, rope_theta)
 
     if "k_scale" in cache:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet; ROADMAP.md queue A item "
-            "N1 (the int8-KV decode slice) brings it")
+        kq, ks = _quant_kv(k)
+        vq, vs = _quant_kv(v)
+        cache["k"][:, index] = kq[:, 0]
+        cache["v"][:, index] = vq[:, 0]
+        cache["k_scale"][:, index] = ks[:, 0]
+        cache["v_scale"][:, index] = vs[:, 0]
+        length = torch.full((b,), index + 1, dtype=torch.int32,
+                            device=x.device)
+        out = BK.get_backend(analog_backend).decode_attention_int8(
+            q[:, 0], cache["k"], cache["k_scale"], cache["v"],
+            cache["v_scale"], length)
+        out = out[:, None].to(x.dtype)                  # (B, 1, H, D)
+        y = L.dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))
+        return y, cache
     cache["k"][:, index] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, index] = v[:, 0].to(cache["v"].dtype)
     valid = torch.arange(cache["k"].shape[1], device=x.device) <= index

@@ -6,7 +6,9 @@ from repro_torch.configs.base import ModelConfig
 
 
 def build(cfg: ModelConfig, device=None):
-    """Return the model object for a config, its ramps on ``device``."""
+    """Return the model object for a config, its ramps on ``device``:
+    ``cuda`` unless the caller asks for another (``device="cpu"``); without
+    a GPU the default raises."""
     if cfg.family == "lstm":
         raise ValueError(
             "LSTM workloads use repro_torch.nn.lstm directly (see "

@@ -13,12 +13,14 @@ with its semantics copied exactly:
   last logits); a request ends at ``max_new_tokens``, its EOS, or the end
   of the cache, and frees its slot at once.
 
-Every decode step and every prefill position runs the model's two kernels
-per layer on the ``cuda`` backend.  Only ``prefill="scan"`` with
-synchronous steps is ported: the bucketed, packed and chunked prefill,
-the detokenize thread, device aging, recalibration, fleets, checkpoints
-and observability raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item that brings them.
+Every decode step and every prefill position runs the model's kernels once
+per layer on the ``cuda`` backend.  The decode state may hold any cache
+layout the model makes (bf16/f32 K/V, or int8 codes with bfloat16
+scales): admission copies every tensor of a slot's cache.  Only
+``prefill="scan"`` with synchronous steps is ported: the bucketed, packed
+and chunked prefill, the detokenize thread, device aging, recalibration,
+fleets, checkpoints and observability raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
@@ -134,7 +136,8 @@ class ServingEngine:
             self._merge_slot(mini_state, slot)
 
     def _merge_slot(self, mini_state, slot: int):
-        """Copy the single-request cache into batch slot ``slot``; the
+        """Copy the single-request cache into batch slot ``slot``, every
+        tensor of it (K and V, and for an int8 cache their scales); the
         shared index becomes the maximum slot position (the reference's
         documented simplification of per-slot indices)."""
         for big, small in zip(self.state["layers"], mini_state["layers"]):

@@ -24,8 +24,11 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.launch.lstm_eval" in mods
-    assert "repro_torch.launch.serve" in mods
+    for name in ("launch.lstm_eval", "launch.serve", "nn.moe",
+                 "kernels.nladc", "kernels.flash_decode",
+                 "kernels.fused_matmul_nladc",
+                 "configs.moonshot_v1_16b_a3b", "configs.deepseek_moe_16b"):
+        assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -73,6 +76,9 @@ def test_serve_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--arch", "qwen2.5-3b", "--smoke"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "moonshot-v1-16b-a3b", "--smoke",
+                    "--override", "kv_cache_dtype=int8"])
     out = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
                       "--requests", "1", "--max-new", "1"])
     assert out["device"] == "cpu" and out["backend"] == "ref"

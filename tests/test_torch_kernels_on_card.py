@@ -12,9 +12,20 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   N 11008), flat and banked thresholds, float32 and bfloat16 x.
 * ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
   bfloat16, ragged masks, at a SMOKE shape and the serving path's.
-* The SMOKE LM in float32 on the ``cuda`` and ``ref`` backends: logits
-  within LSB/2 of the silu ramp, and each kernel launched once per layer
-  per step.
+* ``nladc``: bitwise equal to its plain version (codes and values), at
+  the router's shape (4, 64) bfloat16, the (4, 11008) bfloat16 width with
+  512-column threshold banks, and a ragged float32 (33, 1000).
+* ``moe_fused_matmul``: ``fused_matmul_nladc``'s contract over the expert
+  axis, at the moonshot expert gate's shape (64 experts, C 6, d 2048,
+  f 1408, bfloat16 x, flat and banked-512) and a ragged float32
+  (5, 7, 300, 1000).
+* ``flash_decode_int8``: max abs diff 1e-5 against its plain version at
+  the moonshot serving shape (B 4, H = Hkv = 16, D 128, S 128), a GQA case
+  (H 16, Hkv 2) and ragged S and lengths.
+* The SMOKE LMs in float32 on the ``cuda`` and ``ref`` backends
+  (qwen2.5-3b; moonshot-v1-16b-a3b with an int8 KV cache): logits within
+  LSB/2 of the silu ramp, and each kernel of the path launched once per
+  layer per step.
 """
 
 import dataclasses
@@ -25,7 +36,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import nladc as TN
+from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import fused_matmul_nladc as TFM
+from repro_torch.kernels import nladc as TNK
 from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.kernels.ref import thermometer_count
 from repro_torch.launch.common import configure_numerics
@@ -33,6 +46,7 @@ from repro_torch.nn.model import build
 
 MAX_FLIP_SHARE = 0.01
 F32_ATOL = 1e-6
+FLASH_ATOL = 1e-5
 
 
 def _card():
@@ -117,14 +131,119 @@ def test_prefill_attention_kernel_matches_plain(dtype, b, s, h, hkv, d):
                                                      want.abs()))).all())
 
 
+def _thresholds(rng, ramp, n, tile_cols):
+    thr = torch.tensor(ramp.thresholds, dtype=torch.float32)
+    if tile_cols and n > tile_cols:
+        bm = TN.bank_map_for(n, tile_cols)
+        banks = thr[None] + torch.tensor(
+            rng.normal(0, 0.03, (bm.n_banks, 1)), dtype=torch.float32)
+        thr = TN.BankedThresholds(banks, bm).per_column
+    return thr
+
+
 @pytest.mark.cuda
-def test_smoke_lm_cuda_backend_matches_ref():
+@pytest.mark.parametrize("shape,name,dtype,tile_cols", [
+    ((4, 64), "sigmoid", torch.bfloat16, 0),
+    ((4, 11008), "silu", torch.bfloat16, 512),
+    ((33, 1000), "tanh", torch.float32, 0),
+    ((2, 3, 40), "gelu", torch.float32, 16)])
+def test_nladc_kernel_matches_plain(shape, name, dtype, tile_cols):
+    dev = _card()
+    rng = np.random.default_rng(shape[-1])
+    ramp = TN.build_ramp(name, 5)
+    thr = _thresholds(rng, ramp, shape[-1], tile_cols).to(dev)
+    x = torch.tensor(rng.normal(0, 2.5, shape), dtype=torch.float32)
+    flat = x.view(-1)
+    flat[: thr.shape[-1]] = thr.reshape(-1, thr.shape[-1])[0].cpu()
+    x = x.to(dev, dtype)
+    y_table = torch.tensor(ramp.y_table, dtype=torch.float32, device=dev)
+    count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32, device=dev)
+    n0 = TNK.nladc.launches
+    yk = TNK.nladc(x, thr, y_table)
+    nk = TNK.nladc(x, thr, count)
+    torch.cuda.synchronize()
+    assert TNK.nladc.launches == n0 + 2
+    assert yk.dtype == dtype and yk.shape == x.shape
+    assert torch.equal(yk, TNK.nladc_plain(x, thr, y_table))
+    assert torch.equal(nk.float(), thermometer_count(x, thr).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,k,n,dtype,tile_cols", [
+    (64, 6, 2048, 1408, torch.bfloat16, 0),
+    (64, 6, 2048, 1408, torch.bfloat16, 512),
+    (5, 7, 300, 1000, torch.float32, 0),
+    (3, 9, 64, 80, torch.float32, 16)])
+def test_moe_fused_matmul_kernel_matches_plain(e, c, k, n, dtype, tile_cols):
+    dev = _card()
+    rng = np.random.default_rng(e * 1000 + n)
+    ramp = TN.build_ramp("silu", 5)
+    thr = _thresholds(rng, ramp, n, tile_cols).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(e * 1000 + n)
+    x = torch.randn((e, c, k), generator=gen, device=dev).to(dtype)
+    x[0, -1] = 0                                    # an empty capacity row
+    w = (2.0 / np.sqrt(k)) * torch.randn((e, k, n), generator=gen,
+                                         device=dev)
+    y_table = torch.tensor(ramp.y_table, dtype=torch.float32, device=dev)
+    count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32, device=dev)
+    n0 = TFM.moe_fused_matmul.launches
+    yk = TFM.moe_fused_matmul(x, w, thr, y_table)
+    nk = TFM.moe_fused_matmul(x, w, thr, count).long()
+    torch.cuda.synchronize()
+    assert TFM.moe_fused_matmul.launches == n0 + 2
+    assert yk.dtype == dtype and torch.equal(yk, y_table[nk].to(dtype))
+    n_plain = thermometer_count(x.float() @ w, thr)
+    acc, bound = TFM.accumulator_bound(x, w)
+    flips, unexplained = TFM.code_flips(nk, n_plain, acc, bound, thr)
+    assert unexplained == 0 and flips <= MAX_FLIP_SHARE * nk.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,q_dtype", [
+    (4, 128, 16, 16, 128, torch.bfloat16),
+    (4, 128, 16, 2, 128, torch.bfloat16),
+    (3, 200, 8, 8, 64, torch.float32)])
+def test_flash_decode_kernel_matches_plain(b, s, h, hkv, d, q_dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s + h)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
+    k8, v8 = (torch.randint(-127, 128, (b, s, hkv, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((1e-3 + 2e-2 * torch.rand((b, s, hkv), generator=gen,
+                                        device=dev)).bfloat16()
+              for _ in range(2))
+    length = torch.tensor([s, 1, 37, 100][:b], dtype=torch.int32,
+                          device=dev)
+    n0 = TFD.flash_decode_int8.launches
+    got = TFD.flash_decode_int8(q, k8, ks, v8, vs, length)
+    want = TFD.flash_decode_int8_plain(q, k8, ks, v8, vs, length)
+    torch.cuda.synchronize()
+    assert TFD.flash_decode_int8.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, d)
+    assert float((got - want).abs().max()) <= FLASH_ATOL
+
+
+KERNELS = {"fused_matmul_nladc": TFM.fused_matmul_nladc,
+           "prefill_attention": TPA.prefill_attention,
+           "nladc": TNK.nladc, "moe_fused_matmul": TFM.moe_fused_matmul,
+           "flash_decode_int8": TFD.flash_decode_int8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv,path", [
+    ("qwen2.5-3b", "bfloat16", ("fused_matmul_nladc", "prefill_attention")),
+    ("moonshot-v1-16b-a3b", "int8",
+     ("fused_matmul_nladc", "nladc", "moe_fused_matmul",
+      "flash_decode_int8"))])
+def test_smoke_lm_cuda_backend_matches_ref(arch, kv, path):
     dev = _card()
     models = {}
     for bk in ("cuda", "ref"):
-        cfg = configs.get_smoke("qwen2.5-3b")
-        cfg = cfg.replace(dtype="float32", analog=dataclasses.replace(
-            cfg.analog, backend=bk))
+        cfg = configs.get_smoke(arch)
+        cfg = cfg.replace(dtype="float32", kv_cache_dtype=kv,
+                          analog=dataclasses.replace(cfg.analog, backend=bk))
         models[bk] = build(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -132,7 +251,7 @@ def test_smoke_lm_cuda_backend_matches_ref():
     tokens = torch.randint(0, cfg.vocab, (8, 2, 1), generator=gen,
                            device=dev)
     states = {bk: m.init_decode_state(2, 16) for bk, m in models.items()}
-    n0 = (TFM.fused_matmul_nladc.launches, TPA.prefill_attention.launches)
+    n0 = {name: fn.launches for name, fn in KERNELS.items()}
     worst = 0.0
     for t in range(tokens.shape[0]):
         logits = {}
@@ -141,7 +260,7 @@ def test_smoke_lm_cuda_backend_matches_ref():
                                                    tokens[t])
         worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
                                  .max()))
-    assert (TFM.fused_matmul_nladc.launches - n0[0],
-            TPA.prefill_attention.launches - n0[1]) == \
-        (cfg.n_layers * 8, cfg.n_layers * 8)
+    assert {name: fn.launches - n0[name] for name, fn in KERNELS.items()} \
+        == {name: cfg.n_layers * 8 if name in path else 0
+            for name in KERNELS}
     assert worst < models["cuda"].act.ramp.lsb / 2

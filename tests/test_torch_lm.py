@@ -44,6 +44,7 @@ from repro_torch.core import backend as TBK
 from repro_torch.core.nladc import BankedThresholds
 from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels import prefill_attention as TPA
+from repro_torch.nn import attention as A
 from repro_torch.nn.model import build as tbuild
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -83,7 +84,7 @@ def _models(dtype, jbk, tbk, bank_cols=0, seed=0):
         tcfg.analog, backend=tbk, bank_cols=bank_cols))
     jm = jbuild(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
-    tm = tbuild(tcfg)
+    tm = tbuild(tcfg, device="cpu")
     tp = convert.lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     return jm, jp, tm, tp
 
@@ -177,10 +178,33 @@ def test_init_layout_matches_jax():
 
 @pytest.mark.parametrize("what", ["family", "mode", "int8"])
 def test_outside_the_slice_raises(what):
+    """Families other than dense and moe, analog modes other than exact,
+    and the int8 cache's windowed (rolling-buffer) fallback are not
+    ported; the dense and MoE int8 caches are (tests/test_torch_moe.py,
+    tests/test_torch_flash_decode.py)."""
     cfg = TC.get_smoke("qwen2.5-3b")
-    cfg = {"family": cfg.replace(family="moe"),
+    if what == "int8":
+        model = tbuild(cfg.replace(kv_cache_dtype="int8"), device="cpu")
+        state = model.init_decode_state(1, 4)
+        assert state["layers"][0]["k"].dtype == torch.int8
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            A.decode_self_attention(
+                {}, torch.zeros(1, 1, cfg.d_model), state["layers"][0], 0,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=2)
+        return
+    cfg = {"family": cfg.replace(family="hybrid"),
            "mode": cfg.replace(analog=dataclasses.replace(cfg.analog,
-                                                          mode="infer")),
-           "int8": cfg.replace(kv_cache_dtype="int8")}[what]
+                                                          mode="infer"))}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(cfg).init_decode_state(1, 4)
+        tbuild(cfg, device="cpu").init_decode_state(1, 4)
+
+
+def test_build_defaults_to_the_gpu(monkeypatch):
+    """``build`` and ``LM`` put the model on ``cuda`` unless asked for the
+    CPU, and raise without a GPU rather than fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TC.get_smoke("qwen2.5-3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbuild(cfg)
+    assert tbuild(cfg, device="cpu").device == torch.device("cpu")

@@ -193,7 +193,8 @@ def test_wrapper_rejects_bad_operands():
             TLC.lstm_gates(*args)
     with pytest.raises(ValueError, match="CUDA"):
         TBK.get_backend("cuda").lstm_gates(g, c, s, t)
-    with pytest.raises(NotImplementedError):
+    # the elementwise NL-ADC is a kernel now: a CPU tensor is refused too
+    with pytest.raises(ValueError, match="CUDA"):
         TBK.get_backend("cuda").nladc(g, s)
 
 

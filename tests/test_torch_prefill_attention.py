@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as JOPS
 from repro.nn import attention as JA
 from repro_torch.core import backend as TBK
+from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.nn import attention as TA
 
@@ -139,9 +140,17 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="CUDA"):
         TBK.get_backend("cuda").prefill_attention(
             qt[:, None], kt, vt, mt[:, None, :] != 0)
-    with pytest.raises(NotImplementedError, match="int8"):
-        TBK.get_backend("ref").decode_attention_int8(qt, kt, None, vt, None,
-                                                     None)
+    # an int8 cache attends through decode_attention_int8, not here: the
+    # ref backend's is the dequantize-all plain version, the cuda
+    # backend's refuses a CPU tensor
+    k8 = torch.zeros(kt.shape, dtype=torch.int8)
+    sc = torch.ones(kt.shape[:-1], dtype=torch.bfloat16)
+    ln = torch.full((qt.shape[0],), kt.shape[1], dtype=torch.int32)
+    assert torch.equal(
+        TBK.get_backend("ref").decode_attention_int8(qt, k8, sc, k8, sc, ln),
+        TFD.flash_decode_int8_plain(qt, k8, sc, k8, sc, ln))
+    with pytest.raises(ValueError, match="CUDA"):
+        TBK.get_backend("cuda").decode_attention_int8(qt, k8, sc, k8, sc, ln)
 
 
 def test_library_declares_pointer_arguments(monkeypatch):

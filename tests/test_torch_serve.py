@@ -3,11 +3,19 @@ against the JAX package's ``ServingEngine(prefill="scan")`` at the
 qwen2.5-3b SMOKE widths in float32, exact mode, ``ref`` backend, with the
 same weights (``lm_params_from_jax``) and the same 6 requests (the serve
 launchers' ``np.random.default_rng(0)`` prompts), max_batch 4, max_new 8:
-the token streams must be identical.  Then the launcher on the CPU.
+the token streams must be identical.  The same for moonshot-v1-16b-a3b
+SMOKE (MoE, sigmoid NL-ADC router) with an int8 KV cache, in float32 and
+in bfloat16 (the bfloat16 reference with
+``--xla_allow_excess_precision=false``, in a subprocess, so it rounds
+every op as PyTorch does).  Then the launcher on the CPU.
 """
 
 import dataclasses
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -23,6 +31,7 @@ from repro_torch.launch import serve as TSERVE
 from repro_torch.nn.model import build as tbuild
 from repro_torch.serve.engine import ServingEngine as TEngine
 
+ROOT = Path(__file__).resolve().parents[1]
 N_REQ, MAX_BATCH, MAX_NEW, MAX_LEN = 6, 4, 8, 64
 
 
@@ -33,16 +42,37 @@ def _streams(engine, reqs):
     return {r.uid: list(r.generated) for r in reqs}
 
 
-def test_token_streams_match_jax_scan_engine():
-    jcfg = JC.get_smoke("qwen2.5-3b").replace(
-        dtype="float32", analog=JSpec(enabled=True, adc_bits=5,
-                                      activation="silu", backend="ref"))
+def _engines(arch, dtype="float32", overrides=None):
+    """The JAX and port (model, params) of one SMOKE config, same weights."""
+    jcfg = JC.get_smoke(arch).replace(
+        dtype=dtype, analog=JSpec(enabled=True, adc_bits=5,
+                                  activation="silu", backend="ref"),
+        **(overrides or {}))
     jm = jbuild(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
-    tcfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref")
-    tcfg = tcfg.replace(dtype="float32")
-    tm = tbuild(tcfg)
+    tcfg = TSERVE.make_config(arch, smoke=True, backend="ref",
+                              overrides=overrides).replace(dtype=dtype)
+    tm = tbuild(tcfg, device="cpu")
     tp = convert.lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    return jm, jp, tm, tp
+
+
+def _both_streams(arch, dtype="float32", overrides=None):
+    jm, jp, tm, tp = _engines(arch, dtype, overrides)
+    reqs_t = TSERVE.make_requests(tm.cfg, N_REQ, MAX_NEW)
+    reqs_j = [JRequest(uid=r.uid, prompt=r.prompt.copy(),
+                       max_new_tokens=r.max_new_tokens) for r in reqs_t]
+    want = _streams(JEngine(jm, jp, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                            prefill="scan"), reqs_j)
+    got = _streams(TEngine(tm, tp, max_batch=MAX_BATCH, max_len=MAX_LEN),
+                   reqs_t)
+    return {str(k): v for k, v in want.items()}, \
+        {str(k): v for k, v in got.items()}
+
+
+def test_token_streams_match_jax_scan_engine():
+    jm, jp, tm, tp = _engines("qwen2.5-3b")
+    tcfg = tm.cfg
 
     reqs_t = TSERVE.make_requests(tcfg, N_REQ, MAX_NEW)
     reqs_j = [JRequest(uid=r.uid, prompt=r.prompt.copy(),
@@ -55,6 +85,39 @@ def test_token_streams_match_jax_scan_engine():
     assert all(len(s) == MAX_NEW for s in got.values())
     # every admitted prompt but its last token ran through decode_step
     assert engine.prefill_steps == sum(len(r.prompt) - 1 for r in reqs_t)
+
+
+_INT8 = {"kv_cache_dtype": "int8"}
+
+
+def test_moe_int8_token_streams_match_jax_scan_engine():
+    want, got = _both_streams("moonshot-v1-16b-a3b", "float32", _INT8)
+    assert got == want
+    assert all(len(s) == MAX_NEW for s in got.values())
+
+
+_BF16_SCRIPT = """
+import json, sys
+sys.path.insert(0, {tests!r})
+import test_torch_serve as T
+want, got = T._both_streams("moonshot-v1-16b-a3b", "bfloat16", T._INT8)
+print(json.dumps({{"want": want, "got": got}}))
+"""
+
+
+def test_moe_int8_token_streams_match_jax_scan_engine_bf16():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_allow_excess_precision=false",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _BF16_SCRIPT.format(tests=str(ROOT / "tests"))],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["got"] == res["want"]
+    assert all(len(s) == MAX_NEW for s in res["got"].values())
 
 
 def test_requests_are_the_jax_launchers():
@@ -90,9 +153,26 @@ def test_launcher_serves_smoke_on_cpu(capsys):
     summary = json.loads(lines[-1])
     assert summary == json.loads(json.dumps(out))
     assert summary["tokens"] == 3 * 4 and summary["device"] == "cpu"
-    assert summary["launches"] == {"fused_matmul_nladc": 0,
-                                   "prefill_attention": 0}
+    assert summary["launches"] == {k: 0 for k in (
+        "fused_matmul_nladc", "prefill_attention", "nladc",
+        "moe_fused_matmul", "flash_decode_int8")}
     assert summary["decode_steps"] > 0 and summary["tokens_per_s"] > 0
+
+
+def test_launcher_overrides_config_fields():
+    """``--override key=value`` as the JAX dryrun reads it: literals where
+    they parse, strings otherwise."""
+    assert TSERVE.parse_overrides(["n_layers=24", "kv_cache_dtype=int8",
+                                   "rope_theta=1e4"]) == {
+        "n_layers": 24, "kv_cache_dtype": "int8", "rope_theta": 1e4}
+    out = TSERVE.main(["--arch", "moonshot-v1-16b-a3b", "--smoke",
+                       "--device", "cpu", "--override", "n_layers=1",
+                       "--override", "kv_cache_dtype=int8",
+                       "--requests", "2", "--max-new", "2"])
+    assert out["n_layers"] == 1 and out["kv_cache_dtype"] == "int8"
+    assert out["tokens"] == 4
+    with pytest.raises(ValueError, match="key=value"):
+        TSERVE.parse_overrides(["n_layers"])
 
 
 def test_launcher_refuses_unported_modes():
