@@ -6,7 +6,7 @@
 Phases, one JSON line each:
 
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA
-              versions, and the build of the five kernel sources from
+              versions, and the build of the six kernel sources from
               ``kernels/csrc`` (one nvcc each, started together).
 2. kernel   — the ``lstm_gates`` kernel against its plain torch version and
               the ``ref`` backend on the card, at (B=16, H=2016) with one
@@ -66,11 +66,26 @@ Phases, one JSON line each:
 13. agreement_moe — a 2-layer, full-width, float32 moonshot with an int8
               cache on the ``cuda`` and ``ref`` backends: max |delta
               logits| < LSB/2.
-14. kernel_time — device time per call of each kernel, of its plain
+14. analog_tile — the crossbar-tile kernel against its plain version at
+              the PTB gate crossbar as one tile (16, 632, 8064; bfloat16 x,
+              5-bit PWM, read noise, tanh), the JAX sweep's (128, 256, 256)
+              (float32, no noise or PWM, swish) and a ragged float32
+              (33, 300, 1000) with 3-bit PWM, noise and selu: the fused
+              matmul's flip contract on the effective operands (at most
+              1%), outputs equal to the closed-form decode at the kernel's
+              codes.
+15. kernel_tune — the kernel-autotune entry point
+              (``repro_torch.launch.kernel_tune --full``) on the card: every
+              candidate config of the four tunable kernels computes the
+              default config's bits, the chosen configs and times per
+              shape, the parity section; each kernel of that path launches;
+              then host µs per ``fused_matmul_nladc`` call at M 4 with the
+              sweep's cache active against none.
+16. kernel_time — device time per call of each kernel, of its plain
               version and of the PyTorch call used as a yardstick
               (torch.profiler; CUDA events where three profiler sessions
               in a row record no device time), after the main paths.
-15. kernels — one line listing every ported kernel with its launches on
+17. kernels — one line listing every ported kernel with its launches on
               the main paths, its error against the plain version and
               times.
 
@@ -100,7 +115,7 @@ TIMING_REPEATS = 4
 LOGIT_ATOL = 1e-6   # cuda vs ref backend: the tails are bitwise equal, so
 #                     any code flip would show as an LSB-sized jump
 KERNELS = ("lstm_cell", "fused_matmul_nladc", "prefill_attention", "nladc",
-           "flash_decode_int8")
+           "flash_decode_int8", "analog_tile")
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
@@ -110,6 +125,7 @@ SERVE_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=24,
                  kv_cache_dtype="int8", requests=4, max_batch=4, max_len=128,
                  max_new=16, repeats=3)
 FLASH_ATOL = 1e-5
+HOST_CALLS, HOST_REPEATS = 200, 5
 
 
 def emit(obj) -> None:
@@ -140,33 +156,18 @@ def cuda_ms(fn, *, reps: int = 20, inner: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, *, calls: int = 50, tries: int = 3) -> tuple[float, str]:
-    """Device time per call under ``torch.profiler``: the summed device
-    time of every kernel ``fn`` launched, over ``calls`` calls (ms).  Host
-    time between launches is not counted.  The profiler now and then hands
-    back a session without a single device event; such a session is tried
-    again, and after ``tries`` empty ones the time is taken with CUDA events
-    around back-to-back calls instead (host gaps then count).  Returns the
-    time and which clock gave it: ``"profiler"`` or ``"cuda_events"``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, *, calls: int = 50) -> tuple[float, str]:
+    """Device time per call (ms) and the clock that gave it: the summed
+    device time of every kernel ``fn`` launched under ``torch.profiler``
+    (host time between launches is not counted), or CUDA events around
+    back-to-back calls where three profiler sessions recorded no device
+    event (``repro_torch.kernels.tune.device_us``, which also makes up for
+    the events a session loses)."""
+    from repro_torch.kernels.tune import device_us
 
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / calls / 1e3, "profiler"
-    ms = cuda_ms(fn, inner=calls)
-    check(ms > 0, "neither the profiler nor CUDA events timed the call")
-    return ms, "cuda_events"
+    us, clock = device_us(fn, calls=calls)
+    check(us > 0, "neither the profiler nor CUDA events timed the call")
+    return us / 1e3, clock
 
 
 def tail_bound(b: int, h: int, p: int, banked: bool) -> dict:
@@ -823,6 +824,175 @@ def phase_flash_decode(torch, dev, name: str, b: int, h: int, hkv: int,
     return out, kernel, plain, library
 
 
+def tile_bound(m: int, k: int, n: int, p: int, x_bytes: int, noise: bool,
+               pwm: bool) -> dict:
+    """The least time the card needs for one analog_tile call: x, w, the
+    noise and the thresholds read once and the output written once,
+    against the 2*M*K*N multiply-adds, the noise adds, the PWM (clamp,
+    scale, round, scale: 4 a value of x), M*N*P compares and the M*N
+    decodes at the float32 rate (the weight is float32)."""
+    n_bytes = x_bytes * m * k + 4 * k * n * (2 if noise else 1) + 4 * p \
+        + x_bytes * m * n
+    n_ops = 2 * m * k * n + (k * n if noise else 0) + \
+        (4 * m * k if pwm else 0) + m * n * p + 2 * m * n
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_analog_tile(torch, dev, name: str, m: int, k: int, n: int,
+                      x_dtype, bits, noise: bool, act: str):
+    """The crossbar-tile kernel against its plain version, with the fused
+    matmul's flip contract on the effective operands; codes from a launch
+    that decodes y(n) = n."""
+    from repro_torch.core.nladc import build_ramp
+    from repro_torch.kernels import analog_tile as at
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels.ref import (ClosedForm, closed_form_decode_fma,
+                                        closed_form_params,
+                                        effective_operands,
+                                        thermometer_count)
+
+    ramp = build_ramp(act, 5)
+    dec = closed_form_params(ramp)
+    thr = torch.tensor(ramp.thresholds, dtype=torch.float32, device=dev)
+    p = thr.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 100_000 + n)
+    x = (0.6 * torch.randn((m, k), generator=gen, device=dev)).to(x_dtype)
+    w = (2.0 / math.sqrt(k)) * torch.randn((k, n), generator=gen,
+                                           device=dev)
+    nz = 0.02 * torch.randn((k, n), generator=gen, device=dev) \
+        if noise else None
+    yk = at.analog_tile(x, w, thr, dec, w_noise=nz, input_bits=bits)
+    nk = at.analog_tile(x, w, thr, ClosedForm(0, 0.0, 1.0, 1.0, 0),
+                        w_noise=nz, input_bits=bits).float().long()
+    yp = at.analog_tile_plain(x, w, nz, thr, dec, bits)
+    xq, w_eff = effective_operands(x, w, nz, bits)
+    n_plain = thermometer_count(xq @ w_eff, thr)
+    torch.cuda.synchronize()
+    acc, bound = fmn.accumulator_bound(xq, w_eff)
+    flips, unexplained = fmn.code_flips(nk, n_plain, acc, bound, thr)
+    del acc, bound
+    err = float((yk.float() - yp.float()).abs().max())
+    check(yk.dtype == x_dtype and bool(torch.isfinite(yk.float()).all()),
+          f"analog_tile/{name}: output dtype {yk.dtype} or non-finite")
+    check(torch.equal(yk, closed_form_decode_fma(nk.float(), dec)
+                      .to(x_dtype)),
+          f"analog_tile/{name}: output is not the decode at its codes")
+    check(unexplained == 0,
+          f"analog_tile/{name}: {unexplained} code flips beyond float32 "
+          f"rounding")
+    check(flips <= MAX_FLIP_SHARE * nk.numel(),
+          f"analog_tile/{name}: {flips} code flips of {nk.numel()}")
+
+    def kernel():
+        return at.analog_tile(x, w, thr, dec, w_noise=nz, input_bits=bits)
+
+    def plain():
+        return at.analog_tile_plain(x, w, nz, thr, dec, bits)
+
+    def library():
+        return torch.matmul(xq, w_eff)
+
+    out = {"phase": "analog_tile", "case": name, "M": m, "K": k, "N": n,
+           "P": p, "x_dtype": str(x_dtype).replace("torch.", ""),
+           "input_bits": bits, "noise": noise, "ramp": act,
+           "decode_mode": dec.mode, "code_flips": flips,
+           "unexplained_flips": unexplained, "elements": nk.numel(),
+           "max_abs_err": err, "call_ms": cuda_ms(kernel),
+           "plain_call_ms": cuda_ms(plain, inner=5),
+           **tile_bound(m, k, n, p, x.element_size(), noise,
+                        bits is not None)}
+    emit(out)
+    return out, kernel, plain, library
+
+
+def phase_kernel_tune(torch, dev) -> dict:
+    """The kernel-autotune entry point on the card, its launches, and the
+    host cost of the tune seam per wrapper call."""
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels import tune
+    from repro_torch.launch import kernel_tune
+
+    wrappers = _tune_path_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = kernel_tune.run(True, dev)
+    sweep_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    path = ("analog_tile", "fused_matmul_nladc", "nladc", "lstm_gates",
+            "moe_fused_matmul", "prefill_attention")
+    check(all(launches[k] > 0 for k in path),
+          f"kernel_tune: a kernel of the path never launched: {launches}")
+    entries = res["tune"]["entries"]
+    check(all(e["source"] == "measured" for e in entries.values()),
+          "kernel_tune: a shape was not measured on the card")
+    for key, cell in res["shapes"].items():
+        if cell["code_flips"] is not None:
+            check(cell["unexplained_flips"] == 0,
+                  f"kernel_tune/{key}: unexplained code flips")
+    par = res["parity"]
+    check(par["banked"]["bitwise_equal"] and
+          par["moe_einsum"]["within_half_lsb"] and
+          par["attention"]["within_atol"],
+          f"kernel_tune: parity section failed: {par}")
+
+    # host time per wrapper call, the seam resolving from the sweep's cache
+    # or to the default (ABBA, median of repeats; no sync inside a timing)
+    cache = tune.TuneCache.from_dict(res["tune"])
+    m, k, n = 4, 2048, 11008
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+    thr = torch.linspace(-1, 1, 31, device=dev)
+    y_table = torch.linspace(-1, 1, 32, device=dev)
+
+    def host_us(active):
+        tune.set_active_cache(active)
+        fmn.fused_matmul_nladc(x, w, None, thr, y_table)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fmn.fused_matmul_nladc(x, w, None, thr, y_table)
+        us = (time.perf_counter() - t) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            tune.launch_config("fused_matmul_nladc", (m, k, n), x.dtype,
+                               x.device)
+        return us, (time.perf_counter() - t) / HOST_CALLS * 1e6
+
+    runs = {"none": [], "cache": []}
+    for _ in range(HOST_REPEATS):
+        for which in ("none", "cache", "cache", "none"):
+            runs[which].append(host_us(cache if which == "cache" else None))
+    tune.set_active_cache(None)
+    host = {which: {"call_us": statistics.median(r[0] for r in rs),
+                    "call_us_min": min(r[0] for r in rs),
+                    "call_us_max": max(r[0] for r in rs),
+                    "resolve_us": statistics.median(r[1] for r in rs)}
+            for which, rs in runs.items()}
+    shapes = {key: {k: c[k] for k in (
+        "blocks", "default", "us", "sweep_us", "default_us", "candidates",
+        "digest", "code_flips")} for key, c in res["shapes"].items()}
+    out = {"phase": "kernel_tune", "sweep_s": sweep_s,
+           "shapes_swept": len(entries),
+           "candidates": sum(e["candidates"] for e in entries.values()),
+           "candidates_bitwise_default": True, "launches": launches,
+           "shapes": shapes, "parity": par,
+           "host_fused_matmul_m4": {"calls": HOST_CALLS,
+                                    "repeats": 2 * HOST_REPEATS,
+                                    "tuned_blocks": list(cache.lookup(
+                                        "fused_matmul_nladc", (m, k, n),
+                                        x.dtype, dev)), **host}}
+    emit(out)
+    return out
+
+
 def _wrappers():
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_matmul_nladc as fmn
@@ -833,6 +1003,14 @@ def _wrappers():
             "flash_decode_int8": fd.flash_decode_int8,
             "fused_matmul_nladc": fmn.fused_matmul_nladc,
             "prefill_attention": pa.prefill_attention}
+
+
+def _tune_path_wrappers():
+    from repro_torch.kernels import analog_tile as at
+    from repro_torch.kernels import lstm_cell
+
+    return {**_wrappers(), "analog_tile": at.analog_tile,
+            "lstm_gates": lstm_cell.lstm_gates}
 
 
 def phase_serve_moe(torch, dev) -> dict:
@@ -1001,7 +1179,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import (_build, flash_decode,
+    from repro_torch.kernels import (_build, analog_tile, flash_decode,
                                      fused_matmul_nladc, lstm_cell, nladc,
                                      prefill_attention)
     from repro_torch.launch.common import configure_numerics
@@ -1017,15 +1195,20 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_paths = _build.build_all(KERNELS)
     for mod in (lstm_cell, fused_matmul_nladc, prefill_attention, nladc,
-                flash_decode):
+                flash_decode, analog_tile):
         mod.library()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name, path in lib_paths.items():
         log = Path(str(path) + ".log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "smem" in ln
-                       or "spill" in ln] if log.exists() else []
+        lines = log.read_text().splitlines() if log.exists() else []
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                if "Used " in ln and "registers" in ln]
+        ptxas[name] = {"kernels": len(regs),
+                       "max_registers": max(regs, default=None),
+                       "spills": [ln.strip() for ln in lines
+                                  if "spill" in ln and " 0 bytes spill "
+                                  "stores, 0 bytes spill loads" not in ln]}
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(dev),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1072,6 +1255,13 @@ def main() -> int:
                            [128, 1, 37, 100], bf16),
         phase_flash_decode(torch, dev, "ragged_f32", 3, 8, 8, 64, 200,
                            [200, 65, 1], f32)]
+    tile_checked = [
+        phase_analog_tile(torch, dev, "ptb_gates", 16, 632, 8064, bf16, 5,
+                          True, "tanh"),
+        phase_analog_tile(torch, dev, "sweep_f32", 128, 256, 256, f32, None,
+                          False, "swish"),
+        phase_analog_tile(torch, dev, "ragged_f32", 33, 300, 1000, f32, 3,
+                          True, "selu")]
     free_device(torch)
 
     served = phase_serve(torch, dev)
@@ -1082,6 +1272,8 @@ def main() -> int:
     free_device(torch)
     phase_agreement_moe(torch, dev)
     free_device(torch)
+    tuned = phase_kernel_tune(torch, dev)
+    free_device(torch)
 
     cases = [phase_kernel_time(*c) for c in checked]
     fm_cases = [phase_kernel_time(*c) for c in fm_checked]
@@ -1089,6 +1281,7 @@ def main() -> int:
     nladc_cases = [phase_kernel_time(*c) for c in nladc_checked]
     moe_cases = [phase_kernel_time(*c) for c in moe_checked]
     flash_cases = [phase_kernel_time(*c) for c in flash_checked]
+    tile_cases = [phase_kernel_time(*c) for c in tile_checked]
 
     main_case = cases[0]
     lstm = kernel_entry(
@@ -1145,7 +1338,16 @@ def main() -> int:
         served_moe["launches"]["flash_decode_int8"], flash_cases, fl_main,
         shape={k: fl_main[k] for k in ("B", "H", "Hkv", "D", "S",
                                        "q_dtype")})
-    emit({"kernels": [lstm, fused, attention, nl, moe, flash]})
+    tl_main = tile_cases[0]
+    tile = kernel_entry(
+        "analog_tile", "src/repro_torch/kernels/csrc/analog_tile.cu",
+        "src/repro/kernels/crossbar_mac.py:60",
+        tuned["launches"]["analog_tile"], tile_cases, tl_main,
+        launches_per_path={"kernel_tune": tuned["launches"]["analog_tile"]},
+        code_flips=sum(c["code_flips"] for c in tile_cases),
+        shape={k: tl_main[k] for k in ("M", "K", "N", "P", "x_dtype",
+                                       "input_bits", "noise", "ramp")})
+    emit({"kernels": [lstm, fused, attention, nl, moe, flash, tile]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -371,15 +371,30 @@ def nladc_reference(x: np.ndarray, ramp: Ramp) -> np.ndarray:
 # PWM input quantization (inputs are b_in-bit pulse widths on the chip)
 # ---------------------------------------------------------------------------
 
+def pwm_constants(bits: int, x_max: float):
+    """``(step, 1/step)`` of the b-bit PWM grid, both float32: the step
+    ``f32(2 x_max / max(2^b - 2, 1))`` and its reciprocal computed in
+    float32 from it, as XLA folds the constant (``14.999999`` for 5 bits
+    at ``x_max`` 1)."""
+    step = np.float32(2.0 * x_max / max((1 << bits) - 2, 1))
+    return step, np.float32(1.0) / step
+
+
 def pwm_quantize(x: torch.Tensor, bits: int, x_max: float) -> torch.Tensor:
     """Uniform b-bit quantization of inputs in [-x_max, x_max].
 
     2^b - 1 symmetric levels including 0; the step puts +/-x_max on codes.
-    The step is a float32 tensor on x's device: dividing by a Python scalar
-    would let CUDA multiply by its reciprocal instead, which rounds
-    differently.  ``torch.round`` rounds half to even, as the reference does.
+    Computes ``round(clamp(x, -x_max, x_max) * r) * step`` with ``r`` the
+    float32 reciprocal of the float32 step (:func:`pwm_constants`): the
+    reference divides by the step, and under ``jax.jit`` (how its LSTMs
+    run) XLA compiles that division by a constant into this
+    multiplication.  Eager JAX divides, and differs from the jitted
+    reference by one step at some inputs next to a half-step.  ``r`` and
+    ``step`` are tensors on x's device, so no kernel refolds them from a
+    Python scalar.  ``torch.round`` rounds half to even, as the reference
+    does.
     """
-    levels = (1 << bits) - 2
-    step = torch.tensor(2.0 * x_max / max(levels, 1), dtype=x.dtype,
-                        device=x.device)
-    return torch.round(torch.clamp(x, -x_max, x_max) / step) * step
+    step, recip = pwm_constants(bits, x_max)
+    r = torch.tensor(recip, dtype=x.dtype, device=x.device)
+    s = torch.tensor(step, dtype=x.dtype, device=x.device)
+    return torch.round(torch.clamp(x, -x_max, x_max) * r) * s

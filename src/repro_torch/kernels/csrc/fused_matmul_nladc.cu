@@ -30,17 +30,18 @@
 // would not help a GEMV.  The design streams w through the card once, with
 // every load coalesced:
 //
-//   * a block owns 32 columns and kRows rows of x (4 for the dense gate,
-//     8 for the expert gate, so an expert's C = 6 rows take one block and
-//     its weight strip is read once); each of its 16 warps walks its own
-//     share of K (rows k = warp, warp + 16, ...), each lane reading one
-//     column of a weight row (one 128-byte warp load per row, 16 rows
+//   * a block owns 32 columns and kRows rows of x (by default 4 for the
+//     dense gate, 8 for the expert gate, so an expert's C = 6 rows take one
+//     block and its weight strip is read once); each of its 16 warps walks
+//     its own share of K (rows k = warp, warp + 16, ...), each lane reading
+//     one column of a weight row (one 128-byte warp load per row, 16 rows
 //     unrolled so their loads are in flight together), so one block reads
 //     a 32-column strip of w and the grid covers N with 344 blocks at
 //     N = 11008, or 44 x 64 = 2816 blocks for the experts (splitting K
 //     over 16 warps keeps enough loads in flight per SM);
 //   * x is staged in shared memory as float32, 512 columns of K at a
-//     time, and read by broadcast;
+//     time by default, K-major (a k's kRows values side by side, so their
+//     offsets are constants whatever the K tile), and read by broadcast;
 //   * each thread keeps its kRows accumulators in registers; the 16 warps'
 //     partial sums meet in shared memory and are added in warp order, so
 //     the result does not depend on scheduling;
@@ -52,19 +53,22 @@
 // Products and sums are written as __fmaf_rn / __fadd_rn so nvcc's --fmad
 // choice cannot change the rounding.  Rows of x past M (the ragged edge)
 // are staged as zeros and their outputs are not written.
+//
+// Launch configs (kernels/tune.py): each launch takes (rows, cols, tile_k)
+// at run time: rows of x per block (1, 2, 4 or 8; template instances),
+// columns per block (32 or 64: one or two per lane) and the K tile staged
+// at a time (a power of two from 16 to 2048).  Warp w always sums k = w,
+// w + 16, ... in order and the 16 partial sums meet in warp order, so
+// every config computes the same bits; the defaults above are the ones
+// the wrapper takes when no tune cache or override names another.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 16;
+constexpr int kWarps = 16;  // the K split: fixed, it sets the summation order
 constexpr int kThreads = 32 * kWarps;
-constexpr int kColsPerLane = 1;
-constexpr int kCols = 32 * kColsPerLane;  // columns per block
-constexpr int kDenseRows = 4;             // rows of x per block: dense gate
-constexpr int kExpertRows = 8;            // rows of x per block: expert gate
-constexpr int kTileK = 512;               // x columns staged at a time
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -77,19 +81,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 // One block: columns n0 .. n0+kCols-1 and rows m0 .. m0+kRows-1 of the
 // (M, K) @ (K, N) product of expert blockIdx.z (0 for the dense gate).
-template <typename T, int kRows>
+template <typename T, int kRows, int kColsPerLane>
 __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ thr,
     const float* __restrict__ y_table, T* __restrict__ out, int m_dim,
-    int k_dim, int n_dim, int p, int thr_stride) {
+    int k_dim, int n_dim, int p, int thr_stride, int tile_k) {
+  constexpr int kCols = 32 * kColsPerLane;
   x += (size_t)blockIdx.z * m_dim * k_dim;
   w += (size_t)blockIdx.z * k_dim * n_dim;
   out += (size_t)blockIdx.z * m_dim * n_dim;
   extern __shared__ float smem[];
   const int thr_pitch = thr_stride ? p + 1 : p;
-  float* s_x = smem;                                  // kRows x kTileK
-  float* s_part = s_x + kRows * kTileK;               // kWarps x kRows x kCols
+  float* s_x = smem;                                  // tile_k x kRows
+  float* s_part = s_x + kRows * tile_k;               // kWarps x kRows x kCols
   float* s_thr = s_part + kWarps * kRows * kCols;     // kCols x (P+1), or P
   float* s_y = s_thr + (thr_stride ? kCols : 1) * thr_pitch;  // P + 1
 
@@ -98,6 +103,7 @@ __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
   const int n0 = blockIdx.x * kCols;
   const int m0 = blockIdx.y * kRows;
   const int rows = min(kRows, m_dim - m0);
+  const int log_tile = __ffs(tile_k) - 1;  // tile_k is a power of two
 
   float acc[kRows][kColsPerLane];
 #pragma unroll
@@ -105,14 +111,15 @@ __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.f;
 
-  for (int k0 = 0; k0 < k_dim; k0 += kTileK) {
-    const int kt = min(kTileK, k_dim - k0);
+  for (int k0 = 0; k0 < k_dim; k0 += tile_k) {
+    const int kt = min(tile_k, k_dim - k0);
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kRows * kTileK; i += kThreads) {
-      const int r = i / kTileK, kk = i % kTileK;
-      s_x[i] = (r < rows && kk < kt)
-                   ? to_float(x[(size_t)(m0 + r) * k_dim + k0 + kk])
-                   : 0.f;
+    for (int i = threadIdx.x; i < kRows * tile_k; i += kThreads) {
+      const int r = i >> log_tile, kk = i & (tile_k - 1);
+      s_x[kk * kRows + r] =
+          (r < rows && kk < kt)
+              ? to_float(x[(size_t)(m0 + r) * k_dim + k0 + kk])
+              : 0.f;
     }
     __syncthreads();
 #pragma unroll 16
@@ -126,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float xv = s_x[r * kTileK + kk];
+        const float xv = s_x[kk * kRows + r];
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c)
           acc[r][c] = __fmaf_rn(xv, wv[c], acc[r][c]);
@@ -166,27 +173,49 @@ __global__ void __launch_bounds__(kThreads) fused_matmul_nladc_kernel(
   }
 }
 
-template <typename T, int kRows>
+template <typename T, int kRows, int kColsPerLane>
 int launch(const void* x, const float* w, const float* bias,
            const float* thr, const float* y_table, void* out, int n_experts,
-           int m_dim, int k_dim, int n_dim, int p, int thr_stride,
+           int m_dim, int k_dim, int n_dim, int p, int thr_stride, int tile_k,
            cudaStream_t stream) {
+  constexpr int kCols = 32 * kColsPerLane;
   const int thr_pitch = thr_stride ? p + 1 : p;
   const size_t smem =
-      sizeof(float) * ((size_t)kRows * kTileK + (size_t)kWarps * kRows * kCols +
+      sizeof(float) * ((size_t)kRows * tile_k + (size_t)kWarps * kRows * kCols +
                        (size_t)(thr_stride ? kCols : 1) * thr_pitch + p + 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_matmul_nladc_kernel<T, kRows>,
+        fused_matmul_nladc_kernel<T, kRows, kColsPerLane>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((n_dim + kCols - 1) / kCols, (m_dim + kRows - 1) / kRows,
                   n_experts);
-  fused_matmul_nladc_kernel<T, kRows><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w, bias, thr, y_table, static_cast<T*>(out),
-      m_dim, k_dim, n_dim, p, thr_stride);
+  fused_matmul_nladc_kernel<T, kRows, kColsPerLane>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(x), w, bias, thr, y_table,
+          static_cast<T*>(out), m_dim, k_dim, n_dim, p, thr_stride, tile_k);
   return (int)cudaGetLastError();
+}
+
+// The template instance of a (rows, cols) config; tile_k a power of two
+// from 16 to 2048.  An unsupported config returns cudaErrorInvalidValue.
+template <typename T>
+int dispatch(const void* x, const float* w, const float* bias,
+             const float* thr, const float* y_table, void* out,
+             int n_experts, int m_dim, int k_dim, int n_dim, int p,
+             int thr_stride, int rows, int cols, int tile_k,
+             cudaStream_t stream) {
+  if (tile_k < 16 || tile_k > 2048 || (tile_k & (tile_k - 1)))
+    return (int)cudaErrorInvalidValue;
+#define FMN_CASE(R, C)                                                      \
+  if (rows == R && cols == 32 * C)                                          \
+    return launch<T, R, C>(x, w, bias, thr, y_table, out, n_experts, m_dim, \
+                           k_dim, n_dim, p, thr_stride, tile_k, stream);
+  FMN_CASE(1, 1) FMN_CASE(2, 1) FMN_CASE(4, 1) FMN_CASE(8, 1)
+  FMN_CASE(1, 2) FMN_CASE(2, 2) FMN_CASE(4, 2) FMN_CASE(8, 2)
+#undef FMN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -194,20 +223,22 @@ int launch(const void* x, const float* w, const float* bias,
 extern "C" {
 
 // x and out are bfloat16 when x_bf16 is nonzero, else float32.  bias may
-// be null.  Launches on `stream`; allocates nothing.  Returns
-// cudaGetLastError().
+// be null.  (rows, cols, tile_k) is the launch config.  Launches on
+// `stream`; allocates nothing.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a config without a template instance.
 int fused_matmul_nladc_launch(const void* x, const float* w,
                               const float* bias, const float* thr,
                               const float* y_table, void* out, int m_dim,
                               int k_dim, int n_dim, int p, int thr_stride,
-                              int x_bf16, void* stream) {
+                              int x_bf16, int rows, int cols, int tile_k,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16)
-    return launch<__nv_bfloat16, kDenseRows>(x, w, bias, thr, y_table, out, 1,
-                                             m_dim, k_dim, n_dim, p,
-                                             thr_stride, s);
-  return launch<float, kDenseRows>(x, w, bias, thr, y_table, out, 1, m_dim,
-                                   k_dim, n_dim, p, thr_stride, s);
+    return dispatch<__nv_bfloat16>(x, w, bias, thr, y_table, out, 1, m_dim,
+                                   k_dim, n_dim, p, thr_stride, rows, cols,
+                                   tile_k, s);
+  return dispatch<float>(x, w, bias, thr, y_table, out, 1, m_dim, k_dim,
+                         n_dim, p, thr_stride, rows, cols, tile_k, s);
 }
 
 // The expert gate: x (E, C, K), w (E, K, N), out (E, C, N), one threshold
@@ -215,15 +246,15 @@ int fused_matmul_nladc_launch(const void* x, const float* w,
 int moe_fused_matmul_launch(const void* x, const float* w, const float* thr,
                             const float* y_table, void* out, int n_experts,
                             int c_dim, int k_dim, int n_dim, int p,
-                            int thr_stride, int x_bf16, void* stream) {
+                            int thr_stride, int x_bf16, int rows, int cols,
+                            int tile_k, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16)
-    return launch<__nv_bfloat16, kExpertRows>(x, w, nullptr, thr, y_table,
-                                              out, n_experts, c_dim, k_dim,
-                                              n_dim, p, thr_stride, s);
-  return launch<float, kExpertRows>(x, w, nullptr, thr, y_table, out,
-                                    n_experts, c_dim, k_dim, n_dim, p,
-                                    thr_stride, s);
+    return dispatch<__nv_bfloat16>(x, w, nullptr, thr, y_table, out,
+                                   n_experts, c_dim, k_dim, n_dim, p,
+                                   thr_stride, rows, cols, tile_k, s);
+  return dispatch<float>(x, w, nullptr, thr, y_table, out, n_experts, c_dim,
+                         k_dim, n_dim, p, thr_stride, rows, cols, tile_k, s);
 }
 
 const char* cuda_error_string(int code) {

@@ -21,13 +21,17 @@
 // bytes of x and the output, and every load is coalesced:
 //
 //   * a block owns a strip of 32 columns; its 8 warps each take one row at
-//     a time, a lane one column, so a warp reads 32 consecutive elements;
+//     a time, a lane one column, so a warp reads 32 consecutive elements
+//     (both by default: the launch takes the warps per block, 4, 8 or 16,
+//     and the columns per block, 32, 64, 128 or 256 with each lane taking
+//     every 32nd column, at run time, as template instances; see
+//     kernels/tune.py; each element's result does not depend on either);
 //   * the strip's thresholds (P of them, or 32 rows of P in the per-column
 //     layout) and the y table are staged in shared memory once per block,
 //     the per-column rows with a padded pitch (P + 1) so the 32 lanes,
 //     which read 32 different rows at one j, hit 32 different banks;
 //   * the grid covers the columns in x and the rows in y, each block
-//     walking rows with a stride of gridDim.y * 8, so a (33, 1000) or a
+//     walking rows with a stride of gridDim.y * warps, so a (33, 1000) or a
 //     (4, 64) tensor both take one launch.
 //
 // Every compare runs over all P thresholds (no early exit), so the count
@@ -40,9 +44,6 @@
 
 namespace {
 
-constexpr int kCols = 32;   // columns per block, one per lane
-constexpr int kWarps = 8;   // rows in flight per block, one per warp
-constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxGridY = 2048;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -54,20 +55,23 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) nladc_kernel(
+// A block of kWarps warps over 32 * kColsPerLane columns.
+template <typename T, int kWarps, int kColsPerLane>
+__global__ void __launch_bounds__(32 * kWarps) nladc_kernel(
     const T* __restrict__ x, const float* __restrict__ thr,
     const float* __restrict__ y_table, T* __restrict__ out, int m_rows,
     int n_cols, int p, int thr_stride) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int cols = 32 * kColsPerLane;
   extern __shared__ float smem[];
   const int thr_pitch = thr_stride ? p + 1 : p;
-  float* s_thr = smem;  // kCols x (P+1), or P
-  float* s_y = s_thr + (thr_stride ? kCols : 1) * thr_pitch;  // P + 1
+  float* s_thr = smem;  // cols x (P+1), or P
+  float* s_y = s_thr + (thr_stride ? cols : 1) * thr_pitch;  // P + 1
 
-  const int n0 = blockIdx.x * kCols;
-  const int n_here = min(kCols, n_cols - n0);
+  const int n0 = blockIdx.x * cols;
+  const int n_here = min(cols, n_cols - n0);
   if (thr_stride) {
-    // the block's columns n0 .. n0+kCols-1 are one contiguous strip of (N, P)
+    // the block's columns n0 .. n0+cols-1 are one contiguous strip of (N, P)
     for (int i = threadIdx.x; i < n_here * p; i += kThreads)
       s_thr[(i / p) * thr_pitch + i % p] = thr[(size_t)n0 * p + i];
   } else {
@@ -78,39 +82,61 @@ __global__ void __launch_bounds__(kThreads) nladc_kernel(
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  if (lane >= n_here) return;
-  const float* t = thr_stride ? s_thr + lane * thr_pitch : s_thr;
-  const int n = n0 + lane;
-  for (int r = blockIdx.y * kWarps + warp; r < m_rows;
-       r += gridDim.y * kWarps) {
-    const size_t i = (size_t)r * n_cols + n;
-    const float v = to_float(x[i]);
-    int count = 0;
-    for (int j = 0; j < p; ++j) count += (v > t[j]) ? 1 : 0;
-    store(out + i, s_y[count]);
+#pragma unroll
+  for (int c = 0; c < kColsPerLane; ++c) {
+    const int col = lane + 32 * c;
+    if (col >= n_here) break;
+    const float* t = thr_stride ? s_thr + col * thr_pitch : s_thr;
+    const int n = n0 + col;
+    for (int r = blockIdx.y * kWarps + warp; r < m_rows;
+         r += gridDim.y * kWarps) {
+      const size_t i = (size_t)r * n_cols + n;
+      const float v = to_float(x[i]);
+      int count = 0;
+      for (int j = 0; j < p; ++j) count += (v > t[j]) ? 1 : 0;
+      store(out + i, s_y[count]);
+    }
   }
 }
 
-template <typename T>
+template <typename T, int kWarps, int kColsPerLane>
 int launch(const void* x, const float* thr, const float* y_table, void* out,
            int m_rows, int n_cols, int p, int thr_stride,
            cudaStream_t stream) {
+  constexpr int cols = 32 * kColsPerLane;
   const int thr_pitch = thr_stride ? p + 1 : p;
   const size_t smem =
-      sizeof(float) * ((size_t)(thr_stride ? kCols : 1) * thr_pitch + p + 1);
+      sizeof(float) * ((size_t)(thr_stride ? cols : 1) * thr_pitch + p + 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        nladc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        nladc_kernel<T, kWarps, kColsPerLane>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int row_blocks = (m_rows + kWarps - 1) / kWarps;
-  const dim3 grid((n_cols + kCols - 1) / kCols,
+  const dim3 grid((n_cols + cols - 1) / cols,
                   row_blocks < kMaxGridY ? row_blocks : kMaxGridY);
-  nladc_kernel<T><<<grid, kThreads, smem, stream>>>(
+  nladc_kernel<T, kWarps, kColsPerLane><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(x), thr, y_table, static_cast<T*>(out), m_rows,
       n_cols, p, thr_stride);
   return (int)cudaGetLastError();
+}
+
+// The template instance of a (warps, cols) config; an unsupported one
+// returns cudaErrorInvalidValue.
+template <typename T>
+int dispatch(const void* x, const float* thr, const float* y_table,
+             void* out, int m_rows, int n_cols, int p, int thr_stride,
+             int warps, int cols, cudaStream_t stream) {
+#define NLADC_CASE(W, C)                                                   \
+  if (warps == W && cols == 32 * C)                                        \
+    return launch<T, W, C>(x, thr, y_table, out, m_rows, n_cols, p,        \
+                           thr_stride, stream);
+  NLADC_CASE(4, 1) NLADC_CASE(4, 2) NLADC_CASE(4, 4) NLADC_CASE(4, 8)
+  NLADC_CASE(8, 1) NLADC_CASE(8, 2) NLADC_CASE(8, 4) NLADC_CASE(8, 8)
+  NLADC_CASE(16, 1) NLADC_CASE(16, 2) NLADC_CASE(16, 4) NLADC_CASE(16, 8)
+#undef NLADC_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -118,17 +144,18 @@ int launch(const void* x, const float* thr, const float* y_table, void* out,
 extern "C" {
 
 // x and out are bfloat16 when x_bf16 is nonzero, else float32; both hold
-// m_rows x n_cols elements, row-major.  Launches on `stream`; allocates
-// nothing.  Returns cudaGetLastError().
+// m_rows x n_cols elements, row-major.  (warps, cols) is the launch config.
+// Launches on `stream`; allocates nothing.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a config without a template instance.
 int nladc_launch(const void* x, const float* thr, const float* y_table,
                  void* out, int m_rows, int n_cols, int p, int thr_stride,
-                 int x_bf16, void* stream) {
+                 int x_bf16, int warps, int cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16)
-    return launch<__nv_bfloat16>(x, thr, y_table, out, m_rows, n_cols, p,
-                                 thr_stride, s);
-  return launch<float>(x, thr, y_table, out, m_rows, n_cols, p, thr_stride,
-                       s);
+    return dispatch<__nv_bfloat16>(x, thr, y_table, out, m_rows, n_cols, p,
+                                   thr_stride, warps, cols, s);
+  return dispatch<float>(x, thr, y_table, out, m_rows, n_cols, p, thr_stride,
+                         warps, cols, s);
 }
 
 const char* cuda_error_string(int code) {

@@ -27,7 +27,12 @@ a threshold between the two codes (:func:`accumulator_bound`,
 to their plain versions (:func:`fused_matmul_nladc_plain`,
 :func:`moe_fused_matmul_plain`) and CUDA tensors to the kernel; anything
 else raises.  Each keeps its own count of kernel launches in
-``.launches``.
+``.launches``.  A launch takes its config (rows, columns and K tile of a
+block) from :mod:`repro_torch.kernels.tune` at the call's ``(M, K, N)``,
+the expert gate at its per-expert ``(C, K, N)`` as the JAX package's
+vmapped gate does; without a tune cache or override that is 4 rows a
+block for the dense gate and 8 for the expert gate, 32 columns and a K
+tile of 512.  Every config computes the same bits.
 """
 
 from __future__ import annotations
@@ -36,12 +41,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import (fused_matmul_nladc_plain,
                                     moe_fused_matmul_plain)
 
-_ROWS_PER_BLOCK = 4        # csrc: kDenseRows
-_EXPERT_ROWS_PER_BLOCK = 8  # csrc: kExpertRows
 _GRID_Y_MAX = 65535
 _GRID_Z_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -119,20 +122,21 @@ def library() -> ctypes.CDLL:
     lib = _build.load("fused_matmul_nladc")
     # without argtypes ctypes would pass each pointer as a 32-bit int
     lib.fused_matmul_nladc_launch.argtypes = [ctypes.c_void_p] * 6 + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.fused_matmul_nladc_launch.restype = ctypes.c_int
     lib.moe_fused_matmul_launch.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.moe_fused_matmul_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_matmul_nladc(x, w, bias, thr, y_table):
+def fused_matmul_nladc(x, w, bias, thr, y_table, *, blocks=None):
     """``NLADC(f32(x) @ w + bias)`` in x.dtype.  x: (M, K) float32 or
     bfloat16; w: (K, N) float32; bias: (N,) float32 or None; thr: (P,) or
-    per-column (N, P) float32; y_table: (P+1,) float32.
+    per-column (N, P) float32; y_table: (P+1,) float32; ``blocks``: a
+    launch config ``(rows, cols, k_tile)`` in place of the tune seam's.
 
     CPU tensors take :func:`fused_matmul_nladc_plain`; CUDA tensors launch
     the kernel on the current stream, and a refused launch raises.
@@ -142,9 +146,12 @@ def fused_matmul_nladc(x, w, bias, thr, y_table):
         return fused_matmul_nladc_plain(x, w, bias, thr, y_table)
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_nladc: no kernel for {x.device}")
-    if -(-m_dim // _ROWS_PER_BLOCK) > _GRID_Y_MAX:
+    rows, cols, k_tile = tune.launch_config(
+        "fused_matmul_nladc", (m_dim, k_dim, n_dim), x.dtype, x.device,
+        blocks)
+    if -(-m_dim // rows) > _GRID_Y_MAX:
         raise ValueError(f"fused_matmul_nladc: {m_dim} rows exceed the "
-                         f"grid's {_GRID_Y_MAX * _ROWS_PER_BLOCK}")
+                         f"grid's {_GRID_Y_MAX * rows}")
     out = torch.empty((m_dim, n_dim), dtype=x.dtype, device=x.device)
     if m_dim == 0 or n_dim == 0:
         return out
@@ -156,7 +163,7 @@ def fused_matmul_nladc(x, w, bias, thr, y_table):
             bias.data_ptr() if bias is not None else None,
             thr.data_ptr(), y_table.data_ptr(), out.data_ptr(),
             m_dim, k_dim, n_dim, p, p if thr.dim() == 2 else 0,
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), rows, cols, k_tile, stream)
     if err != 0:
         raise RuntimeError(f"fused_matmul_nladc kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")
@@ -180,11 +187,13 @@ def _check_moe(x, w, thr, y_table):
     return x.shape[0], x.shape[1], x.shape[2], w.shape[2], thr.shape[-1]
 
 
-def moe_fused_matmul(x, w, thr, y_table):
+def moe_fused_matmul(x, w, thr, y_table, *, blocks=None):
     """``NLADC(f32(x[e]) @ w[e])`` for every expert e, in x.dtype.  x:
     (E, C, d) float32 or bfloat16 dispatched expert buffers; w: (E, d, f)
     float32 expert weights; thr: (P,) or per-column (f, P) float32, shared
-    by every expert; y_table: (P+1,) float32.  Returns (E, C, f).
+    by every expert; y_table: (P+1,) float32; ``blocks``: a launch config
+    in place of the tune seam's (resolved at the per-expert ``(C, d, f)``).
+    Returns (E, C, f).
 
     CPU tensors take :func:`moe_fused_matmul_plain`; CUDA tensors launch
     one grouped kernel (the expert on the grid) on the current stream, and
@@ -195,8 +204,10 @@ def moe_fused_matmul(x, w, thr, y_table):
         return moe_fused_matmul_plain(x, w, thr, y_table)
     if x.device.type != "cuda":
         raise ValueError(f"moe_fused_matmul: no kernel for {x.device}")
-    if e_dim > _GRID_Z_MAX or \
-            -(-c_dim // _EXPERT_ROWS_PER_BLOCK) > _GRID_Y_MAX:
+    rows, cols, k_tile = tune.launch_config(
+        "fused_matmul_nladc", (c_dim, k_dim, n_dim), x.dtype, x.device,
+        blocks, default=tune.EXPERT_GATE_BLOCKS)
+    if e_dim > _GRID_Z_MAX or -(-c_dim // rows) > _GRID_Y_MAX:
         raise ValueError(f"moe_fused_matmul: {e_dim} experts of capacity "
                          f"{c_dim} exceed the grid")
     out = torch.empty((e_dim, c_dim, n_dim), dtype=x.dtype, device=x.device)
@@ -209,7 +220,7 @@ def moe_fused_matmul(x, w, thr, y_table):
             x.data_ptr(), w.data_ptr(), thr.data_ptr(), y_table.data_ptr(),
             out.data_ptr(), e_dim, c_dim, k_dim, n_dim, p,
             p if thr.dim() == 2 else 0, int(x.dtype == torch.bfloat16),
-            stream)
+            rows, cols, k_tile, stream)
     if err != 0:
         raise RuntimeError(f"moe_fused_matmul kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")

@@ -13,7 +13,9 @@ path's shape; the source says why.
 
 :func:`lstm_gates` sends CPU tensors to :func:`lstm_gates_plain` and CUDA
 tensors to the kernel; anything else raises.  ``lstm_gates.launches``
-counts kernel launches.
+counts kernel launches.  A launch takes its config (batch rows and threads
+of a block) from :mod:`repro_torch.kernels.tune` at ``(B, H)``; without a
+tune cache or override that is 1 row and 256 threads.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import fma_f32, thermometer_count
 
 _GRID_Y_MAX = 65535
@@ -80,15 +82,17 @@ def library() -> ctypes.CDLL:
     lib = _build.load("lstm_cell")
     # without argtypes ctypes would pass each pointer as a 32-bit int
     lib.lstm_gates_launch.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.lstm_gates_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y):
-    """Fused LSTM tail: (h', c') from gates (B, 4H) and c (B, H).
+def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y, *, block=None):
+    """Fused LSTM tail: (h', c') from gates (B, 4H) and c (B, H);
+    ``block``: a launch config ``(rows, threads)`` in place of the tune
+    seam's.
 
     CPU tensors take :func:`lstm_gates_plain`; CUDA tensors launch the
     kernel on the current stream, and a refused launch raises.
@@ -98,9 +102,11 @@ def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y):
         return lstm_gates_plain(gates, c, sig_thr, sig_y, tanh_thr, tanh_y)
     if gates.device.type != "cuda":
         raise ValueError(f"lstm_gates: no kernel for {gates.device}")
-    if b_dim > _GRID_Y_MAX:
+    rows, threads = tune.launch_config("lstm_gates", (b_dim, h_dim),
+                                       gates.dtype, gates.device, block)
+    if -(-b_dim // rows) > _GRID_Y_MAX:
         raise ValueError(f"lstm_gates: batch {b_dim} exceeds the grid's "
-                         f"{_GRID_Y_MAX} rows")
+                         f"{_GRID_Y_MAX * rows} rows")
     h_out = torch.empty_like(c)
     c_out = torch.empty_like(c)
     if b_dim == 0 or h_dim == 0:
@@ -113,7 +119,7 @@ def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y):
             sig_y.data_ptr(), tanh_thr.data_ptr(), tanh_y.data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(), b_dim, h_dim, p,
             p if sig_thr.dim() == 2 else 0,
-            p if tanh_thr.dim() == 2 else 0, stream)
+            p if tanh_thr.dim() == 2 else 0, rows, threads, stream)
     if err != 0:
         raise RuntimeError(f"lstm_gates kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")

@@ -14,7 +14,9 @@ differs from the table by float rounding only.
 
 :func:`nladc` sends CPU tensors to :func:`nladc_plain` and CUDA tensors to
 the kernel; anything else raises.  ``nladc.launches`` counts kernel
-launches.
+launches.  A launch takes its config (rows in flight and columns of a
+block) from :mod:`repro_torch.kernels.tune` at x's ``(M, N)`` rows and
+columns; without a tune cache or override that is 8 rows and 32 columns.
 """
 
 from __future__ import annotations
@@ -23,10 +25,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import nladc_plain
 
-_COLS_PER_BLOCK = 32                # csrc: kCols
 _SMEM_MAX = 232448                  # bytes of shared memory a block can use
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -62,7 +63,7 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built on first use."""
     lib = _build.load("nladc")
     # without argtypes ctypes would pass each pointer as a 32-bit int
-    lib.nladc_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    lib.nladc_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     lib.nladc_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -70,10 +71,11 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def nladc(x, thr, y_table):
+def nladc(x, thr, y_table, *, block=None):
     """``y_table[#{j : x > thr_j}]`` in x.dtype.  x: any shape, float32 or
     bfloat16; thr: (P,) or per-column (N, P) float32 over x's last axis;
-    y_table: (P+1,) float32.
+    y_table: (P+1,) float32; ``block``: a launch config ``(rows, cols)`` in
+    place of the tune seam's.
 
     CPU tensors take :func:`nladc_plain`; CUDA tensors launch the kernel on
     the current stream, and a refused launch raises.
@@ -83,23 +85,24 @@ def nladc(x, thr, y_table):
         return nladc_plain(x, thr, y_table)
     if x.device.type != "cuda":
         raise ValueError(f"nladc: no kernel for {x.device}")
+    m_rows = x.numel() // n_cols if n_cols else 0
+    warps, cols = tune.launch_config("nladc", (m_rows, n_cols), x.dtype,
+                                     x.device, block)
     per_column = thr.dim() == 2
-    smem = 4 * ((_COLS_PER_BLOCK if per_column else 1) * (p + per_column)
-                + p + 1)
+    smem = 4 * ((cols if per_column else 1) * (p + per_column) + p + 1)
     if smem > _SMEM_MAX:
         raise ValueError(f"nladc: {p} thresholds per column do not fit one "
                          f"block's shared memory")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    m_rows = x.numel() // n_cols
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.nladc_launch(
             x.data_ptr(), thr.data_ptr(), y_table.data_ptr(), out.data_ptr(),
             m_rows, n_cols, p, p if per_column else 0,
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), warps, cols, stream)
     if err != 0:
         raise RuntimeError(f"nladc kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")

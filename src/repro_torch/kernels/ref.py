@@ -13,18 +13,24 @@ computes ``c'``.
 :func:`nladc_plain`, :func:`fused_matmul_nladc_plain`,
 :func:`moe_fused_matmul_plain`, :func:`prefill_attention_plain` and
 :func:`flash_decode_int8_plain` are the plain torch versions of the LM
-paths' kernels, in the kernels' signatures: the CPU wrappers run them, and
-the tests and ``chip_smoke.py`` hold the kernels against them.
+paths' kernels, and :func:`analog_tile_plain` that of the crossbar-tile
+kernel, in the kernels' signatures: the CPU wrappers run them, and the
+tests and ``chip_smoke.py`` hold the kernels against them.
+
+The crossbar tile alone decodes in closed form, as its TPU kernel does, and
+with one rounding: :func:`closed_form_params` and
+:func:`closed_form_decode_fma` compute ``fma(d, lsb, y0)``, which is what
+XLA compiles the Pallas body's ``y0 + d * lsb`` into under ``jax.jit``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.nladc import Ramp
+from repro_torch.core.nladc import Ramp, pwm_quantize
 
 
 MODE_AFFINE = 0       # uniform y:              y(n) = y0 + n * lsb
@@ -60,6 +66,42 @@ def closed_form_decode(n, mode, y0, lsb_l, lsb_r, m):
     if mode == MODE_VSHAPE:
         return torch.where(n <= m, y0 + (m - n) * lsb_l, y0 + (n - m) * lsb_r)
     return torch.where(n <= m, y0 - (m - n) * lsb_l, y0 + (n - m) * lsb_r)
+
+
+class ClosedForm(NamedTuple):
+    """A ramp's closed-form decode as the kernels take it: the mode and the
+    split index ``m``, and ``y0`` and the two LSBs rounded to float32 (as
+    ``jax.jit`` makes the Python floats constants of a float32 body)."""
+    mode: int
+    y0: float
+    lsb_l: float
+    lsb_r: float
+    m: int
+
+
+def closed_form_params(ramp: Ramp) -> ClosedForm:
+    """The float32 closed-form decode of ``ramp``."""
+    y0, lsb_l, lsb_r, m = decode_params(ramp)
+    f32 = np.float32
+    return ClosedForm(decode_mode(ramp), float(f32(y0)), float(f32(lsb_l)),
+                      float(f32(lsb_r)), int(m))
+
+
+def closed_form_decode_fma(n: torch.Tensor, dec: ClosedForm) -> torch.Tensor:
+    """y(n) with one rounding per value: ``fma(d, lsb, y0)`` with ``d = n``
+    (affine), ``m - n`` left of a V-shaped split and ``n - m`` right of it,
+    or ``n - m`` on both sides of a signed split (``y0 - (m - n) * lsb``
+    contracts to ``fma(n - m, lsb, y0)``).  n: float32 counts."""
+    def const(v):
+        return torch.tensor(v, dtype=torch.float32,
+                            device=n.device).expand_as(n)
+
+    y0 = const(dec.y0)
+    if dec.mode == MODE_AFFINE:
+        return fma_f32(n, const(dec.lsb_l), y0)
+    d = n - dec.m
+    left = fma_f32(-d if dec.mode == MODE_VSHAPE else d, const(dec.lsb_l), y0)
+    return torch.where(n <= dec.m, left, fma_f32(d, const(dec.lsb_r), y0))
 
 
 def thermometer_count(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -120,6 +162,40 @@ def lstm_gates(gates: torch.Tensor, c: torch.Tensor, sig_ramp: Ramp,
     o = nladc(go, sig_ramp, sig_thr)
     c_new = fma_f32(f, c, i * a)
     return o * nladc(c_new, tanh_ramp, tanh_thr), c_new
+
+
+def analog_tile_plain(x: torch.Tensor, w: torch.Tensor,
+                      w_noise: Optional[torch.Tensor], thr: torch.Tensor,
+                      dec: ClosedForm, input_bits: Optional[int] = None,
+                      input_clip: float = 1.0) -> torch.Tensor:
+    """One crossbar tile, the TPU kernel's function
+    (``repro/kernels/crossbar_mac.py``): x cast to float32, then PWM
+    quantized (``round(clip(x) * r) * step``, the jitted form; skipped for
+    ``input_bits`` None), times ``w + w_noise`` (one rounding; w alone
+    without noise) with float32 accumulation, the strict comparator count
+    against ``thr`` and the closed-form decode with one rounding, cast to
+    x's dtype.  x: (M, K) float32 or bfloat16; w, w_noise: (K, N) float32;
+    thr: (P,) float32.
+
+    Where the kernel and the reference's jnp oracle part, this follows the
+    kernel: a bfloat16 x is quantized in float32, not in bfloat16.
+    """
+    xq, w_eff = effective_operands(x, w, w_noise, input_bits, input_clip)
+    n = thermometer_count(xq @ w_eff, thr).to(torch.float32)
+    return closed_form_decode_fma(n, dec).to(x.dtype)
+
+
+def effective_operands(x: torch.Tensor, w: torch.Tensor,
+                       w_noise: Optional[torch.Tensor] = None,
+                       input_bits: Optional[int] = None,
+                       input_clip: float = 1.0):
+    """``(pwm(f32(x)), w + w_noise)``: the operands whose float32 product
+    the crossbar tile sums (the bound of ``code_flips`` is computed on
+    them)."""
+    xq = x.float()
+    if input_bits is not None:
+        xq = pwm_quantize(xq, input_bits, input_clip)
+    return xq, (w if w_noise is None else w + w_noise)
 
 
 def nladc_plain(x: torch.Tensor, thr: torch.Tensor,

@@ -19,7 +19,8 @@ summary line.  Weights come from ``--params`` (an LM tree saved by
         [--smoke] [--override key=value ...] [--requests 6] \\
         [--max-new 16] [--max-batch 4] [--max-len 128] \\
         [--backend cuda|ref] [--bank-cols N] \\
-        [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile]
+        [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile] \\
+        [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise; seeded weights are drawn on that device (a
@@ -31,7 +32,11 @@ one-request warm-up wave builds the kernels and initialises cuBLAS before
 the measured run.  ``--profile`` serves the
 wave once more under ``torch.profiler`` and prints the device time per
 kernel name and the device's idle share.  Only exact analog mode is
-ported; ``--analog-mode infer|train`` raises.
+ported; ``--analog-mode infer|train`` raises.  ``--kernel-cache`` (a
+``repro_torch.launch.kernel_tune`` result) and ``--kernel-blocks``
+(``fused_matmul_nladc=4x64x512,nladc=8x32``) choose the kernels' launch
+configs per shape (:mod:`repro_torch.kernels.tune`); a bad spec or file is
+a usage error.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import nladc as nk
 from repro_torch.kernels import prefill_attention as pa
+from repro_torch.kernels import tune
 from repro_torch.launch.common import (configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.nn.model import build
@@ -146,7 +152,21 @@ def main(argv=None) -> dict:
                     help="seed of the random weights (without --params)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time per kernel (GPU only)")
+    ap.add_argument("--kernel-cache", default="",
+                    help="path to a kernel tune result JSON "
+                         "(repro_torch.launch.kernel_tune output); launch "
+                         "configs then resolve per shape from it (also: "
+                         "REPRO_TORCH_KERNEL_CACHE env)")
+    ap.add_argument("--kernel-blocks", default="",
+                    help="force per-kernel launch configs, e.g. "
+                         "'fused_matmul_nladc=4x64x512,nladc=8x32'; "
+                         "overrides the tune cache (also: "
+                         "REPRO_TORCH_KERNEL_BLOCKS env)")
     args = ap.parse_args(argv)
+    try:
+        tune.configure(args.kernel_blocks, args.kernel_cache)
+    except (ValueError, OSError) as e:
+        ap.error(f"--kernel-blocks/--kernel-cache: {e}")
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":

@@ -180,12 +180,12 @@ def test_library_declares_pointer_arguments(monkeypatch):
     monkeypatch.setattr(TFM._build, "load", lambda name: fake)
     lib = TFM.library()
     fn = lib.fused_matmul_nladc_launch
-    assert fn.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+    assert fn.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
     # the grouped expert gate shares the library
     fn = lib.moe_fused_matmul_launch
-    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
+    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p

@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.launch import lstm_eval, serve
+from repro_torch.launch import kernel_bench, kernel_tune, lstm_eval, serve
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -27,7 +27,9 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("launch.lstm_eval", "launch.serve", "nn.moe",
                  "kernels.nladc", "kernels.flash_decode",
                  "kernels.fused_matmul_nladc",
-                 "configs.moonshot_v1_16b_a3b", "configs.deepseek_moe_16b"):
+                 "configs.moonshot_v1_16b_a3b", "configs.deepseek_moe_16b",
+                 "kernels.analog_tile", "kernels.tune",
+                 "launch.kernel_tune", "launch.kernel_bench"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"
@@ -82,6 +84,16 @@ def test_serve_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     out = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
                       "--requests", "1", "--max-new", "1"])
     assert out["device"] == "cpu" and out["backend"] == "ref"
+
+
+def test_kernel_launchers_need_a_gpu_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        kernel_tune.main(["--quick"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        kernel_bench.main([])
+    out = kernel_bench.main(["--device", "cpu"])
+    assert out["device"] == "cpu" and out["shapes"][0]["nladc_us"] is None
 
 
 def test_lstm_eval_runs_on_cpu(capsys):

@@ -22,6 +22,14 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
 * ``flash_decode_int8``: max abs diff 1e-5 against its plain version at
   the moonshot serving shape (B 4, H = Hkv = 16, D 128, S 128), a GQA case
   (H 16, Hkv 2) and ragged S and lengths.
+* ``analog_tile``: the fused matmul's flip contract on the effective
+  operands ``pwm(x)`` and ``w + noise`` (at most 1%), outputs equal to the
+  closed-form decode at the kernel's codes; PWM widths 3, 5, 8 and none,
+  with and without read noise, the three decode modes, float32 and
+  bfloat16 x, ragged shapes, the PTB gate crossbar (16, 632, 8064) and the
+  JAX sweep's (128, 256, 256).
+* The tune seam: every sweep candidate of every tunable kernel computes the
+  default config's bits, and a cache miss launches the default config.
 * The SMOKE LMs in float32 on the ``cuda`` and ``ref`` backends
   (qwen2.5-3b; moonshot-v1-16b-a3b with an int8 KV cache): logits within
   LSB/2 of the silu ramp, and each kernel of the path launched once per
@@ -36,11 +44,15 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import nladc as TN
+from repro_torch.kernels import analog_tile as TAT
 from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels import nladc as TNK
 from repro_torch.kernels import prefill_attention as TPA
-from repro_torch.kernels.ref import thermometer_count
+from repro_torch.kernels import tune as TT
+from repro_torch.kernels.ref import (ClosedForm, closed_form_decode_fma,
+                                    closed_form_params, effective_operands,
+                                    thermometer_count)
 from repro_torch.launch.common import configure_numerics
 from repro_torch.nn.model import build
 
@@ -223,6 +235,94 @@ def test_flash_decode_kernel_matches_plain(b, s, h, hkv, d, q_dtype):
     assert TFD.flash_decode_int8.launches == n0 + 1
     assert got.dtype == torch.float32 and got.shape == (b, h, d)
     assert float((got - want).abs().max()) <= FLASH_ATOL
+
+
+TILE_CASES = [((50, 72, 128), bits, noise, name, dt)
+              for bits in (None, 3, 5, 8) for noise in (False, True)
+              for name in ("tanh", "swish", "selu")
+              for dt in (torch.float32, torch.bfloat16)] + [
+    ((1, 33, 7), 4, True, "sigmoid", torch.float32),
+    ((2, 3, 40, 24), 5, True, "tanh", torch.bfloat16),
+    ((128, 256, 256), None, False, "swish", torch.float32),
+    ((16, 632, 8064), 5, True, "tanh", torch.bfloat16),
+    ((16, 632, 8064), None, False, "tanh", torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bits,noise,name,dtype", TILE_CASES)
+def test_analog_tile_kernel_matches_plain(shape, bits, noise, name, dtype):
+    dev = _card()
+    rng = np.random.default_rng(sum(shape))
+    *lead, k, n = shape
+    ramp = TN.build_ramp(name, 5)
+    dec = closed_form_params(ramp)
+    x = torch.tensor(rng.normal(0, 0.6, (*lead, k)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(0, 2.0 / np.sqrt(k), (k, n)),
+                     dtype=torch.float32).to(dev)
+    nz = torch.tensor(rng.normal(0, 0.02, (k, n)),
+                      dtype=torch.float32).to(dev) if noise else None
+    x = x.to(dev, dtype)
+    thr = torch.tensor(ramp.thresholds, dtype=torch.float32, device=dev)
+    n0 = TAT.analog_tile.launches
+    yk = TAT.analog_tile(x, w, thr, dec, w_noise=nz, input_bits=bits)
+    nk = TAT.analog_tile(x, w, thr, ClosedForm(0, 0.0, 1.0, 1.0, 0),
+                         w_noise=nz, input_bits=bits).float().long()
+    torch.cuda.synchronize()
+    assert TAT.analog_tile.launches == n0 + 2
+    assert yk.dtype == dtype and yk.shape == (*lead, n)
+    assert torch.equal(yk, closed_form_decode_fma(nk.float(), dec).to(dtype))
+    xq, w_eff = effective_operands(x.reshape(-1, k), w, nz, bits)
+    n_plain = thermometer_count(xq @ w_eff, thr)
+    acc, bound = TFM.accumulator_bound(xq, w_eff)
+    flips, unexplained = TFM.code_flips(nk.reshape(-1, n), n_plain, acc,
+                                        bound, thr)
+    assert unexplained == 0 and flips <= MAX_FLIP_SHARE * nk.numel()
+    plain = TAT.analog_tile_plain(x.reshape(-1, k), w, nz, thr, dec, bits)
+    same = nk.reshape(-1, n) == n_plain
+    assert torch.equal(yk.reshape(-1, n)[same], plain[same])
+
+
+TUNE_CASES = [("fused_matmul_nladc", (4, 2048, 11008), torch.bfloat16),
+              ("fused_matmul_nladc", (33, 300, 1000), torch.float32),
+              ("analog_tile", (16, 632, 8064), torch.bfloat16),
+              ("analog_tile", (50, 72, 128), torch.float32),
+              ("nladc", (4, 64), torch.bfloat16),
+              ("nladc", (33, 1000), torch.float32),
+              ("lstm_gates", (16, 2016), torch.float32),
+              ("lstm_gates", (7, 32), torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,dtype", TUNE_CASES)
+def test_every_tune_candidate_computes_the_default_bits(kernel, shape,
+                                                        dtype):
+    dev = _card()
+    fn = TT.kernel_fn(kernel)
+    args = TT.kernel_inputs(kernel, shape, dtype, dev, seed=3)
+    want = TT.as_tuple(fn(*args, blocks=TT.default_blocks(kernel)))
+    cands = TT.candidates(kernel, shape)
+    assert len(cands) > 1
+    for blocks in cands:
+        got = TT.as_tuple(fn(*args, blocks=blocks))
+        assert all(torch.equal(g, v) for g, v in zip(got, want)), blocks
+
+
+@pytest.mark.cuda
+def test_cache_miss_launches_the_default_config():
+    dev = _card()
+    TT._reset_for_tests()
+    try:
+        for kernel in TT.tunable_kernels():
+            shape = (4, 64, 160) if kernel in ("fused_matmul_nladc",
+                                               "analog_tile") else (4, 64)
+            assert TT.launch_config(kernel, shape, torch.float32, dev) == \
+                TT.default_blocks(kernel)
+        assert TT.launch_config("fused_matmul_nladc", (6, 64, 160),
+                                torch.float32, dev,
+                                default=TT.EXPERT_GATE_BLOCKS) == (8, 32, 512)
+        assert TT.platform(dev).startswith("sm_")
+    finally:
+        TT._reset_for_tests()
 
 
 KERNELS = {"fused_matmul_nladc": TFM.fused_matmul_nladc,

@@ -160,6 +160,6 @@ def test_library_declares_pointer_arguments(monkeypatch):
     monkeypatch.setattr(TNK._build, "load", lambda name: fake)
     lib = TNK.library()
     assert lib.nladc_launch.argtypes == [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] * 7 + [ctypes.c_void_p]
     assert lib.nladc_launch.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p

@@ -1,0 +1,354 @@
+"""The port's launch-config seam (``repro_torch.kernels.tune``) against the
+JAX package's block cache (``repro.kernels.tune``): the same spec grammar
+and ranks, the same JSON cache and key format, the same precedence, and a
+cache miss that launches exactly the kernels' earlier constants; and the
+``repro_torch.launch.kernel_tune`` entry point on the CPU."""
+
+import json
+import warnings
+
+import pytest
+import torch
+
+from repro.kernels import tune as JT
+from repro_torch.kernels import tune as TT
+from repro_torch.launch import kernel_tune, serve
+
+
+@pytest.fixture(autouse=True)
+def clean_state(monkeypatch):
+    monkeypatch.delenv(TT.ENV_BLOCKS, raising=False)
+    monkeypatch.delenv(TT.ENV_CACHE, raising=False)
+    TT._reset_for_tests()
+    yield
+    TT._reset_for_tests()
+
+
+CPU = torch.device("cpu")
+
+VALID_SPECS = [
+    "", " , ", "fused_matmul_nladc=128x128x512,nladc=256x512",
+    "analog_tile=4x64x256", " lstm_gates = 1x256 , ",
+    "nladc=8x32,nladc=4x64", "fused_matmul_nladc=1x1x1"]
+INVALID_SPECS = [
+    "fused_matmul_nladc", "bogus=1x2", "nladc=1x2x3", "nladc=0x32",
+    "nladc=-1x32", "nladc=ax32", "nladc=", "fused_matmul_nladc=4x64",
+    "analog_tile=4x64x256x1", "lstm_gates=256"]
+
+
+@pytest.mark.parametrize("spec", VALID_SPECS)
+def test_parse_block_spec_agrees_with_jax(spec):
+    assert TT.parse_block_spec(spec) == JT.parse_block_spec(spec)
+
+
+@pytest.mark.parametrize("spec", INVALID_SPECS)
+def test_parse_block_spec_rejects_what_jax_rejects(spec):
+    with pytest.raises(ValueError):
+        JT.parse_block_spec(spec)
+    with pytest.raises(ValueError):
+        TT.parse_block_spec(spec)
+
+
+def test_ranks_and_kernels_match_jax():
+    assert TT.tunable_kernels() == JT.tunable_kernels()
+    for k in TT.tunable_kernels():
+        assert len(TT.default_blocks(k)) == len(JT.default_blocks(k))
+
+
+def test_cache_json_round_trip_and_key_format(tmp_path):
+    cache = TT.TuneCache(meta={"platform": "cpu"})
+    e = cache.record("fused_matmul_nladc", (4, 64, 160), torch.bfloat16,
+                     (2, 64, 256), device=CPU, source="proxy", score=1.0)
+    assert e["blocks"] == [2, 64, 256] and e["shape"] == [4, 64, 160]
+    key = "fused_matmul_nladc|4x64x160|bfloat16|cpu|plain"
+    assert list(cache.entries) == [key]
+    assert key == TT.cache_key("fused_matmul_nladc", (4, 64, 160),
+                               torch.bfloat16, device=CPU)
+    # the JAX key has the same fields in the same order
+    assert JT.cache_key("fused_matmul_nladc", (4, 64, 160), "bfloat16",
+                        "cpu", "plain") == key
+    path = tmp_path / "cache.json"
+    cache.save(str(path))
+    d = json.loads(path.read_text())
+    assert d["version"] == 1 and set(d) == {"version", "meta", "entries"}
+    back = TT.TuneCache.load(str(path))
+    assert back.to_dict() == cache.to_dict()
+    assert back.lookup("fused_matmul_nladc", (4, 64, 160), torch.bfloat16,
+                       CPU) == (2, 64, 256)
+    assert back.lookup("fused_matmul_nladc", (4, 64, 160), torch.float32,
+                       CPU) is None
+    wrapped = TT.TuneCache.from_dict({"tune": d, "shapes": {}})
+    assert wrapped.to_dict() == cache.to_dict()
+    with pytest.raises(ValueError, match="version"):
+        TT.TuneCache.from_dict({"version": 2, "entries": {}})
+    with pytest.raises(ValueError, match="entries"):
+        TT.TuneCache.from_dict({"meta": {}})
+
+
+def _cache_with(kernel, shape, blocks, dtype=torch.float32):
+    cache = TT.TuneCache()
+    cache.record(kernel, shape, dtype, blocks, device=CPU)
+    return cache
+
+
+def test_precedence_override_env_cache_env_cache_default(monkeypatch,
+                                                          tmp_path):
+    shape = (4, 64)
+
+    def resolve():
+        TT.configure()        # the env vars are read again after configure
+        return TT.resolve_blocks("nladc", shape, device=CPU)
+
+    assert resolve() == TT.DEFAULT_BLOCKS["nladc"]
+    env_path = tmp_path / "env.json"
+    _cache_with("nladc", shape, (4, 32)).save(str(env_path))
+    monkeypatch.setenv(TT.ENV_CACHE, str(env_path))
+    assert resolve() == (4, 32)
+    TT.set_active_cache(_cache_with("nladc", shape, (16, 64)))
+    assert resolve() == (16, 64)
+    monkeypatch.setenv(TT.ENV_BLOCKS, "nladc=2x96")
+    assert resolve() == (2, 96)
+    TT.set_block_overrides("nladc=1x128")
+    assert resolve() == (1, 128)
+    # unwinding restores each level in turn
+    TT.clear_block_overrides()
+    assert resolve() == (2, 96)
+    monkeypatch.delenv(TT.ENV_BLOCKS)
+    assert resolve() == (16, 64)
+    TT.set_active_cache(None)
+    assert resolve() == (4, 32)
+    monkeypatch.delenv(TT.ENV_CACHE)
+    assert resolve() == TT.DEFAULT_BLOCKS["nladc"]
+
+
+def test_env_names_are_the_ports_own(monkeypatch):
+    monkeypatch.setenv("REPRO_KERNEL_BLOCKS", "nladc=2x96")
+    monkeypatch.setenv("REPRO_KERNEL_CACHE", "/nonexistent.json")
+    assert TT.resolve_blocks("nladc", (4, 64), device=CPU) == (8, 32)
+    assert TT.ENV_BLOCKS == "REPRO_TORCH_KERNEL_BLOCKS"
+    assert TT.ENV_CACHE == "REPRO_TORCH_KERNEL_CACHE"
+
+
+def test_a_miss_is_the_kernels_earlier_constants():
+    """The launch constants the CUDA sources and wrappers had before the
+    seam: 4 rows a block for the dense gate, 8 for the expert gate, 32
+    columns and a K tile of 512; 8 warps by 32 columns for the NL-ADC; one
+    row by 256 threads for the LSTM tail."""
+    TT.set_active_cache(_cache_with("nladc", (9, 9), (4, 64)))
+    cases = {("fused_matmul_nladc", (4, 2048, 11008)): (4, 32, 512),
+             ("nladc", (4, 64)): (8, 32),
+             ("lstm_gates", (16, 2016)): (1, 256),
+             ("analog_tile", (16, 632, 8064)): (16, 32, 512)}
+    for (kernel, shape), want in cases.items():
+        assert TT.launch_config(kernel, shape, torch.bfloat16, CPU) == want
+    assert TT.launch_config("fused_matmul_nladc", (6, 2048, 1408),
+                            torch.bfloat16, CPU,
+                            default=TT.EXPERT_GATE_BLOCKS) == (8, 32, 512)
+
+
+def test_memo_is_invalidated_by_configure(monkeypatch, tmp_path):
+    shape = (4, 64, 160)
+    calls = []
+    real = TT._resolve
+
+    def counting(*a):
+        calls.append(a)
+        return real(*a)
+
+    monkeypatch.setattr(TT, "_resolve", counting)
+
+    def get():
+        return TT.resolve_blocks("fused_matmul_nladc", shape, torch.float32,
+                                 CPU)
+
+    assert get() == (4, 32, 512) and get() == (4, 32, 512)
+    assert len(calls) == 1                       # memoized
+    TT.configure("fused_matmul_nladc=2x64x256")
+    assert get() == (2, 64, 256) and len(calls) == 2
+    path = tmp_path / "c.json"
+    _cache_with("fused_matmul_nladc", shape, (8, 32, 1024)).save(str(path))
+    TT.clear_block_overrides()
+    TT.configure(cache_path=str(path))
+    assert get() == (8, 32, 1024) and len(calls) == 3
+    TT.set_active_cache(None)
+    assert get() == (4, 32, 512) and len(calls) == 4
+    # the env vars are read when a key is first resolved, again after
+    # configure()
+    monkeypatch.setenv(TT.ENV_BLOCKS, "fused_matmul_nladc=1x32x16")
+    assert get() == (4, 32, 512) and len(calls) == 4
+    TT.configure()
+    assert get() == (1, 32, 16) and len(calls) == 5
+    assert get() == (1, 32, 16) and len(calls) == 5
+
+
+def test_a_resolved_call_runs_no_torch_op():
+    TT.set_active_cache(_cache_with("fused_matmul_nladc", (4, 64, 160),
+                                    (2, 64, 256)))
+    args = ("fused_matmul_nladc", (4, 64, 160), torch.float32, CPU)
+    assert TT.launch_config(*args) == (2, 64, 256)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(10):
+            TT.launch_config(*args)
+    assert [e.key for e in prof.events()] == []
+
+
+@pytest.mark.parametrize("kernel,requested,applied", [
+    ("fused_matmul_nladc", (128, 128, 500), (8, 64, 256)),
+    ("analog_tile", (2, 33, 8), (4, 32, 16)),
+    ("nladc", (64, 1000), (16, 256)),
+    ("nladc", (2, 100), (4, 64)),
+    ("lstm_gates", (3, 1000), (2, 512))])
+def test_clamp_warns_once_and_notes_the_cache(kernel, requested, applied):
+    cache = TT.TuneCache()
+    TT.set_active_cache(cache)
+    shape = (4, 64, 160) if len(requested) == 3 else (4, 64)
+    with pytest.warns(TT.KernelBlockClampWarning, match="clamped"):
+        assert TT.launch_config(kernel, shape, torch.float32, CPU,
+                                requested) == applied
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert TT.launch_config(kernel, shape, torch.float32, CPU,
+                                requested) == applied
+    e = cache.entries[TT.cache_key(kernel, shape, device=CPU)]
+    assert e["clamped"] == {"requested": list(requested),
+                            "applied": list(applied)}
+    assert TT.supported(kernel, applied) == applied
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("fused_matmul_nladc", (4, 2048, 11008)), ("fused_matmul_nladc",
+                                              (512, 1024, 1024)),
+    ("analog_tile", (16, 632, 8064)), ("analog_tile", (1, 33, 7)),
+    ("nladc", (4, 64)), ("nladc", (1024, 2048)),
+    ("lstm_gates", (16, 2016)), ("lstm_gates", (7, 32))])
+def test_candidates_are_supported_and_hold_the_default(kernel, shape):
+    cands = TT.candidates(kernel, shape)
+    assert TT.default_blocks(kernel) in cands and cands == sorted(cands)
+    assert all(TT.supported(kernel, c) == c for c in cands)
+    if kernel in ("fused_matmul_nladc", "analog_tile"):
+        assert all(c[2] >= 16 and c[2] & (c[2] - 1) == 0 for c in cands)
+
+
+def test_cpu_proxy_sweep_bytes_repeat():
+    shapes = {"fused_matmul_nladc": [(64, 128, 256), ((4, 2048, 11008),
+                                                      torch.bfloat16)],
+              "analog_tile": [(128, 256, 256)], "nladc": [(128, 512)],
+              "lstm_gates": [(32, 128)]}
+    a = json.dumps(TT.autotune(shapes, device=CPU).to_dict(), sort_keys=True)
+    b = json.dumps(TT.autotune(shapes, device=CPU).to_dict(), sort_keys=True)
+    assert a == b
+    entries = json.loads(a)["entries"]
+    assert len(entries) == 5
+    assert all(e["source"] == "proxy" for e in entries.values())
+    assert "fused_matmul_nladc|4x2048x11008|bfloat16|cpu|plain" in entries
+    with pytest.raises(ValueError, match="CUDA"):
+        TT.autotune_kernel("nladc", (4, 64), cache=TT.TuneCache(),
+                           measure="wall", device=CPU)
+
+
+def test_expert_gate_entry_sweeps_from_the_expert_default():
+    cache = TT.TuneCache()
+    e = TT.autotune_kernel("fused_matmul_nladc", (6, 2048, 1408),
+                           torch.bfloat16, cache=cache, device=CPU,
+                           experts=64)
+    assert e["default"] == list(TT.EXPERT_GATE_BLOCKS)
+    assert e["experts"] == 64 and e["source"] == "proxy"
+    x, w, thr, y_table = TT.kernel_inputs("fused_matmul_nladc", (3, 8, 5),
+                                          torch.float32, CPU, experts=4)
+    assert x.shape == (4, 3, 8) and w.shape == (4, 8, 5)
+    out = TT.kernel_fn("fused_matmul_nladc", 4)(x, w, thr, y_table)
+    assert out.shape == (4, 3, 5)
+
+
+def test_kernel_tune_quick_on_cpu_end_to_end(tmp_path):
+    out_a, out_b = tmp_path / "a.json", tmp_path / "b.json"
+    res = kernel_tune.main(["--device", "cpu", "--quick", "--out",
+                            str(out_a)])
+    kernel_tune.main(["--device", "cpu", "--out", str(out_b)])
+    assert out_a.read_bytes() == out_b.read_bytes()    # --quick by default
+    assert res["platform"] == "cpu" and not res["full"]
+    assert set(res["shapes"]) == {
+        "fused_matmul_nladc|64x128x256|float32",
+        "fused_matmul_nladc|128x256x512|float32",
+        "nladc|128x512|float32", "lstm_gates|32x128|float32"}
+    for cell in res["shapes"].values():
+        assert cell["max_err_vs_plain"] == 0.0 and cell["us"] is None
+        assert len(cell["digest"]) == 8
+    par = res["parity"]
+    assert par["banked"]["bitwise_equal"]
+    assert par["moe_einsum"]["within_half_lsb"]
+    assert par["attention"]["within_atol"]
+    for k in ("moe_einsum", "attention"):
+        assert par[k]["grad_max_err"] is None and par[k]["grad_note"]
+    cache = TT.TuneCache.load(str(out_a))
+    assert cache.lookup("nladc", (128, 512), torch.float32, CPU) == \
+        tuple(res["shapes"]["nladc|128x512|float32"]["blocks"])
+
+
+def test_kernel_tune_full_grid_holds_the_main_paths_shapes():
+    shapes = kernel_tune.sweep_shapes(True)
+    assert ((16, 632, 8064), torch.bfloat16, 0) in shapes["analog_tile"]
+    assert ((128, 256, 256), torch.float32, 0) in shapes["analog_tile"]
+    assert ((6, 2048, 1408), torch.bfloat16, 64) in \
+        shapes["fused_matmul_nladc"]
+    assert ((16, 2016), torch.float32, 0) in shapes["lstm_gates"]
+    assert "analog_tile" not in kernel_tune.sweep_shapes(False)
+
+
+def test_serve_kernel_flags(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                    "--kernel-blocks", "nladc=1x2x3"])
+    assert "--kernel-blocks" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                    "--kernel-cache", str(tmp_path / "missing.json")])
+    path = tmp_path / "cache.json"
+    _cache_with("nladc", (4, 64), (4, 32)).save(str(path))
+    out = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                      "--requests", "1", "--max-new", "1", "--kernel-cache",
+                      str(path), "--kernel-blocks", "lstm_gates=2x128"])
+    assert out["device"] == "cpu"
+    assert TT.resolve_blocks("lstm_gates", (1, 1), device=CPU) == (2, 128)
+    assert TT.resolve_blocks("nladc", (4, 64), device=CPU) == (4, 32)
+
+
+def test_device_us_survives_lost_and_broken_profiler_events(monkeypatch):
+    """A session that lost the last of its 20 events, or recorded one with
+    a broken duration, still reads each kernel's median time times its
+    launches per call; a stray event (one in the session) is not counted
+    as a launch per call, and CPU events are not device time."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def ev(name, us, device=DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=device,
+                               self_device_time_total=us)
+
+    sessions = [
+        [],                                     # nothing recorded: retried
+        [ev("gemm", 4.0)] * 18 + [ev("gemm", 0.5)] +          # 19 of 20
+        [ev("cmp", 1.5)] * 39 + [ev("stray", 50.0)] +
+        [ev("cpu_op", 9.0, DeviceType.CPU)] * 20]
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.recorded = sessions.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.recorded
+
+    calls = []
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    us, clock = TT.device_us(lambda: calls.append(1), calls=20)
+    assert (us, clock) == (4.0 + 2 * 1.5, "profiler")
+    assert len(calls) == 5 + 2 * 20
