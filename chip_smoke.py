@@ -29,9 +29,12 @@ Phases, one JSON line each:
               float32 summation bound of a crossed threshold (the count of
               such flips is printed); outputs equal the table at the
               kernel's codes.
-6. attention — the ``prefill_attention`` kernel against its plain version
-              at (B 4, H 16, Hkv 2, D 128, S 128), bfloat16 and float32,
-              ragged masks: max abs diff 1e-6 in float32, one bfloat16 ulp.
+6. attention — the ``prefill_attention`` kernel (one thread-block cluster
+              per KV head and batch row) against its plain version at
+              (B 4, H 16, Hkv 2, D 128, S 128), bfloat16 and float32, and
+              at S 2048 in bfloat16, ragged masks (one row sees a single
+              slot): max abs diff 1e-6 in float32, one bfloat16 ulp; the
+              cluster size of each case.
 7. serve    — qwen2.5-3b at full width and all 36 layers, bfloat16
               compute, ``cuda`` backend, seeded weights: 4 requests,
               max_batch 4, max_len 128, max_new 16.  Every request gets its
@@ -45,12 +48,17 @@ Phases, one JSON line each:
               at the router's (4, 64) bfloat16 with one (P,) ramp, at
               (4, 11008) bfloat16 with 512-column banks, and a ragged
               float32 (33, 1000): codes bitwise, values equal.
-10. moe_matmul — the grouped ``moe_fused_matmul`` kernel against its
-              plain version at the expert gate's shape (64 experts, C 6,
-              d 2048, f 1408, bfloat16 x, float32 w), flat and banked-512,
-              and a ragged float32 (5, 7, 300, 1000): the fused matmul's
-              flip contract (at most 1%), outputs equal to the table at
-              the kernel's codes.
+10. moe_matmul — the ``moe_fused_matmul`` kernel (persistent CTAs, a TMA
+              weight stream that skips empty experts) against its plain
+              version at the expert gate's shape (64 experts, C 6, d 2048,
+              f 1408, bfloat16 x, float32 w), every expert live, flat and
+              banked-512; the serving fill (x from ``dispatch_plan`` /
+              ``gather_expert_buffer`` at B 4, top-6: the live experts
+              counted, the bound counting only their weight); no expert
+              live; and a ragged float32 (5, 7, 300, 1000): the fused
+              matmul's flip contract (at most 1%), outputs equal to the
+              table at the kernel's codes, empty capacity rows the table at
+              the zero code.
 11. flash_decode — the int8 ``flash_decode_int8`` kernel against its
               plain version at the serving shape (B 4, H = Hkv = 16, D 128,
               S 128), a GQA case (H 16, Hkv 2) and ragged S and lengths:
@@ -352,6 +360,7 @@ def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
     codes come from a second launch with the counting table y(n) = n."""
     from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
     from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels import tune
     from repro_torch.kernels.ref import thermometer_count
 
     cfg = AnalogConfig(enabled=True, adc_bits=5, input_bits=None,
@@ -433,20 +442,21 @@ def attention_bound(b: int, h: int, hkv: int, d: int, s_len: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def phase_attention(torch, dev, name: str, dtype):
+def phase_attention(torch, dev, name: str, dtype, s_len: int):
     """The cached-attention kernel against its plain version at the serving
-    path's shape, ragged masks (one row sees a single slot)."""
+    path's heads, ragged masks (one row sees a single slot)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention as pa
 
-    b, h, hkv, d, s_len = SERVE["max_batch"], 16, 2, 128, SERVE["max_len"]
+    b, h, hkv, d = SERVE["max_batch"], 16, 2, 128
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s_len, hkv, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s_len, hkv, d), generator=gen, device=dev).to(dtype)
-    lengths = torch.tensor([s_len, 1, 37, 100], device=dev)
+    lengths = torch.tensor([s_len, 1, 37 * s_len // 128, 100 * s_len // 128],
+                           device=dev)
     mask = (torch.arange(s_len, device=dev)[None] < lengths[:, None]).to(
         torch.int32)
     ok = pa.prefill_attention(q, k, v, mask)
@@ -484,6 +494,7 @@ def phase_attention(torch, dev, name: str, dtype):
     lib_diff = float((library()[:, :, 0].float() - op.float()).abs().max())
     out = {"phase": "attention", "case": name, "B": b, "H": h, "Hkv": hkv,
            "D": d, "S": s_len, "dtype": str(dtype).replace("torch.", ""),
+           "cluster": pa.cluster_size(h, hkv, d, s_len, dtype),
            "max_abs_err": err, "max_bf16_ulps": ulps,
            "library_max_abs_diff": lib_diff,
            "call_ms": cuda_ms(kernel),
@@ -669,28 +680,50 @@ def phase_nladc(torch, dev, name: str, shape, act_name: str, x_dtype,
 
 
 def moe_bound(e: int, c: int, k: int, n: int, p: int, banked: bool,
-              x_bytes: int) -> dict:
+              x_bytes: int, live: int) -> dict:
     """The least time the card needs for one moe_fused_matmul call: every
-    expert's x and w read once, thresholds and table once, the output
-    written once, against the 2*E*C*K*N multiply-adds and E*C*N*P compares
-    at the float32 rate (the weight is float32)."""
-    n_bytes = (x_bytes * e * c * k + 4 * e * k * n
+    expert's x read once, the weight of the ``live`` experts (those with a
+    nonzero capacity row; an empty expert's outputs need none of it) read
+    once, thresholds and table once, the output written once, against the
+    live experts' 2*live*C*K*N multiply-adds and E*C*N*P compares at the
+    float32 rate (the weight is float32)."""
+    n_bytes = (x_bytes * e * c * k + 4 * live * k * n
                + 4 * (n * p if banked else p) + 4 * (p + 1)
                + x_bytes * e * c * n)
-    n_ops = 2 * e * c * k * n + e * c * n * p
+    n_ops = 2 * live * c * k * n + e * c * n * p
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
     return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def serving_fill(torch, gen, dev, e: int, k: int, dtype, tokens: int = 4,
+                 top_k: int = 6):
+    """The expert buffer of one moonshot decode step: ``tokens`` tokens
+    routed to the top-k of random router scores, gathered by
+    ``dispatch_plan`` / ``gather_expert_buffer`` at the model's capacity
+    (capacity factor 1.0: C 6 at B 4, top-6, 64 experts); the capacity
+    rows no token fills are zeros."""
+    from repro_torch.nn import moe as M
+
+    xf = torch.randn((tokens, k), generator=gen, device=dev).to(dtype)
+    scores = torch.rand((tokens, e), generator=gen, device=dev)
+    gates, idx = M.stable_top_k(scores, top_k)
+    cap = M.expert_capacity(tokens, top_k, e, 1.0)
+    st, _, dest, valid = M.dispatch_plan(idx, gates, tokens, e, cap)
+    return M.gather_expert_buffer(xf, st, dest, valid, e, cap)
+
+
 def phase_moe_matmul(torch, dev, name: str, e: int, c: int, k: int, n: int,
-                     x_dtype, bank_cols: int):
+                     x_dtype, bank_cols: int, fill: str = "all"):
     """The grouped expert-gate kernel against its plain version, with the
-    fused matmul's contract; codes from a launch with the counting
-    table."""
+    fused matmul's contract; codes from a launch with the counting table.
+    ``fill``: ``all`` (random x, one empty capacity row), ``serving``
+    (the expert buffer of a decode step at B 4, top-6) or ``none`` (every
+    capacity row +0.0 or -0.0: no expert live)."""
     from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
     from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels import tune
     from repro_torch.kernels.ref import thermometer_count
 
     cfg = AnalogConfig(enabled=True, adc_bits=5, input_bits=None,
@@ -704,8 +737,16 @@ def phase_moe_matmul(torch, dev, name: str, e: int, c: int, k: int, n: int,
     y_table = act.adc.y_table
     gen = torch.Generator(device=dev)
     gen.manual_seed(e * 100_000 + n)
-    x = torch.randn((e, c, k), generator=gen, device=dev).to(x_dtype)
-    x[0, -1] = 0                                  # an empty capacity row
+    if fill == "serving":
+        x = serving_fill(torch, gen, dev, e, k, x_dtype)
+        check(tuple(x.shape) == (e, c, k),
+              f"{name}: the serving fill is {tuple(x.shape)}")
+    else:
+        x = torch.randn((e, c, k), generator=gen, device=dev).to(x_dtype)
+        x[0, -1] = 0                              # an empty capacity row
+        if fill == "none":
+            x.mul_(0)                             # +0.0 and -0.0
+    live = int((x != 0).any(-1).any(-1).sum())
     w = (2.0 / math.sqrt(k)) * torch.randn((e, k, n), generator=gen,
                                            device=dev)
     count = torch.arange(p + 1, dtype=torch.float32, device=dev)
@@ -727,6 +768,10 @@ def phase_moe_matmul(torch, dev, name: str, e: int, c: int, k: int, n: int,
           f"{name}: {unexplained} code flips beyond float32 rounding")
     check(flips <= MAX_FLIP_SHARE * nk.numel(),
           f"{name}: {flips} code flips of {nk.numel()}")
+    zero_rows = (x == 0).all(-1)
+    zero = thermometer_count(torch.zeros(n, device=dev), thr)
+    check(torch.equal(nk[zero_rows], zero.expand(int(zero_rows.sum()), -1)),
+          f"{name}: empty capacity rows are not the table at the zero code")
 
     def kernel():
         return fmn.moe_fused_matmul(x, w, thr, y_table)
@@ -739,12 +784,15 @@ def phase_moe_matmul(torch, dev, name: str, e: int, c: int, k: int, n: int,
 
     out = {"phase": "moe_matmul", "case": name, "E": e, "C": c, "K": k,
            "N": n, "P": p, "x_dtype": str(x_dtype).replace("torch.", ""),
-           "layout": "(N,P)" if banked else "(P,)",
+           "layout": "(N,P)" if banked else "(P,)", "fill": fill,
+           "live_experts": live, "blocks": list(tune.launch_config(
+               "fused_matmul_nladc", (c, k, n), x_dtype, dev,
+               experts=e)),
            "code_flips": flips, "unexplained_flips": unexplained,
            "elements": nk.numel(), "max_abs_err": err,
            "call_ms": cuda_ms(kernel, reps=10, inner=10),
            "plain_call_ms": cuda_ms(plain, reps=5, inner=2),
-           **moe_bound(e, c, k, n, p, banked, x.element_size())}
+           **moe_bound(e, c, k, n, p, banked, x.element_size(), live)}
     emit(out)
     return out, kernel, plain, library
 
@@ -1235,8 +1283,10 @@ def main() -> int:
                            bf16, 512),
         phase_fused_matmul(torch, dev, "ragged_f32", 33, 300, 1000, f32, 0,
                            bias=True)]
-    attn_checked = [phase_attention(torch, dev, "serve_bf16", bf16),
-                    phase_attention(torch, dev, "serve_f32", f32)]
+    attn_checked = [
+        phase_attention(torch, dev, "serve_bf16", bf16, SERVE["max_len"]),
+        phase_attention(torch, dev, "serve_f32", f32, SERVE["max_len"]),
+        phase_attention(torch, dev, "s2048_bf16", bf16, 2048)]
 
     nladc_checked = [
         phase_nladc(torch, dev, "router_bf16", (4, 64), "sigmoid", bf16, 0),
@@ -1247,6 +1297,10 @@ def main() -> int:
         phase_moe_matmul(torch, dev, "gate_flat", 64, 6, 2048, 1408, bf16, 0),
         phase_moe_matmul(torch, dev, "gate_banked", 64, 6, 2048, 1408, bf16,
                          512),
+        phase_moe_matmul(torch, dev, "serving_fill", 64, 6, 2048, 1408, bf16,
+                         0, fill="serving"),
+        phase_moe_matmul(torch, dev, "none_live", 64, 6, 2048, 1408, bf16, 0,
+                         fill="none"),
         phase_moe_matmul(torch, dev, "ragged_f32", 5, 7, 300, 1000, f32, 0)]
     flash_checked = [
         phase_flash_decode(torch, dev, "serve", 4, 16, 16, 128, 128,
@@ -1312,7 +1366,11 @@ def main() -> int:
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
         "src/repro/kernels/prefill_attention.py:51",
         served["launches"]["prefill_attention"], attn_cases, at_main,
-        shape={k: at_main[k] for k in ("B", "H", "Hkv", "D", "S", "dtype")})
+        shape={k: at_main[k] for k in ("B", "H", "Hkv", "D", "S", "dtype",
+                                       "cluster")},
+        per_case={c["case"]: {k: c[k] for k in (
+            "S", "cluster", "ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err", "max_bf16_ulps")} for c in attn_cases})
     nl_main = nladc_cases[0]
     nl = kernel_entry(
         "nladc", "src/repro_torch/kernels/csrc/nladc.cu",
@@ -1329,7 +1387,10 @@ def main() -> int:
         served_moe["launches"]["moe_fused_matmul"], moe_cases, moe_main,
         code_flips=sum(c["code_flips"] for c in moe_cases),
         shape={k: moe_main[k] for k in ("E", "C", "K", "N", "P", "x_dtype",
-                                        "layout")})
+                                        "layout", "blocks")},
+        per_case={c["case"]: {k: c[k] for k in (
+            "fill", "live_experts", "ms", "plain_ms", "library_ms",
+            "bound_ms", "code_flips")} for c in moe_cases})
     fl_main = flash_cases[0]
     flash = kernel_entry(
         "flash_decode_int8",

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, at first use, under
 ``build/repro_torch/`` of the checkout (listed in ``.gitignore``).  The file
-name carries a hash of the source and the flags, so an edited source
-builds anew and an unchanged one is reused.  The library is loaded with
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header builds anew and an unchanged one
+is reused.  The library is loaded with
 ``ctypes``; callers declare ``argtypes`` with ``c_void_p`` for every
 pointer and the stream.
 """
@@ -40,10 +41,11 @@ def nvcc() -> str:
 
 
 def _output(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> Dict[str, Path]:

@@ -1,0 +1,193 @@
+// Hopper building blocks shared by the kernels of this directory: mbarrier
+// operations, bulk and tensor (TMA) copies from device memory into shared
+// memory, and host-side tensor maps.
+//
+// A tensor map is encoded by the driver's cuTensorMapEncodeTiled, found in
+// the loaded driver library with dlopen, so a kernel library needs neither
+// libcuda at link time nor a runtime entry-point query.  Maps are cached by
+// (address, type, extents, strides, box): serving calls a kernel on the
+// same weight or cache tensors over and over, and a map holds only those
+// numbers, so a hit is valid whatever the memory holds now.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after one thread has initialized the block's barriers, before any use
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrive once and expect `bytes` of asynchronous copies on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one bulk copy of `bytes` (a multiple of 16; both addresses 16-aligned)
+// into this CTA's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the box of a 3-D tensor map at (c0, c1, c2) into this CTA's shared
+// memory (128-aligned), completing on `bar`; out-of-bounds elements are 0
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+struct MapKey {
+  const void* base;
+  int type;
+  uint64_t dims[3], strides[2];
+  uint32_t box[3];
+};
+
+// The 3-D tensor map of `base` (dims innermost first; byte strides of dims
+// 1 and 2) with a `box`, no swizzle, out-of-bounds reads as zeros.
+// Returns 0, or a nonzero CUresult.
+inline int tensor_map_3d(const void* base, CUtensorMapDataType type,
+                         const uint64_t dims[3], const uint64_t strides[2],
+                         const uint32_t box[3], CUtensorMap* out) {
+  constexpr int kCache = 256;
+  static MapKey keys[kCache];
+  static CUtensorMap maps[kCache];
+  static int n_cached = 0, next = 0;
+  MapKey key;
+  memset(&key, 0, sizeof(key));
+  key.base = base;
+  key.type = static_cast<int>(type);
+  for (int i = 0; i < 3; ++i) key.dims[i] = dims[i], key.box[i] = box[i];
+  key.strides[0] = strides[0];
+  key.strides[1] = strides[1];
+  // a serving step asks for its layers' maps in the order it first made
+  // them, so the scan starts after the last hit
+  static int last = -1;
+  for (int n = 1; n <= n_cached; ++n) {
+    const int i = (last + n) % n_cached;
+    if (memcmp(&keys[i], &key, sizeof(key)) == 0) {
+      last = i;
+      *out = maps[i];
+      return 0;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t s[2] = {strides[0], strides[1]};
+  const cuuint32_t b[3] = {box[0], box[1], box[2]};
+  const cuuint32_t e[3] = {1, 1, 1};
+  CUtensorMap map;
+  const CUresult res = encode(
+      &map, type, 3, const_cast<void*>(base), d, s, b, e,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return static_cast<int>(res);
+  keys[next] = key;
+  maps[next] = map;
+  last = next;
+  next = (next + 1) % kCache;
+  if (n_cached < kCache) ++n_cached;
+  *out = map;
+  return 0;
+}
+
+// Sets attribute kAttr of kernel kKernel on the current device to `value`
+// unless an earlier call there set it at least as high, so a launch that
+// needs no more than an earlier one makes no runtime call.  Returns a
+// cudaError_t.
+template <auto kKernel, cudaFuncAttribute kAttr>
+inline int func_attribute_at_least(int value) {
+  constexpr int kDevices = 64;
+  static int set[kDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (value <= set[dev]) return 0;
+  err = cudaFuncSetAttribute(kKernel, kAttr, value);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  set[dev] = value;
+  return 0;
+}
+
+// the SMs of the current device
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+}  // namespace hopper

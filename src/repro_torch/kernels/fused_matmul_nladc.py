@@ -8,13 +8,15 @@ Replaces the TPU kernel
 
 the LM's MLP gate projection with its silu NL-ADC in one pass over the
 weight, and ``repro/kernels/ops.py::moe_fused_matmul``, the same vmapped
-over the experts of a MoE layer (:func:`moe_fused_matmul`: one grouped
-launch, the expert on the grid, one threshold set for every expert).
+over the experts of a MoE layer (:func:`moe_fused_matmul`: one launch of
+a kernel of its own, persistent CTAs that stream the experts' weights
+through a TMA ring and read no weight of an expert whose capacity rows
+are all zero; one threshold set for every expert).
 Like the Pallas kernel it promotes both operands to float32 and quantizes
 the float32 accumulator; it decodes by a lookup in the ramp's
-``y_table``, as the reference backend does.  The kernel
-(``csrc/fused_matmul_nladc.cu``) is bound by the bytes of the weight at
-the serving path's GEMV shapes; the source says how it streams them.
+``y_table``, as the reference backend does.  Both kernels
+(``csrc/fused_matmul_nladc.cu``) are bound by the bytes of the weight at
+the serving path's GEMV shapes; the source says how they stream them.
 
 Its summation order is not the plain version's, so an accumulator within
 float32 rounding of a threshold may land on the other side of it: the
@@ -27,17 +29,21 @@ a threshold between the two codes (:func:`accumulator_bound`,
 to their plain versions (:func:`fused_matmul_nladc_plain`,
 :func:`moe_fused_matmul_plain`) and CUDA tensors to the kernel; anything
 else raises.  Each keeps its own count of kernel launches in
-``.launches``.  A launch takes its config (rows, columns and K tile of a
-block) from :mod:`repro_torch.kernels.tune` at the call's ``(M, K, N)``,
-the expert gate at its per-expert ``(C, K, N)`` as the JAX package's
-vmapped gate does; without a tune cache or override that is 4 rows a
-block for the dense gate and 8 for the expert gate, 32 columns and a K
-tile of 512.  Every config computes the same bits.
+``.launches``.  A launch takes its config from
+:mod:`repro_torch.kernels.tune` at the call's ``(M, K, N)``, the expert
+gate at its per-expert ``(C, K, N)`` as the JAX package's vmapped gate
+does.  For the dense gate the config is (rows, columns, K tile) of a
+block, by default 4 rows, 32 columns and a K tile of 512; for the expert
+gate it is (rows, columns, K tile) of a work item, by default 8 capacity
+rows, a 128-column strip and 64 K rows a ring stage
+(:func:`expert_gate_stages`).  Every config of either computes the same
+bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,12 +52,15 @@ from repro_torch.kernels.ref import (fused_matmul_nladc_plain,
                                     moe_fused_matmul_plain)
 
 _GRID_Y_MAX = 65535
-_GRID_Z_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+_SMEM_MAX = 232448           # bytes of shared memory a CTA can use
+_GATE_WARPS = 16             # csrc: kGateWarps, the K split
+_GATE_MAX_STAGES = 8         # csrc: kGateMaxStages
+_GATE_PART_OUTPUTS = 256     # csrc: kPartOutputs
 
-__all__ = ["accumulator_bound", "code_flips", "fused_matmul_nladc",
-           "fused_matmul_nladc_plain", "library", "moe_fused_matmul",
-           "moe_fused_matmul_plain"]
+__all__ = ["accumulator_bound", "code_flips", "expert_gate_stages",
+           "fused_matmul_nladc", "fused_matmul_nladc_plain", "library",
+           "moe_fused_matmul", "moe_fused_matmul_plain"]
 
 
 def accumulator_bound(x, w, bias=None):
@@ -124,7 +133,7 @@ def library() -> ctypes.CDLL:
     lib.fused_matmul_nladc_launch.argtypes = [ctypes.c_void_p] * 6 + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.fused_matmul_nladc_launch.restype = ctypes.c_int
-    lib.moe_fused_matmul_launch.argtypes = [ctypes.c_void_p] * 5 + \
+    lib.moe_fused_matmul_launch.argtypes = [ctypes.c_void_p] * 6 + \
         [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.moe_fused_matmul_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -174,6 +183,50 @@ def fused_matmul_nladc(x, w, bias, thr, y_table, *, blocks=None):
 fused_matmul_nladc.launches = 0
 
 
+def _align128(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+@functools.lru_cache(maxsize=256)   # a serve step asks for one shape
+def expert_gate_stages(blocks, e_dim: int, c_dim: int, k_dim: int, p: int,
+                       elem: int, banked: bool) -> int:
+    """The ring stages the expert gate runs with config ``blocks`` (rows,
+    cols, k_tile) at E, C, K and P (``csrc: gate_plan``): what is left of a
+    CTA's 227 KB after the thresholds, the column codes, the unit list, the
+    partial sums, two x slots of ``rows`` x K elements and (banked) two
+    threshold strips of ``cols`` x P, in stages of ``k_tile`` x ``cols``
+    float32 weights, at most 8.  The kernel needs at least 2."""
+    rows, cols, k_tile = blocks
+    r2 = min(_GATE_PART_OUTPUTS // cols, rows)
+    off_code = _align128(256 + 4 * (2 * p + 1))
+    off_units = _align128(off_code + 4 * cols)
+    off_part = _align128(off_units + 4 * e_dim * -(-c_dim // rows))
+    off_x = _align128(off_part + 4 * _GATE_WARPS * r2 * cols)
+    off_ring = off_x + 2 * _align128(rows * k_dim * elem) \
+        + (2 * _align128(4 * cols * p) if banked else 0)
+    room = max(_SMEM_MAX - off_ring, 0)
+    return min(room // (4 * k_tile * cols), _GATE_MAX_STAGES)
+
+
+_WORK: dict = {}
+
+
+def _work_buffer(device: torch.device, stream: int,
+                 n_units: int) -> torch.Tensor:
+    """The expert gate's scratch for one stream of a device: three counters
+    (the next work item, the CTAs done, the CTAs past the grid barrier),
+    zero before each launch and zero again after it (the kernel's last CTA
+    resets them), so launches in order on the stream share them; then one
+    liveness flag per unit, written by every launch.  Allocated once per
+    stream, and again when a launch needs more units."""
+    key = (device.index, stream)
+    buf = _WORK.get(key)
+    if buf is None or buf.numel() < 3 + n_units:
+        buf = _WORK[key] = torch.zeros(3 + n_units, dtype=torch.int32,
+                                       device=device)
+    return buf
+
+
 def _check_moe(x, w, thr, y_table):
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
@@ -196,29 +249,40 @@ def moe_fused_matmul(x, w, thr, y_table, *, blocks=None):
     Returns (E, C, f).
 
     CPU tensors take :func:`moe_fused_matmul_plain`; CUDA tensors launch
-    one grouped kernel (the expert on the grid) on the current stream, and
-    a refused launch raises.
+    the expert-gate kernel once on the current stream (persistent CTAs
+    taking (expert, rows, strip) items from a work counter of the stream's
+    own), and a refused launch raises.
     """
     e_dim, c_dim, k_dim, n_dim, p = _check_moe(x, w, thr, y_table)
     if x.device.type == "cpu":
         return moe_fused_matmul_plain(x, w, thr, y_table)
     if x.device.type != "cuda":
         raise ValueError(f"moe_fused_matmul: no kernel for {x.device}")
-    rows, cols, k_tile = tune.launch_config(
+    blocks = tune.launch_config(
         "fused_matmul_nladc", (c_dim, k_dim, n_dim), x.dtype, x.device,
-        blocks, default=tune.EXPERT_GATE_BLOCKS)
-    if e_dim > _GRID_Z_MAX or -(-c_dim // rows) > _GRID_Y_MAX:
-        raise ValueError(f"moe_fused_matmul: {e_dim} experts of capacity "
-                         f"{c_dim} exceed the grid")
+        blocks, experts=e_dim)
+    if n_dim % 4 or (k_dim * x.element_size()) % 16 \
+            or any(t.data_ptr() % 16 for t in (x, w, thr)):
+        raise ValueError(f"moe_fused_matmul: the weight stream needs N a "
+                         f"multiple of 4, K x {x.element_size()} bytes a "
+                         f"multiple of 16 and x, w, thr 16-byte aligned; got "
+                         f"N {n_dim}, K {k_dim}")
+    if expert_gate_stages(blocks, e_dim, c_dim, k_dim, p, x.element_size(),
+                          thr.dim() == 2) < 2:
+        raise ValueError(f"moe_fused_matmul: config {blocks} at K {k_dim}, "
+                         f"P {p} leaves no room for two weight stages in a "
+                         f"CTA's shared memory")
+    rows, cols, k_tile = blocks
     out = torch.empty((e_dim, c_dim, n_dim), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        work = _work_buffer(x.device, stream, e_dim * -(-c_dim // rows))
         err = lib.moe_fused_matmul_launch(
             x.data_ptr(), w.data_ptr(), thr.data_ptr(), y_table.data_ptr(),
-            out.data_ptr(), e_dim, c_dim, k_dim, n_dim, p,
+            out.data_ptr(), work.data_ptr(), e_dim, c_dim, k_dim, n_dim, p,
             p if thr.dim() == 2 else 0, int(x.dtype == torch.bfloat16),
             rows, cols, k_tile, stream)
     if err != 0:

@@ -15,6 +15,10 @@ fused_matmul_nladc    (rows, cols, k_tile)   rows of x per block (1, 2, 4 or
                                              K columns of x staged in shared
                                              memory at a time (a power of
                                              two, 16 to 2048)
+  the expert gate     (rows, cols, k_tile)   capacity rows per work item (1,
+                                             2, 4 or 8), columns per weight
+                                             strip (128 or 256), K rows per
+                                             TMA ring stage (16, 32 or 64)
 analog_tile           (rows, cols, k_tile)   the same, with 4, 8 or 16 rows
 nladc                 (rows, cols)           rows in flight per block (one a
                                              warp: 4, 8 or 16), columns per
@@ -44,7 +48,7 @@ it: each candidate's output digest must equal the default config's.
       4. the cache at the ``REPRO_TORCH_KERNEL_CACHE`` env var's path;
       5. the kernel's current constants (:data:`DEFAULT_BLOCKS`;
          :data:`EXPERT_GATE_BLOCKS` for the grouped expert gate): a miss
-         launches exactly what the kernels launched before this seam.
+         launches the kernel's default config.
 
   The env vars carry the port's prefix, as ``REPRO_TORCH_BACKEND`` does, so
   a process that imports both packages never shares them with ``repro``.
@@ -71,6 +75,12 @@ The grouped expert gate (``fused_matmul_nladc.moe_fused_matmul``) resolves
 ``fused_matmul_nladc`` at its per-expert ``(C, K, N)``, as the JAX
 package's vmapped gate does; the sweep times such an entry as the grouped
 launch over its experts (``experts`` > 0), which is what it configures.
+Its kernel reads the tuple with its own meaning (the table above), its
+own default and its own rules: the wrapper and the sweep name it by one
+argument, ``experts`` > 0, to :func:`launch_config`, :func:`supported`,
+:func:`candidates` and :func:`proxy_score`.  So an entry written for the
+earlier grouped kernel (32 or 64 columns, K tiles up to 2048) still loads
+and is clamped, with the one-time warning, to the config nearest it.
 """
 
 from __future__ import annotations
@@ -95,13 +105,15 @@ DEFAULT_BLOCKS: Dict[str, Tuple[int, ...]] = {
     "nladc": (8, 32),
     "lstm_gates": (1, 256),
 }
-EXPERT_GATE_BLOCKS = (8, 32, 512)   # moe_fused_matmul's 8 rows a block
+# moe_fused_matmul: 8 capacity rows, a 128-column strip, 64 K rows a stage
+EXPERT_GATE_BLOCKS = (8, 128, 64)
 
 _MATMUL_ROWS = {"fused_matmul_nladc": (1, 2, 4, 8), "analog_tile": (4, 8, 16)}
 _MATMUL_COLS = (32, 64)
 _K_TILES = tuple(2 ** i for i in range(4, 12))      # 16 .. 2048
 _NLADC_ROWS, _NLADC_COLS = (4, 8, 16), (32, 64, 128, 256)
 _LSTM_ROWS, _LSTM_THREADS_MAX = (1, 2, 4), 512
+_GATE_ROWS, _GATE_COLS, _GATE_K_TILES = (1, 2, 4, 8), (128, 256), (16, 32, 64)
 
 # the sweep's candidate values per tuple position
 _CAND_K_TILE = (256, 512, 1024)
@@ -365,11 +377,18 @@ def _floor_multiple(v: int, unit: int, top: int) -> int:
     return min(max(unit, v // unit * unit), top)
 
 
-def supported(kernel: str, blocks: Sequence[int]) -> Tuple[int, ...]:
+def supported(kernel: str, blocks: Sequence[int],
+              experts: int = 0) -> Tuple[int, ...]:
     """The launch config nearest ``blocks`` that the kernel takes: each
     extent rounded down to a value it has (a template instance, a power of
-    two or a multiple of 32) and into its range."""
+    two or a multiple of 32) and into its range.  ``experts`` > 0: the
+    grouped expert gate's rules."""
     blocks = tuple(int(b) for b in blocks)
+    if experts and kernel == "fused_matmul_nladc":
+        rows, cols, k_tile = blocks
+        return (_floor_choice(rows, _GATE_ROWS),
+                _floor_choice(cols, _GATE_COLS),
+                _floor_choice(k_tile, _GATE_K_TILES))
     if kernel in _MATMUL_ROWS:
         rows, cols, k_tile = blocks
         return (_floor_choice(rows, _MATMUL_ROWS[kernel]),
@@ -387,18 +406,23 @@ def supported(kernel: str, blocks: Sequence[int]) -> Tuple[int, ...]:
 
 
 def launch_config(kernel: str, shape: Tuple[int, ...], dtype, device,
-                  blocks=None, *, default=None) -> Tuple[int, ...]:
+                  blocks=None, *, experts: int = 0) -> Tuple[int, ...]:
     """What a wrapper launches: ``blocks`` if given, else
-    :func:`resolve_blocks`, made :func:`supported` (a change warns once).
-    Memoized like :func:`resolve_blocks`; ``shape`` is a tuple of ints."""
+    :func:`resolve_blocks`, made :func:`supported`, a change warning once.
+    ``experts`` > 0: the grouped expert gate over that many experts at the
+    per-expert ``shape`` (its default :data:`EXPERT_GATE_BLOCKS` and its
+    rules).  Memoized like :func:`resolve_blocks`; ``shape`` is a tuple of
+    ints."""
     if blocks is not None:
         blocks = tuple(blocks)
-    key = (kernel, shape, dtype, device, blocks, default)
+    gate = bool(experts)
+    key = (kernel, shape, dtype, device, blocks, gate)
     cfg = _LAUNCH.get(key)
     if cfg is None:
-        raw = blocks if blocks is not None else \
-            resolve_blocks(kernel, shape, dtype, device, default=default)
-        cfg = supported(kernel, raw)
+        raw = blocks if blocks is not None else resolve_blocks(
+            kernel, shape, dtype, device,
+            default=EXPERT_GATE_BLOCKS if gate else None)
+        cfg = supported(kernel, raw, experts)
         if cfg != raw:
             warn_clamp(kernel, shape, raw, cfg, dtype, device)
         _LAUNCH[key] = cfg
@@ -440,16 +464,23 @@ def _reset_for_tests() -> None:
 # Autotune sweep
 # ---------------------------------------------------------------------------
 
-def candidates(kernel: str, shape: Sequence[int]) -> List[Tuple[int, ...]]:
+def candidates(kernel: str, shape: Sequence[int],
+               experts: int = 0) -> List[Tuple[int, ...]]:
     """The sweep's configs for one shape, the default among them.  Rows
     past the smallest value that covers the shape, and K tiles past the
     smallest that covers the shape's K, would repeat a config's work and
-    are left out."""
+    are left out.  ``experts`` > 0: the expert gate's configs (its own
+    rules and default)."""
     def upto(values, size):
         cover = [v for v in values if v >= size]
         return sorted({v for v in values if v < size} |
                       ({min(cover)} if cover else set()))
 
+    if experts and kernel == "fused_matmul_nladc":
+        m, k, n = shape
+        cands = {(r, c, t) for r in upto(_GATE_ROWS, m)
+                 for c in upto(_GATE_COLS, n) for t in _GATE_K_TILES}
+        return sorted(cands | {EXPERT_GATE_BLOCKS})
     if kernel in _MATMUL_ROWS:
         m, k, n = shape
         rows = upto(_MATMUL_ROWS[kernel], m)
@@ -465,13 +496,23 @@ def candidates(kernel: str, shape: Sequence[int]) -> List[Tuple[int, ...]]:
     return sorted(cands)
 
 
-def proxy_score(kernel: str, shape: Sequence[int],
-                blocks: Sequence[int]) -> float:
+def proxy_score(kernel: str, shape: Sequence[int], blocks: Sequence[int],
+                experts: int = 0) -> float:
     """A deterministic static score (lower is better) for the CPU sweep:
     the bytes the launch moves (the weight once per row block, x once per
     column block; the elementwise tensor with its padding) times a small
     per-block and per-K-tile overhead.  Not a performance claim: the card
-    times the candidates."""
+    times the candidates.  ``experts`` > 0 scores the expert gate's work
+    items over that many experts, walked by one CTA per SM."""
+    if experts and kernel == "fused_matmul_nladc":
+        m, k, n = shape
+        rows, cols, k_tile = blocks
+        row_blocks, strips = -(-m // rows), -(-n // cols)
+        moved = 4.0 * experts * (row_blocks * k * strips * cols
+                                 + strips * row_blocks * rows * k)
+        items = experts * row_blocks * strips
+        rounds = -(-items // _SMS)
+        return moved * (1.0 + 0.01 * rounds) * (1.0 + 0.01 * -(-k // k_tile))
     if kernel in _MATMUL_ROWS:
         m, k, n = shape
         rows, cols, k_tile = blocks
@@ -627,7 +668,7 @@ def autotune_kernel(kernel: str, shape: Sequence[int], dtype=torch.float32,
                          "device")
     shape = tuple(int(d) for d in shape)
     default = EXPERT_GATE_BLOCKS if experts else default_blocks(kernel)
-    cands = sorted(set(candidates(kernel, shape)) | {default})
+    cands = sorted(set(candidates(kernel, shape, experts)) | {default})
     extra = {"default": list(default), "candidates": len(cands)}
     if experts:
         extra["experts"] = experts
@@ -649,7 +690,7 @@ def autotune_kernel(kernel: str, shape: Sequence[int], dtype=torch.float32,
                      default_us=timed[default][0], digest=want,
                      timed_by=sorted({t[1] for t in timed.values()}))
     else:
-        scores = {b: proxy_score(kernel, shape, b) for b in cands}
+        scores = {b: proxy_score(kernel, shape, b, experts) for b in cands}
         best = min(cands, key=lambda b: (scores[b], b))
         extra.update(source="proxy", score=scores[best],
                      default_score=scores[default])

@@ -1,0 +1,210 @@
+"""Two checkouts of the port, kernel by kernel, on one card: device and
+host time per wrapper call of the cached attention, the expert gate and
+the dense gate, and a digest of each output.
+
+    python src/repro_torch/launch/kernel_ab.py --trees OLD NEW [--rounds 1]
+
+OLD and NEW are checkout roots (each holding ``src/repro_torch``).  Each
+round runs OLD, NEW, NEW, OLD, each in a process of its own that imports
+``repro_torch`` from that checkout and builds its kernels there, so a
+drift of the card or the host over the call weighs on both alike.  The
+last line of standard output is one JSON object: per case and checkout,
+every run's numbers and their medians, and whether the checkouts'
+outputs are bitwise equal.  It needs a CUDA card; the file imports
+nothing of the port itself, so it can drive an older checkout.
+
+The cases, all from seeded inputs made on the card:
+
+* ``attention``: ``prefill_attention`` at the qwen2.5-3b serving shape
+  (B 4, H 16, Hkv 2, D 128, S 128) in bfloat16 and float32, and at S 2048
+  in bfloat16; rows see S, S - 3, S / 2 and 1 slots;
+* ``gate_all_live`` / ``gate_serving_fill``: ``moe_fused_matmul`` at the
+  moonshot expert gate's shape (E 64, C 6, K 2048, N 1408, bfloat16 x,
+  float32 w, 31 flat thresholds) with every expert live, and with 17
+  experts live (1 to 6 rows each; the other rows are +-0);
+* ``dense_gate``: ``fused_matmul_nladc`` at qwen2.5-3b's MLP gate
+  (4, 2048, 11008), bfloat16 x.
+
+Host µs per call: ``HOST_CALLS`` calls issued back to back with no sync
+inside the timing, over their count (the median of ``HOST_REPEATS``
+runs), taken before any profiler session.  Device µs per call: the
+profiler's kernel time (``tune.device_us``, the clock ``chip_smoke.py``
+reports).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HOST_CALLS, HOST_REPEATS = 200, 5
+DEVICE_CALLS = 50
+
+
+def _digest(t) -> str:
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _cases(torch, dev):
+    """name -> a call of one wrapper on seeded inputs."""
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels import prefill_attention as pa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    cases = {}
+    for dtype, s_len in ((torch.bfloat16, 128), (torch.float32, 128),
+                         (torch.bfloat16, 2048)):
+        q = randn(4, 16, 128).to(dtype)
+        k = randn(4, s_len, 2, 128).to(dtype)
+        v = randn(4, s_len, 2, 128).to(dtype)
+        seen = torch.tensor([s_len, s_len - 3, s_len // 2, 1], device=dev)
+        mask = (torch.arange(s_len, device=dev)[None] < seen[:, None]).int()
+        name = f"attention_{str(dtype)[6:]}_s{s_len}"
+        cases[name] = (lambda q=q, k=k, v=v, m=mask:
+                       pa.prefill_attention(q, k, v, m))
+
+    e, c, k_dim, n = 64, 6, 2048, 1408
+    w = randn(e, k_dim, n) / math.sqrt(k_dim)
+    thr = torch.linspace(-2.0, 2.0, 31, device=dev)
+    y_table = torch.linspace(-1.0, 1.0, 32, device=dev)
+    x_all = randn(e, c, k_dim).bfloat16()
+    live = torch.randperm(e, generator=gen, device=dev)[:17]
+    rows = torch.randint(1, c + 1, (17,), generator=gen, device=dev)
+    keep = torch.zeros((e, c), dtype=torch.bool, device=dev)
+    keep[live] = torch.arange(c, device=dev)[None] < rows[:, None]
+    # the dispatch buffer's empty rows are x * 0: +-0
+    x_fill = torch.where(keep[..., None], x_all, x_all * 0)
+    cases["gate_all_live"] = lambda: fmn.moe_fused_matmul(x_all, w, thr,
+                                                          y_table)
+    cases["gate_serving_fill"] = lambda: fmn.moe_fused_matmul(x_fill, w, thr,
+                                                              y_table)
+
+    xd = randn(4, 2048).bfloat16()
+    wd = randn(2048, 11008) / math.sqrt(2048)
+    cases["dense_gate"] = lambda: fmn.fused_matmul_nladc(xd, wd, None, thr,
+                                                         y_table)
+    return cases
+
+
+def child(src: str) -> dict:
+    """One checkout's numbers, in this process (run as a file, so
+    ``sys.path[0]`` is this file's folder: ``src`` takes its place)."""
+    sys.path[0] = src
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tune
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for name in ("fused_matmul_nladc", "prefill_attention"):
+        _build.load(name)
+    build_s = time.perf_counter() - t0
+    cases = _cases(torch, dev)
+    out = {"src": src, "build_s": build_s, "cases": {}}
+    for name, fn in list(cases.items()):
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as err:   # a shape it refuses
+            out["cases"][name] = {"error": str(err)}
+            del cases[name]
+            continue
+        runs = []
+        for _ in range(HOST_REPEATS):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            runs.append((time.perf_counter() - t) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+        out["cases"][name] = {"digest": _digest(res),
+                              "host_us": statistics.median(runs),
+                              "host_us_runs": runs}
+    for name, fn in cases.items():    # the profiler last: it slows the host
+        us, clock = tune.device_us(fn, calls=DEVICE_CALLS)
+        out["cases"][name].update(device_us=us, timed_by=clock)
+    return out
+
+
+def _card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--child", metavar="SRC", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        print(json.dumps(child(args.child)), flush=True)
+        return 0
+    if not args.trees:
+        ap.error("--trees OLD NEW is required")
+    old, new = (str(Path(t).resolve() / "src") for t in args.trees)
+    card = _card()
+    print(card, flush=True)
+    runs = {"old": [], "new": []}
+    for _ in range(args.rounds):
+        for which in ("old", "new", "new", "old"):
+            src = old if which == "old" else new
+            proc = subprocess.run(
+                [sys.executable, __file__, "--child", src],
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                raise SystemExit(f"kernel_ab: the run of {src} failed")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps({"tree": which, **res}), flush=True)
+            runs[which].append(res)
+    summary = {}
+    for name in runs["new"][0]["cases"]:
+        cell = {}
+        for which, rs in runs.items():
+            got = [r["cases"][name] for r in rs]
+            if any("error" in g for g in got):
+                cell[which] = {"error": got[0].get("error")}
+                continue
+            cell[which] = {
+                "device_us": [g["device_us"] for g in got],
+                "host_us": [g["host_us"] for g in got],
+                "device_us_median": statistics.median(
+                    g["device_us"] for g in got),
+                "host_us_median": statistics.median(
+                    g["host_us"] for g in got),
+                "timed_by": sorted({g["timed_by"] for g in got})}
+        digests = {r["cases"][name].get("digest")
+                   for rs in runs.values() for r in rs}
+        cell["bitwise_equal"] = len(digests) == 1
+        summary[name] = cell
+    print(json.dumps({"card": card, "order": "old new new old",
+                      "rounds": args.rounds, "cases": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -129,9 +129,13 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
 
     The new K/V (or their int8 codes and scales) land in ``cache`` in
     place, at slot ``index``, for every batch row: the reference returns
-    an updated copy, and the engine only ever keeps the new state.  An
-    int8 cache attends through the backend's ``decode_attention_int8``
-    over the first ``index + 1`` slots.
+    an updated copy, and the engine only ever keeps the new state.  Past
+    the cache's last slot the write lands on that slot, as the reference's
+    ``dynamic_update_slice`` clamps its start (the serving engine's shared
+    index only grows); RoPE keeps the true ``index``.  An int8 cache
+    attends through the backend's ``decode_attention_int8`` over the first
+    ``index + 1`` slots, at most all of them (the reference's mask then
+    hides none).
     """
     if window > 0:
         raise NotImplementedError(
@@ -146,14 +150,16 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
     q = L.apply_rope(q, pos, rope_theta)
     k = L.apply_rope(k, pos, rope_theta)
 
+    slots = cache["k"].shape[1]
+    slot = min(index, slots - 1)
     if "k_scale" in cache:
         kq, ks = _quant_kv(k)
         vq, vs = _quant_kv(v)
-        cache["k"][:, index] = kq[:, 0]
-        cache["v"][:, index] = vq[:, 0]
-        cache["k_scale"][:, index] = ks[:, 0]
-        cache["v_scale"][:, index] = vs[:, 0]
-        length = torch.full((b,), index + 1, dtype=torch.int32,
+        cache["k"][:, slot] = kq[:, 0]
+        cache["v"][:, slot] = vq[:, 0]
+        cache["k_scale"][:, slot] = ks[:, 0]
+        cache["v_scale"][:, slot] = vs[:, 0]
+        length = torch.full((b,), min(index + 1, slots), dtype=torch.int32,
                             device=x.device)
         out = BK.get_backend(analog_backend).decode_attention_int8(
             q[:, 0], cache["k"], cache["k_scale"], cache["v"],
@@ -161,9 +167,9 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
         out = out[:, None].to(x.dtype)                  # (B, 1, H, D)
         y = L.dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))
         return y, cache
-    cache["k"][:, index] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, index] = v[:, 0].to(cache["v"].dtype)
-    valid = torch.arange(cache["k"].shape[1], device=x.device) <= index
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    valid = torch.arange(slots, device=x.device) <= index
     out = BK.get_backend(analog_backend).prefill_attention(
         q, cache["k"], cache["v"], valid[None, None, :])
     y = L.dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))

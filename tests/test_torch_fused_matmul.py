@@ -185,7 +185,7 @@ def test_library_declares_pointer_arguments(monkeypatch):
     assert fn.restype is ctypes.c_int
     # the grouped expert gate shares the library
     fn = lib.moe_fused_matmul_launch
-    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
+    assert fn.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p

@@ -11,14 +11,21 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   codes.  SMOKE shapes and the serving path's (4 and 1 rows, K 2048,
   N 11008), flat and banked thresholds, float32 and bfloat16 x.
 * ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
-  bfloat16, ragged masks, at a SMOKE shape and the serving path's.
+  bfloat16, ragged masks with a row that sees a single slot, at a SMOKE
+  shape and the serving path's, S not a multiple of the cluster's split,
+  S 1 and 2048, G 1, 8 and 16, D 64 and 256; and every cluster size
+  computes the same bits.
 * ``nladc``: bitwise equal to its plain version (codes and values), at
   the router's shape (4, 64) bfloat16, the (4, 11008) bfloat16 width with
   512-column threshold banks, and a ragged float32 (33, 1000).
 * ``moe_fused_matmul``: ``fused_matmul_nladc``'s contract over the expert
   axis, at the moonshot expert gate's shape (64 experts, C 6, d 2048,
   f 1408, bfloat16 x, flat and banked-512) and a ragged float32
-  (5, 7, 300, 1000).
+  (5, 7, 300, 1000); at the gate's shape with every expert live, none
+  live, the serving fill (x from ``dispatch_plan`` and
+  ``gather_expert_buffer`` at B 4, top-6) and an expert with one live row
+  among zeros, where empty experts' outputs are the table at the zero
+  code.
 * ``flash_decode_int8``: max abs diff 1e-5 against its plain version at
   the moonshot serving shape (B 4, H = Hkv = 16, D 128, S 128), a GQA case
   (H 16, Hkv 2) and ragged S and lengths.
@@ -28,8 +35,9 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   with and without read noise, the three decode modes, float32 and
   bfloat16 x, ragged shapes, the PTB gate crossbar (16, 632, 8064) and the
   JAX sweep's (128, 256, 256).
-* The tune seam: every sweep candidate of every tunable kernel computes the
-  default config's bits, and a cache miss launches the default config.
+* The tune seam: every sweep candidate of every tunable kernel (the expert
+  gate's among them) computes the default config's bits, and a cache miss
+  launches the default config.
 * The SMOKE LMs in float32 on the ``cuda`` and ``ref`` backends
   (qwen2.5-3b; moonshot-v1-16b-a3b with an int8 KV cache): logits within
   LSB/2 of the silu ramp, and each kernel of the path launched once per
@@ -116,20 +124,35 @@ def _bf16_ulp(a):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,hkv,d", [(3, 12, 8, 2, 16),
-                                         (4, 128, 16, 2, 128)])
-def test_prefill_attention_kernel_matches_plain(dtype, b, s, h, hkv, d):
-    dev = _card()
-    rng = np.random.default_rng(s)
+ATTN_CASES = [  # b, s, h, hkv, d
+    (3, 12, 8, 2, 16),         # SMOKE
+    (4, 128, 16, 2, 128),      # the serving shape
+    (4, 100, 16, 2, 128),      # S not a multiple of the split (13 a CTA)
+    (2, 1, 16, 2, 128),        # S 1
+    (4, 2048, 16, 2, 128),     # S 2048
+    (2, 96, 16, 16, 64),       # G 1, D 64
+    (2, 130, 16, 1, 256)]      # G 16, D 256
+
+
+def _attention_inputs(dev, dtype, b, s, h, hkv, d):
+    rng = np.random.default_rng(s * 31 + d)
     q, k, v = (torch.tensor(rng.normal(0, 1.0, shape), dtype=torch.float32)
                .to(dev, dtype)
                for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, d)))
     lengths = torch.tensor(rng.integers(1, s + 1, size=b), device=dev)
     lengths[0] = s
+    lengths[-1] = 1                               # a row that sees one slot
     mask = (torch.arange(s, device=dev)[None] < lengths[:, None]).to(
         torch.int32)
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", ATTN_CASES)
+def test_prefill_attention_kernel_matches_plain(dtype, b, s, h, hkv, d):
+    dev = _card()
+    q, k, v, mask = _attention_inputs(dev, dtype, b, s, h, hkv, d)
     n0 = TPA.prefill_attention.launches
     got = TPA.prefill_attention(q, k, v, mask).float()
     want = TPA.prefill_attention_plain(q, k, v, mask).float()
@@ -141,6 +164,19 @@ def test_prefill_attention_kernel_matches_plain(dtype, b, s, h, hkv, d):
     else:
         assert bool((diff <= _bf16_ulp(torch.maximum(got.abs(),
                                                      want.abs()))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [(4, 128, 16, 2, 128),
+                                         (3, 37, 16, 1, 256)])
+def test_every_cluster_size_computes_the_same_bits(dtype, b, s, h, hkv, d):
+    dev = _card()
+    q, k, v, mask = _attention_inputs(dev, dtype, b, s, h, hkv, d)
+    want = TPA._launch(q, k, v, mask, 1)
+    for cs in (2, 4, 8, 16):
+        got = TPA._launch(q, k, v, mask, cs)
+        assert torch.equal(got, want), cs
 
 
 def _thresholds(rng, ramp, n, tile_cols):
@@ -180,6 +216,26 @@ def test_nladc_kernel_matches_plain(shape, name, dtype, tile_cols):
     assert torch.equal(nk.float(), thermometer_count(x, thr).float())
 
 
+def _expert_gate_holds_its_contract(x, w, thr, ramp, dev):
+    y_table = torch.tensor(ramp.y_table, dtype=torch.float32, device=dev)
+    count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32, device=dev)
+    n0 = TFM.moe_fused_matmul.launches
+    yk = TFM.moe_fused_matmul(x, w, thr, y_table)
+    nk = TFM.moe_fused_matmul(x, w, thr, count).long()
+    torch.cuda.synchronize()
+    assert TFM.moe_fused_matmul.launches == n0 + 2
+    assert yk.dtype == x.dtype and torch.equal(yk, y_table[nk].to(x.dtype))
+    n_plain = thermometer_count(x.float() @ w, thr)
+    acc, bound = TFM.accumulator_bound(x, w)
+    flips, unexplained = TFM.code_flips(nk, n_plain, acc, bound, thr)
+    assert unexplained == 0 and flips <= MAX_FLIP_SHARE * nk.numel()
+    # rows that are all zeros give the table at the zero code, bitwise
+    zero_rows = (x == 0).all(-1)
+    zero = thermometer_count(torch.zeros(w.shape[-1], device=dev), thr)
+    assert torch.equal(nk[zero_rows], zero.expand(int(zero_rows.sum()), -1))
+    return nk
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,c,k,n,dtype,tile_cols", [
     (64, 6, 2048, 1408, torch.bfloat16, 0),
@@ -197,18 +253,52 @@ def test_moe_fused_matmul_kernel_matches_plain(e, c, k, n, dtype, tile_cols):
     x[0, -1] = 0                                    # an empty capacity row
     w = (2.0 / np.sqrt(k)) * torch.randn((e, k, n), generator=gen,
                                          device=dev)
-    y_table = torch.tensor(ramp.y_table, dtype=torch.float32, device=dev)
-    count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32, device=dev)
-    n0 = TFM.moe_fused_matmul.launches
-    yk = TFM.moe_fused_matmul(x, w, thr, y_table)
-    nk = TFM.moe_fused_matmul(x, w, thr, count).long()
-    torch.cuda.synchronize()
-    assert TFM.moe_fused_matmul.launches == n0 + 2
-    assert yk.dtype == dtype and torch.equal(yk, y_table[nk].to(dtype))
-    n_plain = thermometer_count(x.float() @ w, thr)
-    acc, bound = TFM.accumulator_bound(x, w)
-    flips, unexplained = TFM.code_flips(nk, n_plain, acc, bound, thr)
-    assert unexplained == 0 and flips <= MAX_FLIP_SHARE * nk.numel()
+    _expert_gate_holds_its_contract(x, w, thr, ramp, dev)
+
+
+def serving_fill(gen, dev, e, k, dtype, tokens=4, top_k=6):
+    """The expert buffer of one moonshot decode step: ``tokens`` tokens
+    routed to their top-k experts of random scores, gathered by
+    ``dispatch_plan`` / ``gather_expert_buffer`` at the model's capacity;
+    the capacity rows no token fills are zeros."""
+    from repro_torch.nn import moe as M
+
+    xf = torch.randn((tokens, k), generator=gen, device=dev).to(dtype)
+    scores = torch.rand((tokens, e), generator=gen, device=dev)
+    gates, idx = M.stable_top_k(scores, top_k)
+    cap = M.expert_capacity(tokens, top_k, e, 1.0)
+    st, _, dest, valid = M.dispatch_plan(idx, gates, tokens, e, cap)
+    return M.gather_expert_buffer(xf, st, dest, valid, e, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["all_live", "none_live", "serving",
+                                  "one_live_row"])
+@pytest.mark.parametrize("tile_cols", [0, 512])
+def test_expert_gate_skips_empty_experts(fill, tile_cols):
+    dev = _card()
+    e, c, k, n = 64, 6, 2048, 1408
+    rng = np.random.default_rng(17 + tile_cols)
+    ramp = TN.build_ramp("silu", 5)
+    thr = _thresholds(rng, ramp, n, tile_cols).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    w = (2.0 / np.sqrt(k)) * torch.randn((e, k, n), generator=gen,
+                                         device=dev)
+    if fill == "serving":
+        x = serving_fill(gen, dev, e, k, torch.bfloat16)
+        assert x.shape == (e, c, k)
+    else:
+        x = torch.randn((e, c, k), generator=gen, device=dev).bfloat16()
+        if fill == "none_live":
+            x.mul_(0)                               # +0.0 and -0.0
+        elif fill == "one_live_row":
+            x[:, 1:].mul_(0)
+            x[1:4].mul_(0)                          # three empty experts
+    live = int((x != 0).any(-1).any(-1).sum())
+    assert {"all_live": live == e, "none_live": live == 0,
+            "serving": 0 < live <= 24, "one_live_row": live == e - 3}[fill]
+    _expert_gate_holds_its_contract(x, w, thr, ramp, dev)
 
 
 @pytest.mark.cuda
@@ -282,25 +372,30 @@ def test_analog_tile_kernel_matches_plain(shape, bits, noise, name, dtype):
     assert torch.equal(yk.reshape(-1, n)[same], plain[same])
 
 
-TUNE_CASES = [("fused_matmul_nladc", (4, 2048, 11008), torch.bfloat16),
-              ("fused_matmul_nladc", (33, 300, 1000), torch.float32),
-              ("analog_tile", (16, 632, 8064), torch.bfloat16),
-              ("analog_tile", (50, 72, 128), torch.float32),
-              ("nladc", (4, 64), torch.bfloat16),
-              ("nladc", (33, 1000), torch.float32),
-              ("lstm_gates", (16, 2016), torch.float32),
-              ("lstm_gates", (7, 32), torch.float32)]
+TUNE_CASES = [("fused_matmul_nladc", (4, 2048, 11008), torch.bfloat16, 0),
+              ("fused_matmul_nladc", (33, 300, 1000), torch.float32, 0),
+              ("fused_matmul_nladc", (6, 2048, 1408), torch.bfloat16, 64),
+              ("fused_matmul_nladc", (7, 296, 1000), torch.float32, 5),
+              ("analog_tile", (16, 632, 8064), torch.bfloat16, 0),
+              ("analog_tile", (50, 72, 128), torch.float32, 0),
+              ("nladc", (4, 64), torch.bfloat16, 0),
+              ("nladc", (33, 1000), torch.float32, 0),
+              ("lstm_gates", (16, 2016), torch.float32, 0),
+              ("lstm_gates", (7, 32), torch.float32, 0)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,shape,dtype", TUNE_CASES)
+@pytest.mark.parametrize("kernel,shape,dtype,experts", TUNE_CASES)
 def test_every_tune_candidate_computes_the_default_bits(kernel, shape,
-                                                        dtype):
+                                                        dtype, experts):
     dev = _card()
-    fn = TT.kernel_fn(kernel)
-    args = TT.kernel_inputs(kernel, shape, dtype, dev, seed=3)
-    want = TT.as_tuple(fn(*args, blocks=TT.default_blocks(kernel)))
-    cands = TT.candidates(kernel, shape)
+    fn = TT.kernel_fn(kernel, experts)
+    args = TT.kernel_inputs(kernel, shape, dtype, dev, seed=3,
+                            experts=experts)
+    default = TT.EXPERT_GATE_BLOCKS if experts else \
+        TT.default_blocks(kernel)
+    want = TT.as_tuple(fn(*args, blocks=default))
+    cands = TT.candidates(kernel, shape, experts)
     assert len(cands) > 1
     for blocks in cands:
         got = TT.as_tuple(fn(*args, blocks=blocks))
@@ -319,7 +414,7 @@ def test_cache_miss_launches_the_default_config():
                 TT.default_blocks(kernel)
         assert TT.launch_config("fused_matmul_nladc", (6, 64, 160),
                                 torch.float32, dev,
-                                default=TT.EXPERT_GATE_BLOCKS) == (8, 32, 512)
+                                experts=8) == (8, 128, 64)
         assert TT.platform(dev).startswith("sm_")
     finally:
         TT._reset_for_tests()

@@ -293,6 +293,61 @@ def test_plain_grouped_gate_matches_pallas(e, c, d, f, name, dtype,
         assert np.array_equal(y_t[same], y_j[same])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile_cols", [0, 16], ids=["flat", "banked"])
+def test_empty_expert_is_the_table_at_the_zero_code(tile_cols, dtype):
+    """The identity the CUDA expert gate's skip rests on: an expert whose
+    capacity rows all compare equal to 0 (+0.0 or -0.0, as the dispatch's
+    ``x * 0`` leaves them) gives ``y_table[#{j : 0 > thr_j}]`` in every
+    output, per column for banked thresholds.  The plain version gives it
+    bitwise, and the Pallas gate (interpret mode) gives the same codes
+    bitwise; its values are its closed-form decode at those codes, equal
+    to the table's (within one float32 ulp; bitwise in bfloat16), as in
+    ``test_plain_grouped_gate_matches_pallas``.  Experts with live rows
+    beside them are unaffected."""
+    ramp, x, w, thr_j, thr_t = _gate_case(4, 3, 64, 48, "silu", dtype,
+                                          tile_cols, seed=11 + tile_cols)
+    x = x.copy()
+    x[1] = -0.0                                   # every row -0.0
+    x[2] = 0.0
+    x[2, :, ::3] = -0.0                           # +0.0 and -0.0 mixed
+    x[3, 1:] = -0.0                               # one live row among zeros
+    assert np.signbit(x[1]).all() and np.signbit(x[2]).any()
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xj = jnp.asarray(x).astype(jdt)
+    n_j = torch.from_numpy(np.asarray(JOPS.moe_fused_matmul(
+        xj, jnp.asarray(w), _count_ramp(ramp), thresholds=thr_j)
+        .astype(jnp.float32)).astype(np.int64))
+    y_j = np.asarray(JOPS.moe_fused_matmul(xj, jnp.asarray(w), ramp,
+                                           thresholds=thr_j)
+                     .astype(jnp.float32))
+
+    xt = torch.tensor(x).to(torch.bfloat16 if dtype == "bfloat16"
+                            else torch.float32)
+    assert torch.signbit(xt[1]).all()             # -0.0 survives the cast
+    wt = torch.tensor(w)
+    thr = thr_t.per_column if tile_cols else thr_t
+    y_table = torch.from_numpy(np.asarray(ramp.y_table, np.float32))
+    y_plain = TFM.moe_fused_matmul_plain(xt, wt, thr, y_table)
+    zero = thermometer_count(torch.zeros(w.shape[-1]), thr)   # (f,)
+    want = y_table[zero].to(xt.dtype).expand(3, -1)
+    for e, rows in ((1, slice(None)), (2, slice(None)), (3, slice(1, None))):
+        assert torch.equal(y_plain[e, rows], want[rows])
+        assert torch.equal(n_j[e, rows], zero.expand(3, -1)[rows])
+        y_e = torch.from_numpy(y_j[e, rows].copy())
+        if dtype == "float32":
+            tol = VALUE_RTOL * torch.clamp_min(y_e.abs(), 1.0)
+            assert bool(((y_plain[e, rows].float() - y_e).abs()
+                         <= tol).all())
+        else:
+            assert torch.equal(y_plain[e, rows].float(), y_e)
+    # the live rows are the dense plain version's
+    assert torch.equal(y_plain[0], TFM.fused_matmul_nladc_plain(
+        xt[0], wt[0], None, thr, y_table))
+    assert torch.equal(y_plain[3, :1], TFM.fused_matmul_nladc_plain(
+        xt[3, :1], wt[3], None, thr, y_table))
+
+
 @pytest.mark.parametrize("tile_cols", [0, 16])
 def test_ref_moe_matmul_nladc_matches_jax_ref(tile_cols):
     ramp, x, w, thr_j, thr_t = _gate_case(4, 3, 40, 48, "silu", "float32",

@@ -164,6 +164,60 @@ def test_library_declares_pointer_arguments(monkeypatch):
     monkeypatch.setattr(TPA._build, "load", lambda name: fake)
     lib = TPA.library()
     fn = lib.prefill_attention_launch
-    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
+
+
+# -- what the cluster kernel takes ------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("h,hkv,d,s,dtype,want", [
+    (16, 2, 128, 128, BF16, 8),      # the serving shape: 64 CTAs
+    (16, 2, 128, 128, F32, 8),
+    (16, 2, 128, 1, BF16, 1),        # one slot, one CTA
+    (16, 2, 128, 2, BF16, 2),
+    (16, 2, 128, 100, BF16, 8),      # S not a multiple of the split
+    (8, 2, 16, 12, BF16, 2),         # D 16: 16-byte V slices
+    (8, 2, 16, 24, F32, 4),
+    (16, 2, 128, 2048, BF16, 8),
+    (16, 2, 128, 2048, F32, 16),     # only 16 CTAs hold it
+    (16, 16, 64, 2048, BF16, 8),     # G 1, D 64
+    (16, 1, 256, 128, F32, 8)])      # G 16, D 256
+def test_cluster_size_fits_the_card(h, hkv, d, s, dtype, want):
+    cs = TPA.cluster_size(h, hkv, d, s, dtype)
+    assert cs == want
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert (d // cs * elem) % 16 == 0
+    assert TPA.smem_bytes(h // hkv, d, s, cs, elem) <= TPA._SMEM_MAX
+
+
+def test_smem_bytes_at_the_serving_shape():
+    """G 8, D 128, S 128, bfloat16, 8 CTAs: queries 4,128 B + scores 512 B
+    + 16 K rows of 272 B + 128 V slices of 32 B, each region 128-aligned."""
+    assert TPA.smem_bytes(8, 128, 128, 8, 2) == 13312
+
+
+@pytest.mark.parametrize("h,hkv,d,s,dtype,match", [
+    (16, 2, 4, 8, BF16, "multiple of 16"),
+    (34, 2, 128, 8, BF16, "H/Hkv <= 16"),
+    (16, 2, 128, 200_000, BF16, "does not fit"),
+    (16, 2, 128, 0, BF16, "S >= 1")])
+def test_cluster_size_refuses_what_the_kernel_cannot_take(h, hkv, d, s, dtype,
+                                                          match):
+    with pytest.raises(ValueError, match=match):
+        TPA.cluster_size(h, hkv, d, s, dtype)
+
+
+@pytest.mark.parametrize("group,d,s,elem,cluster", [
+    (8, 128, 128, 2, 3),       # not a power of two
+    (8, 128, 128, 2, 32),      # past the largest cluster
+    (4, 16, 12, 2, 4),         # 8-byte V slices
+    (8, 128, 2048, 4, 8)])     # 8 CTAs cannot hold the cache
+def test_a_cluster_the_kernel_refuses_does_not_fit(group, d, s, elem,
+                                                   cluster):
+    """What the C launch refuses: :func:`cluster_size` passes over such a
+    cluster and takes the next one down (or 16)."""
+    assert not TPA._cluster_fits(group, d, s, cluster, elem)

@@ -120,6 +120,64 @@ def test_moe_int8_token_streams_match_jax_scan_engine_bf16():
     assert all(len(s) == MAX_NEW for s in res["got"].values())
 
 
+# waves served one after another on one engine: the shared index passes
+# max_len, and the cache write lands on the last slot as the reference's
+# dynamic_update_slice clamps it
+WAVES, WAVE_REQ, WAVE_NEW, WAVE_LEN = 3, 3, 6, 16
+
+
+def _wave_streams(arch, dtype, overrides=None):
+    jm, jp, tm, tp = _engines(arch, dtype, overrides)
+    jeng = JEngine(jm, jp, max_batch=2, max_len=WAVE_LEN, prefill="scan")
+    teng = TEngine(tm, tp, max_batch=2, max_len=WAVE_LEN)
+    want, got = [], []
+    for _ in range(WAVES):
+        reqs_t = TSERVE.make_requests(tm.cfg, WAVE_REQ, WAVE_NEW)
+        reqs_j = [JRequest(uid=r.uid, prompt=r.prompt.copy(),
+                           max_new_tokens=r.max_new_tokens) for r in reqs_t]
+        want.append({str(k): v for k, v in _streams(jeng, reqs_j).items()})
+        got.append({str(k): v for k, v in _streams(teng, reqs_t).items()})
+    return want, got, int(teng.state["index"]), int(jeng.state["index"])
+
+
+_WAVES_SCRIPT = """
+import json, sys
+sys.path.insert(0, {tests!r})
+import test_torch_serve as T
+want, got, t_index, j_index = T._wave_streams({arch!r}, {dtype!r},
+                                              {overrides!r})
+print(json.dumps({{"want": want, "got": got, "t_index": t_index,
+                   "j_index": j_index}}))
+"""
+
+
+@pytest.mark.parametrize("arch,dtype,overrides", [
+    ("qwen2.5-3b", "bfloat16", None),                   # a bf16 cache
+    ("moonshot-v1-16b-a3b", "float32", _INT8)],         # an int8 cache
+    ids=["bf16_cache", "int8_cache"])
+def test_waves_past_max_len_match_jax_scan_engine(arch, dtype, overrides):
+    if dtype == "bfloat16":
+        # the bf16 reference rounds every op only with excess precision off
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_allow_excess_precision=false",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+        out = subprocess.run(
+            [sys.executable, "-c", _WAVES_SCRIPT.format(
+                tests=str(ROOT / "tests"), arch=arch, dtype=dtype,
+                overrides=overrides)],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        want, got = res["want"], res["got"]
+        t_index, j_index = res["t_index"], res["j_index"]
+    else:
+        want, got, t_index, j_index = _wave_streams(arch, dtype, overrides)
+    assert t_index == j_index > WAVE_LEN
+    assert got == want
+    assert all(len(s) >= 1 for wave in got for s in wave.values())
+
+
 def test_requests_are_the_jax_launchers():
     """The launchers draw the same prompts: lengths 4-11, tokens below
     the vocab, from ``np.random.default_rng(0)``."""

@@ -131,9 +131,11 @@ def test_env_names_are_the_ports_own(monkeypatch):
 
 def test_a_miss_is_the_kernels_earlier_constants():
     """The launch constants the CUDA sources and wrappers had before the
-    seam: 4 rows a block for the dense gate, 8 for the expert gate, 32
-    columns and a K tile of 512; 8 warps by 32 columns for the NL-ADC; one
-    row by 256 threads for the LSTM tail."""
+    seam: 4 rows a block for the dense gate, 32 columns and a K tile of
+    512; 8 warps by 32 columns for the NL-ADC; one row by 256 threads for
+    the LSTM tail.  The expert gate's kernel was redesigned after the seam:
+    its default is 8 capacity rows an item, a 128-column weight strip and
+    64 K rows a ring stage."""
     TT.set_active_cache(_cache_with("nladc", (9, 9), (4, 64)))
     cases = {("fused_matmul_nladc", (4, 2048, 11008)): (4, 32, 512),
              ("nladc", (4, 64)): (8, 32),
@@ -142,8 +144,7 @@ def test_a_miss_is_the_kernels_earlier_constants():
     for (kernel, shape), want in cases.items():
         assert TT.launch_config(kernel, shape, torch.bfloat16, CPU) == want
     assert TT.launch_config("fused_matmul_nladc", (6, 2048, 1408),
-                            torch.bfloat16, CPU,
-                            default=TT.EXPERT_GATE_BLOCKS) == (8, 32, 512)
+                            torch.bfloat16, CPU, experts=64) == (8, 128, 64)
 
 
 def test_memo_is_invalidated_by_configure(monkeypatch, tmp_path):
@@ -230,6 +231,74 @@ def test_candidates_are_supported_and_hold_the_default(kernel, shape):
         assert all(c[2] >= 16 and c[2] & (c[2] - 1) == 0 for c in cands)
 
 
+@pytest.mark.parametrize("requested,applied", [
+    ((8, 32, 512), (8, 128, 64)),     # the earlier grouped kernel's default
+    ((4, 64, 1024), (4, 128, 64)),    # an earlier sweep's winner there
+    ((3, 200, 48), (2, 128, 32)),
+    ((16, 512, 8), (8, 256, 16))])
+def test_an_earlier_expert_gate_entry_clamps_with_one_warning(requested,
+                                                              applied):
+    """A cache written for the earlier grouped kernel still loads; the
+    expert gate reads its entry under its own rules and clamps it, with
+    the one-time warning, to the config nearest it."""
+    shape = (6, 2048, 1408)
+    cache = _cache_with("fused_matmul_nladc", shape, requested,
+                        dtype=torch.bfloat16)
+    TT.set_active_cache(TT.TuneCache.from_dict(
+        json.loads(json.dumps(cache.to_dict()))))
+
+    def gate():
+        return TT.launch_config("fused_matmul_nladc", shape, torch.bfloat16,
+                                CPU, experts=64)
+
+    with pytest.warns(TT.KernelBlockClampWarning, match="clamped"):
+        assert gate() == applied
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert gate() == applied
+    assert TT.supported("fused_matmul_nladc", applied, experts=64) == \
+        applied
+    # the dense gate reads the same key under its own rules
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", TT.KernelBlockClampWarning)
+        assert TT.launch_config("fused_matmul_nladc", shape, torch.bfloat16,
+                                CPU) == TT.supported("fused_matmul_nladc",
+                                                     requested)
+
+
+@pytest.mark.parametrize("shape,n_cands", [
+    ((6, 2048, 1408), 24), ((7, 300, 1000), 24), ((1, 64, 80), 4),
+    ((9, 64, 80), 12)])
+def test_expert_gate_candidates_are_its_own(shape, n_cands):
+    cands = TT.candidates("fused_matmul_nladc", shape, experts=64)
+    assert TT.EXPERT_GATE_BLOCKS in cands and cands == sorted(cands)
+    assert len(cands) == n_cands
+    assert all(TT.supported("fused_matmul_nladc", c, experts=64) == c
+               for c in cands)
+    assert cands != TT.candidates("fused_matmul_nladc", shape)
+
+
+def test_expert_gate_stages_fit_the_shared_memory():
+    from repro_torch.kernels import fused_matmul_nladc as TFM
+
+    def stages(blocks, p, elem, banked):
+        return TFM.expert_gate_stages(blocks, 64, 6, 2048, p, elem, banked)
+
+    # the default at the moonshot gate (P 32): 4 stages of 64 x 128
+    # float32; 3 beside two banked threshold strips
+    assert stages((8, 128, 64), 32, 2, False) == 4
+    assert stages((8, 128, 64), 32, 2, True) == 3
+    assert stages((8, 128, 16), 32, 2, True) == 8
+    assert stages((8, 256, 64), 32, 2, False) == 2
+    # float32 x at K 2048 leaves room for one 64 x 256 stage only
+    assert stages((8, 256, 64), 32, 4, False) == 1
+    x = torch.zeros((2, 8, 2048))
+    w = torch.zeros((2, 2048, 256))
+    thr, y_table = torch.zeros(31), torch.zeros(32)
+    out = TFM.moe_fused_matmul(x, w, thr, y_table, blocks=(8, 256, 64))
+    assert out.shape == (2, 8, 256)      # the CPU takes the plain version
+
+
 def test_cpu_proxy_sweep_bytes_repeat():
     shapes = {"fused_matmul_nladc": [(64, 128, 256), ((4, 2048, 11008),
                                                       torch.bfloat16)],
@@ -254,6 +323,9 @@ def test_expert_gate_entry_sweeps_from_the_expert_default():
                            experts=64)
     assert e["default"] == list(TT.EXPERT_GATE_BLOCKS)
     assert e["experts"] == 64 and e["source"] == "proxy"
+    assert e["candidates"] == 24
+    assert TT.supported("fused_matmul_nladc", e["blocks"], experts=64) == \
+        tuple(e["blocks"])
     x, w, thr, y_table = TT.kernel_inputs("fused_matmul_nladc", (3, 8, 5),
                                           torch.float32, CPU, experts=4)
     assert x.shape == (4, 3, 8) and w.shape == (4, 8, 5)
