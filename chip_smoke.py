@@ -59,10 +59,13 @@ Phases, one JSON line each:
               matmul's flip contract (at most 1%), outputs equal to the
               table at the kernel's codes, empty capacity rows the table at
               the zero code.
-11. flash_decode — the int8 ``flash_decode_int8`` kernel against its
-              plain version at the serving shape (B 4, H = Hkv = 16, D 128,
-              S 128), a GQA case (H 16, Hkv 2) and ragged S and lengths:
-              max abs diff 1e-5.
+11. flash_decode — the int8 ``flash_decode_int8`` kernel (a cluster of
+              CTAs splitting each KV head's slots) against its plain
+              version at the serving shape (B 4, H = Hkv = 16, D 128,
+              S 128) with full rows and with growing lengths (1, 37, 100,
+              128), a GQA case (H 16, Hkv 2), a row of length 0 (V averaged
+              over all slots), and ragged S and lengths: max abs diff 1e-5;
+              the split count of each case.
 12. serve_moe — moonshot-v1-16b-a3b at full width, 24 of its 48 layers
               (f32 weights, 59.1 GB, drawn on the card), int8 KV cache,
               bfloat16 compute, ``cuda`` backend: 4 requests, max_batch 4,
@@ -797,14 +800,16 @@ def phase_moe_matmul(torch, dev, name: str, e: int, c: int, k: int, n: int,
     return out, kernel, plain, library
 
 
-def flash_bound(lengths, h: int, hkv: int, d: int, q_bytes: int) -> dict:
+def flash_bound(lengths, h: int, hkv: int, d: int, q_bytes: int,
+                s_len: int) -> dict:
     """The least time the card needs for one flash_decode_int8 call with
-    these lengths: q, the valid slots' int8 K/V and their bfloat16 scales
-    and the lengths read once, the float32 output written once, against
-    the QK and PV multiply-adds (and ~5 softmax operations a score) at the
-    rate of q's type (bfloat16 tensor cores, or float32)."""
+    these lengths: q, the slots it attends to (the valid ones; all S of a
+    row of length 0) with their int8 K/V and bfloat16 scales and the
+    lengths read once, the float32 output written once, against the QK and
+    PV multiply-adds (and ~5 softmax operations a score) at the rate of q's
+    type (bfloat16 tensor cores, or float32)."""
     b = len(lengths)
-    slots = sum(lengths)
+    slots = sum(min(n, s_len) if n > 0 else s_len for n in lengths)
     n_bytes = q_bytes * b * h * d + slots * hkv * (2 * d + 2 * 2) + 4 * b \
         + 4 * b * h * d
     n_ops = 4 * h * d * slots + 5 * h * slots
@@ -863,11 +868,12 @@ def phase_flash_decode(torch, dev, name: str, b: int, h: int, hkv: int,
     out = {"phase": "flash_decode", "case": name, "B": b, "H": h,
            "Hkv": hkv, "D": d, "S": s_len, "lengths": list(lengths),
            "q_dtype": str(q_dtype).replace("torch.", ""),
+           "splits": fd.split_count(b, hkv, s_len),
            "max_abs_err": err, "atol": FLASH_ATOL,
            "library_max_abs_diff": lib_diff,
            "call_ms": cuda_ms(kernel),
            "plain_call_ms": cuda_ms(plain, inner=5),
-           **flash_bound(lengths, h, hkv, d, q.element_size())}
+           **flash_bound(lengths, h, hkv, d, q.element_size(), s_len)}
     emit(out)
     return out, kernel, plain, library
 
@@ -897,6 +903,7 @@ def phase_analog_tile(torch, dev, name: str, m: int, k: int, n: int,
     from repro_torch.core.nladc import build_ramp
     from repro_torch.kernels import analog_tile as at
     from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.kernels import tune
     from repro_torch.kernels.ref import (ClosedForm, closed_form_decode_fma,
                                         closed_form_params,
                                         effective_operands,
@@ -949,6 +956,8 @@ def phase_analog_tile(torch, dev, name: str, m: int, k: int, n: int,
            "input_bits": bits, "noise": noise, "ramp": act,
            "decode_mode": dec.mode, "code_flips": flips,
            "unexplained_flips": unexplained, "elements": nk.numel(),
+           "blocks": list(tune.launch_config("analog_tile", (m, k, n),
+                                             x_dtype, dev)),
            "max_abs_err": err, "call_ms": cuda_ms(kernel),
            "plain_call_ms": cuda_ms(plain, inner=5),
            **tile_bound(m, k, n, p, x.element_size(), noise,
@@ -1305,8 +1314,12 @@ def main() -> int:
     flash_checked = [
         phase_flash_decode(torch, dev, "serve", 4, 16, 16, 128, 128,
                            [128, 128, 128, 128], bf16),
+        phase_flash_decode(torch, dev, "serve_growing", 4, 16, 16, 128, 128,
+                           [1, 37, 100, 128], bf16),
         phase_flash_decode(torch, dev, "gqa", 4, 16, 2, 128, 128,
                            [128, 1, 37, 100], bf16),
+        phase_flash_decode(torch, dev, "zero_length", 4, 16, 16, 128, 128,
+                           [128, 0, 37, 100], bf16),
         phase_flash_decode(torch, dev, "ragged_f32", 3, 8, 8, 64, 200,
                            [200, 65, 1], f32)]
     tile_checked = [
@@ -1398,7 +1411,10 @@ def main() -> int:
         "src/repro/kernels/flash_decode.py:76",
         served_moe["launches"]["flash_decode_int8"], flash_cases, fl_main,
         shape={k: fl_main[k] for k in ("B", "H", "Hkv", "D", "S",
-                                       "q_dtype")})
+                                       "q_dtype", "splits")},
+        per_case={c["case"]: {k: c[k] for k in (
+            "lengths", "splits", "ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err")} for c in flash_cases})
     tl_main = tile_cases[0]
     tile = kernel_entry(
         "analog_tile", "src/repro_torch/kernels/csrc/analog_tile.cu",
@@ -1407,7 +1423,11 @@ def main() -> int:
         launches_per_path={"kernel_tune": tuned["launches"]["analog_tile"]},
         code_flips=sum(c["code_flips"] for c in tile_cases),
         shape={k: tl_main[k] for k in ("M", "K", "N", "P", "x_dtype",
-                                       "input_bits", "noise", "ramp")})
+                                       "input_bits", "noise", "ramp",
+                                       "blocks")},
+        per_case={c["case"]: {k: c[k] for k in (
+            "M", "K", "N", "blocks", "ms", "plain_ms", "library_ms",
+            "bound_ms", "code_flips")} for c in tile_cases})
     emit({"kernels": [lstm, fused, attention, nl, moe, flash, tile]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

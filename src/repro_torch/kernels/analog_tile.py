@@ -10,8 +10,11 @@ noise on the weights (``w_noise``; none without), the float32 MAC, and the
 strict comparator count against one ``(P,)`` ramp, decoded in closed form
 (``fma(d, lsb, y0)``, one rounding, as ``jax.jit`` compiles the Pallas
 body).  The kernel (``csrc/analog_tile.cu``) is bound by the bytes of w
-and the noise at the PTB gate crossbar's shape; the source says how it
-streams them.
+and the noise at the PTB gate crossbar's shape: persistent CTAs (one per
+SM, :func:`persistent_ctas`) walk a static list of (row block, column
+strip) work items, CTA c taking items c, c + ctas, ... (item i is row block
+i // strips, strip i % strips), while a producer warp streams w and the
+noise through a ring of TMA loads.
 
 Its summation order is not the plain version's, so the contract is the
 fused matmul's (:func:`~repro_torch.kernels.fused_matmul_nladc.code_flips`)
@@ -21,9 +24,11 @@ at the kernel's codes.
 
 :func:`analog_tile` flattens x's leading dims and sends CPU tensors to
 :func:`analog_tile_plain`, CUDA tensors to the kernel; anything else
-raises.  A launch takes its config (rows, columns and K tile of a block)
-from :mod:`repro_torch.kernels.tune` at ``(M, K, N)``; without a tune
-cache or override that is 16 rows, 32 columns and a K tile of 512.
+raises.  A launch takes its config (rows of x and columns of w of a work
+item, and K rows of a ring stage) from :mod:`repro_torch.kernels.tune` at
+``(M, K, N)``; without a tune cache or override that is 16 rows, 32
+columns and 128 K rows.  No config changes the summation order, so every
+config computes the same bits.
 ``analog_tile.launches`` counts kernel launches.
 """
 
@@ -38,11 +43,29 @@ from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import (ClosedForm, analog_tile_plain,
                                     effective_operands)
 
-_GRID_Y_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+_SMS: dict = {}                         # device index -> its SM count
 
 __all__ = ["analog_tile", "analog_tile_plain", "effective_operands",
-           "library"]
+           "library", "persistent_ctas"]
+
+
+def persistent_ctas(m_dim: int, n_dim: int, rows: int, cols: int,
+                    sms: int) -> int:
+    """The CTAs a launch runs: one per SM, fewer where there are fewer
+    work items (row blocks of ``rows`` rows times strips of ``cols``
+    columns)."""
+    return max(1, min(sms, -(-m_dim // rows) * -(-n_dim // cols)))
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def _check(x, w, w_noise, thr):
@@ -78,7 +101,7 @@ def library() -> ctypes.CDLL:
     # without argtypes ctypes would pass each pointer as a 32-bit int
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.analog_tile_launch.argtypes = [p] * 5 + [i] * 6 + [f] * 3 + \
-        [i] * 2 + [f] * 3 + [i] * 3 + [p]
+        [i] * 2 + [f] * 3 + [i] * 4 + [p]
     lib.analog_tile_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -108,9 +131,6 @@ def analog_tile(x, w, thr, dec: ClosedForm, *, w_noise=None,
         raise ValueError(f"analog_tile: no kernel for {x.device}")
     rows, cols, k_tile = tune.launch_config(
         "analog_tile", (m_dim, k_dim, n_dim), x.dtype, x.device, blocks)
-    if -(-m_dim // rows) > _GRID_Y_MAX:
-        raise ValueError(f"analog_tile: {m_dim} rows exceed the grid's "
-                         f"{_GRID_Y_MAX * rows}")
     out = torch.empty((m_dim, n_dim), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out.reshape(lead + (n_dim,))
@@ -128,7 +148,9 @@ def analog_tile(x, w, thr, dec: ClosedForm, *, w_noise=None,
             thr.shape[0], int(x.dtype == torch.bfloat16),
             int(input_bits is not None), float(input_clip), float(recip),
             float(step), dec.mode,
-            dec.m, dec.y0, dec.lsb_l, dec.lsb_r, rows, cols, k_tile, stream)
+            dec.m, dec.y0, dec.lsb_l, dec.lsb_r, rows, cols, k_tile,
+            persistent_ctas(m_dim, n_dim, rows, cols, _sm_count(x.device)),
+            stream)
     if err != 0:
         raise RuntimeError(f"analog_tile kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")

@@ -7,14 +7,18 @@ with ``kv_cache_dtype="int8"`` runs it once per decode step and per
 scan-prefill position.  The int8 K/V tiles are dequantized inside the
 kernel (``csrc/flash_decode_int8.cu``), never to device memory, and an
 online softmax runs over tiles of slots with the ``length`` mask, as in the
-Pallas kernel.  The query is multiplied by ``1/sqrt(D)`` rounded to
-float32, as the Pallas kernel does and as XLA compiles the oracle's
-``q / sqrt(d)`` (a division by a constant becomes a multiplication by its
-float32 reciprocal in the jitted HLO).
+Pallas kernel.  The kernel splits each (KV head, batch row)'s slots over a
+thread-block cluster of :func:`split_count` CTAs, whose partial softmax
+states one CTA combines in split order.  The query is multiplied by
+``1/sqrt(D)`` rounded to float32, as the Pallas kernel does and as XLA
+compiles the oracle's ``q / sqrt(d)`` (a division by a constant becomes a
+multiplication by its float32 reciprocal in the jitted HLO).
 
 The kernel sums in another order than the dequantize-all plain version
 (:func:`flash_decode_int8_plain`, the reference's oracle op for op) and
-rescales as it goes, so the two agree to float32 rounding: within 1e-5.
+rescales as it goes, so the two agree to float32 rounding: within 1e-5,
+for every split count.  The split count is a function of the shape alone,
+so a rerun of the same inputs gives the same bits.
 
 :func:`flash_decode_int8` sends CPU tensors to the plain version and CUDA
 tensors to the kernel; anything else raises.
@@ -33,9 +37,33 @@ from repro_torch.kernels.ref import flash_decode_int8_plain, inv_sqrt_d
 _GRID_Y_MAX = 65535
 _MAX_GROUP = 8                       # csrc: kMaxGroup
 _MAX_D = 256                         # csrc: kMaxD
+_MAX_SPLITS = 8                      # csrc: kMaxSplits (a portable cluster)
+_MIN_SLOTS_PER_CTA = 32
+_SMS = 132                           # H100 SXM: the split count's target
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 
-__all__ = ["flash_decode_int8", "flash_decode_int8_plain", "library"]
+__all__ = ["flash_decode_int8", "flash_decode_int8_plain", "library",
+           "split_count"]
+
+
+def split_count(b_dim: int, hkv: int, s_len: int) -> int:
+    """CTAs per (KV head, batch row): the fewest that give the grid
+    ``_SMS`` CTAs, but at least 32 slots a CTA and at most 8.  A function
+    of the shape alone (never of the card or a tune cache): it sets the
+    kernel's summation order."""
+    want = -(-_SMS // max(1, b_dim * hkv))
+    return max(1, min(want, _MAX_SPLITS, s_len // _MIN_SLOTS_PER_CTA))
+
+
+def _check_kernel_shape(b_dim, h_dim, hkv, d_dim):
+    """What the kernel takes beyond the plain version's arguments."""
+    group = h_dim // hkv
+    if b_dim > _GRID_Y_MAX or group > _MAX_GROUP or d_dim > _MAX_D or \
+            d_dim % 16:
+        raise ValueError(f"flash_decode_int8: needs B <= {_GRID_Y_MAX}, "
+                         f"H/Hkv <= {_MAX_GROUP} and D <= {_MAX_D} a "
+                         f"multiple of 16 (a TMA box row); got B {b_dim}, "
+                         f"H/Hkv {group}, D {d_dim}")
 
 
 def _check(q, k8, k_scale, v8, v_scale, length):
@@ -84,7 +112,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load("flash_decode_int8")
     # without argtypes ctypes would pass each pointer as a 32-bit int
     lib.flash_decode_int8_launch.argtypes = [ctypes.c_void_p] * 7 + \
-        [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_decode_int8_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -106,11 +134,18 @@ def flash_decode_int8(q, k8, k_scale, v8, v_scale, length):
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, length)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_int8: no kernel for {q.device}")
-    group = h_dim // hkv
-    if b_dim > _GRID_Y_MAX or group > _MAX_GROUP or d_dim > _MAX_D:
-        raise ValueError(f"flash_decode_int8: needs B <= {_GRID_Y_MAX}, "
-                         f"H/Hkv <= {_MAX_GROUP} and D <= {_MAX_D}; got "
-                         f"B {b_dim}, H/Hkv {group}, D {d_dim}")
+    return _launch(q, k8, k_scale, v8, v_scale, length,
+                   split_count(b_dim, hkv, s_len),
+                   (b_dim, h_dim, hkv, d_dim, s_len))
+
+
+def _launch(q, k8, k_scale, v8, v_scale, length, splits, dims=None):
+    """The kernel with ``splits`` CTAs per (KV head, batch row), 1 to 8
+    (the card tests run every count); ``dims``: ``_check``'s result where
+    the caller has it."""
+    b_dim, h_dim, hkv, d_dim, s_len = dims or _check(q, k8, k_scale, v8,
+                                                     v_scale, length)
+    _check_kernel_shape(b_dim, h_dim, hkv, d_dim)
     out = torch.empty((b_dim, h_dim, d_dim), dtype=torch.float32,
                       device=q.device)
     if out.numel() == 0:
@@ -122,7 +157,7 @@ def flash_decode_int8(q, k8, k_scale, v8, v_scale, length):
         err = lib.flash_decode_int8_launch(
             q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
             v_scale.data_ptr(), length.data_ptr(), out.data_ptr(), b_dim,
-            h_dim, hkv, d_dim, s_len, scale,
+            h_dim, hkv, d_dim, s_len, splits, scale,
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode_int8 kernel launch failed: "

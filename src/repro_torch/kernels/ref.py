@@ -109,7 +109,10 @@ def thermometer_count(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
 
     ``thr`` is ``(P,)`` (one ramp for every column) or ``(N, P)`` (one
     ramp row per column of ``x``'s last axis); the one broadcast covers
-    both.  Equal to ``searchsorted(right=False)`` on sorted thresholds.
+    both.  Equal to ``searchsorted(right=False)`` on sorted thresholds,
+    except that NaN counts 0 here (every compare with NaN is false, as in
+    the Pallas kernels' count) and P there (``tests/
+    test_torch_nladc_nonfinite.py``).
     """
     return (x.to(thr.dtype)[..., None] > thr).sum(-1)
 

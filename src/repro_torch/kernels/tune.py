@@ -19,7 +19,10 @@ fused_matmul_nladc    (rows, cols, k_tile)   rows of x per block (1, 2, 4 or
                                              2, 4 or 8), columns per weight
                                              strip (128 or 256), K rows per
                                              TMA ring stage (16, 32 or 64)
-analog_tile           (rows, cols, k_tile)   the same, with 4, 8 or 16 rows
+analog_tile           (rows, cols, k_tile)   rows of x per work item (4, 8
+                                             or 16), columns per strip (32
+                                             or 64), K rows per TMA ring
+                                             stage (16, 32, 64 or 128)
 nladc                 (rows, cols)           rows in flight per block (one a
                                              warp: 4, 8 or 16), columns per
                                              block (32, 64, 128 or 256)
@@ -98,10 +101,12 @@ import torch
 ENV_BLOCKS = "REPRO_TORCH_KERNEL_BLOCKS"
 ENV_CACHE = "REPRO_TORCH_KERNEL_CACHE"
 
-# the kernels' launch constants before this seam: the cache-miss configs
+# the cache-miss configs: the kernels' launch constants before this seam,
+# and for the crossbar tile (redesigned since) the config that is fast at
+# the PTB gate crossbar without slowing the small shapes on an H100
 DEFAULT_BLOCKS: Dict[str, Tuple[int, ...]] = {
     "fused_matmul_nladc": (4, 32, 512),
-    "analog_tile": (16, 32, 512),
+    "analog_tile": (16, 32, 128),
     "nladc": (8, 32),
     "lstm_gates": (1, 256),
 }
@@ -110,13 +115,15 @@ EXPERT_GATE_BLOCKS = (8, 128, 64)
 
 _MATMUL_ROWS = {"fused_matmul_nladc": (1, 2, 4, 8), "analog_tile": (4, 8, 16)}
 _MATMUL_COLS = (32, 64)
-_K_TILES = tuple(2 ** i for i in range(4, 12))      # 16 .. 2048
+_K_TILES = {"fused_matmul_nladc": tuple(2 ** i for i in range(4, 12)),
+            "analog_tile": (16, 32, 64, 128)}    # x staged / a ring stage
 _NLADC_ROWS, _NLADC_COLS = (4, 8, 16), (32, 64, 128, 256)
 _LSTM_ROWS, _LSTM_THREADS_MAX = (1, 2, 4), 512
 _GATE_ROWS, _GATE_COLS, _GATE_K_TILES = (1, 2, 4, 8), (128, 256), (16, 32, 64)
 
 # the sweep's candidate values per tuple position
-_CAND_K_TILE = (256, 512, 1024)
+_CAND_K_TILE = {"fused_matmul_nladc": (256, 512, 1024),
+                "analog_tile": (32, 64, 128)}
 _CAND_NLADC = ((4, 8, 16), (32, 64, 128))
 _CAND_LSTM = ((1, 2, 4), (128, 256, 512))
 _SMS = 132                           # H100 SXM, for the proxy score only
@@ -393,7 +400,7 @@ def supported(kernel: str, blocks: Sequence[int],
         rows, cols, k_tile = blocks
         return (_floor_choice(rows, _MATMUL_ROWS[kernel]),
                 _floor_choice(cols, _MATMUL_COLS),
-                _floor_choice(k_tile, _K_TILES))
+                _floor_choice(k_tile, _K_TILES[kernel]))
     if kernel == "nladc":
         rows, cols = blocks
         return (_floor_choice(rows, _NLADC_ROWS),
@@ -485,8 +492,9 @@ def candidates(kernel: str, shape: Sequence[int],
         m, k, n = shape
         rows = upto(_MATMUL_ROWS[kernel], m)
         cols = upto(_MATMUL_COLS, n)
-        whole = min(t for t in _K_TILES if t >= min(k, _K_TILES[-1]))
-        k_tiles = sorted({min(t, whole) for t in _CAND_K_TILE})
+        tiles = _K_TILES[kernel]
+        whole = min(t for t in tiles if t >= min(k, tiles[-1]))
+        k_tiles = sorted({min(t, whole) for t in _CAND_K_TILE[kernel]})
         cands = {(r, c, t) for r in rows for c in cols for t in k_tiles}
     else:
         m, n = shape

@@ -1,6 +1,7 @@
 """Two checkouts of the port, kernel by kernel, on one card: device and
-host time per wrapper call of the cached attention, the expert gate and
-the dense gate, and a digest of each output.
+host time per wrapper call of the cached attention, the expert gate, the
+dense gate, the int8 flash decode and the crossbar tile, a digest of each
+output, and the largest difference between the two checkouts' outputs.
 
     python src/repro_torch/launch/kernel_ab.py --trees OLD NEW [--rounds 1]
 
@@ -9,9 +10,11 @@ round runs OLD, NEW, NEW, OLD, each in a process of its own that imports
 ``repro_torch`` from that checkout and builds its kernels there, so a
 drift of the card or the host over the call weighs on both alike.  The
 last line of standard output is one JSON object: per case and checkout,
-every run's numbers and their medians, and whether the checkouts'
-outputs are bitwise equal.  It needs a CUDA card; the file imports
-nothing of the port itself, so it can drive an older checkout.
+every run's numbers and their medians, whether the checkouts' outputs are
+bitwise equal, and the max |delta| between the first OLD and the first NEW
+output (each run saves its outputs under NEW's ``build/kernel_ab/``).  It
+needs a CUDA card; the file imports nothing of the port itself, so it can
+drive an older checkout.
 
 The cases, all from seeded inputs made on the card:
 
@@ -23,7 +26,13 @@ The cases, all from seeded inputs made on the card:
   float32 w, 31 flat thresholds) with every expert live, and with 17
   experts live (1 to 6 rows each; the other rows are +-0);
 * ``dense_gate``: ``fused_matmul_nladc`` at qwen2.5-3b's MLP gate
-  (4, 2048, 11008), bfloat16 x.
+  (4, 2048, 11008), bfloat16 x;
+* ``flash_serve`` / ``flash_gqa``: ``flash_decode_int8`` at
+  ``chip_smoke.py``'s shapes, bfloat16 q: moonshot's serving shape (B 4,
+  H = Hkv = 16, D 128, S 128, full rows) and a GQA case (Hkv 2, lengths
+  128, 1, 37, 100);
+* ``tile_ptb``: ``analog_tile`` at the PTB gate crossbar (16, 632, 8064),
+  bfloat16 x, 5-bit PWM, read noise, the tanh ramp.
 
 Host µs per call: ``HOST_CALLS`` calls issued back to back with no sync
 inside the timing, over their count (the median of ``HOST_REPEATS``
@@ -46,6 +55,8 @@ from pathlib import Path
 
 HOST_CALLS, HOST_REPEATS = 200, 5
 DEVICE_CALLS = 50
+KERNELS = ("fused_matmul_nladc", "prefill_attention", "flash_decode_int8",
+           "analog_tile")
 
 
 def _digest(t) -> str:
@@ -58,8 +69,12 @@ def _digest(t) -> str:
 
 def _cases(torch, dev):
     """name -> a call of one wrapper on seeded inputs."""
+    from repro_torch.core.nladc import build_ramp
+    from repro_torch.kernels import analog_tile as at
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_matmul_nladc as fmn
     from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels.ref import closed_form_params
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -78,6 +93,28 @@ def _cases(torch, dev):
         name = f"attention_{str(dtype)[6:]}_s{s_len}"
         cases[name] = (lambda q=q, k=k, v=v, m=mask:
                        pa.prefill_attention(q, k, v, m))
+
+    for name, hkv, lengths in (("flash_serve", 16, [128, 128, 128, 128]),
+                               ("flash_gqa", 2, [128, 1, 37, 100])):
+        q = randn(4, 16, 128).bfloat16()
+        k8, v8 = (torch.randint(-127, 128, (4, 128, hkv, 128), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = ((1e-3 + 2e-2 * torch.rand((4, 128, hkv), generator=gen,
+                                            device=dev)).bfloat16()
+                  for _ in range(2))
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        cases[name] = (lambda a=(q, k8, ks, v8, vs, length):
+                       fd.flash_decode_int8(*a))
+
+    ramp = build_ramp("tanh", 5)
+    dec = closed_form_params(ramp)
+    tthr = torch.tensor(ramp.thresholds, dtype=torch.float32, device=dev)
+    xt = (0.6 * randn(16, 632)).bfloat16()
+    wt = (2.0 / math.sqrt(632)) * randn(632, 8064)
+    nt = 0.02 * randn(632, 8064)
+    cases["tile_ptb"] = lambda: at.analog_tile(xt, wt, tthr, dec, w_noise=nt,
+                                               input_bits=5)
 
     e, c, k_dim, n = 64, 6, 2048, 1408
     w = randn(e, k_dim, n) / math.sqrt(k_dim)
@@ -102,9 +139,10 @@ def _cases(torch, dev):
     return cases
 
 
-def child(src: str) -> dict:
+def child(src: str, save: str) -> dict:
     """One checkout's numbers, in this process (run as a file, so
-    ``sys.path[0]`` is this file's folder: ``src`` takes its place)."""
+    ``sys.path[0]`` is this file's folder: ``src`` takes its place); its
+    outputs go to the file ``save``."""
     sys.path[0] = src
     import torch
 
@@ -113,11 +151,11 @@ def child(src: str) -> dict:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    for name in ("fused_matmul_nladc", "prefill_attention"):
-        _build.load(name)
+    _build.build_all(KERNELS)
     build_s = time.perf_counter() - t0
     cases = _cases(torch, dev)
     out = {"src": src, "build_s": build_s, "cases": {}}
+    outputs = {}
     for name, fn in list(cases.items()):
         try:
             res = fn()
@@ -135,13 +173,24 @@ def child(src: str) -> dict:
                 fn()
             runs.append((time.perf_counter() - t) / HOST_CALLS * 1e6)
             torch.cuda.synchronize()
+        outputs[name] = res.cpu()
         out["cases"][name] = {"digest": _digest(res),
                               "host_us": statistics.median(runs),
                               "host_us_runs": runs}
     for name, fn in cases.items():    # the profiler last: it slows the host
         us, clock = tune.device_us(fn, calls=DEVICE_CALLS)
         out["cases"][name].update(device_us=us, timed_by=clock)
+    torch.save(outputs, save)
     return out
+
+
+def _max_abs_diff(old: str, new: str) -> dict:
+    """name -> max |delta| between two runs' saved outputs (float32)."""
+    import torch
+
+    a, b = torch.load(old), torch.load(new)
+    return {name: float((a[name].float() - b[name].float()).abs().max())
+            for name in a if name in b}
 
 
 def _card() -> str:
@@ -158,22 +207,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--child", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--child", nargs=2, metavar=("SRC", "SAVE"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(child(args.child)), flush=True)
+        print(json.dumps(child(*args.child)), flush=True)
         return 0
     if not args.trees:
         ap.error("--trees OLD NEW is required")
     old, new = (str(Path(t).resolve() / "src") for t in args.trees)
+    saves = Path(args.trees[1]).resolve() / "build" / "kernel_ab"
+    saves.mkdir(parents=True, exist_ok=True)
     card = _card()
     print(card, flush=True)
     runs = {"old": [], "new": []}
     for _ in range(args.rounds):
         for which in ("old", "new", "new", "old"):
             src = old if which == "old" else new
+            save = saves / f"{which}{len(runs[which])}.pt"
             proc = subprocess.run(
-                [sys.executable, __file__, "--child", src],
+                [sys.executable, __file__, "--child", src, str(save)],
                 capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 print(proc.stderr[-4000:], file=sys.stderr)
@@ -181,6 +234,7 @@ def main(argv=None) -> int:
             res = json.loads(proc.stdout.strip().splitlines()[-1])
             print(json.dumps({"tree": which, **res}), flush=True)
             runs[which].append(res)
+    delta = _max_abs_diff(str(saves / "old0.pt"), str(saves / "new0.pt"))
     summary = {}
     for name in runs["new"][0]["cases"]:
         cell = {}
@@ -200,6 +254,7 @@ def main(argv=None) -> int:
         digests = {r["cases"][name].get("digest")
                    for rs in runs.values() for r in rs}
         cell["bitwise_equal"] = len(digests) == 1
+        cell["max_abs_diff"] = delta.get(name)
         summary[name] = cell
     print(json.dumps({"card": card, "order": "old new new old",
                       "rounds": args.rounds, "cases": summary}))

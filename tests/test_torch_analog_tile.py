@@ -197,7 +197,34 @@ def test_library_declares_argument_types(monkeypatch):
     lib = TAT.library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     assert lib.analog_tile_launch.argtypes == [p] * 5 + [i] * 6 + [f] * 3 \
-        + [i] * 2 + [f] * 3 + [i] * 3 + [p]
+        + [i] * 2 + [f] * 3 + [i] * 4 + [p]
     assert lib.analog_tile_launch.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p
 
+
+
+@pytest.mark.parametrize("m,n,rows,cols,sms", [
+    (16, 8064, 16, 32, 132),      # the PTB crossbar: 252 strips
+    (16, 8064, 16, 64, 132),      # 126 strips, 6 SMs idle
+    (128, 256, 4, 32, 132),       # the sweep's: 32 x 8 items
+    (33, 1000, 8, 64, 132),       # ragged rows and columns
+    (1, 7, 4, 32, 132),           # one item
+    (50, 128, 16, 32, 3)])        # more items than CTAs, unevenly
+def test_persistent_schedule_covers_every_item_once(m, n, rows, cols, sms):
+    """The crossbar tile's static schedule (csrc/analog_tile.cu: CTA c of
+    ctas takes items c, c + ctas, ...; item i is row block i // strips,
+    strip i % strips) over the wrapper's CTA count: at most one CTA per SM
+    and no more CTAs than work items, and the CTAs' item lists together
+    hold every (row block, strip) exactly once, each CTA's in ascending
+    order."""
+    ctas = TAT.persistent_ctas(m, n, rows, cols, sms)
+    blocks, strips = -(-m // rows), -(-n // cols)
+    assert 1 <= ctas <= min(sms, blocks * strips)
+    lists = [[divmod(i, strips) for i in range(c, blocks * strips, ctas)]
+             for c in range(ctas)]
+    seen = [item for lst in lists for item in lst]
+    assert sorted(seen) == [(b, s) for b in range(blocks)
+                            for s in range(strips)]
+    assert all(lst == sorted(lst) and lst for lst in lists)
+    sizes = [len(lst) for lst in lists]
+    assert max(sizes) - min(sizes) <= 1          # balanced to one item

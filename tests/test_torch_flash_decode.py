@@ -180,7 +180,45 @@ def test_library_declares_pointer_arguments(monkeypatch):
     monkeypatch.setattr(TFD._build, "load", lambda name: fake)
     lib = TFD.library()
     assert lib.flash_decode_int8_launch.argtypes == \
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     assert lib.flash_decode_int8_launch.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p
+
+
+@pytest.mark.parametrize("b,hkv,s_len", [
+    (4, 16, 128), (4, 2, 128), (3, 8, 200), (1, 1, 32768), (4, 16, 2048),
+    (1, 1, 31), (1, 1, 1), (128, 16, 4096), (2, 4, 16)])
+def test_split_count_covers_the_card_within_its_limits(b, hkv, s_len):
+    """The slots of a (KV head, batch row) go to ``split_count`` CTAs: 1 to
+    8, each owning at least 32 slots unless S has fewer than 64, and no
+    fewer than the H100's 132 SMs need, where S allows it.  Every CTA but
+    the last owns ceil(S / splits) slots, so together they cover S, and
+    none is left without a slot."""
+    n = TFD.split_count(b, hkv, s_len)
+    assert 1 <= n <= 8
+    per = -(-s_len // n)
+    assert per * n >= s_len and per * (n - 1) < s_len
+    if n > 1:
+        assert s_len // n >= 32
+    if n < 8 and s_len // (n + 1) >= 32:
+        assert b * hkv * n >= 132
+    assert n == TFD.split_count(b, hkv, s_len)     # the shape alone
+
+
+def test_serving_shape_splits_in_three():
+    assert TFD.split_count(4, 16, 128) == 3        # 192 CTAs, 43 slots
+    assert TFD.split_count(4, 2, 128) == 4         # G 8: 32 slots a CTA
+    assert TFD.split_count(1, 16, 31) == 1
+
+
+def test_kernel_shape_checks():
+    """What the kernel takes beyond the plain version: D a multiple of 16
+    up to 256 (a TMA box row of int8 codes), at most 8 query heads a KV
+    head, B within the grid."""
+    TFD._check_kernel_shape(4, 16, 16, 128)
+    TFD._check_kernel_shape(4, 16, 2, 256)
+    for args in ((4, 16, 16, 72), (4, 16, 16, 8), (4, 16, 16, 272),
+                 (4, 16, 1, 128), (70000, 16, 16, 128)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            TFD._check_kernel_shape(*args)

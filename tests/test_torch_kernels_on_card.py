@@ -17,7 +17,8 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   computes the same bits.
 * ``nladc``: bitwise equal to its plain version (codes and values), at
   the router's shape (4, 64) bfloat16, the (4, 11008) bfloat16 width with
-  512-column threshold banks, and a ragged float32 (33, 1000).
+  512-column threshold banks, and a ragged float32 (33, 1000); NaN counts
+  0 and +-inf all or none, flat and banked.
 * ``moe_fused_matmul``: ``fused_matmul_nladc``'s contract over the expert
   axis, at the moonshot expert gate's shape (64 experts, C 6, d 2048,
   f 1408, bfloat16 x, flat and banked-512) and a ragged float32
@@ -28,13 +29,17 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   code.
 * ``flash_decode_int8``: max abs diff 1e-5 against its plain version at
   the moonshot serving shape (B 4, H = Hkv = 16, D 128, S 128), a GQA case
-  (H 16, Hkv 2) and ragged S and lengths.
+  (H 16, Hkv 2) and ragged S and lengths; for every split count (1 to 8
+  CTAs a cluster) with rows of length 0 and lengths no multiple of a tile,
+  at D 16, 64, 128 and 256; and two launches on the same inputs give the
+  same bits.
 * ``analog_tile``: the fused matmul's flip contract on the effective
   operands ``pwm(x)`` and ``w + noise`` (at most 1%), outputs equal to the
   closed-form decode at the kernel's codes; PWM widths 3, 5, 8 and none,
   with and without read noise, the three decode modes, float32 and
   bfloat16 x, ragged shapes, the PTB gate crossbar (16, 632, 8064) and the
-  JAX sweep's (128, 256, 256).
+  JAX sweep's (128, 256, 256); on the same cases every (rows, cols, ring
+  depth) computes the default config's bits.
 * The tune seam: every sweep candidate of every tunable kernel (the expert
   gate's among them) computes the default config's bits, and a cache miss
   launches the default config.
@@ -216,6 +221,25 @@ def test_nladc_kernel_matches_plain(shape, name, dtype, tile_cols):
     assert torch.equal(nk.float(), thermometer_count(x, thr).float())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("banked", [False, True])
+def test_nladc_kernel_counts_nan_and_inf_as_its_plain_version(banked):
+    """NaN compares false with every threshold, so the kernel's count is 0
+    there, as its plain version's and the Pallas kernel's
+    (tests/test_torch_nladc_nonfinite.py); +inf crosses all, -inf none."""
+    dev = _card()
+    thr = torch.tensor([-1.0, 0.0, 1.0], device=dev)
+    x = torch.tensor([[float("nan"), float("inf"), float("-inf"), 0.5]],
+                     device=dev)
+    if banked:
+        thr = thr.expand(x.shape[-1], -1).contiguous()
+    count = torch.arange(4, dtype=torch.float32, device=dev)
+    got = TNK.nladc(x, thr, count)
+    torch.cuda.synchronize()
+    assert got.cpu().tolist() == [[0.0, 3.0, 0.0, 2.0]]
+    assert torch.equal(got, TNK.nladc_plain(x, thr, count))
+
+
 def _expert_gate_holds_its_contract(x, w, thr, ramp, dev):
     y_table = torch.tensor(ramp.y_table, dtype=torch.float32, device=dev)
     count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32, device=dev)
@@ -327,6 +351,61 @@ def test_flash_decode_kernel_matches_plain(b, s, h, hkv, d, q_dtype):
     assert float((got - want).abs().max()) <= FLASH_ATOL
 
 
+def _flash_inputs(dev, b, s, h, hkv, d, q_dtype, lengths, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(q_dtype)
+    k8, v8 = (torch.randint(-127, 128, (b, s, hkv, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((1e-3 + 2e-2 * torch.rand((b, s, hkv), generator=gen,
+                                        device=dev)).bfloat16()
+              for _ in range(2))
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k8, ks, v8, vs, length
+
+
+FLASH_SPLIT_CASES = [  # b, s, h, hkv, d, q dtype, lengths
+    (4, 128, 16, 16, 128, torch.bfloat16, [1, 37, 100, 128]),  # serving
+    (4, 128, 16, 2, 128, torch.bfloat16, [128, 0, 37, 100]),   # G 8, empty
+    (3, 200, 8, 8, 64, torch.float32, [200, 65, 0]),
+    (2, 300, 4, 1, 256, torch.float32, [299, 131]),            # G 4, D 256
+    (2, 37, 16, 16, 16, torch.bfloat16, [0, 5])]               # D 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,q_dtype,lengths", FLASH_SPLIT_CASES)
+def test_every_split_count_holds_the_flash_contract(b, s, h, hkv, d,
+                                                    q_dtype, lengths):
+    """Every cluster of 1 to 8 CTAs computes the attention within
+    FLASH_ATOL of the plain version (the split count moves the summation
+    order, so the bits differ between counts), lengths that are no
+    multiple of any tile among them, and a row of length 0 averages V over
+    all S slots, as the plain version does."""
+    dev = _card()
+    args = _flash_inputs(dev, b, s, h, hkv, d, q_dtype, lengths, seed=s + d)
+    want = TFD.flash_decode_int8_plain(*args)
+    for splits in range(1, 9):
+        got = TFD._launch(*args, splits)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (b, h, d)
+        assert float((got - want).abs().max()) <= FLASH_ATOL, splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,q_dtype,lengths",
+                         FLASH_SPLIT_CASES[:2])
+def test_flash_decode_reruns_give_the_same_bits(b, s, h, hkv, d, q_dtype,
+                                                lengths):
+    """Rank 0 combines the splits in split order, with no atomics, and the
+    split count is the shape's: two launches on the same inputs agree
+    bitwise."""
+    dev = _card()
+    args = _flash_inputs(dev, b, s, h, hkv, d, q_dtype, lengths, seed=7)
+    first = TFD.flash_decode_int8(*args)
+    for _ in range(3):
+        assert torch.equal(TFD.flash_decode_int8(*args), first)
+
+
 TILE_CASES = [((50, 72, 128), bits, noise, name, dt)
               for bits in (None, 3, 5, 8) for noise in (False, True)
               for name in ("tanh", "swish", "selu")
@@ -370,6 +449,35 @@ def test_analog_tile_kernel_matches_plain(shape, bits, noise, name, dtype):
     plain = TAT.analog_tile_plain(x.reshape(-1, k), w, nz, thr, dec, bits)
     same = nk.reshape(-1, n) == n_plain
     assert torch.equal(yk.reshape(-1, n)[same], plain[same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bits,noise,name,dtype", TILE_CASES)
+def test_every_crossbar_tile_config_computes_the_default_bits(
+        shape, bits, noise, name, dtype):
+    """Every (rows, cols, ring depth) the kernel takes gives the default
+    config's bits: none of them touches the summation order."""
+    dev = _card()
+    rng = np.random.default_rng(sum(shape) + 1)
+    *lead, k, n = shape
+    dec = closed_form_params(TN.build_ramp(name, 5))
+    thr = torch.tensor(TN.build_ramp(name, 5).thresholds,
+                       dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.normal(0, 0.6, (*lead, k)),
+                     dtype=torch.float32).to(dev, dtype)
+    w = torch.tensor(rng.normal(0, 2.0 / np.sqrt(k), (k, n)),
+                     dtype=torch.float32).to(dev)
+    nz = torch.tensor(rng.normal(0, 0.02, (k, n)),
+                      dtype=torch.float32).to(dev) if noise else None
+    want = TAT.analog_tile(x, w, thr, dec, w_noise=nz, input_bits=bits,
+                           blocks=TT.default_blocks("analog_tile"))
+    for rows in (4, 8, 16):
+        for cols in (32, 64):
+            for k_tile in (16, 32, 64, 128):
+                got = TAT.analog_tile(x, w, thr, dec, w_noise=nz,
+                                      input_bits=bits,
+                                      blocks=(rows, cols, k_tile))
+                assert torch.equal(got, want), (rows, cols, k_tile)
 
 
 TUNE_CASES = [("fused_matmul_nladc", (4, 2048, 11008), torch.bfloat16, 0),

@@ -135,12 +135,14 @@ def test_a_miss_is_the_kernels_earlier_constants():
     512; 8 warps by 32 columns for the NL-ADC; one row by 256 threads for
     the LSTM tail.  The expert gate's kernel was redesigned after the seam:
     its default is 8 capacity rows an item, a 128-column weight strip and
-    64 K rows a ring stage."""
+    64 K rows a ring stage.  So was the crossbar tile's: 16 rows an item, a
+    32-column strip and 128 K rows a ring stage (its K tile had staged 512
+    columns of x)."""
     TT.set_active_cache(_cache_with("nladc", (9, 9), (4, 64)))
     cases = {("fused_matmul_nladc", (4, 2048, 11008)): (4, 32, 512),
              ("nladc", (4, 64)): (8, 32),
              ("lstm_gates", (16, 2016)): (1, 256),
-             ("analog_tile", (16, 632, 8064)): (16, 32, 512)}
+             ("analog_tile", (16, 632, 8064)): (16, 32, 128)}
     for (kernel, shape), want in cases.items():
         assert TT.launch_config(kernel, shape, torch.bfloat16, CPU) == want
     assert TT.launch_config("fused_matmul_nladc", (6, 2048, 1408),
@@ -229,6 +231,25 @@ def test_candidates_are_supported_and_hold_the_default(kernel, shape):
     assert all(TT.supported(kernel, c) == c for c in cands)
     if kernel in ("fused_matmul_nladc", "analog_tile"):
         assert all(c[2] >= 16 and c[2] & (c[2] - 1) == 0 for c in cands)
+
+
+@pytest.mark.parametrize("requested,applied", [
+    ((16, 32, 512), (16, 32, 128)),   # the earlier kernel's default
+    ((4, 64, 1024), (4, 64, 128)),
+    ((8, 32, 256), (8, 32, 128)),     # a TMA box holds at most 256 rows
+    ((16, 64, 48), (16, 64, 32))])
+def test_an_earlier_crossbar_tile_entry_clamps_to_a_ring_depth(requested,
+                                                               applied):
+    """The crossbar tile's K tile is now its ring's box depth (16 to 128
+    K rows); an entry written for the earlier kernel (x staged 16 to 2048
+    columns at a time) clamps, with the one-time warning, to the depth
+    nearest below it.  The sweep's candidates are ring depths."""
+    shape = (16, 632, 8064)
+    with pytest.warns(TT.KernelBlockClampWarning, match="clamped"):
+        assert TT.launch_config("analog_tile", shape, torch.bfloat16, CPU,
+                                requested) == applied
+    assert {c[2] for c in TT.candidates("analog_tile", shape)} == \
+        {32, 64, 128}
 
 
 @pytest.mark.parametrize("requested,applied", [
