@@ -6,8 +6,9 @@
 Phases, one JSON line each:
 
 1. device   — the card's name and power limit (nvidia-smi), torch and CUDA
-              versions, and the build of the six kernel sources from
-              ``kernels/csrc`` (one nvcc each, started together).
+              versions, and the build of the seven kernel sources from
+              ``kernels/csrc`` (the six ports and the launch floor; one
+              nvcc each, started together).
 2. kernel   — the ``lstm_gates`` kernel against its plain torch version and
               the ``ref`` backend on the card, at (B=16, H=2016) with one
               (P,) ramp, at (16, 2016) with (H, P) threshold banks (4 banks
@@ -96,6 +97,10 @@ Phases, one JSON line each:
               version and of the PyTorch call used as a yardstick
               (torch.profiler; CUDA events where three profiler sessions
               in a row record no device time), after the main paths.
+    launch_floor — the device time of one launch of a kernel of one block
+              that writes one word (``kernels/launch_floor.py``), on the
+              same clock: what any launch costs on this card, beside which
+              the tiny cases are read.  No bound.
 17. kernels — one line listing every ported kernel with its launches on
               the main paths, its error against the plain version and
               times.
@@ -126,7 +131,7 @@ TIMING_REPEATS = 4
 LOGIT_ATOL = 1e-6   # cuda vs ref backend: the tails are bitwise equal, so
 #                     any code flip would show as an LSB-sized jump
 KERNELS = ("lstm_cell", "fused_matmul_nladc", "prefill_attention", "nladc",
-           "flash_decode_int8", "analog_tile")
+           "flash_decode_int8", "analog_tile", "launch_floor")
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
@@ -276,6 +281,21 @@ def phase_kernel_time(case: dict, kernel, plain, library=None) -> dict:
     case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 timed_by=timed_by)
     return case
+
+
+def phase_launch_floor(torch, dev, module) -> dict:
+    """Device time of one launch of the one-block kernel that writes one
+    word, on ``kernel_time``'s clock: the floor of every launch."""
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    n0 = module.launch_floor.launches
+    module.launch_floor(word)
+    torch.cuda.synchronize()
+    check(int(word.item()) == 1 and module.launch_floor.launches == n0 + 1,
+          "launch_floor: the kernel did not write its word")
+    ms, clock = device_ms(lambda: module.launch_floor(word))
+    out = {"phase": "launch_floor", "us": ms * 1e3, "timed_by": clock}
+    emit(out)
+    return out
 
 
 def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
@@ -1237,8 +1257,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.kernels import (_build, analog_tile, flash_decode,
-                                     fused_matmul_nladc, lstm_cell, nladc,
-                                     prefill_attention)
+                                     fused_matmul_nladc, launch_floor,
+                                     lstm_cell, nladc, prefill_attention)
     from repro_torch.launch.common import configure_numerics
 
     dev = torch.device("cuda", 0)
@@ -1252,7 +1272,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_paths = _build.build_all(KERNELS)
     for mod in (lstm_cell, fused_matmul_nladc, prefill_attention, nladc,
-                flash_decode, analog_tile):
+                flash_decode, analog_tile, launch_floor):
         mod.library()
     build_s = time.perf_counter() - t0
     ptxas = {}
@@ -1349,6 +1369,7 @@ def main() -> int:
     moe_cases = [phase_kernel_time(*c) for c in moe_checked]
     flash_cases = [phase_kernel_time(*c) for c in flash_checked]
     tile_cases = [phase_kernel_time(*c) for c in tile_checked]
+    phase_launch_floor(torch, dev, launch_floor)
 
     main_case = cases[0]
     lstm = kernel_entry(

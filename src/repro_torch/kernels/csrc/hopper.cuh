@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the kernels of this directory: mbarrier
 // operations, bulk and tensor (TMA) copies from device memory into shared
-// memory, and host-side tensor maps.
+// memory (and a stager of small runs built on them), host-side tensor maps,
+// and the NL-ADC's comparator count and table decode on thresholds held in
+// registers.
 //
 // A tensor map is encoded by the driver's cuTensorMapEncodeTiled, found in
 // the loaded driver library with dlopen, so a kernel library needs neither
@@ -85,6 +87,128 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// kP thresholds at `src` into registers: 16-byte loads where `src` is
+// 16-byte aligned (kP is a multiple of 4), else one load each.  Lanes that
+// share `src` (a (P,) ramp) share each load.
+template <int kP>
+__device__ __forceinline__ void load_row(float (&t)[kP], const float* src) {
+  if (kP % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+#pragma unroll
+    for (int v = 0; v < kP / 4; ++v) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(src) + v);
+      t[4 * v] = q.x;
+      t[4 * v + 1] = q.y;
+      t[4 * v + 2] = q.z;
+      t[4 * v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kP; ++k) t[k] = __ldg(src + k);
+  }
+}
+
+// Brings up to kMax runs of floats from device memory into this CTA's
+// shared memory (16-byte aligned destinations) in one device round trip: a
+// run 16-byte aligned at both ends goes by one bulk copy on `bar`, issued
+// by thread 0; any other run is copied by every thread with plain loads.
+// Every thread makes the same calls in the same order:
+//
+//   Strips<2> st;  st.add(dst, src, n) for each run
+//   st.issue(bar);      thread 0: initialise `bar`, issue the bulk copies
+//   ...                 the caller's own loads into registers
+//   st.land(bar);       the plain copies, one barrier, the bulk copies' wait
+//
+// so the caller's loads and the copies are in flight together.
+template <int kMax>
+struct Strips {
+  float* dst[kMax];
+  const float* src[kMax];
+  int n[kMax];
+  bool bulk[kMax];
+  int count = 0;
+  uint32_t tx = 0;
+
+  __device__ __forceinline__ void add(float* d, const float* s, int floats) {
+    dst[count] = d;
+    src[count] = s;
+    n[count] = floats;
+    bulk[count] = floats > 0 && floats % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(s) % 16 == 0;
+    if (bulk[count]) tx += 4u * floats;
+    ++count;
+  }
+
+  __device__ __forceinline__ void issue(uint64_t* bar) const {
+    if (threadIdx.x != 0 || tx == 0) return;
+    mbar_init(bar, 1);
+    fence_mbar_init();
+    mbar_expect_tx(bar, tx);
+#pragma unroll
+    for (int i = 0; i < kMax; ++i)
+      if (i < count && bulk[i]) bulk_load(dst[i], src[i], 4u * n[i], bar);
+  }
+
+  __device__ __forceinline__ void land(uint64_t* bar) const {
+#pragma unroll
+    for (int i = 0; i < kMax; ++i) {
+      if (i >= count || bulk[i]) continue;
+      for (int u = threadIdx.x; u < n[i]; u += blockDim.x)
+        dst[i][u] = __ldg(src[i] + u);
+    }
+    __syncthreads();
+    if (tx) mbar_wait(bar, 0);
+  }
+};
+
+// Copies row `src` of kP thresholds (shared memory) into registers, lane q
+// starting at threshold q mod kP: rows kP floats apart then spread over the
+// banks whatever kP is (32 columns at a pitch of 32 would share one).
+template <int kP>
+__device__ __forceinline__ void load_rotated(float (&t)[kP], const float* src,
+                                             int q) {
+  q %= kP;
+#pragma unroll
+  for (int k = 0; k < kP; ++k) {
+    const int i = k + q;
+    t[k] = src[i < kP ? i : i - kP];
+  }
+}
+
+// #{k : x > t[k]} over kP thresholds in registers: each compare is one
+// set.gt (-1 or 0; NaN compares false), summed as a tree in groups of 8, so
+// no compare waits on the one before it.  The count is an integer sum, so it
+// does not depend on the order of t.
+template <int kP>
+__device__ __forceinline__ int count_gt(float x, const float (&t)[kP]) {
+  int total = 0;
+#pragma unroll
+  for (int g = 0; g < kP; g += 8) {
+    int m[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = 0;
+      if (g + i < kP)
+        asm("set.gt.s32.f32 %0, %1, %2;" : "=r"(m[i]) : "f"(x), "f"(t[g + i]));
+    }
+#pragma unroll
+    for (int w = 1; w < 8; w *= 2)
+#pragma unroll
+      for (int i = 0; i + w < 8; i += 2 * w) m[i] += m[i + w];
+    total += m[0];
+  }
+  return -total;
+}
+
+// y[n], n in [0, kP], from a table held one entry a lane (y_lane =
+// y[min(lane, kP)]) and y_last = y[kP]: a warp shuffle, so every lane of the
+// warp must call it.
+template <int kP>
+__device__ __forceinline__ float table_at(float y_lane, float y_last, int n) {
+  static_assert(kP <= 32, "a warp holds at most 33 table entries");
+  const float y = __shfl_sync(0xffffffffu, y_lane, n & 31);
+  return (kP == 32 && n == 32) ? y_last : y;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

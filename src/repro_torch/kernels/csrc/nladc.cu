@@ -6,41 +6,54 @@
 //   out[..., n] = y_table[#{j : float(x[..., n]) > thr[j]}]   in x's type
 //
 // x is any tensor of float32 or bfloat16 seen as (M, N) rows of its last
-// axis; thr is one (P,) ramp for every column (stride 0) or one row of an
-// (N, P) per-column matrix (stride P, the threshold-bank layout).  The
-// comparator is strict, and the decode is a lookup in the ramp's y table,
-// as the port's reference backend decodes (the Pallas kernel decodes in
-// closed form; the codes are the same).
+// axis; thr is one (P,) ramp for every column or one row of an (N, P)
+// per-column matrix (the threshold-bank layout).  The comparator is strict,
+// every compare runs over all P thresholds (no early exit: the count is
+// #{thr_j < x} whatever the order of thr), and NaN counts 0.  The decode is
+// a lookup in the ramp's y table, as the port's reference backend decodes
+// (the Pallas kernel decodes in closed form; the codes are the same), and
+// the value is rounded to bfloat16 to nearest even (__float2bfloat16_rn), as
+// PyTorch's cast.
 //
 // Bound on this card: on the serving path the kernel quantizes the MoE
-// router's sigmoid scores, (4, 64) bfloat16 at a decode step and (1, 64)
-// at a prefill position: 512 bytes in and out, 32 compares an element.
-// Any launch costs more than that, so what bounds a call is launch
-// latency, and the design keeps one launch and few instructions per
-// element; at larger widths (the (4, 11008) MLP width) it is bound by the
-// bytes of x and the output, and every load is coalesced:
+// router's sigmoid scores, (4, 64) bfloat16 at a decode step and (1, 64) at
+// a prefill position: 1.3 KB in and out with the ramp, 32 compares an
+// element.  No design takes that much below an empty launch, so the call is
+// the launch plus one device round trip and a short chain of compares.  At
+// the MLP width with 512-column banks, (4, 11008) bfloat16, the (N, P)
+// matrix is 1.41 MB of the 1.59 MB a call must move (0.47 us at
+// 3.35 TB/s), and every byte of it is read once.  One kernel for both
+// threshold layouts:
 //
-//   * a block owns a strip of 32 columns; its 8 warps each take one row at
-//     a time, a lane one column, so a warp reads 32 consecutive elements
-//     (both by default: the launch takes the warps per block, 4, 8 or 16,
-//     and the columns per block, 32, 64, 128 or 256 with each lane taking
-//     every 32nd column, at run time, as template instances; see
-//     kernels/tune.py; each element's result does not depend on either);
-//   * the strip's thresholds (P of them, or 32 rows of P in the per-column
-//     layout) and the y table are staged in shared memory once per block,
-//     the per-column rows with a padded pitch (P + 1) so the 32 lanes,
-//     which read 32 different rows at one j, hit 32 different banks;
-//   * the grid covers the columns in x and the rows in y, each block
-//     walking rows with a stride of gridDim.y * warps, so a (33, 1000) or a
-//     (4, 64) tensor both take one launch.
+//   * a CTA has one warp per row it can take (the launch config's rows,
+//     fewer where x has fewer rows, so M = 1 or 4 leaves no warp idle) and
+//     covers a strip of `cols` columns, each lane every 32nd one; warps walk
+//     rows with a stride of gridDim.y x warps, so any M takes one launch and
+//     a CTA's thresholds serve every row it takes;
+//   * a lane issues its x loads first, then loads a (P,) ramp (one
+//     broadcast line) into registers and its entry of the y table, decodes
+//     by a warp shuffle of the table (y[P] beside it) and stores: no shared
+//     memory and no barrier;
+//   * an (N, P) matrix: the strip's rows (one contiguous run of cols x P
+//     floats) come into shared memory by one bulk copy on an mbarrier,
+//     issued by thread 0 before any other load (plain loads where the run
+//     is not 16-byte aligned); after the block's one barrier each lane
+//     copies its column's row into registers, starting at its own
+//     threshold so that 32 rows of 32 floats do not share a bank.
 //
-// Every compare runs over all P thresholds (no early exit), so the count
-// is #{thr_j < x} whatever the order of thr.  The rounding of the table
-// value to bfloat16 is round to nearest even (__float2bfloat16_rn), as
-// PyTorch's cast.
+// P is a template constant for the 3-, 4- and 5-bit ADCs (P = 8, 16, 32), so
+// the P compares unroll, each one set.gt summed as a tree; any other P takes
+// one run-time instance that reads thresholds and table from device memory.
+//
+// Launch config (kernels/tune.py): (rows, cols) = rows in flight per CTA
+// (one a warp: 4, 8 or 16) and columns per CTA (32, 64, 128 or 256), as
+// template instances of the columns; the launch clips the rows to M.  Each
+// element's result does not depend on either.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -50,93 +63,147 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
-// A block of kWarps warps over 32 * kColsPerLane columns.
-template <typename T, int kWarps, int kColsPerLane>
-__global__ void __launch_bounds__(32 * kWarps) nladc_kernel(
-    const T* __restrict__ x, const float* __restrict__ thr,
-    const float* __restrict__ y_table, T* __restrict__ out, int m_rows,
-    int n_cols, int p, int thr_stride) {
-  constexpr int kThreads = 32 * kWarps;
-  constexpr int cols = 32 * kColsPerLane;
-  extern __shared__ float smem[];
-  const int thr_pitch = thr_stride ? p + 1 : p;
-  float* s_thr = smem;  // cols x (P+1), or P
-  float* s_y = s_thr + (thr_stride ? cols : 1) * thr_pitch;  // P + 1
-
-  const int n0 = blockIdx.x * cols;
-  const int n_here = min(cols, n_cols - n0);
-  if (thr_stride) {
-    // the block's columns n0 .. n0+cols-1 are one contiguous strip of (N, P)
-    for (int i = threadIdx.x; i < n_here * p; i += kThreads)
-      s_thr[(i / p) * thr_pitch + i % p] = thr[(size_t)n0 * p + i];
-  } else {
-    for (int i = threadIdx.x; i < p; i += kThreads) s_thr[i] = thr[i];
-  }
-  for (int i = threadIdx.x; i <= p; i += kThreads) s_y[i] = y_table[i];
-  __syncthreads();
-
+// blockDim.x / 32 warps, each a row at a time (rows blockIdx.y * warps +
+// warp, then every gridDim.y * warps-th); lane l takes columns n0 + l + 32 c,
+// c < kColsPerLane, of the CTA's strip from n0 = blockIdx.x * 32 *
+// kColsPerLane.  kBanked: thr is (N, P), and the strip's rows of it are
+// staged in shared memory once for all the rows the CTA takes.
+template <typename T, int kColsPerLane, int kP, bool kBanked>
+__global__ void __launch_bounds__(512)
+    nladc_kernel(const T* __restrict__ x, const float* __restrict__ thr,
+                 const float* __restrict__ y_table, T* __restrict__ out,
+                 int m_rows, int n_cols, int p) {
+  constexpr int kCols = 32 * kColsPerLane;
   const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  const int n0 = blockIdx.x * kCols;
+  const int row_stride = gridDim.y * warps;
+  int r = blockIdx.y * warps + threadIdx.x / 32;
+
+  // the strip's rows of an (N, P) matrix are one contiguous run of
+  // kCols x P floats: a bulk copy into shared memory, issued first
+  constexpr bool kStaged = kBanked && kP > 0;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar;
+  hopper::Strips<1> st;
+  if constexpr (kStaged) {
+    st.add(smem, thr + (size_t)n0 * kP, min(kCols, n_cols - n0) * kP);
+    st.issue(&bar);
+  }
+  if (!kStaged && r >= m_rows) return;  // the whole warp
+
+  float v[kColsPerLane];
+  auto load = [&](int row) {
 #pragma unroll
-  for (int c = 0; c < kColsPerLane; ++c) {
-    const int col = lane + 32 * c;
-    if (col >= n_here) break;
-    const float* t = thr_stride ? s_thr + col * thr_pitch : s_thr;
-    const int n = n0 + col;
-    for (int r = blockIdx.y * kWarps + warp; r < m_rows;
-         r += gridDim.y * kWarps) {
-      const size_t i = (size_t)r * n_cols + n;
-      const float v = to_float(x[i]);
-      int count = 0;
-      for (int j = 0; j < p; ++j) count += (v > t[j]) ? 1 : 0;
-      store(out + i, s_y[count]);
+    for (int c = 0; c < kColsPerLane; ++c) {
+      const int n = n0 + lane + 32 * c;
+      v[c] = n < n_cols ? to_float(x[(size_t)row * n_cols + n]) : 0.f;
     }
+  };
+  if (r < m_rows) load(r);
+  // a (P,) ramp: one broadcast line into registers; the y table: one entry
+  // a lane, for the shuffle decode
+  float t[kP ? kP : 1];
+  float y_lane = 0.f, y_last = 0.f;
+  if constexpr (kP > 0) {
+    if constexpr (!kBanked) {
+#pragma unroll
+      for (int k = 0; k < kP; ++k) t[k] = __ldg(thr + k);
+    }
+    y_lane = __ldg(y_table + (lane < kP ? lane : kP));
+    y_last = __ldg(y_table + kP);
+  }
+  if constexpr (kStaged) {
+    st.land(&bar);
+    if (r >= m_rows) return;  // the whole warp, after the block's barrier
+  }
+
+  while (true) {
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) {
+      const int n = n0 + lane + 32 * c;
+      float y;
+      if constexpr (kP > 0) {
+        if constexpr (kBanked)
+          hopper::load_rotated<kP>(t, smem + (lane + 32 * c) * kP, lane);
+        y = hopper::table_at<kP>(y_lane, y_last, hopper::count_gt<kP>(v[c], t));
+      } else {
+        const float* tc = kBanked ? thr + (size_t)(n < n_cols ? n : 0) * p
+                                  : thr;
+        int count = 0;
+        for (int k = 0; k < p; ++k) count += (v[c] > __ldg(tc + k)) ? 1 : 0;
+        y = __ldg(y_table + count);
+      }
+      if (n < n_cols) out[(size_t)r * n_cols + n] = from_float<T>(y);
+    }
+    r += row_stride;
+    if (r >= m_rows) break;
+    load(r);
   }
 }
 
-template <typename T, int kWarps, int kColsPerLane>
+template <typename T, int kColsPerLane, int kP, bool kBanked>
 int launch(const void* x, const float* thr, const float* y_table, void* out,
-           int m_rows, int n_cols, int p, int thr_stride,
-           cudaStream_t stream) {
-  constexpr int cols = 32 * kColsPerLane;
-  const int thr_pitch = thr_stride ? p + 1 : p;
-  const size_t smem =
-      sizeof(float) * ((size_t)(thr_stride ? cols : 1) * thr_pitch + p + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nladc_kernel<T, kWarps, kColsPerLane>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int row_blocks = (m_rows + kWarps - 1) / kWarps;
-  const dim3 grid((n_cols + cols - 1) / cols,
+           int m_rows, int n_cols, int p, int rows, cudaStream_t stream) {
+  constexpr int kCols = 32 * kColsPerLane;
+  rows = rows < m_rows ? rows : m_rows;  // no warp without a row
+  const int row_blocks = (m_rows + rows - 1) / rows;
+  const dim3 grid((n_cols + kCols - 1) / kCols,
                   row_blocks < kMaxGridY ? row_blocks : kMaxGridY);
-  nladc_kernel<T, kWarps, kColsPerLane><<<grid, 32 * kWarps, smem, stream>>>(
-      static_cast<const T*>(x), thr, y_table, static_cast<T*>(out), m_rows,
-      n_cols, p, thr_stride);
+  // the template instances stage the strip of an (N, P) matrix
+  const size_t smem = (kBanked && kP > 0) ? sizeof(float) * kCols * kP : 0;
+  nladc_kernel<T, kColsPerLane, kP, kBanked>
+      <<<grid, 32 * rows, smem, stream>>>(static_cast<const T*>(x), thr,
+                                          y_table, static_cast<T*>(out),
+                                          m_rows, n_cols, p);
   return (int)cudaGetLastError();
 }
 
-// The template instance of a (warps, cols) config; an unsupported one
-// returns cudaErrorInvalidValue.
-template <typename T>
-int dispatch(const void* x, const float* thr, const float* y_table,
-             void* out, int m_rows, int n_cols, int p, int thr_stride,
-             int warps, int cols, cudaStream_t stream) {
-#define NLADC_CASE(W, C)                                                   \
-  if (warps == W && cols == 32 * C)                                        \
-    return launch<T, W, C>(x, thr, y_table, out, m_rows, n_cols, p,        \
-                           thr_stride, stream);
-  NLADC_CASE(4, 1) NLADC_CASE(4, 2) NLADC_CASE(4, 4) NLADC_CASE(4, 8)
-  NLADC_CASE(8, 1) NLADC_CASE(8, 2) NLADC_CASE(8, 4) NLADC_CASE(8, 8)
-  NLADC_CASE(16, 1) NLADC_CASE(16, 2) NLADC_CASE(16, 4) NLADC_CASE(16, 8)
+// The template instance of one call; a config without one returns
+// cudaErrorInvalidValue.  P = 8, 16, 32 (the 3-, 4- and 5-bit ADCs) are
+// template constants, any other P the run-time instance.
+template <typename T, int kP>
+int dispatch_cols(const void* x, const float* thr, const float* y_table,
+                  void* out, int m_rows, int n_cols, int p, bool banked,
+                  int rows, int cols, cudaStream_t stream) {
+#define NLADC_CASE(C)                                                       \
+  if (cols == 32 * C)                                                       \
+    return banked ? launch<T, C, kP, true>(x, thr, y_table, out, m_rows,    \
+                                           n_cols, p, rows, stream)         \
+                  : launch<T, C, kP, false>(x, thr, y_table, out, m_rows,   \
+                                            n_cols, p, rows, stream);
+  NLADC_CASE(1) NLADC_CASE(2) NLADC_CASE(4) NLADC_CASE(8)
 #undef NLADC_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch(const void* x, const float* thr, const float* y_table, void* out,
+             int m_rows, int n_cols, int p, bool banked, int rows, int cols,
+             cudaStream_t stream) {
+  if (rows < 1 || rows > 16) return (int)cudaErrorInvalidValue;
+  if (p == 8)
+    return dispatch_cols<T, 8>(x, thr, y_table, out, m_rows, n_cols, p,
+                               banked, rows, cols, stream);
+  if (p == 16)
+    return dispatch_cols<T, 16>(x, thr, y_table, out, m_rows, n_cols, p,
+                                banked, rows, cols, stream);
+  if (p == 32)
+    return dispatch_cols<T, 32>(x, thr, y_table, out, m_rows, n_cols, p,
+                                banked, rows, cols, stream);
+  return dispatch_cols<T, 0>(x, thr, y_table, out, m_rows, n_cols, p, banked,
+                             rows, cols, stream);
 }
 
 }  // namespace
@@ -144,18 +211,20 @@ int dispatch(const void* x, const float* thr, const float* y_table,
 extern "C" {
 
 // x and out are bfloat16 when x_bf16 is nonzero, else float32; both hold
-// m_rows x n_cols elements, row-major.  (warps, cols) is the launch config.
-// Launches on `stream`; allocates nothing.  Returns cudaGetLastError(), or
+// m_rows x n_cols elements, row-major.  thr_stride: P for an (N, P) matrix,
+// 0 for a (P,) ramp.  (rows, cols): warps (rows in flight, at most m_rows
+// of them launched) and columns of a CTA.  Launches on `stream`; allocates
+// nothing; m_rows and n_cols are positive.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a config without a template instance.
 int nladc_launch(const void* x, const float* thr, const float* y_table,
                  void* out, int m_rows, int n_cols, int p, int thr_stride,
-                 int x_bf16, int warps, int cols, void* stream) {
+                 int x_bf16, int rows, int cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16)
     return dispatch<__nv_bfloat16>(x, thr, y_table, out, m_rows, n_cols, p,
-                                   thr_stride, warps, cols, s);
-  return dispatch<float>(x, thr, y_table, out, m_rows, n_cols, p, thr_stride,
-                         warps, cols, s);
+                                   thr_stride != 0, rows, cols, s);
+  return dispatch<float>(x, thr, y_table, out, m_rows, n_cols, p,
+                         thr_stride != 0, rows, cols, s);
 }
 
 const char* cuda_error_string(int code) {

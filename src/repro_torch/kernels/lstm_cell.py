@@ -8,14 +8,15 @@ Replaces the TPU kernel ``repro/kernels/lstm_cell.py::lstm_gates_pallas``:
 Five NL-ADCs, one read of (gates, c) and one write of (h', c').  The kernel
 (``csrc/lstm_cell.cu``) decodes by a lookup in each ramp's ``y_table``, as
 the reference backend does, and rounds ``c'`` once, so it is bitwise equal
-to :func:`lstm_gates_plain`.  It is bound by launch latency at the main
-path's shape; the source says why.
+to :func:`lstm_gates_plain`.  It is bound by latency at the main path's
+shape; the source says why and how a CTA reads each threshold byte once.
 
 :func:`lstm_gates` sends CPU tensors to :func:`lstm_gates_plain` and CUDA
 tensors to the kernel; anything else raises.  ``lstm_gates.launches``
-counts kernel launches.  A launch takes its config (batch rows and threads
-of a block) from :mod:`repro_torch.kernels.tune` at ``(B, H)``; without a
-tune cache or override that is 1 row and 256 threads.
+counts kernel launches.  A launch takes its config (rows a thread takes and
+threads a CTA may use) from :mod:`repro_torch.kernels.tune` at ``(B, H)``;
+without a tune cache or override that is 1 row and 256 threads.
+:func:`launch_geometry` says what a config launches.
 """
 
 from __future__ import annotations
@@ -28,6 +29,20 @@ from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import fma_f32, thermometer_count
 
 _GRID_Y_MAX = 65535
+_MIN_COLS = 16                      # a half-warp reads 64 bytes of a row
+
+
+def launch_geometry(rows: int, threads: int, b_dim: int, h_dim: int):
+    """``(cols, groups, grid)`` that config ``(rows, threads)`` launches at
+    ``(B, H)``: a CTA is ``groups`` row groups by ``cols`` columns (a
+    multiple of 16, so a half-warp reads 64 contiguous bytes of a gate row;
+    no wider than H needs), each thread one column and ``rows`` batch rows,
+    so a CTA covers ``groups x rows`` of them: all of B where ``threads``
+    allows."""
+    groups = max(1, min(-(-b_dim // rows), threads // _MIN_COLS))
+    cols = max(_MIN_COLS, threads // groups // _MIN_COLS * _MIN_COLS)
+    cols = min(cols, -(-h_dim // _MIN_COLS) * _MIN_COLS)
+    return cols, groups, (-(-h_dim // cols), -(-b_dim // (groups * rows)))
 
 
 def lstm_gates_plain(gates, c, sig_thr, sig_y, tanh_thr, tanh_y):
@@ -82,7 +97,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load("lstm_cell")
     # without argtypes ctypes would pass each pointer as a 32-bit int
     lib.lstm_gates_launch.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.lstm_gates_launch.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -91,8 +106,8 @@ def library() -> ctypes.CDLL:
 
 def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y, *, block=None):
     """Fused LSTM tail: (h', c') from gates (B, 4H) and c (B, H);
-    ``block``: a launch config ``(rows, threads)`` in place of the tune
-    seam's.
+    ``block``: a launch config ``(rows, threads)`` (rows a thread takes,
+    threads a CTA may use) in place of the tune seam's.
 
     CPU tensors take :func:`lstm_gates_plain`; CUDA tensors launch the
     kernel on the current stream, and a refused launch raises.
@@ -104,9 +119,10 @@ def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y, *, block=None):
         raise ValueError(f"lstm_gates: no kernel for {gates.device}")
     rows, threads = tune.launch_config("lstm_gates", (b_dim, h_dim),
                                        gates.dtype, gates.device, block)
-    if -(-b_dim // rows) > _GRID_Y_MAX:
+    cols, groups, (_, grid_y) = launch_geometry(rows, threads, b_dim, h_dim)
+    if grid_y > _GRID_Y_MAX:
         raise ValueError(f"lstm_gates: batch {b_dim} exceeds the grid's "
-                         f"{_GRID_Y_MAX * rows} rows")
+                         f"{_GRID_Y_MAX * groups * rows} rows")
     h_out = torch.empty_like(c)
     c_out = torch.empty_like(c)
     if b_dim == 0 or h_dim == 0:
@@ -118,8 +134,8 @@ def lstm_gates(gates, c, sig_thr, sig_y, tanh_thr, tanh_y, *, block=None):
             gates.data_ptr(), c.data_ptr(), sig_thr.data_ptr(),
             sig_y.data_ptr(), tanh_thr.data_ptr(), tanh_y.data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(), b_dim, h_dim, p,
-            p if sig_thr.dim() == 2 else 0,
-            p if tanh_thr.dim() == 2 else 0, rows, threads, stream)
+            p if sig_thr.dim() == 2 else 0, p if tanh_thr.dim() == 2 else 0,
+            rows, cols, groups, grid_y, stream)
     if err != 0:
         raise RuntimeError(f"lstm_gates kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")

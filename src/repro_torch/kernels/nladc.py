@@ -14,9 +14,10 @@ differs from the table by float rounding only.
 
 :func:`nladc` sends CPU tensors to :func:`nladc_plain` and CUDA tensors to
 the kernel; anything else raises.  ``nladc.launches`` counts kernel
-launches.  A launch takes its config (rows in flight and columns of a
-block) from :mod:`repro_torch.kernels.tune` at x's ``(M, N)`` rows and
-columns; without a tune cache or override that is 8 rows and 32 columns.
+launches.  A launch takes its config (rows in flight, one warp each, and
+columns of a CTA) from :mod:`repro_torch.kernels.tune` at x's ``(M, N)``
+rows and columns; without a tune cache or override that is 8 rows and 32
+columns.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import torch
 from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import nladc_plain
 
-_SMEM_MAX = 232448                  # bytes of shared memory a block can use
 _DTYPES = (torch.float32, torch.bfloat16)
 
 __all__ = ["library", "nladc", "nladc_plain"]
@@ -86,13 +86,8 @@ def nladc(x, thr, y_table, *, block=None):
     if x.device.type != "cuda":
         raise ValueError(f"nladc: no kernel for {x.device}")
     m_rows = x.numel() // n_cols if n_cols else 0
-    warps, cols = tune.launch_config("nladc", (m_rows, n_cols), x.dtype,
-                                     x.device, block)
-    per_column = thr.dim() == 2
-    smem = 4 * ((cols if per_column else 1) * (p + per_column) + p + 1)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"nladc: {p} thresholds per column do not fit one "
-                         f"block's shared memory")
+    rows, cols = tune.launch_config("nladc", (m_rows, n_cols), x.dtype,
+                                    x.device, block)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -101,8 +96,8 @@ def nladc(x, thr, y_table, *, block=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.nladc_launch(
             x.data_ptr(), thr.data_ptr(), y_table.data_ptr(), out.data_ptr(),
-            m_rows, n_cols, p, p if per_column else 0,
-            int(x.dtype == torch.bfloat16), warps, cols, stream)
+            m_rows, n_cols, p, p if thr.dim() == 2 else 0,
+            int(x.dtype == torch.bfloat16), rows, cols, stream)
     if err != 0:
         raise RuntimeError(f"nladc kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")

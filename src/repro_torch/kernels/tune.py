@@ -23,13 +23,16 @@ analog_tile           (rows, cols, k_tile)   rows of x per work item (4, 8
                                              or 16), columns per strip (32
                                              or 64), K rows per TMA ring
                                              stage (16, 32, 64 or 128)
-nladc                 (rows, cols)           rows in flight per block (one a
-                                             warp: 4, 8 or 16), columns per
-                                             block (32, 64, 128 or 256)
-lstm_gates            (rows, threads)        batch rows per block (1, 2 or
-                                             4), threads (hidden units) per
-                                             block (a multiple of 32, at
-                                             most 512)
+nladc                 (rows, cols)           rows in flight per CTA (one a
+                                             warp: 4, 8 or 16; clipped to
+                                             M), columns per CTA (32, 64,
+                                             128 or 256)
+lstm_gates            (rows, threads)        batch rows a thread takes (1, 2
+                                             or 4), threads a CTA may use (a
+                                             multiple of 32, at most 512):
+                                             row groups x a strip of
+                                             columns covering groups x rows
+                                             batch rows
 ====================  =====================  ================================
 
 Every config of a kernel computes the same bits: the matmul kernels keep

@@ -1,7 +1,8 @@
 """Two checkouts of the port, kernel by kernel, on one card: device and
 host time per wrapper call of the cached attention, the expert gate, the
-dense gate, the int8 flash decode and the crossbar tile, a digest of each
-output, and the largest difference between the two checkouts' outputs.
+dense gate, the int8 flash decode, the crossbar tile, the LSTM tail and
+the elementwise NL-ADC, a digest of each output, and the largest
+difference between the two checkouts' outputs.
 
     python src/repro_torch/launch/kernel_ab.py --trees OLD NEW [--rounds 1]
 
@@ -32,7 +33,17 @@ The cases, all from seeded inputs made on the card:
   H = Hkv = 16, D 128, S 128, full rows) and a GQA case (Hkv 2, lengths
   128, 1, 37, 100);
 * ``tile_ptb``: ``analog_tile`` at the PTB gate crossbar (16, 632, 8064),
-  bfloat16 x, 5-bit PWM, read noise, the tanh ramp.
+  bfloat16 x, 5-bit PWM, read noise, the tanh ramp;
+* ``lstm_ptb_flat`` / ``lstm_ptb_banked`` / ``lstm_kws``: ``lstm_gates``
+  at PTB's (B 16, H 2016) with the ``paper-infer`` 5-bit sigmoid and tanh
+  ramps as one (P,) ramp each and as (H, P) banks of 512 columns, and at
+  KWS's (16, 32); the inputs of ``chip_smoke.py``'s ``kernel`` phase (row
+  0 of the f and a gates exactly on thresholds, c 0 there);
+* ``nladc_router_bf16`` / ``nladc_mlp_banked_bf16`` / ``nladc_ragged_f32``:
+  ``nladc`` at the MoE router's (4, 64) bfloat16 with the sigmoid ramp, at
+  (4, 11008) bfloat16 with silu banks of 512 columns, and at a ragged
+  (33, 1000) float32 with the tanh ramp; the inputs of ``chip_smoke.py``'s
+  ``nladc`` phase (the first P values exactly on thresholds).
 
 Host µs per call: ``HOST_CALLS`` calls issued back to back with no sync
 inside the timing, over their count (the median of ``HOST_REPEATS``
@@ -56,15 +67,70 @@ from pathlib import Path
 HOST_CALLS, HOST_REPEATS = 200, 5
 DEVICE_CALLS = 50
 KERNELS = ("fused_matmul_nladc", "prefill_attention", "flash_decode_int8",
-           "analog_tile")
+           "analog_tile", "lstm_cell", "nladc")
 
 
-def _digest(t) -> str:
+def _outputs(res) -> tuple:
+    return res if isinstance(res, tuple) else (res,)
+
+
+def _digest(res) -> str:
     import torch
 
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for t in _outputs(res):
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _lstm_case(torch, dev, b, h, bank_cols):
+    """``lstm_gates`` on ``chip_smoke.py``'s ``kernel`` inputs."""
+    from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+    from repro_torch.kernels import lstm_cell
+
+    cfg = AnalogConfig(enabled=True, adc_bits=5, mode="infer",
+                       device="paper-infer", bank_cols=bank_cols)
+    sig = AnalogActivation("sigmoid", cfg, dev)
+    tnh = AnalogActivation("tanh", cfg, dev)
+    st, tt = sig.thresholds_for(h), tnh.thresholds_for(h)
+    banked = not isinstance(st, torch.Tensor)
+    if banked:
+        st, tt = st.per_column, tt.per_column
+    p = st.shape[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * 10_000 + h)
+    gates = 2.0 * torch.randn((b, 4 * h), generator=gen, device=dev)
+    c = 1.5 * torch.randn((b, h), generator=gen, device=dev)
+    cols = torch.arange(h, device=dev)
+    k = cols % p
+    gates[0, cols] = st[cols, k] if banked else st[k]
+    gates[0, h + cols] = tt[cols, k] if banked else tt[k]
+    c[0] = 0.0
+    args = (gates, c, st, sig.adc.y_table, tt, tnh.adc.y_table)
+    return lambda: lstm_cell.lstm_gates(*args)
+
+
+def _nladc_case(torch, dev, shape, act_name, x_dtype, bank_cols):
+    """``nladc`` on ``chip_smoke.py``'s ``nladc`` inputs."""
+    from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+    from repro_torch.kernels import nladc as nk
+
+    cfg = AnalogConfig(enabled=True, adc_bits=5, input_bits=None,
+                       mode="exact", device="ideal", bank_cols=bank_cols)
+    act = AnalogActivation(act_name, cfg, dev)
+    thr = act.thresholds_for(shape[-1])
+    if not isinstance(thr, torch.Tensor):
+        thr = thr.per_column
+    p = thr.shape[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(shape))
+    x = 2.5 * torch.randn(shape, generator=gen, device=dev)
+    x.view(-1)[:p] = thr.reshape(-1, p)[0]
+    x = x.to(x_dtype)
+    y_table = act.adc.y_table
+    return lambda: nk.nladc(x, thr, y_table)
 
 
 def _cases(torch, dev):
@@ -136,6 +202,17 @@ def _cases(torch, dev):
     wd = randn(2048, 11008) / math.sqrt(2048)
     cases["dense_gate"] = lambda: fmn.fused_matmul_nladc(xd, wd, None, thr,
                                                          y_table)
+
+    for name, b, h, bank_cols in (("lstm_ptb_flat", 16, 2016, 0),
+                                  ("lstm_ptb_banked", 16, 2016, 512),
+                                  ("lstm_kws", 16, 32, 0)):
+        cases[name] = _lstm_case(torch, dev, b, h, bank_cols)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, shape, act, dtype, bank_cols in (
+            ("nladc_router_bf16", (4, 64), "sigmoid", bf16, 0),
+            ("nladc_mlp_banked_bf16", (4, 11008), "silu", bf16, 512),
+            ("nladc_ragged_f32", (33, 1000), "tanh", f32, 0)):
+        cases[name] = _nladc_case(torch, dev, shape, act, dtype, bank_cols)
     return cases
 
 
@@ -173,7 +250,7 @@ def child(src: str, save: str) -> dict:
                 fn()
             runs.append((time.perf_counter() - t) / HOST_CALLS * 1e6)
             torch.cuda.synchronize()
-        outputs[name] = res.cpu()
+        outputs[name] = tuple(t.cpu() for t in _outputs(res))
         out["cases"][name] = {"digest": _digest(res),
                               "host_us": statistics.median(runs),
                               "host_us_runs": runs}
@@ -189,7 +266,8 @@ def _max_abs_diff(old: str, new: str) -> dict:
     import torch
 
     a, b = torch.load(old), torch.load(new)
-    return {name: float((a[name].float() - b[name].float()).abs().max())
+    return {name: max(float((u.float() - v.float()).abs().max())
+                      for u, v in zip(_outputs(a[name]), _outputs(b[name])))
             for name in a if name in b}
 
 

@@ -40,9 +40,20 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   bfloat16 x, ragged shapes, the PTB gate crossbar (16, 632, 8064) and the
   JAX sweep's (128, 256, 256); on the same cases every (rows, cols, ring
   depth) computes the default config's bits.
+* ``lstm_gates``: bitwise equal to its plain version (NaN where it has
+  NaN), flat and banked, P 7, 15 and 31 (template instances) and 12 (the
+  run-time instance), B 1, 7, 16 and 33, H a multiple of the strip, ragged,
+  and with H x P x 4 or a threshold pointer not 16-byte aligned (the plain
+  copy beside the bulk copy); NaN, +-inf and values exactly on thresholds
+  in the gates and in c.
+* ``nladc``, the same way: flat and banked, P 7, 15, 31 and 12, float32 and
+  bfloat16, M 1, 4 and 33, rows aligned to 16 bytes and not, a threshold
+  pointer not 16-byte aligned.
+* The launch floor writes its word.
 * The tune seam: every sweep candidate of every tunable kernel (the expert
-  gate's among them) computes the default config's bits, and a cache miss
-  launches the default config.
+  gate's among them) computes the default config's bits, on the sweep's
+  flat ramps and on banked thresholds for the two elementwise kernels, and
+  a cache miss launches the default config.
 * The SMOKE LMs in float32 on the ``cuda`` and ``ref`` backends
   (qwen2.5-3b; moonshot-v1-16b-a3b with an int8 KV cache): logits within
   LSB/2 of the silu ramp, and each kernel of the path launched once per
@@ -60,6 +71,8 @@ from repro_torch.core import nladc as TN
 from repro_torch.kernels import analog_tile as TAT
 from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import fused_matmul_nladc as TFM
+from repro_torch.kernels import launch_floor as TLF
+from repro_torch.kernels import lstm_cell as TLC
 from repro_torch.kernels import nladc as TNK
 from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.kernels import tune as TT
@@ -238,6 +251,148 @@ def test_nladc_kernel_counts_nan_and_inf_as_its_plain_version(banked):
     torch.cuda.synchronize()
     assert got.cpu().tolist() == [[0.0, 3.0, 0.0, 2.0]]
     assert torch.equal(got, TNK.nladc_plain(x, thr, count))
+
+
+def _same_bits(got, want):
+    """Bitwise equal, NaN where the other has NaN (any payload)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got[~nan], want[~nan]
+    if g.dtype == torch.bfloat16:
+        g, w = g.view(torch.int16), w.view(torch.int16)
+    else:
+        g, w = g.view(torch.int32), w.view(torch.int32)
+    assert torch.equal(g, w)
+
+
+def _unaligned(a, dev):
+    """``a`` on the card at an address 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+def _ramp_thresholds(rng, p, h, banked):
+    """P sorted levels (one at 0.0), per column with programming noise
+    (unsorted rows) where banked."""
+    thr = np.sort(rng.normal(0, 1.5, p))
+    thr[p // 2] = 0.0
+    if banked:
+        thr = thr[None] + rng.normal(0, 0.05, (h, p))
+        thr[:, p // 2] = 0.0
+    return thr.astype(np.float32)
+
+
+def _lstm_inputs(b, h, p, banked, seed):
+    """Gates, c, thresholds and tables (numpy) with the edge cases: in row
+    0 every gate exactly on a threshold, in row 1 c' = fma(f, 0, i * 0)
+    = 0.0 on the tanh ramp's 0.0 level, in the last row NaN and +-inf in
+    each gate and in c."""
+    rng = np.random.default_rng(seed)
+    st, tt = (_ramp_thresholds(rng, p, h, banked) for _ in range(2))
+    sy, ty = (rng.normal(0, 1, p + 1).astype(np.float32) for _ in range(2))
+    ty[0] = 0.0
+    gates = rng.normal(0, 2.0, (b, 4 * h)).astype(np.float32)
+    c = rng.normal(0, 1.5, (b, h)).astype(np.float32)
+    cols = np.arange(h)
+    for g, thr in enumerate((st, tt, st, st)):
+        gates[0, g * h + cols] = thr[cols, cols % p] if banked else \
+            thr[cols % p]
+    if b > 1:
+        gates[1, h:2 * h] = -np.inf          # a's code 0: a = 0.0
+        c[1] = 0.0
+    special = np.array([np.nan, np.inf, -np.inf], np.float32)
+    for g in range(4):
+        j = cols[cols % 4 == g]
+        gates[-1, g * h + j] = special[(j // 4) % 3]
+    j = cols[cols % 5 == 0]
+    c[-1, j] = special[(j // 5) % 3]
+    return gates, c, st, sy, tt, ty
+
+
+LSTM_CASES = [(b, h, p, banked)
+              for b, h in [(1, 32), (7, 40), (16, 2016), (33, 100)]
+              for p in (8, 16, 32, 7)
+              for banked in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,p,banked", LSTM_CASES)
+def test_lstm_gates_kernel_matches_plain_bitwise(b, h, p, banked):
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev)
+            for a in _lstm_inputs(b, h, p, banked, b * 1000 + h + p)]
+    n0 = TLC.lstm_gates.launches
+    got = TLC.lstm_gates(*args)
+    want = TLC.lstm_gates_plain(*args)
+    torch.cuda.synchronize()
+    assert TLC.lstm_gates.launches == n0 + 1
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [8, 32])
+@pytest.mark.parametrize("banked", [False, True])
+def test_lstm_gates_kernel_copies_unaligned_thresholds(p, banked):
+    """Threshold and table pointers 4 bytes past a 16-byte boundary take
+    the plain copy; the bits do not change."""
+    dev = _card()
+    gates, c, st, sy, tt, ty = (torch.from_numpy(a).to(dev) for a in
+                                _lstm_inputs(16, 2016, p, banked, p))
+    want = TLC.lstm_gates(gates, c, st, sy, tt, ty)
+    got = TLC.lstm_gates(gates, c, *(_unaligned(a, dev)
+                                     for a in (st, sy, tt, ty)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+
+
+NLADC_CASES = [(shape, p, dtype, banked)
+               for shape in [(1, 64), (4, 64), (4, 100), (33, 1000),
+                             (4, 11008)]
+               for p in (8, 16, 32, 7)
+               for dtype in (torch.float32, torch.bfloat16)
+               for banked in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,p,dtype,banked", NLADC_CASES)
+def test_nladc_kernel_matches_plain_bitwise(shape, p, dtype, banked):
+    """(4, 100) bfloat16: rows of 200 bytes, not 16-byte aligned."""
+    dev = _card()
+    rng = np.random.default_rng(shape[-1] + p)
+    thr = torch.from_numpy(_ramp_thresholds(rng, p, shape[-1], banked))
+    x = torch.tensor(rng.normal(0, 2.5, shape), dtype=torch.float32)
+    flat = x.view(-1)
+    flat[:p] = thr.reshape(-1, p)[0]
+    flat[-3:] = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    x, thr = x.to(dev, dtype), thr.to(dev)
+    y_table = torch.tensor(rng.normal(0, 1, p + 1), dtype=torch.float32,
+                           device=dev)
+    count = torch.arange(p + 1, dtype=torch.float32, device=dev)
+    n0 = TNK.nladc.launches
+    got = TNK.nladc(x, thr, y_table)
+    codes = TNK.nladc(x, thr, count)
+    torch.cuda.synchronize()
+    assert TNK.nladc.launches == n0 + 2
+    assert got.dtype == dtype and got.shape == x.shape
+    _same_bits(got, TNK.nladc_plain(x, thr, y_table))
+    assert torch.equal(codes.float(), thermometer_count(x, thr).float())
+    got_u = TNK.nladc(x, _unaligned(thr, dev), _unaligned(y_table, dev))
+    torch.cuda.synchronize()
+    _same_bits(got_u, got)
+
+
+@pytest.mark.cuda
+def test_launch_floor_writes_its_word():
+    dev = _card()
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    n0 = TLF.launch_floor.launches
+    TLF.launch_floor(word)
+    torch.cuda.synchronize()
+    assert int(word.item()) == 1 and TLF.launch_floor.launches == n0 + 1
 
 
 def _expert_gate_holds_its_contract(x, w, thr, ramp, dev):
@@ -487,8 +642,11 @@ TUNE_CASES = [("fused_matmul_nladc", (4, 2048, 11008), torch.bfloat16, 0),
               ("analog_tile", (16, 632, 8064), torch.bfloat16, 0),
               ("analog_tile", (50, 72, 128), torch.float32, 0),
               ("nladc", (4, 64), torch.bfloat16, 0),
+              ("nladc", (1, 64), torch.bfloat16, 0),
+              ("nladc", (4, 11008), torch.bfloat16, 0),
               ("nladc", (33, 1000), torch.float32, 0),
               ("lstm_gates", (16, 2016), torch.float32, 0),
+              ("lstm_gates", (33, 100), torch.float32, 0),
               ("lstm_gates", (7, 32), torch.float32, 0)]
 
 
@@ -508,6 +666,36 @@ def test_every_tune_candidate_computes_the_default_bits(kernel, shape,
     for blocks in cands:
         got = TT.as_tuple(fn(*args, blocks=blocks))
         assert all(torch.equal(g, v) for g, v in zip(got, want)), blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("lstm_gates", (16, 2016), torch.float32),
+    ("lstm_gates", (7, 40), torch.float32),
+    ("nladc", (4, 11008), torch.bfloat16),
+    ("nladc", (33, 1000), torch.float32),
+    ("nladc", (4, 100), torch.bfloat16)])
+def test_every_tune_candidate_computes_the_default_bits_banked(kernel, shape,
+                                                               dtype):
+    """The elementwise kernels' other kernel: (H, P) or (N, P) thresholds,
+    P 31, through every sweep candidate."""
+    dev = _card()
+    fn = TT.kernel_fn(kernel)
+    if kernel == "lstm_gates":
+        args = [torch.from_numpy(a).to(dev)
+                for a in _lstm_inputs(*shape, 31, True, 5)]
+    else:
+        rng = np.random.default_rng(5)
+        thr = torch.from_numpy(_ramp_thresholds(rng, 31, shape[-1], True))
+        x = torch.tensor(rng.normal(0, 2.5, shape), dtype=torch.float32)
+        args = [x.to(dev, dtype), thr.to(dev),
+                torch.tensor(rng.normal(0, 1, 32), dtype=torch.float32,
+                             device=dev)]
+    want = TT.as_tuple(fn(*args, blocks=TT.default_blocks(kernel)))
+    for blocks in TT.candidates(kernel, shape):
+        got = TT.as_tuple(fn(*args, blocks=blocks))
+        for g, w in zip(got, want):
+            _same_bits(g, w)
 
 
 @pytest.mark.cuda

@@ -210,7 +210,7 @@ def test_library_declares_pointer_arguments(monkeypatch):
     monkeypatch.setattr(TLC._build, "load", lambda name: fake)
     lib = TLC.library()
     fn = lib.lstm_gates_launch
-    assert fn.argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+    assert fn.argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p

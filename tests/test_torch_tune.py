@@ -445,3 +445,37 @@ def test_device_us_survives_lost_and_broken_profiler_events(monkeypatch):
     us, clock = TT.device_us(lambda: calls.append(1), calls=20)
     assert (us, clock) == (4.0 + 2 * 1.5, "profiler")
     assert len(calls) == 5 + 2 * 20
+
+
+# The LSTM tail's config, in the meaning its kernel gives it: lstm_gates (rows a thread takes, threads a CTA may use) -> a CTA of
+# row groups x a strip of columns.
+
+@pytest.mark.parametrize("blocks,b,h,want", [
+    ((1, 256), 16, 2016, (16, 16, (126, 1))),   # PTB: one wave of 132 SMs
+    ((2, 256), 16, 2016, (32, 8, (63, 1))),
+    ((4, 256), 16, 2016, (64, 4, (32, 1))),
+    ((1, 512), 16, 2016, (32, 16, (63, 1))),
+    ((1, 128), 16, 2016, (16, 8, (126, 2))),    # B beyond one CTA's rows
+    ((1, 256), 16, 32, (16, 16, (2, 1))),       # KWS: one small grid
+    ((1, 256), 7, 32, (32, 7, (1, 1))),
+    ((1, 256), 33, 100, (16, 16, (7, 3))),
+    ((4, 512), 1, 2016, (512, 1, (4, 1)))])
+def test_lstm_geometry_of_a_config(blocks, b, h, want):
+    from repro_torch.kernels import lstm_cell as TLC
+
+    assert TLC.launch_geometry(*blocks, b, h) == want
+
+
+@pytest.mark.parametrize("shape", [(16, 2016), (7, 32), (16, 32), (33, 100),
+                                   (1, 2016), (300, 40), (1, 1)])
+def test_every_lstm_candidate_covers_the_shape(shape):
+    """Each candidate's CTA fits its threads, a half-warp reads 64 bytes of
+    a gate row, and the grid covers every (b, j) once."""
+    from repro_torch.kernels import lstm_cell as TLC
+
+    b, h = shape
+    for rows, threads in TT.candidates("lstm_gates", shape):
+        cols, groups, (gx, gy) = TLC.launch_geometry(rows, threads, b, h)
+        assert cols % 16 == 0 and cols * groups <= threads <= 512
+        assert (gx - 1) * cols < h <= gx * cols
+        assert (gy - 1) * groups * rows < b <= gy * groups * rows
