@@ -22,6 +22,30 @@ Phases, one JSON line each:
               logits must match the ``ref`` backend on the card (same
               weights, same read-noise generator state).
 4. kws      — kws_lstm at full width (40 -> 32 -> 12, T 49), same checks.
+4a. kernel_bwd — the ``lstm_gates_bwd`` kernel (the tail's straight-through
+              backward, Alg. 1) against its plain torch version on
+              train-noise thresholds at PTB (16, 2016) with one (P,) ramp
+              and with 512-column banks, KWS (64, 32) and a ragged (7, 32):
+              its five rematerialized codes equal the forward kernel's (0
+              mismatches), its gradients within BWD_ULPS float32 ulps;
+              max abs and ulp errors, time per call beside the bound.
+4b. train_ptb — Alg. 1 training of ptb_lstm at its published widths
+              (B 16, T 128) on the ``paper`` device model (train noise on
+              the weights and the ramp steps), bank_cols 0 and 512, on the
+              ``cuda`` backend (``repro_torch.launch.lstm_train``): the
+              first step's gradients on ``cuda`` and on ``ref`` (same
+              weights, the same generator state replayed) within rtol
+              2e-4 / atol 2e-5; then 4 Adam steps, each launching the
+              forward and the backward tail kernels T times, every loss
+              finite; then the trained weights evaluated in infer mode.
+              Median ms per train step with its spread, peak memory.
+4c. train_kws — the same for kws_lstm (B 64, T 49, fig4d's batch).
+4d. fig4d   — ``benchmarks/fig4d_kws.py``'s quick mode on the card
+              (``lstm_train.fig4d``): 768 training samples, 4 epochs, float
+              vs 5-, 4- and 3-bit NL-ADCs trained with Alg. 1 noise, read
+              noise at evaluation over 3 chip seeds; the four accuracies
+              and whether float >= 5b >= 4b >= 3b held (printed, not
+              gated, as the benchmark prints it).
 5. fused_matmul — the ``fused_matmul_nladc`` kernel against its plain
               version at the serving path's shapes (4 and 1 rows, K 2048,
               N 11008, bfloat16 x, float32 w) with one (P,) ramp and with
@@ -102,8 +126,8 @@ Phases, one JSON line each:
               same clock: what any launch costs on this card, beside which
               the tiny cases are read.  No bound.
 17. kernels — one line listing every ported kernel with its launches on
-              the main paths, its error against the plain version and
-              times.
+              the main paths (``lstm_gates_bwd``: on the train paths), its
+              error against the plain version and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises.  Without a GPU, or without the repository's ``src/repro_torch``
@@ -131,7 +155,13 @@ TIMING_REPEATS = 4
 LOGIT_ATOL = 1e-6   # cuda vs ref backend: the tails are bitwise equal, so
 #                     any code flip would show as an LSB-sized jump
 KERNELS = ("lstm_cell", "fused_matmul_nladc", "prefill_attention", "nladc",
-           "flash_decode_int8", "analog_tile", "launch_floor")
+           "flash_decode_int8", "analog_tile", "launch_floor",
+           "lstm_cell_bwd")
+BWD_ULPS = 4        # lstm_gates_bwd vs plain: expf / tanhf against torch's
+#                     sigmoid / tanh, through a chain of two products
+TRAIN_STEPS = 4
+TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-5     # cuda vs ref first-step gradients
+KWS_TRAIN_BATCH = 64
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
@@ -262,6 +292,192 @@ def phase_kernel(torch, dev, name: str, b: int, h: int, bank_cols: int):
            **tail_bound(b, h, p, banked)}
     emit(out)
     return out, kernel, plain
+
+
+def bwd_bound(b: int, h: int, p: int, banked: bool) -> dict:
+    """The least time the card needs for one lstm_gates_bwd call: gates, c,
+    both cotangents, the thresholds and tables read once, d_gates and d_c
+    written once, against the 5 NL-ADCs' compares (P each) and the chain's
+    arithmetic (i*a, the FMA, 5 g' of about 5 operations each, 11 products
+    and the add: 39) over the float32 rate."""
+    thr = 2 * (h * p if banked else p)
+    n_bytes = 4 * (b * 4 * h + 3 * b * h + thr + 2 * (p + 1)
+                   + b * 4 * h + b * h)
+    n_ops = b * h * (5 * p + 39)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_kernel_bwd(torch, dev, name: str, b: int, h: int, bank_cols: int):
+    """The backward kernel against its plain version on train-noise
+    thresholds: codes equal the forward kernel's, gradients within
+    BWD_ULPS."""
+    from repro_torch.core import functions as F
+    from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+    from repro_torch.core.crossbar import GeneratorNoise
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels.ref import thermometer_count, ulp_distance
+
+    cfg = AnalogConfig(enabled=True, adc_bits=5, mode="train",
+                       device="paper", bank_cols=bank_cols)
+    sig = AnalogActivation("sigmoid", cfg, dev)
+    tnh = AnalogActivation("tanh", cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * 10_000 + h)
+    z = sig.ramp_noise(GeneratorNoise(gen), h)
+    s_thr, t_thr = sig.thresholds_for(h, z=z), tnh.thresholds_for(h, z=z)
+    banked = not isinstance(s_thr, torch.Tensor)
+    st = s_thr.per_column if banked else s_thr
+    tt = t_thr.per_column if banked else t_thr
+    p = st.shape[-1]
+
+    gates = 2.0 * torch.randn((b, 4 * h), generator=gen, device=dev)
+    c = 1.5 * torch.randn((b, h), generator=gen, device=dev)
+    ct_h = torch.randn((b, h), generator=gen, device=dev)
+    ct_c = torch.randn((b, h), generator=gen, device=dev)
+    # inputs on thresholds and on the domain edges
+    cols = torch.arange(h, device=dev)
+    k = cols % p
+    gates[0, cols] = st[cols, k] if banked else st[k]
+    gates[0, h + cols] = tt[cols, k] if banked else tt[k]
+    dom = dict(sig_domain=(F.SIGMOID.x_lo, F.SIGMOID.x_hi),
+               tanh_domain=(F.TANH.x_lo, F.TANH.x_hi))
+    if b > 1:
+        gates[1, :h] = dom["sig_domain"][0]
+        gates[1, h:2 * h] = dom["tanh_domain"][1]
+
+    args = (gates, c, st, sig.adc.y_table, tt, tnh.adc.y_table, ct_h, ct_c)
+    codes = torch.full((5, b, h), -1, dtype=torch.int32, device=dev)
+    dg, dc = lstm_cell.lstm_gates_bwd(*args, codes=codes, **dom)
+    pg, pc = lstm_cell.lstm_gates_bwd_plain(*args, **dom)
+    _, c_fwd = lstm_cell.lstm_gates(*args[:6])
+    torch.cuda.synchronize()
+    parts = torch.split(gates, h, dim=-1) + (c_fwd,)
+    fwd_codes = torch.stack([thermometer_count(x, thr) for x, thr in zip(
+        parts, (st, tt, st, st, tt))]).to(torch.int32)
+    code_mismatch = int((codes != fwd_codes).sum())
+    ulps = max(int(ulp_distance(dg, pg).max()), int(ulp_distance(dc,
+                                                                  pc).max()))
+    diff = max(float((dg - pg).abs().max()), float((dc - pc).abs().max()))
+    check(code_mismatch == 0,
+          f"{name}: {code_mismatch} rematerialized codes differ from the "
+          f"forward kernel's")
+    check(ulps <= BWD_ULPS, f"{name}: gradients {ulps} ulps from the plain "
+          f"version (bound {BWD_ULPS})")
+    check(bool(torch.isfinite(dg).all() and torch.isfinite(dc).all()),
+          f"{name}: non-finite gradients")
+
+    def kernel():
+        return lstm_cell.lstm_gates_bwd(*args, **dom)
+
+    def plain():
+        return lstm_cell.lstm_gates_bwd_plain(*args, **dom)
+
+    out = {"phase": "kernel_bwd", "case": name, "B": b, "H": h, "P": p,
+           "layout": "(H,P)" if banked else "(P,)", "max_abs_err": diff,
+           "max_ulps": ulps, "ulp_bound": BWD_ULPS,
+           "code_mismatches": code_mismatch,
+           "call_ms": cuda_ms(kernel), "plain_call_ms": cuda_ms(plain, inner=5),
+           **bwd_bound(b, h, p, banked)}
+    emit(out)
+    return out, kernel, plain
+
+
+def phase_train(torch, dev, config: str, bank_cols: int) -> dict:
+    """Alg. 1 training at full width on the cuda backend: first-step
+    gradients against the ref backend, TRAIN_STEPS Adam steps with the
+    tail kernels' launches counted, then an infer-mode evaluation."""
+    from repro_torch.core.crossbar import GeneratorNoise
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.launch import lstm_train
+    from repro_torch.train import optim
+
+    all_steps = config == "ptb_lstm"
+    batch = PTB_BATCH if all_steps else KWS_TRAIN_BATCH
+    lr = lstm_train.DEFAULTS[config][2]
+    analog = lstm_train.analog_config("train", analog_device="paper",
+                                      bank_cols=bank_cols, backend="cuda")
+    model = lstm_train.build_model(config, analog, dev, seed=0)
+    ref = lstm_train.build_model(
+        config, analog.replace(backend="ref"), dev,
+        params=optim.tree_map(lambda t: t.detach().clone(), model.params()))
+    batches = lstm_train.ptb_train_batches(batch, PTB_SEQ, dev) \
+        if all_steps else lstm_train.kws_train_batches(batch, dev)
+    xs, labels = next(batches)
+    t_steps = xs.shape[1]
+
+    # the first step's gradients on both backends, the same draws
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    state = gen.get_state()
+    loss_c, grad_c = lstm_train.loss_and_grads(
+        model, xs, labels, noise=GeneratorNoise(gen), all_steps=all_steps)
+    gen.set_state(state)
+    loss_r, grad_r = lstm_train.loss_and_grads(
+        ref, xs, labels, noise=GeneratorNoise(gen), all_steps=all_steps)
+    grad_diff, grad_max, grad_ok = {}, {}, True
+    for gc, gr, name in zip(optim.tree_leaves(grad_c),
+                            optim.tree_leaves(grad_r),
+                            ("fc/w", "lstm/w_gates", "lstm/w_proj")):
+        grad_diff[name] = float((gc - gr).abs().max())
+        grad_max[name] = float(gc.abs().max())
+        grad_ok &= bool(torch.allclose(gc, gr, rtol=TRAIN_RTOL,
+                                       atol=TRAIN_ATOL))
+    check(grad_ok, f"{config}/bank_cols={bank_cols}: cuda and ref first-step "
+          f"gradients differ beyond rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}: "
+          f"{grad_diff}")
+    del ref
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    lstm_cell.lstm_gates.launches = 0
+    lstm_cell.lstm_gates_bwd.launches = 0
+    res = lstm_train.train(model, batches, TRAIN_STEPS, lr=lr, seed=0,
+                           all_steps=all_steps)
+    fwd, bwd = lstm_cell.lstm_gates.launches, lstm_cell.lstm_gates_bwd.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(res["fwd_launches"] == [t_steps] * TRAIN_STEPS
+          and res["bwd_launches"] == [t_steps] * TRAIN_STEPS,
+          f"{config}/bank_cols={bank_cols}: per-step launches fwd "
+          f"{res['fwd_launches']} bwd {res['bwd_launches']}, expected "
+          f"{t_steps} each")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"{config}: non-finite losses {res['losses']}")
+    ev = lstm_train.evaluate_trained(
+        model, config, eval_batches=1, batch=PTB_BATCH if all_steps
+        else KWS_BATCH, seq=PTB_SEQ, seed=3)
+    check(math.isfinite(ev["nll"]), f"{config}: non-finite eval NLL")
+    out = {"phase": "train_" + config.split("_")[0], "config": config,
+           "bank_cols": bank_cols, "analog_device": "paper", "B": batch,
+           "T": t_steps, "steps": TRAIN_STEPS, "losses": res["losses"],
+           "grad_norms": res["grad_norms"], "first_loss_cuda": float(loss_c), "first_loss_ref": float(loss_r),
+           "grad_max_abs": grad_max,
+           "grad_max_abs_diff_vs_ref": grad_diff, "grad_rtol": TRAIN_RTOL,
+           "grad_atol": TRAIN_ATOL, "launches_fwd": fwd, "launches_bwd": bwd,
+           "expected_launches_each": TRAIN_STEPS * t_steps,
+           "step_ms": statistics.median(res["step_ms"]),
+           "step_ms_min": min(res["step_ms"]),
+           "step_ms_max": max(res["step_ms"]), "peak_memory_gb": peak_gb,
+           "eval_infer": ev}
+    emit(out)
+    return out
+
+
+def phase_fig4d(torch, dev) -> dict:
+    """fig4d's quick mode on the card: printed, not gated."""
+    from repro_torch.launch import lstm_train
+
+    t0 = time.perf_counter()
+    res = lstm_train.fig4d(dev, backend="cuda", quick=True, n_chips=3)
+    out = {"phase": "fig4d", "n_train": res["n_train"],
+           "epochs": res["epochs"],
+           "accuracy": {k: v["accuracy"] for k, v in res["rows"].items()},
+           "spread": {k: v["spread"] for k, v in res["rows"].items()},
+           "ordering_float_5b_4b_3b_held": res["ordering_held"],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
 
 
 def phase_kernel_time(case: dict, kernel, plain, library=None) -> dict:
@@ -1274,6 +1490,7 @@ def main() -> int:
     for mod in (lstm_cell, fused_matmul_nladc, prefill_attention, nladc,
                 flash_decode, analog_tile, launch_floor):
         mod.library()
+    lstm_cell.bwd_library()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name, path in lib_paths.items():
@@ -1300,6 +1517,16 @@ def main() -> int:
                         PTB_SEQ) for bc in (0, 512)]
     runs.append(phase_model(torch, dev, "kws_lstm", 0, KWS_BATCHES,
                             KWS_BATCH))
+    bwd_checked = [
+        phase_kernel_bwd(torch, dev, "ptb_flat", 16, 2016, 0),
+        phase_kernel_bwd(torch, dev, "ptb_banked", 16, 2016, 512),
+        phase_kernel_bwd(torch, dev, "kws", KWS_TRAIN_BATCH, 32, 0),
+        phase_kernel_bwd(torch, dev, "ragged", 7, 32, 0)]
+    trains = [phase_train(torch, dev, "ptb_lstm", bc) for bc in (0, 512)]
+    trains.append(phase_train(torch, dev, "kws_lstm", 0))
+    free_device(torch)
+    phase_fig4d(torch, dev)
+    free_device(torch)
 
     bf16, f32 = torch.bfloat16, torch.float32
     fm_checked = [
@@ -1363,6 +1590,7 @@ def main() -> int:
     free_device(torch)
 
     cases = [phase_kernel_time(*c) for c in checked]
+    bwd_cases = [phase_kernel_time(*c) for c in bwd_checked]
     fm_cases = [phase_kernel_time(*c) for c in fm_checked]
     attn_cases = [phase_kernel_time(*c) for c in attn_checked]
     nladc_cases = [phase_kernel_time(*c) for c in nladc_checked]
@@ -1375,9 +1603,13 @@ def main() -> int:
     lstm = kernel_entry(
         "lstm_gates", "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "src/repro/kernels/lstm_cell.py:51",
-        sum(r["launches"] for r in runs), cases, main_case,
-        launches_per_run={f"{r['config']}/bank_cols={r['bank_cols']}":
-                          r["launches"] for r in runs},
+        sum(r["launches"] for r in runs)
+        + sum(r["launches_fwd"] for r in trains), cases, main_case,
+        launches_per_run={
+            **{f"{r['config']}/bank_cols={r['bank_cols']}": r["launches"]
+               for r in runs},
+            **{f"train {r['config']}/bank_cols={r['bank_cols']}":
+               r["launches_fwd"] for r in trains}},
         bitwise=all(c["max_abs_err"] == 0 and c["code_mismatches"] == 0
                     for c in cases),
         shape={"B": main_case["B"], "H": main_case["H"],
@@ -1449,7 +1681,22 @@ def main() -> int:
         per_case={c["case"]: {k: c[k] for k in (
             "M", "K", "N", "blocks", "ms", "plain_ms", "library_ms",
             "bound_ms", "code_flips")} for c in tile_cases})
-    emit({"kernels": [lstm, fused, attention, nl, moe, flash, tile]})
+    bwd_main = bwd_cases[0]
+    lstm_bwd = kernel_entry(
+        "lstm_gates_bwd", "src/repro_torch/kernels/csrc/lstm_cell_bwd.cu",
+        "src/repro/core/backend.py:279",
+        sum(r["launches_bwd"] for r in trains), bwd_cases, bwd_main,
+        launches_per_run={f"train {r['config']}/bank_cols={r['bank_cols']}":
+                          r["launches_bwd"] for r in trains},
+        max_ulps=max(c["max_ulps"] for c in bwd_cases), ulp_bound=BWD_ULPS,
+        code_mismatches=sum(c["code_mismatches"] for c in bwd_cases),
+        shape={"B": bwd_main["B"], "H": bwd_main["H"], "P": bwd_main["P"],
+               "layout": bwd_main["layout"]},
+        per_case={c["case"]: {k: c[k] for k in (
+            "B", "H", "layout", "ms", "plain_ms", "bound_ms", "max_ulps",
+            "max_abs_err")} for c in bwd_cases})
+    emit({"kernels": [lstm, fused, attention, nl, moe, flash, tile,
+                      lstm_bwd]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

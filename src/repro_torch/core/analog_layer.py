@@ -9,11 +9,25 @@ Operating modes:
 * ``exact``  — quantized inputs and NL-ADC activations, no device noise;
                with ``enabled=False`` the float software baseline (the
                exact activations of :mod:`repro_torch.nn.activations`);
+* ``train``  — hardware-aware training (Alg. 1): the device model's
+               ``TrainNoise`` added to the clipped weights (a constant with
+               respect to them, so the gradient reaches the clean shadow
+               weights) and to the ideal ramp's steps, drawn per call;
+               NL-ADC and PWM quantization with straight-through backwards;
 * ``infer``  — deployment simulation: the device model's build stage
                (programmed ramps: write noise + redundancy + calibration +
                drift, drawn once, host-side) + per-step read noise + NL-ADC.
 
-Hardware-aware training (``mode="train"``, Alg. 1) is not ported yet.
+**Ramp noise in train mode.**  Each call's thresholds are
+``sort(v_init + cumsum(steps + sigma_us * z * g_scale))`` over the ideal
+ramp's steps (per bank where banked): noise on one step's memristor shifts
+every later level.  ``z`` is one standard-normal draw of the thresholds'
+shape, ``(P,)`` or ``(n_banks, P)``, from the :class:`NoiseSource`; the
+prefix sum is ``torch.cumsum`` in float32.  The reference computes the same
+expression under ``jax.jit``, where XLA folds ``sqrt(2) * sigma_us *
+g_scale`` into one constant inside its normal draw and sums in rows of 16,
+so the two agree within a few float32 ulps of the ramp's largest level,
+not bitwise (``tests/test_torch_train_noise.py`` states the bound).
 
 This module is orchestration only: mode logic, quantization and the noise
 draws are shared code, and the LSTM tail, the elementwise NL-ADC
@@ -40,7 +54,7 @@ from repro_torch.core.nladc import (NLADC, BankedThresholds, Ramp,
                                     check_threshold_degeneracy, pwm_quantize)
 from repro_torch.nn import activations
 
-MODES = ("exact", "infer")
+MODES = ("exact", "train", "infer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,16 +72,12 @@ class AnalogConfig:
     adc_bits: int = 5
     input_bits: Optional[int] = 5
     input_clip: float = 1.0
-    mode: str = "exact"                   # exact | infer
+    mode: str = "exact"                   # exact | train | infer
     backend: str = ""                     # "" = auto (env) | ref | cuda
     device: DeviceModel = ""              # model | preset name | "" = auto
     bank_cols: int = 0
 
     def __post_init__(self):
-        if self.mode == "train":
-            raise NotImplementedError(
-                "mode='train' (Alg. 1 hardware-aware training) is not "
-                "ported to repro_torch yet")
         if self.mode not in MODES:
             raise ValueError(f"unknown analog mode {self.mode!r}; "
                              f"known: {MODES}")
@@ -102,6 +112,18 @@ class AnalogConfig:
 EXACT = AnalogConfig(enabled=False, mode="exact", device=IDEAL)
 
 
+def _noisy_ramp(v_init, steps: torch.Tensor, g_scale, z: torch.Tensor,
+                sigma_us: float) -> torch.Tensor:
+    """One call's train-noise thresholds: ``sort(v_init + cumsum(steps +
+    sigma_us * z * g_scale))`` along the last axis, for one ramp
+    (``(P,)`` steps, float ``v_init`` and ``g_scale``) or one per bank
+    (``(n_banks, P)`` steps, ``(n_banks, 1)`` tensors).  Sorted: strong
+    step noise can de-order neighbouring levels; the thermometer count does
+    not care, searchsorted does."""
+    noisy = steps + (sigma_us * z) * g_scale
+    return torch.sort(v_init + torch.cumsum(noisy, dim=-1), dim=-1).values
+
+
 class DeployedBank:
     """One activation's ``(n_col_tiles, P)`` threshold bank at one width.
 
@@ -124,13 +146,34 @@ class DeployedBank:
                 self.thresholds_f64[j], f"{r.name}[bank {j}]", np.float32)
         thr = torch.from_numpy(self.thresholds_f64.astype(np.float32))
         self.thresholds = BankedThresholds(thr.to(device), self.bank_map)
+        # per-bank step geometry for the train-noise draw: the noise
+        # compounds along each bank's own prefix sum, as on its chip
+        self._steps = torch.from_numpy(np.stack(
+            [r.steps for r in ramps]).astype(np.float32)).to(device)
+        self._v_init = torch.from_numpy(np.asarray(
+            [r.v_init for r in ramps], np.float32)[:, None]).to(device)
+        self._g_scale = torch.from_numpy(np.asarray(
+            [r.g_scale for r in ramps], np.float32)[:, None]).to(device)
+
+    def thresholds_for(self, z: Optional[torch.Tensor] = None,
+                       sigma_us: float = 0.0) -> BankedThresholds:
+        """The banked comparator levels of one call: the deployed ones, or
+        each bank's ramp with ``sigma_us * z`` on its steps (``z``:
+        ``(n_banks, P)`` standard normals)."""
+        if z is None or sigma_us <= 0:
+            return self.thresholds
+        return BankedThresholds(
+            _noisy_ramp(self._v_init, self._steps, self._g_scale, z,
+                        sigma_us), self.bank_map)
 
 
 class AnalogActivation:
     """An activation realized by an NL-ADC ramp (or exactly, per config).
 
     In ``infer`` mode the device model's build stage programs the ramp
-    (and, per width, the col-tile banks) once, host-side.
+    (and, per width, the col-tile banks) once, host-side; in ``train`` mode
+    the ideal ramp's steps take fresh noise at every call
+    (:meth:`thresholds_for`).
     """
 
     def __init__(self, name: str, cfg: AnalogConfig, device=None):
@@ -146,6 +189,8 @@ class AnalogActivation:
             if cfg.mode == "infer":
                 ramp = cfg.device.deploy_ramp(ramp)
             self._adc = NLADC(ramp, device)
+            self._steps = torch.from_numpy(
+                np.asarray(ramp.steps, np.float32)).to(device)
 
     @property
     def adc(self) -> Optional[NLADC]:
@@ -182,14 +227,48 @@ class AnalogActivation:
                 ramps, width, self.cfg.bank_cols, self.device)
         return bank
 
-    def thresholds_for(self, width: int = 0):
+    def ramp_sigma_us(self) -> float:
+        """The per-call ramp-step noise (µS): the device model's
+        ``TrainNoise`` in train mode, else 0."""
+        if self._adc is None:
+            return 0.0
+        return self.cfg.device.ramp_sigma_us(self.cfg.mode)
+
+    def ramp_noise(self, noise: Optional[NoiseSource],
+                   width: int = 0) -> Optional[torch.Tensor]:
+        """One call's standard-normal ramp draw at ``width``: ``(P,)``, or
+        ``(n_banks, P)`` where the width spans several banks; ``None``
+        when there is no source or no ramp noise in this mode."""
+        if noise is None or self.ramp_sigma_us() <= 0:
+            return None
+        bank = self.bank_for(width) if width else None
+        shape = tuple(bank.thresholds.thr.shape) if bank is not None \
+            else tuple(self._adc.thresholds.shape)
+        return noise.normal(shape, self._adc.thresholds.device)
+
+    def thresholds_for(self, width: int = 0,
+                       noise: Optional[NoiseSource] = None, *,
+                       z: Optional[torch.Tensor] = None):
         """Comparator thresholds for one call at ``width`` output columns:
         a :class:`BankedThresholds` when the width spans several banked
-        col-tiles, else the ``(P,)`` tensor."""
+        col-tiles, else the ``(P,)`` tensor.
+
+        In train mode the ramp steps take ``sigma_us * z`` (µS, times the
+        ramp's volts per µS), re-accumulated and sorted: ``z`` is given,
+        or drawn from ``noise`` (:meth:`ramp_noise`).  The LSTM cell draws
+        one ``z`` a step and hands it to both the sigmoid and the tanh
+        thresholds, as the reference derives both from one key."""
+        sigma_us = self.ramp_sigma_us()
+        if z is None and sigma_us > 0:
+            z = self.ramp_noise(noise, width)
         bank = self.bank_for(width) if width else None
         if bank is not None:
-            return bank.thresholds
-        return self._adc.thresholds
+            return bank.thresholds_for(z, sigma_us)
+        if z is None or sigma_us <= 0:
+            return self._adc.thresholds
+        ramp = self._adc.ramp
+        return _noisy_ramp(ramp.v_init, self._steps, ramp.g_scale, z,
+                           sigma_us)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if not self.cfg.enabled or self._adc is None:
@@ -201,24 +280,29 @@ class AnalogActivation:
 
 def _noisy_weights(w: torch.Tensor, cfg: AnalogConfig,
                    noise: Optional[NoiseSource]) -> torch.Tensor:
-    """Clip to the programmable range and add the mode's read noise.
+    """Clip to the programmable range and add the mode's weight noise.
 
     One standard-normal draw of ``w``'s shape per call when ``noise`` is
-    given and the device model has a read-noise stage in ``infer`` mode.
+    given and the device model has the mode's stage: ``TrainNoise`` in
+    train mode (Alg. 1: ``W + sigma * z``, the draw a constant, so the
+    gradient reaches the clean weight; one draw per weight even under
+    paired noise, as in the reference), ``ReadNoise`` in infer mode.
     """
     dev = cfg.device
     if cfg.mode != "exact" and (dev.line is not None
                                 or dev.nonlinear_iv is not None):
         raise NotImplementedError(
             f"device {dev.name!r}: the LineResistance / NonlinearIV stages "
-            f"are not ported to repro_torch yet")
+            f"are not ported to repro_torch yet; ROADMAP.md queue A item 2 "
+            f"(the device stages) brings them")
     w = crossbar.clip_weights(w)
     sigma_w = dev.weight_sigma_w(cfg.mode)
     if noise is not None and sigma_w > 0:
-        if dev.paired_noise:
+        if dev.paired_noise and cfg.mode == "infer":
             raise NotImplementedError(
                 f"device {dev.name!r}: paired (per-device) read noise is "
-                f"not ported to repro_torch yet")
+                f"not ported to repro_torch yet; ROADMAP.md queue A item 2 "
+                f"(the device stages) brings it")
         w = w + crossbar.read_noise_weights(noise, w.shape, w.device, sigma_w)
     return w
 

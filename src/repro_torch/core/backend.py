@@ -22,6 +22,15 @@ added with :func:`register_backend`.
 Threshold operands are ``(P,)`` tensors or :class:`BankedThresholds` (the
 ``(n_col_tiles, P)`` per-col-tile layout, each output column compared
 against its own bank's ramp).
+
+Gradients (Alg. 1): ``ref``'s NL-ADC is
+:func:`repro_torch.core.nladc.nladc_apply` (the straight-through backward),
+and ``lstm_gates`` on both backends is one ``torch.autograd.Function``
+whose forward is the backend's tail and whose backward is the reference's
+hand-written chain (``src/repro/core/backend.py:279-307``): it saves only
+the residuals ``(gates, c, thresholds)`` and rematerializes the tail, on
+``ref`` with :func:`~repro_torch.kernels.lstm_cell.lstm_gates_bwd_plain`,
+on ``cuda`` with the backward kernel.  The thresholds get no gradient.
 """
 
 from __future__ import annotations
@@ -31,8 +40,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.nladc import (NLADC, BankedThresholds,
-                                    nladc_banked_codes, nladc_forward)
+from repro_torch.core import functions as F
+from repro_torch.core.nladc import NLADC, BankedThresholds, nladc_apply
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import lstm_cell
@@ -50,17 +59,68 @@ def resolve_backend(name: str = "") -> str:
     return os.environ.get("REPRO_TORCH_BACKEND", "") or DEFAULT_BACKEND
 
 
+def _domain(adc: NLADC):
+    spec = F.get(adc.ramp.name)
+    return spec.x_lo, spec.x_hi
+
+
+class _LSTMTail(torch.autograd.Function):
+    """The tail with the reference's straight-through backward.
+
+    ``forward(gates, c, sig_dense, tanh_dense, backend, sig_adc,
+    tanh_adc, sig_thr, tanh_thr)`` runs ``backend._lstm_tail`` on the
+    thresholds as given (``(P,)`` or :class:`BankedThresholds`) and saves
+    the residuals, the thresholds as the dense ``(P,)`` or ``(H, P)``
+    operands; ``backward`` hands them and the cotangents to
+    ``backend._lstm_tail_bwd``."""
+
+    @staticmethod
+    def forward(ctx, gates, c, sig_dense, tanh_dense, backend, sig_adc,
+                tanh_adc, sig_thr, tanh_thr):
+        ctx.save_for_backward(gates, c, sig_dense, tanh_dense)
+        ctx.tail = (backend, sig_adc, tanh_adc)
+        return backend._lstm_tail(gates, c, sig_thr, tanh_thr, sig_adc,
+                                  tanh_adc)
+
+    @staticmethod
+    def backward(ctx, ct_h, ct_c):
+        gates, c, sig_dense, tanh_dense = ctx.saved_tensors
+        backend, sig_adc, tanh_adc = ctx.tail
+        d_gates, d_c = backend._lstm_tail_bwd(
+            gates, c, sig_dense, tanh_dense, sig_adc, tanh_adc,
+            ct_h.contiguous(), ct_c.contiguous())
+        return (d_gates, d_c) + (None,) * 7
+
+
+def _lstm_gates(backend, gates, c, sig_adc, tanh_adc, sig_thr, tanh_thr):
+    """Both backends' ``lstm_gates``.  The path follows ``requires_grad``
+    of ``gates`` or ``c`` under grad mode: with it :class:`_LSTMTail`,
+    without it the forward alone, as the NL-ADC's ``nladc_apply`` does."""
+    names =(sig_adc.ramp.name, tanh_adc.ramp.name)
+    if names != ("sigmoid", "tanh"):
+        raise ValueError(f"lstm_gates takes a sigmoid and a tanh ramp, got "
+                         f"{names}")
+    sig_thr = sig_adc.thresholds if sig_thr is None else sig_thr
+    tanh_thr = tanh_adc.thresholds if tanh_thr is None else tanh_thr
+    if not (torch.is_grad_enabled()
+            and (gates.requires_grad or c.requires_grad)):
+        return backend._lstm_tail(gates, c, sig_thr, tanh_thr, sig_adc,
+                                  tanh_adc)
+    return _LSTMTail.apply(gates, c, _dense(sig_thr, sig_adc),
+                           _dense(tanh_thr, tanh_adc), backend, sig_adc,
+                           tanh_adc, sig_thr, tanh_thr)
+
+
 class RefBackend:
     """The plain-torch path; its semantics define the contract."""
 
     name = "ref"
 
     def nladc(self, x: torch.Tensor, adc: NLADC, thresholds=None):
-        """Elementwise NL-ADC: thermometer count + ``y_table`` decode."""
+        """Elementwise NL-ADC: thermometer count + ``y_table`` decode, with
+        the straight-through backward."""
         thr = adc.thresholds if thresholds is None else thresholds
-        if isinstance(thr, BankedThresholds):
-            return adc.y_table[nladc_banked_codes(x, thr)].to(x.dtype)
-        return nladc_forward(x, thr, adc.y_table)
+        return nladc_apply(x, thr, adc.y_table, adc.ramp.name)
 
     def lstm_gates(self, gates: torch.Tensor, c: torch.Tensor,
                    sig_adc: NLADC, tanh_adc: NLADC,
@@ -68,7 +128,15 @@ class RefBackend:
         """The LSTM elementwise tail (Eq. 5): 5 NL-ADCs + cell update.
 
         gates: (B, 4H) raw MAC results in [f|a|i|o] order; c: (B, H).
+        Differentiable: the reference's straight-through chain
+        (:class:`_LSTMTail`).
         """
+        return _lstm_gates(self, gates, c, sig_adc, tanh_adc, sig_thr,
+                           tanh_thr)
+
+    def _lstm_tail(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc):
+        """The forward: strict-comparator counts (``searchsorted``), table
+        decodes, ``c' = fma(f, c, i*a)`` rounded once."""
         hf, ha, hi, ho = torch.split(gates, gates.shape[-1] // 4, dim=-1)
         f = self.nladc(hf, sig_adc, sig_thr)
         a = self.nladc(ha, tanh_adc, tanh_thr)
@@ -76,6 +144,13 @@ class RefBackend:
         o = self.nladc(ho, sig_adc, sig_thr)
         c_new = fma_f32(f, c, i * a)
         return o * self.nladc(c_new, tanh_adc, tanh_thr), c_new
+
+    def _lstm_tail_bwd(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc,
+                       ct_h, ct_c):
+        return lstm_cell.lstm_gates_bwd_plain(
+            gates, c, sig_thr, sig_adc.y_table, tanh_thr, tanh_adc.y_table,
+            ct_h, ct_c, sig_domain=_domain(sig_adc),
+            tanh_domain=_domain(tanh_adc))
 
     def matmul_nladc(self, x: torch.Tensor, w: torch.Tensor, adc: NLADC,
                      bias=None, thresholds=None):
@@ -140,9 +215,21 @@ class CudaBackend(RefBackend):
     def lstm_gates(self, gates, c, sig_adc, tanh_adc,
                    sig_thr=None, tanh_thr=None):
         _on_cuda(gates, "gates")
+        return _lstm_gates(self, gates, c, sig_adc, tanh_adc, sig_thr,
+                           tanh_thr)
+
+    def _lstm_tail(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc):
         return lstm_cell.lstm_gates(
             gates, c, _dense(sig_thr, sig_adc), sig_adc.y_table,
             _dense(tanh_thr, tanh_adc), tanh_adc.y_table)
+
+    def _lstm_tail_bwd(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc,
+                       ct_h, ct_c):
+        _on_cuda(gates, "gates")
+        return lstm_cell.lstm_gates_bwd(
+            gates, c, sig_thr, sig_adc.y_table, tanh_thr, tanh_adc.y_table,
+            ct_h, ct_c, sig_domain=_domain(sig_adc),
+            tanh_domain=_domain(tanh_adc))
 
     def matmul_nladc(self, x, w, adc, bias=None, thresholds=None):
         _on_cuda(x, "x")

@@ -16,6 +16,7 @@ The wire-resistance (IR drop) and nonlinear I-V models are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -30,8 +31,25 @@ READ_SIGMA_W = 3.5 / GAMMA_US     # read noise in weight units
 
 
 def clip_weights(w: torch.Tensor) -> torch.Tensor:
-    """Eq. (6): clip to [-2, 2] (max programmable conductance)."""
-    return torch.clamp(w, -W_CLIP, W_CLIP)
+    """Eq. (6): clip to [-2, 2] (max programmable conductance).
+
+    Where a gradient is asked for, ``minimum(maximum(w, -2), 2)``, as
+    ``jnp.clip`` computes it, so the gradient is the reference's: 1 inside,
+    0 outside and 0.5 at exactly +-2.0 (a tie of ``maximum`` or ``minimum``
+    splits the gradient; ``torch.clamp`` would pass 1 there).  The path
+    follows ``w.requires_grad`` under grad mode: without it
+    ``torch.clamp``, the same values in one kernel instead of two (the
+    infer step's launches, ``PERF.md`` §6)."""
+    if not (torch.is_grad_enabled() and w.requires_grad):
+        return torch.clamp(w, -W_CLIP, W_CLIP)
+    lo, hi = _clip_bounds(w.dtype, w.device)
+    return torch.minimum(torch.maximum(w, lo), hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _clip_bounds(dtype, device):
+    return (torch.full((), -W_CLIP, dtype=dtype, device=device),
+            torch.full((), W_CLIP, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------

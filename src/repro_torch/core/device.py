@@ -247,7 +247,8 @@ class DeviceModel:
             return None
         raise NotImplementedError(
             f"device {self.name!r}: the LineResistance stage (IR drop) is "
-            f"not ported to repro_torch yet")
+            f"not ported to repro_torch yet; ROADMAP.md queue A item 2 "
+            f"(the device stages) brings it")
 
     def _build_rng(self, *salt: int) -> np.random.Generator:
         return np.random.default_rng([self.seed & 0xFFFFFFFF, *salt])

@@ -16,7 +16,9 @@ extremum location instead of a global inverse.
 All registry math is done with numpy in float64: ramps are *host-side
 precomputed tables* (they correspond to physically programmed memristor
 conductances, not device computation).  The torch quantizer consumes the
-resulting level tables.
+resulting level tables.  :func:`grad_tensor` re-expresses each ``g'`` on
+tensors, in the tensor's dtype and on its device, for the straight-through
+backward (:func:`repro_torch.core.nladc.nladc_ste`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 ArrayFn = Callable[[np.ndarray], np.ndarray]
 
@@ -345,3 +348,43 @@ MONOTONIC_NAMES = tuple(
 NON_MONOTONIC_NAMES = tuple(
     sorted(n for n, s in REGISTRY.items() if not s.monotonic)
 )
+
+
+def grad_tensor(name: str, x: torch.Tensor) -> torch.Tensor:
+    """``g'(x)`` of the registered activation ``name`` on a tensor, in x's
+    dtype: the formulas of the JAX package's ``nladc._jnp_grad`` (the
+    numpy ``grad`` callables above are host-only float64)."""
+    if name == "sigmoid":
+        s = torch.sigmoid(x)
+        return s * (1 - s)
+    if name == "tanh":
+        t = torch.tanh(x)
+        return 1 - t * t
+    if name == "softplus":
+        return torch.sigmoid(x)
+    if name == "softsign":
+        return 1.0 / torch.square(1.0 + torch.abs(x))
+    if name == "elu":
+        return torch.where(x >= 0, torch.ones_like(x), torch.exp(x))
+    if name == "selu":
+        return torch.where(x >= 0, torch.full_like(x, _SELU_SLOPE),
+                           _SELU_ALPHA * torch.exp(x))
+    if name == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(x / _SQRT_2))
+        pdf = torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+        return cdf + x * pdf
+    if name in ("swish", "silu"):
+        s = torch.sigmoid(x)
+        return s + x * s * (1 - s)
+    raise KeyError(f"unknown activation {name!r}; known: {sorted(REGISTRY)}")
+
+
+def ste_tensor(name: str, x: torch.Tensor, ct: torch.Tensor,
+               domain) -> torch.Tensor:
+    """The straight-through backward of the ramp ``name``: ``ct * g'(x)``
+    where ``lo <= x <= hi`` (``domain = (lo, hi)``, inclusive, compared in
+    x's dtype), else 0, so saturated inputs pass nothing."""
+    lo, hi = domain
+    g = grad_tensor(name, x)
+    in_domain = (x >= lo) & (x <= hi)
+    return ct * torch.where(in_domain, g, torch.zeros_like(g)).to(ct.dtype)

@@ -11,7 +11,11 @@ torch forward:
                                 branches, decode ``y = y0 + LSB * |n - m|``.
 * ``nladc_forward``           — thermometer-code count
                                 ``n = #{V_k < x}`` -> table lookup.
-* ``pwm_quantize``            — b_in-bit PWM input quantization (uniform).
+* ``nladc_apply``             — the same with the straight-through backward
+                                ``ct * g'(x)`` gated to the ramp's domain
+                                (:func:`nladc_ste`), flat or banked.
+* ``pwm_quantize``            — b_in-bit PWM input quantization (uniform),
+                                with a clipped straight-through backward.
 
 The ramp tables are float64 numpy (they model *programmed memristor
 conductances*); the quantizer consumes them as float32 tensors.  Write noise
@@ -27,8 +31,13 @@ per-bank levels plus a static column->bank map (:class:`BankMap`), and each
 output column is quantized against its own bank's ramp.  With one bank the
 layout collapses to the ``(P,)`` vector.
 
-This module holds the forward only: the straight-through backward belongs
-to the training path.
+**Straight-through gradients (Alg. 1).**  The quantizers are
+``torch.autograd.Function`` subclasses whose backward is the JAX package's
+``custom_vjp``: the NL-ADC passes ``ct * g'(x)`` where
+``x_lo <= x <= x_hi`` (inclusive) and 0 elsewhere, and gives the
+thresholds and the table no gradient; the PWM quantizer passes ``ct``
+where ``-x_max <= x <= x_max`` and 0 elsewhere.  Without them autograd
+through ``torch.round`` and the table lookup gives 0 and no path to x.
 """
 
 from __future__ import annotations
@@ -261,6 +270,17 @@ def nladc_forward(x: torch.Tensor, thresholds: torch.Tensor,
     return y_table[nladc_codes(x, thresholds)].to(x.dtype)
 
 
+def nladc_ste(grad_name: str, x: torch.Tensor,
+              ct: torch.Tensor) -> torch.Tensor:
+    """The NL-ADC straight-through backward: ``ct * g'(x)``, gated to the
+    ramp's domain ``[x_lo, x_hi]`` (inclusive; saturated inputs pass
+    nothing): :func:`functions.ste_tensor` over the registered domain,
+    which the LSTM tail's backward (``kernels/lstm_cell.py``) calls with
+    the ramps' own."""
+    spec = F.get(grad_name)
+    return F.ste_tensor(spec.name, x, ct, (spec.x_lo, spec.x_hi))
+
+
 class BankMap:
     """A static, hashable column->bank index map.
 
@@ -324,7 +344,10 @@ class BankedThresholds:
 def nladc_banked_codes(x: torch.Tensor,
                        thresholds: BankedThresholds) -> torch.Tensor:
     """Per-column thermometer count against the column's own bank ramp
-    (a bank-gathered ``searchsorted``, same strict comparator)."""
+    (a bank-gathered ``searchsorted``, same strict comparator), laid out
+    row-major like ``x``: a column-major result would carry its strides
+    into every elementwise op after it, and a matmul that later takes such
+    an operand runs another cuBLAS kernel, which sums in another order."""
     thr_cols = thresholds.per_column                         # (N, P)
     n_cols = thr_cols.shape[0]
     if x.shape[-1] != n_cols:
@@ -334,7 +357,46 @@ def nladc_banked_codes(x: torch.Tensor,
     lead = xm.shape[1:]
     n = torch.searchsorted(thr_cols, xm.reshape(n_cols, -1).contiguous(),
                            right=False)
-    return n.reshape((n_cols,) + lead).movedim(0, -1)
+    return n.reshape((n_cols,) + lead).movedim(0, -1).contiguous()
+
+
+def _nladc_any(x, thresholds, y_table):
+    """Count and decode against a ``(P,)`` ramp or
+    :class:`BankedThresholds`."""
+    if isinstance(thresholds, BankedThresholds):
+        return y_table[nladc_banked_codes(x, thresholds)].to(x.dtype)
+    return nladc_forward(x, thresholds, y_table)
+
+
+class _NLADCFunction(torch.autograd.Function):
+    """Forward: the strict-comparator count and the table decode; backward:
+    :func:`nladc_ste` on the saved input.  The thresholds and the table get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, thresholds, y_table, grad_name):
+        ctx.grad_name = grad_name
+        ctx.save_for_backward(x)
+        return _nladc_any(x, thresholds, y_table)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        return nladc_ste(ctx.grad_name, x, ct), None, None, None
+
+
+def nladc_apply(x: torch.Tensor, thresholds, y_table: torch.Tensor,
+                grad_name: str) -> torch.Tensor:
+    """The NL-ADC with its straight-through gradient: ``y_table[n]`` with
+    ``n = #{V_k < x}`` forward, ``ct * g'(x)`` on ``[x_lo, x_hi]``
+    backward.  ``thresholds``: a ``(P,)`` tensor or
+    :class:`BankedThresholds`.  The path follows ``x.requires_grad``
+    under grad mode: without it the forward runs alone, with no autograd
+    function per call, which made the infer step slower (``PERF.md``
+    §6)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NLADCFunction.apply(x, thresholds, y_table, grad_name)
+    return _nladc_any(x, thresholds, y_table)
 
 
 class NLADC:
@@ -353,7 +415,7 @@ class NLADC:
             np.asarray(ramp.y_table, np.float32)).to(device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return nladc_forward(x, self.thresholds, self.y_table)
+        return nladc_apply(x, self.thresholds, self.y_table, self.ramp.name)
 
     def codes(self, x: torch.Tensor) -> torch.Tensor:
         """Raw thermometer count n = #{V_k < x} (the chip's native output)."""
@@ -380,7 +442,34 @@ def pwm_constants(bits: int, x_max: float):
     return step, np.float32(1.0) / step
 
 
+class _PWMFunction(torch.autograd.Function):
+    """Forward: :func:`pwm_forward`; backward: ``ct`` where
+    ``-x_max <= x <= x_max``, else 0 (the reference's clipped
+    straight-through pass)."""
+
+    @staticmethod
+    def forward(ctx, x, bits, x_max):
+        ctx.x_max = x_max
+        ctx.save_for_backward(x)
+        return pwm_forward(x, bits, x_max)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        inside = (x >= -ctx.x_max) & (x <= ctx.x_max)
+        return torch.where(inside, ct, torch.zeros_like(ct)), None, None
+
+
 def pwm_quantize(x: torch.Tensor, bits: int, x_max: float) -> torch.Tensor:
+    """:func:`pwm_forward` with the clipped straight-through gradient.  The
+    path follows ``x.requires_grad`` under grad mode: without it the
+    forward runs alone, as in :func:`nladc_apply`."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PWMFunction.apply(x, bits, x_max)
+    return pwm_forward(x, bits, x_max)
+
+
+def pwm_forward(x: torch.Tensor, bits: int, x_max: float) -> torch.Tensor:
     """Uniform b-bit quantization of inputs in [-x_max, x_max].
 
     2^b - 1 symmetric levels including 0; the step puts +/-x_max on codes.

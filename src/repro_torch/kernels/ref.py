@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.nladc import Ramp, pwm_quantize
+from repro_torch.core.nladc import Ramp, pwm_forward
 
 
 MODE_AFFINE = 0       # uniform y:              y(n) = y0 + n * lsb
@@ -102,6 +102,20 @@ def closed_form_decode_fma(n: torch.Tensor, dec: ClosedForm) -> torch.Tensor:
     d = n - dec.m
     left = fma_f32(-d if dec.mode == MODE_VSHAPE else d, const(dec.lsb_l), y0)
     return torch.where(n <= dec.m, left, fma_f32(d, const(dec.lsb_r), y0))
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Float32 ulps between ``a`` and ``b`` elementwise (int64): the
+    distance of their bit patterns on the ordered integer line, so +0 and
+    -0 are 0 apart and a step across zero counts every float between.  Two
+    NaNs are 0 apart; a NaN against a number is ``2**62``."""
+    def key(x):
+        i = x.float().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+    d = (key(a) - key(b)).abs()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    d = torch.where(na & nb, torch.zeros_like(d), d)
+    return torch.where(na ^ nb, torch.full_like(d, 2 ** 62), d)
 
 
 def thermometer_count(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -197,7 +211,7 @@ def effective_operands(x: torch.Tensor, w: torch.Tensor,
     them)."""
     xq = x.float()
     if input_bits is not None:
-        xq = pwm_quantize(xq, input_bits, input_clip)
+        xq = pwm_forward(xq, input_bits, input_clip)
     return xq, (w if w_noise is None else w + w_noise)
 
 

@@ -23,7 +23,8 @@ Three jobs in one run:
   that repeat one bank against the ``(P,)`` bank (bitwise), the grouped
   expert gate against the ``ref`` backend (codes within LSB/2), and the
   cached-attention kernel against ``attend_full`` (1e-6).  The gradient
-  halves wait for the training slice and are written as null.
+  halves (the expert gate's and the attention's backward) wait for the
+  LM's training and are written as null.
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise.  The result (the tune cache under ``"tune"``,
@@ -86,8 +87,8 @@ SHAPES_MAIN = {
 }
 BANK_COLS = 128
 ATTN_ATOL = 1e-6
-GRAD_NOTE = ("not ported: the STE backward comes with the training slice "
-             "(ROADMAP queue A item 0)")
+GRAD_NOTE = ("not ported: the expert gate's and the cached attention's "
+             "backward come with the LM's training (ROADMAP queue A item 3)")
 
 
 def sweep_shapes(full: bool) -> dict:

@@ -7,7 +7,9 @@ Eq. (4)/(5) and the Methods:
     h^t   = h_o * tanh(h_c^t)                  (tanh NL-ADC'd on chip)
 
 * the gate matmul maps to the crossbar: inputs PWM-quantized, weights
-  clipped to [-2, 2], read noise per ``AnalogConfig.device`` in infer mode;
+  clipped to [-2, 2], noise per ``AnalogConfig.device`` (``TrainNoise`` on
+  the weights and the ramp steps in train mode, ``ReadNoise`` in infer
+  mode);
 * all four gate nonlinearities AND the cell tanh are NL-ADC ramp quantized,
   through the backend's ``lstm_gates`` primitive (the CUDA kernel on the
   ``cuda`` backend), while the gate matmul stays one wide GEMM;
@@ -17,10 +19,18 @@ Eq. (4)/(5) and the Methods:
 Layouts follow the JAX package: gates ``(B, 4H)`` in the order
 ``[f|a|i|o]``, ``xs`` ``(B, T, n_in)``, ``w_gates`` ``(n_in + out_dim, 4H)``.
 
-Per-step noise comes from one :class:`NoiseSource`, one draw per matmul
-site per step, in call order: gates, projection, ..., then the FC layer.
-(The JAX reference derives the gate and projection draws of a step from
-the same key; a replayed source reproduces that, a generator draws both
+Hardware-aware training (Alg. 1) is ``mode="train"``: the classifier's
+weights are trainable parameters, every quantizer has its
+straight-through backward, and on the ``cuda`` backend the tail's backward
+is a kernel of its own.
+
+Per-step noise comes from one :class:`NoiseSource`, in call order.  One
+time step draws: the gate weights' noise, then (train mode only) one ramp
+draw ``z`` of the thresholds' shape, which the sigmoid and the tanh
+thresholds both take, then the projection weights' noise.  The FC
+weights' draw comes after the last step.  (The JAX reference derives the
+gate and projection draws of a step from one key, and both ramps from
+another; a replayed source reproduces that, a generator draws each
 afresh.)
 """
 
@@ -82,10 +92,12 @@ def lstm_cell(p, x, h, c, spec: LSTMSpec, acts: Tuple, *,
     xh = torch.cat([x, h], dim=-1)
     gates = analog_matmul_act(xh, p["w_gates"], cfg, noise=noise)
     if cfg.enabled and sig.ramp is not None and tnh.ramp is not None:
+        # one ramp draw for both activations (the reference's one key)
+        z = sig.ramp_noise(noise, spec.n_hidden)
         h_new, c_new = BK.get_backend(cfg.backend).lstm_gates(
             gates, c, sig.adc, tnh.adc,
-            sig_thr=sig.thresholds_for(spec.n_hidden),
-            tanh_thr=tnh.thresholds_for(spec.n_hidden))
+            sig_thr=sig.thresholds_for(spec.n_hidden, z=z),
+            tanh_thr=tnh.thresholds_for(spec.n_hidden, z=z))
     else:
         hf, ha, hi, ho = torch.split(gates, spec.n_hidden, dim=-1)
         hf, ha, hi, ho = sig(hf), tnh(ha), sig(hi), sig(ho)
@@ -135,7 +147,8 @@ class LSTMClassifier(nn.Module):
 
     ``params`` is a tree in the layout of :func:`classifier_init` (e.g.
     from :func:`repro_torch.convert.params_from_jax`); without it the
-    weights are drawn from ``generator``.
+    weights are drawn from ``generator``.  The weights are trainable
+    parameters (Alg. 1 trains them in ``mode="train"``).
     """
 
     def __init__(self, spec: LSTMSpec, n_classes: int, *, params=None,
@@ -146,14 +159,11 @@ class LSTMClassifier(nn.Module):
                 raise ValueError("LSTMClassifier needs params or a generator")
             params = classifier_init(generator, spec, n_classes)
         self.spec = spec
-        self.w_gates = nn.Parameter(params["lstm"]["w_gates"].to(device),
-                                    requires_grad=False)
+        self.w_gates = nn.Parameter(params["lstm"]["w_gates"].to(device))
         self.w_proj = None
         if spec.n_proj:
-            self.w_proj = nn.Parameter(params["lstm"]["w_proj"].to(device),
-                                       requires_grad=False)
-        self.fc_w = nn.Parameter(params["fc"]["w"].to(device),
-                                 requires_grad=False)
+            self.w_proj = nn.Parameter(params["lstm"]["w_proj"].to(device))
+        self.fc_w = nn.Parameter(params["fc"]["w"].to(device))
         self.acts = make_gate_acts(spec.analog, spec.n_hidden, device)
 
     def params(self):

@@ -17,7 +17,7 @@ A sigmoid router (``router_score="sigmoid"``, moonlight) is elementwise
 and is NL-ADC'd; a softmax router stays full precision.  The reference's
 sharding constraints (``_maybe_shard``) are the identity on one device;
 expert parallelism over ``torch.distributed`` is ROADMAP.md queue A item
-7.  The load-balance auxiliary loss waits for training.
+6.  The load-balance auxiliary loss waits for training.
 
 Three places where a plain port would give another answer than the
 reference, and what this module does:

@@ -56,12 +56,13 @@ class LM:
         if cfg.analog.enabled and cfg.analog.mode != "exact":
             raise NotImplementedError(
                 f"analog mode {cfg.analog.mode!r} on the LM is not ported "
-                f"yet; ROADMAP.md queue A item 5 (infer mode) and item 0 "
-                f"(train mode) bring it")
+                f"yet; ROADMAP.md queue A item 3 (the LM's infer and train "
+                f"modes) brings it")
         if cfg.family == "moe" and cfg.moe_impl != "gspmd":
             raise NotImplementedError(
                 f"moe_impl={cfg.moe_impl!r} (expert parallelism) is not "
-                f"ported yet; ROADMAP.md queue A item 7 brings it")
+                f"ported yet; ROADMAP.md queue A item 6 (distribution) "
+                f"brings it")
         self.cfg = cfg
         self.device = _model_device(device)
         self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \

@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-_SERVING_ITEM = "ROADMAP.md queue A item 6 (serving)"
+_SERVING_ITEM = "ROADMAP.md queue A item 4 (serving)"
 _LATER = {
     "prefill_buckets": "the bucketed prefill",
     "pack_prefill": "the packed prefill",

@@ -46,6 +46,13 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   and with H x P x 4 or a threshold pointer not 16-byte aligned (the plain
   copy beside the bulk copy); NaN, +-inf and values exactly on thresholds
   in the gates and in c.
+* ``lstm_gates_bwd`` (the tail's straight-through backward): its five
+  rematerialized codes bitwise the forward kernel's, and ``(d_gates, d_c)``
+  within 4 float32 ulps of its plain version (expf / tanhf against
+  torch's sigmoid / tanh on the card, through a chain of two products), NaN
+  where it has NaN; flat and banked, P 8, 16, 32 and 7, B 1, 7, 16, 33 and
+  64; NaN, +-inf and values on thresholds in the gates and in c, gates
+  exactly on the ramps' domain edges, infinite cotangents.
 * ``nladc``, the same way: flat and banked, P 7, 15, 31 and 12, float32 and
   bfloat16, M 1, 4 and 33, rows aligned to 16 bytes and not, a threshold
   pointer not 16-byte aligned.
@@ -78,7 +85,7 @@ from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.kernels import tune as TT
 from repro_torch.kernels.ref import (ClosedForm, closed_form_decode_fma,
                                     closed_form_params, effective_operands,
-                                    thermometer_count)
+                                    thermometer_count, ulp_distance)
 from repro_torch.launch.common import configure_numerics
 from repro_torch.nn.model import build
 
@@ -347,6 +354,57 @@ def test_lstm_gates_kernel_copies_unaligned_thresholds(p, banked):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _same_bits(g, w)
+
+
+BWD_ULPS = 4
+SIG_DOMAIN, TANH_DOMAIN = (-3.496, 3.496), (-1.749, 1.749)
+LSTM_BWD_CASES = [(b, h, p, banked)
+                  for b, h in [(1, 32), (7, 40), (16, 2016), (33, 100),
+                               (64, 32)]
+                  for p in (8, 16, 32, 7)
+                  for banked in (False, True)]
+
+
+def _lstm_bwd_inputs(b, h, p, banked, seed):
+    """:func:`_lstm_inputs` plus cotangents, with the gates of row 2 on the
+    ramps' domain edges (float32) and infinite cotangents in the last
+    column."""
+    gates, c, st, sy, tt, ty = _lstm_inputs(b, h, p, banked, seed)
+    rng = np.random.default_rng(seed + 1)
+    if b > 3:
+        for g, (lo, hi) in enumerate((SIG_DOMAIN, TANH_DOMAIN, SIG_DOMAIN,
+                                      SIG_DOMAIN)):
+            gates[2, g * h:(g + 1) * h] = np.where(
+                np.arange(h) % 2, np.float32(lo), np.float32(hi))
+    ct_h = rng.normal(0, 1, (b, h)).astype(np.float32)
+    ct_c = rng.normal(0, 1, (b, h)).astype(np.float32)
+    ct_h[0, -1], ct_c[-1, -1] = np.inf, -np.inf
+    return gates, c, st, sy, tt, ty, ct_h, ct_c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,p,banked", LSTM_BWD_CASES)
+def test_lstm_gates_bwd_kernel_matches_plain(b, h, p, banked):
+    dev = _card()
+    args = [torch.from_numpy(a).to(dev) for a in
+            _lstm_bwd_inputs(b, h, p, banked, b * 1000 + h + p)]
+    gates, c, st, sy, tt, ty = args[:6]
+    dom = dict(sig_domain=SIG_DOMAIN, tanh_domain=TANH_DOMAIN)
+    codes = torch.full((5, b, h), -1, dtype=torch.int32, device=dev)
+    n0 = TLC.lstm_gates_bwd.launches
+    got = TLC.lstm_gates_bwd(*args, codes=codes, **dom)
+    want = TLC.lstm_gates_bwd_plain(*args, **dom)
+    _, c_fwd = TLC.lstm_gates(*args[:6])
+    torch.cuda.synchronize()
+    assert TLC.lstm_gates_bwd.launches == n0 + 1
+    parts = torch.split(gates, h, dim=-1)
+    fwd_codes = torch.stack(
+        [thermometer_count(x, thr) for x, thr in
+         zip(parts + (c_fwd,), (st, tt, st, st, tt))]).to(torch.int32)
+    assert torch.equal(codes, fwd_codes)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert int(ulp_distance(g, w).max()) <= BWD_ULPS
 
 
 NLADC_CASES = [(shape, p, dtype, banked)

@@ -17,6 +17,17 @@ and move an output by an LSB.  Measured over seeds 0-3 of every case
 below: quantized exact mode was bitwise equal, infer mode differed by at
 most 3.0e-8 with no code flip (flip fraction 0), and the float baseline by
 at most 8.9e-8.  The logits are held to rtol 1e-5 / atol 1e-5.
+
+In ``train`` mode (Alg. 1, the ``paper`` device model's ``TrainNoise``)
+each step also draws one ramp ``z`` from the step's ``k_g`` (both ramps
+take it), replayed after the gate draw; the train-noise thresholds agree
+with the reference's within a few ulps, not bitwise
+(``tests/test_torch_train_noise.py``).  ``jax.grad`` of the mean NLL is
+held against ``torch.autograd`` at rtol 2e-4 / atol 2e-5
+(``test_model_train_grad_parity``'s tolerance), and the per-step LSTM
+outputs must show no code flip: an entry more than 1e-4 apart (an NL-ADC
+step moves an output by a good part of an LSB, 1/32 of the ramp's range;
+rounding alone stays below 1e-6).
 """
 
 import jax
@@ -28,11 +39,15 @@ import torch
 import repro.configs as JC
 import repro_torch.configs as TC
 from repro.configs import ptb_lstm as JCFG
+from repro.core import analog_layer as JAL
+from repro.core import backend as JBK
+from repro.core import nladc as JN
 from repro.core.analog_layer import AnalogConfig as JAnalog
 from repro.data import pipeline as JDATA
 from repro.nn import lstm as JL
 from repro_torch import convert
 from repro_torch.configs import ptb_lstm as TCFG
+from repro_torch.core import backend as TBK
 from repro_torch.core.analog_layer import AnalogConfig as TAnalog
 from repro_torch.core.analog_layer import analog_matmul_act
 from repro_torch.core.crossbar import GeneratorNoise, ReplayNoise
@@ -53,22 +68,37 @@ def _specs(mode, enabled=True, device="paper-infer", bank_cols=0):
             TL.LSTMSpec(analog=TAnalog(**kw), **dims))
 
 
-def _draws(key, params, spec):
-    """The reference's read-noise draws, in the port's call order."""
+def _draws(key, params, spec, ramp_shape=None, *, steps=T, fc=True):
+    """The reference's noise draws, in the port's call order: per step the
+    gate weights' (from ``k_mm``), the ramp's ``normal(k_g, ramp_shape)``
+    when ``ramp_shape`` is given (train mode), the projection's (``k_mm``
+    again); then the FC layer's (``k_fc``)."""
     def normal(k, w):
         _, k_w, _ = jax.random.split(k, 3)
         return np.asarray(jax.random.normal(k_w, w.shape, jnp.float32))
 
     k, k_fc = jax.random.split(key)
     out = []
-    for _ in range(T):
+    for _ in range(steps):
         k, k_t = jax.random.split(k)
-        k_mm, _ = jax.random.split(k_t)
+        k_mm, k_g = jax.random.split(k_t)
         out.append(normal(k_mm, params["lstm"]["w_gates"]))
+        if ramp_shape is not None:
+            out.append(np.asarray(jax.random.normal(k_g, ramp_shape,
+                                                    jnp.float32)))
         if spec.n_proj:
             out.append(normal(k_mm, params["lstm"]["w_proj"]))
-    out.append(normal(k_fc, params["fc"]["w"]))
+    if fc:
+        out.append(normal(k_fc, params["fc"]["w"]))
     return out
+
+
+def ramp_shape(spec):
+    """The train-mode ramp draw's shape at the hidden width."""
+    acts = TL.make_gate_acts(spec.analog, spec.n_hidden)
+    bank = acts[0].bank_for(spec.n_hidden)
+    p = acts[0].adc.thresholds.shape[0]
+    return (bank.bank_map.n_banks, p) if bank is not None else (p,)
 
 
 def _run(mode, enabled=True, bank_cols=0, all_steps=True, seed=0):
@@ -140,7 +170,7 @@ def test_module_and_npz_round_trip(tmp_path):
     model = TL.LSTMClassifier(ts, SMOKE.n_classes, params=pt)
     xs = torch.zeros((2, 3, ts.n_in))
     np.testing.assert_array_equal(
-        model(xs, all_steps=True).numpy(),
+        model(xs, all_steps=True).detach().numpy(),
         TL.classifier_apply(pt, xs, ts, model.acts, all_steps=True).numpy())
     gen = torch.Generator().manual_seed(0)
     p0 = TL.classifier_init(gen, ts, SMOKE.n_classes)
@@ -151,9 +181,138 @@ def test_module_and_npz_round_trip(tmp_path):
         2.0 / np.sqrt(ts.n_in + ts.out_dim) + 1e-6
 
 
+def _nll_j(logits, labels):
+    logp = jax.nn.log_softmax(logits)
+    return -jnp.mean(jnp.take_along_axis(logp, labels[..., None], -1))
+
+
+def _dense(thr, width):
+    thr = np.asarray(thr.thr if hasattr(thr, "thr") else thr)
+    if thr.ndim == 1:
+        return thr
+    return thr[np.asarray(JN.bank_map_for(width, width // thr.shape[0]).idx)]
+
+
+def _codes(gates, c_new, sig_thr, tanh_thr):
+    """The five NL-ADC codes of one step, (5, B, H): f, a, i, o, c'."""
+    def count(x, thr):
+        return np.sum(np.asarray(x)[..., None] > thr, axis=-1)
+    hf, ha, hi, ho = np.split(np.asarray(gates), 4, axis=-1)
+    return np.stack([count(hf, sig_thr), count(ha, tanh_thr),
+                     count(hi, sig_thr), count(ho, sig_thr),
+                     count(c_new, tanh_thr)])
+
+
+def _reference_codes(js, acts_j, pj, xs, key):
+    """Every step's codes in the reference, from ``lstm_cell``'s own pieces
+    unrolled under ``jax.jit`` with ``lstm_scan``'s key splits."""
+    sig, tnh = acts_j
+    width = js.n_hidden
+
+    def run(p, x):
+        k, _ = jax.random.split(key)
+        h = jnp.zeros((x.shape[0], js.out_dim))
+        c = jnp.zeros((x.shape[0], width))
+        out = []
+        for t in range(x.shape[1]):
+            k, k_t = jax.random.split(k)
+            k_mm, k_g = jax.random.split(k_t)
+            gates = JAL.analog_matmul_act(
+                jnp.concatenate([x[:, t], h], -1), p["lstm"]["w_gates"],
+                js.analog, key=k_mm)
+            st, tt = (a.thresholds_for(k_g, width) for a in acts_j)
+            h, c = JBK.get_backend("ref").lstm_gates(
+                gates, c, sig.adc, tnh.adc, sig_thr=st, tanh_thr=tt)
+            out.append((gates, c, st.thr if hasattr(st, "thr") else st,
+                        tt.thr if hasattr(tt, "thr") else tt))
+            h = JAL.analog_matmul_act(h, p["lstm"]["w_proj"], js.analog,
+                                      key=k_mm)
+        return out
+
+    return [_codes(g, cn, _dense(st, width), _dense(tt, width))
+            for g, cn, st, tt in jax.jit(run)(pj, jnp.asarray(xs))]
+
+
+def _recording_tail(monkeypatch):
+    """Record the codes of every ``lstm_gates`` call on the ref backend."""
+    seen = []
+    orig = TBK.RefBackend._lstm_tail
+
+    def tail(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc):
+        h, c_new = orig(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc)
+        width = c.shape[-1]
+        st, tt = (_dense(t.detach(), width) if not hasattr(t, "thr")
+                  else _dense(t.thr.detach(), width)
+                  for t in (sig_thr, tanh_thr))
+        seen.append(_codes(gates.detach(), c_new.detach(), st, tt))
+        return h, c_new
+
+    monkeypatch.setattr(TBK.RefBackend, "_lstm_tail", tail)
+    return seen
+
+
+@pytest.mark.parametrize("bank_cols", (0, 16))
+@pytest.mark.parametrize("all_steps", (True, False))
+def test_train_mode_gradients_match(bank_cols, all_steps, monkeypatch):
+    """Alg. 1 gradients of the whole classifier on the ``paper`` model,
+    every draw (weights per site, ramp z per step) replayed; the code-flip
+    count compares every step's five codes with the reference's."""
+    js, ts = _specs("train", device="paper", bank_cols=bank_cols)
+    pj = JL.classifier_init(jax.random.PRNGKey(5), js, SMOKE.n_classes)
+    rng = np.random.default_rng(11 + bank_cols)
+    xs = rng.normal(0, 0.6, (B, T, js.n_in)).astype(np.float32)
+    shape = (B, T) if all_steps else (B,)
+    labels = rng.integers(0, SMOKE.n_classes, shape)
+    key = jax.random.PRNGKey(200 + bank_cols)
+    acts_j = JL.make_gate_acts(js.analog, js.n_hidden)
+
+    def loss(p, x, y):
+        return _nll_j(JL.classifier_apply(p, x, js, acts_j, key=key,
+                                          all_steps=all_steps), y)
+
+    want_l, want_g = jax.jit(jax.value_and_grad(loss))(
+        pj, jnp.asarray(xs), jnp.asarray(labels))
+    want_codes = _reference_codes(js, acts_j, pj, xs, key)
+
+    model = TL.LSTMClassifier(ts, SMOKE.n_classes,
+                              params=convert.params_from_jax(
+                                  jax.tree_util.tree_map(np.asarray, pj)))
+    noise = ReplayNoise(_draws(key, pj, js, ramp_shape(ts)))
+    got_codes = _recording_tail(monkeypatch)
+    logits = model(torch.from_numpy(xs), noise=noise, all_steps=all_steps)
+    assert noise.remaining == 0
+    logp = torch.log_softmax(logits, -1)
+    lt = -logp.gather(-1, torch.from_numpy(labels)[..., None]).mean()
+    lt.backward()
+    flips = sum(int(np.count_nonzero(g != w))
+                for g, w in zip(got_codes, want_codes))
+    assert len(got_codes) == len(want_codes) == T
+    assert flips == 0, flips
+    np.testing.assert_allclose(lt.item(), float(want_l), rtol=1e-5)
+    for got, want in ((model.w_gates.grad, want_g["lstm"]["w_gates"]),
+                      (model.w_proj.grad, want_g["lstm"]["w_proj"]),
+                      (model.fc_w.grad, want_g["fc"]["w"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-5)
+        assert float(got.abs().max()) > 0
+
+
 def test_unported_modes_and_stages_raise():
-    with pytest.raises(NotImplementedError, match="train"):
-        TAnalog(mode="train")
+    # train mode constructs, draws its noise and moves the weights
+    _, ts = _specs("train", device="paper")
+    model = TL.LSTMClassifier(ts, SMOKE.n_classes,
+                              generator=torch.Generator().manual_seed(0))
+    xs = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 0.6, (B, T, ts.n_in)).astype(np.float32))
+    before = model.w_gates.detach().clone()
+    logits = model(xs, noise=GeneratorNoise(torch.Generator().manual_seed(1)),
+                   all_steps=True)
+    logits.logsumexp(-1).mean().backward()
+    with torch.no_grad():
+        model.w_gates -= 0.1 * model.w_gates.grad
+    assert float(model.w_gates.grad.abs().max()) > 0
+    assert not torch.equal(model.w_gates.detach(), before)
+    # the circuit-level stages are not ported yet
     _, ts = _specs("infer", device="stressed-ir")
     w = torch.zeros((4, 4))
     with pytest.raises(NotImplementedError):
