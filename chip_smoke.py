@@ -40,7 +40,27 @@ Phases, one JSON line each:
               finite; then the trained weights evaluated in infer mode.
               Median ms per train step with its spread, peak memory.
 4c. train_kws — the same for kws_lstm (B 64, T 49, fig4d's batch).
-4d. fig4d   — ``benchmarks/fig4d_kws.py``'s quick mode on the card
+4d. ir      — the IR-drop correction (``core/crossbar.py::
+              ir_effective_weights_tiled``, plain torch: the reference's
+              is plain jnp) on the card at PTB's ``w_gates`` (632, 8064:
+              16 col tiles of two shapes) and ``w_proj`` (2016, 504: 4 row
+              tiles of two shapes), on ``paper-ir`` (1 ohm, single) and
+              ``stressed-ir`` (2.5 ohm, double): within IR_ULPS float32
+              ulps of the same function in float64 on the host (ulps at the
+              float64 value); ms per call (CUDA events) beside the byte
+              bound; launches and device ms per call under ``kernel_time``.
+4e. ptb_ir  — ptb_lstm as in ``ptb`` on ``paper-ir`` and ``stressed-ir``,
+              bank_cols 0 and 512, the weights aged per crossbar tile
+              (``lstm_eval --age-weights tiled``): ``lstm_gates`` launches
+              batches x T times, ``cuda`` and ``ref`` logits within
+              LOGIT_ATOL; bits per character beside ``paper-infer``'s, ms
+              per step (median, spread), peak memory.
+4f. kws_ir  — the same for kws_lstm (accuracy beside ``paper-infer``'s).
+4g. train_kws_ir — ``train_kws`` on ``paper-ir``: the IR correction and
+              the I-V transform in the graph; first-step gradients on
+              ``cuda`` and ``ref`` within rtol 2e-4 / atol 2e-5, both tail
+              kernels T launches a step.
+4h. fig4d   — ``benchmarks/fig4d_kws.py``'s quick mode on the card
               (``lstm_train.fig4d``): 768 training samples, 4 epochs, float
               vs 5-, 4- and 3-bit NL-ADCs trained with Alg. 1 noise, read
               noise at evaluation over 3 chip seeds; the four accuracies
@@ -120,7 +140,9 @@ Phases, one JSON line each:
 16. kernel_time — device time per call of each kernel, of its plain
               version and of the PyTorch call used as a yardstick
               (torch.profiler; CUDA events where three profiler sessions
-              in a row record no device time), after the main paths.
+              in a row record no device time), after the main paths; the
+              same clock for the IR correction (``ir_time``: kernels
+              launched per call, device ms).
     launch_floor — the device time of one launch of a kernel of one block
               that writes one word (``kernels/launch_floor.py``), on the
               same clock: what any launch costs on this card, beside which
@@ -162,6 +184,9 @@ BWD_ULPS = 4        # lstm_gates_bwd vs plain: expf / tanhf against torch's
 TRAIN_STEPS = 4
 TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-5     # cuda vs ref first-step gradients
 KWS_TRAIN_BATCH = 64
+IR_PRESETS = ("paper-ir", "stressed-ir")
+IR_SHAPES = (("w_gates", (632, 8064)), ("w_proj", (2016, 504)))
+IR_ULPS = 32        # IR correction vs float64, ulps at the float64 value
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
@@ -385,7 +410,8 @@ def phase_kernel_bwd(torch, dev, name: str, b: int, h: int, bank_cols: int):
     return out, kernel, plain
 
 
-def phase_train(torch, dev, config: str, bank_cols: int) -> dict:
+def phase_train(torch, dev, config: str, bank_cols: int,
+                analog_device: str = "paper") -> dict:
     """Alg. 1 training at full width on the cuda backend: first-step
     gradients against the ref backend, TRAIN_STEPS Adam steps with the
     tail kernels' launches counted, then an infer-mode evaluation."""
@@ -397,7 +423,7 @@ def phase_train(torch, dev, config: str, bank_cols: int) -> dict:
     all_steps = config == "ptb_lstm"
     batch = PTB_BATCH if all_steps else KWS_TRAIN_BATCH
     lr = lstm_train.DEFAULTS[config][2]
-    analog = lstm_train.analog_config("train", analog_device="paper",
+    analog = lstm_train.analog_config("train", analog_device=analog_device,
                                       bank_cols=bank_cols, backend="cuda")
     model = lstm_train.build_model(config, analog, dev, seed=0)
     ref = lstm_train.build_model(
@@ -425,7 +451,8 @@ def phase_train(torch, dev, config: str, bank_cols: int) -> dict:
         grad_max[name] = float(gc.abs().max())
         grad_ok &= bool(torch.allclose(gc, gr, rtol=TRAIN_RTOL,
                                        atol=TRAIN_ATOL))
-    check(grad_ok, f"{config}/bank_cols={bank_cols}: cuda and ref first-step "
+    check(grad_ok, f"{config}/{analog_device}/bank_cols={bank_cols}: cuda "
+          f"and ref first-step "
           f"gradients differ beyond rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}: "
           f"{grad_diff}")
     del ref
@@ -448,8 +475,10 @@ def phase_train(torch, dev, config: str, bank_cols: int) -> dict:
         model, config, eval_batches=1, batch=PTB_BATCH if all_steps
         else KWS_BATCH, seq=PTB_SEQ, seed=3)
     check(math.isfinite(ev["nll"]), f"{config}: non-finite eval NLL")
-    out = {"phase": "train_" + config.split("_")[0], "config": config,
-           "bank_cols": bank_cols, "analog_device": "paper", "B": batch,
+    suffix = "" if analog_device == "paper" else "_ir"
+    out = {"phase": "train_" + config.split("_")[0] + suffix,
+           "config": config, "bank_cols": bank_cols,
+           "analog_device": analog_device, "B": batch,
            "T": t_steps, "steps": TRAIN_STEPS, "losses": res["losses"],
            "grad_norms": res["grad_norms"], "first_loss_cuda": float(loss_c), "first_loss_ref": float(loss_r),
            "grad_max_abs": grad_max,
@@ -515,8 +544,12 @@ def phase_launch_floor(torch, dev, module) -> dict:
 
 
 def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
-                batch: int, seq: int = 0):
-    """One main-path run on the cuda backend, checked against ref."""
+                batch: int, seq: int = 0, *,
+                analog_device: str = "paper-infer", age_weights: str = "none",
+                baseline: dict = None):
+    """One main-path run on the cuda backend, checked against ref;
+    ``baseline`` (the ``paper-infer`` run of the same cell) is printed
+    beside it."""
     import dataclasses
 
     from repro_torch.kernels import lstm_cell
@@ -524,8 +557,9 @@ def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
     from repro_torch.nn.lstm import LSTMClassifier
 
     model = lstm_eval.build_model(config, dev, backend="cuda",
-                                  analog_device="paper-infer",
-                                  bank_cols=bank_cols, seed=0)
+                                  analog_device=analog_device,
+                                  bank_cols=bank_cols, seed=0,
+                                  age_weights=age_weights)
     spec_ref = dataclasses.replace(
         model.spec, analog=model.spec.analog.replace(backend="ref"))
     ref = LSTMClassifier(spec_ref, model.fc_w.shape[1],
@@ -538,12 +572,15 @@ def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
     n_steps = n_batches * data[0][0].shape[1]
 
     lstm_eval.evaluate(model, data[:1], all_steps=all_steps, seed=7)  # warm
+    torch.cuda.reset_peak_memory_stats(dev)
     lstm_cell.lstm_gates.launches = 0
     res = lstm_eval.evaluate(model, data, all_steps=all_steps, seed=1)
     launches = lstm_cell.lstm_gates.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    cell = f"{config}/{analog_device}/bank_cols={bank_cols}"
     check(launches == n_steps,
-          f"{config}/bank_cols={bank_cols}: lstm_gates launched {launches} "
-          f"times, expected {n_steps}")
+          f"{cell}: lstm_gates launched {launches} times, expected "
+          f"{n_steps}")
     res_ref = lstm_eval.evaluate(ref, data, all_steps=all_steps, seed=1)
     # the host clock spreads: repeat the timed run, report the median
     step_ms = [res["step_ms"]] + [
@@ -558,9 +595,11 @@ def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
         check(bool(torch.isfinite(lk).all()), f"{config}: non-finite logits")
         diff = max(diff, float((lk - lr).abs().max()))
     check(diff <= LOGIT_ATOL,
-          f"{config}/bank_cols={bank_cols}: logits differ from the ref "
-          f"backend by {diff} > {LOGIT_ATOL}")
-    out = {"phase": config.split("_")[0], "config": config,
+          f"{cell}: logits differ from the ref backend by {diff} > "
+          f"{LOGIT_ATOL}")
+    suffix = "" if analog_device == "paper-infer" else "_ir"
+    out = {"phase": config.split("_")[0] + suffix, "config": config,
+           "analog_device": analog_device, "age_weights": age_weights,
            "bank_cols": bank_cols,
            "n_banks": -(-model.spec.n_hidden // bank_cols) if bank_cols
            else 1,
@@ -572,9 +611,107 @@ def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
            "step_ms": statistics.median(step_ms),
            "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
            "tokens_per_s": batch * 1e3 / statistics.median(step_ms),
-           "ref_step_ms": res_ref["step_ms"]}
+           "ref_step_ms": res_ref["step_ms"], "peak_memory_gb": peak_gb}
+    if baseline is not None:
+        out["paper_infer"] = {k: baseline[k] for k in (
+            "bpc", "accuracy", "step_ms", "step_ms_min", "step_ms_max")}
     emit(out)
     return out
+
+
+# float32 operations per conductance in one sweep of the single-sourced
+# line_drop and its attenuation: the µS -> S scale (1); the wordline's two
+# prefix sums, the product g*(j+1), P_end - P_j, its product by j+1, the add
+# and the product by r_wl (7); the bitline's seven in the same pattern (7);
+# d_wl + d_bl (1); then 1 + d and its reciprocal (2).
+SWEEP_OPS = 1 + 7 + 7 + 1 + 2
+
+
+def ir_bound(n_in: int, n_out: int, n_iter: int) -> dict:
+    """The least time the card needs for one IR correction of an
+    (n_in, n_out) float32 matrix: w read once and the effective weights
+    written once at the HBM rate, against its float32 operations.  Per
+    weight and polarity, 1 + n_iter sweeps of SWEEP_OPS each, n_iter
+    products g*s, and 10 more for the pair mapping and the
+    recombination."""
+    n = n_in * n_out
+    n_bytes = 2 * 4 * n
+    n_ops = n * (2 * ((1 + n_iter) * SWEEP_OPS + n_iter) + 10)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_ir(torch, dev, preset: str, name: str, shape) -> tuple:
+    """The tiled IR correction on the card against the same function in
+    float64 on the host, at a PTB weight's shape (its trunc-normal init
+    plus one read-noise draw, as the step hands it over)."""
+    import numpy as np
+
+    from repro_torch.core import crossbar
+    from repro_torch.core.device import get_device
+    from repro_torch.nn.layers import trunc_normal
+
+    ln = get_device(preset).line
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(shape[0] * 10_000 + shape[1])
+    w = trunc_normal(gen, shape) + crossbar.READ_SIGMA_W * torch.randn(
+        shape, generator=gen, device=dev)
+    plan = crossbar.plan_tiles(*shape)
+    tile_shapes = sorted({(rs.stop - rs.start, cs.stop - cs.start)
+                          for _, rs, cs in plan.blocks()})
+
+    def call():
+        return crossbar.ir_effective_weights_tiled(
+            w, ln.r_wl_ohm, ln.r_bl_ohm, ln.sourcing, ln.n_iter)
+
+    got = call()
+    torch.cuda.synchronize()
+    want = crossbar.ir_effective_weights_tiled(
+        w.cpu().double(), ln.r_wl_ohm, ln.r_bl_ohm, ln.sourcing, ln.n_iter)
+    got_np, want_np = got.cpu().double().numpy(), want.numpy()
+    spacing = np.spacing(np.abs(want_np).astype(np.float32)).astype(
+        np.float64)
+    ulps = float(np.max(np.abs(got_np - want_np) / spacing))
+    check(bool(torch.isfinite(got).all()), f"ir {preset}/{name}: non-finite")
+    check(ulps <= IR_ULPS, f"ir {preset}/{name}: {ulps} float32 ulps from "
+          f"float64 > {IR_ULPS}")
+    out = {"phase": "ir", "case": f"{preset}/{name}", "shape": list(shape),
+           "r_wl_ohm": ln.r_wl_ohm, "r_bl_ohm": ln.r_bl_ohm,
+           "sourcing": ln.sourcing, "n_iter": ln.n_iter,
+           "tiles": plan.n_crossbars, "tile_shapes": tile_shapes,
+           "max_ulps_vs_f64": ulps, "ulp_bound": IR_ULPS,
+           "max_abs_err": float(np.max(np.abs(got_np - want_np))),
+           "max_abs_correction": float(np.max(np.abs(want_np - np.clip(
+               w.cpu().double().numpy(), -2, 2)))),
+           "call_ms": cuda_ms(call, reps=10, inner=10),
+           **ir_bound(*shape, ln.n_iter)}
+    emit(out)
+    return out, call
+
+
+def phase_ir_time(torch, case: dict, call) -> dict:
+    """Kernels launched by one IR call and its device time per call
+    (``device_ms``), after the main paths as ``kernel_time``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    ms, clock = device_ms(call, calls=10)
+    out = {"phase": "ir_time", "case": case["case"],
+           "launches_per_call": launches, "ms": ms, "timed_by": clock,
+           "call_ms": case["call_ms"], "bound_ms": case["bound_ms"],
+           "bound_by": case["bound_by"]}
+    emit(out)
+    case.update(launches_per_call=launches, ms=ms, timed_by=clock)
+    return case
 
 
 def matmul_bound(m: int, k: int, n: int, p: int, banked: bool,
@@ -1525,6 +1662,23 @@ def main() -> int:
     trains = [phase_train(torch, dev, "ptb_lstm", bc) for bc in (0, 512)]
     trains.append(phase_train(torch, dev, "kws_lstm", 0))
     free_device(torch)
+
+    irs = [phase_ir(torch, dev, preset, name, shape)
+           for preset in IR_PRESETS for name, shape in IR_SHAPES]
+    base = {(r["config"], r["bank_cols"]): r for r in runs}
+    ir_runs = [phase_model(torch, dev, "ptb_lstm", bc, PTB_BATCHES,
+                           PTB_BATCH, PTB_SEQ, analog_device=preset,
+                           age_weights="tiled",
+                           baseline=base[("ptb_lstm", bc)])
+               for preset in IR_PRESETS for bc in (0, 512)]
+    ir_runs += [phase_model(torch, dev, "kws_lstm", 0, KWS_BATCHES,
+                            KWS_BATCH, analog_device=preset,
+                            age_weights="tiled",
+                            baseline=base[("kws_lstm", 0)])
+                for preset in IR_PRESETS]
+    trains.append(phase_train(torch, dev, "kws_lstm", 0,
+                              analog_device="paper-ir"))
+    free_device(torch)
     phase_fig4d(torch, dev)
     free_device(torch)
 
@@ -1597,19 +1751,21 @@ def main() -> int:
     moe_cases = [phase_kernel_time(*c) for c in moe_checked]
     flash_cases = [phase_kernel_time(*c) for c in flash_checked]
     tile_cases = [phase_kernel_time(*c) for c in tile_checked]
+    for case, call in irs:
+        phase_ir_time(torch, case, call)
     phase_launch_floor(torch, dev, launch_floor)
 
     main_case = cases[0]
     lstm = kernel_entry(
         "lstm_gates", "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "src/repro/kernels/lstm_cell.py:51",
-        sum(r["launches"] for r in runs)
+        sum(r["launches"] for r in runs + ir_runs)
         + sum(r["launches_fwd"] for r in trains), cases, main_case,
         launches_per_run={
-            **{f"{r['config']}/bank_cols={r['bank_cols']}": r["launches"]
-               for r in runs},
-            **{f"train {r['config']}/bank_cols={r['bank_cols']}":
-               r["launches_fwd"] for r in trains}},
+            **{f"{r['config']}/{r['analog_device']}/bank_cols="
+               f"{r['bank_cols']}": r["launches"] for r in runs + ir_runs},
+            **{f"train {r['config']}/{r['analog_device']}/bank_cols="
+               f"{r['bank_cols']}": r["launches_fwd"] for r in trains}},
         bitwise=all(c["max_abs_err"] == 0 and c["code_mismatches"] == 0
                     for c in cases),
         shape={"B": main_case["B"], "H": main_case["H"],
@@ -1686,8 +1842,9 @@ def main() -> int:
         "lstm_gates_bwd", "src/repro_torch/kernels/csrc/lstm_cell_bwd.cu",
         "src/repro/core/backend.py:279",
         sum(r["launches_bwd"] for r in trains), bwd_cases, bwd_main,
-        launches_per_run={f"train {r['config']}/bank_cols={r['bank_cols']}":
-                          r["launches_bwd"] for r in trains},
+        launches_per_run={f"train {r['config']}/{r['analog_device']}/"
+                          f"bank_cols={r['bank_cols']}": r["launches_bwd"]
+                          for r in trains},
         max_ulps=max(c["max_ulps"] for c in bwd_cases), ulp_bound=BWD_ULPS,
         code_mismatches=sum(c["code_mismatches"] for c in bwd_cases),
         shape={"B": bwd_main["B"], "H": bwd_main["H"], "P": bwd_main["P"],

@@ -16,7 +16,12 @@ Operating modes:
                NL-ADC and PWM quantization with straight-through backwards;
 * ``infer``  — deployment simulation: the device model's build stage
                (programmed ramps: write noise + redundancy + calibration +
-               drift, drawn once, host-side) + per-step read noise + NL-ADC.
+               drift, drawn once, host-side; the weights are aged once by
+               ``DeviceModel.age_params``) + per-step read noise + NL-ADC.
+
+Under the circuit-level stages, train and infer mode also pass the PWM
+inputs through the ``NonlinearIV`` transform and the noisy weights
+through the ``LineResistance`` correction per crossbar tile.
 
 **Ramp noise in train mode.**  Each call's thresholds are
 ``sort(v_init + cumsum(steps + sigma_us * z * g_scale))`` over the ideal
@@ -280,42 +285,51 @@ class AnalogActivation:
 
 def _noisy_weights(w: torch.Tensor, cfg: AnalogConfig,
                    noise: Optional[NoiseSource]) -> torch.Tensor:
-    """Clip to the programmable range and add the mode's weight noise.
+    """Clip to the programmable range, add the mode's weight noise, and
+    apply the line stage's IR correction.
 
     One standard-normal draw of ``w``'s shape per call when ``noise`` is
     given and the device model has the mode's stage: ``TrainNoise`` in
     train mode (Alg. 1: ``W + sigma * z``, the draw a constant, so the
     gradient reaches the clean weight; one draw per weight even under
-    paired noise, as in the reference), ``ReadNoise`` in infer mode.
+    paired noise, as in the reference), ``ReadNoise`` in infer mode, where
+    ``paired_noise`` draws per device instead (two draws, positive device
+    first: :func:`crossbar.read_noise_weights_paired`).  Then, in every
+    mode but ``exact``, the ``LineResistance`` correction per crossbar
+    tile (:func:`crossbar.ir_effective_weights_tiled`), differentiable, so
+    training sees the wires.  All of it precedes the backend seam: ``ref``
+    and ``cuda`` get the same operands.
     """
-    dev = cfg.device
-    if cfg.mode != "exact" and (dev.line is not None
-                                or dev.nonlinear_iv is not None):
-        raise NotImplementedError(
-            f"device {dev.name!r}: the LineResistance / NonlinearIV stages "
-            f"are not ported to repro_torch yet; ROADMAP.md queue A item 2 "
-            f"(the device stages) brings them")
     w = crossbar.clip_weights(w)
+    dev = cfg.device
     sigma_w = dev.weight_sigma_w(cfg.mode)
     if noise is not None and sigma_w > 0:
-        if dev.paired_noise and cfg.mode == "infer":
-            raise NotImplementedError(
-                f"device {dev.name!r}: paired (per-device) read noise is "
-                f"not ported to repro_torch yet; ROADMAP.md queue A item 2 "
-                f"(the device stages) brings it")
-        w = w + crossbar.read_noise_weights(noise, w.shape, w.device, sigma_w)
+        if cfg.mode == "infer" and dev.paired_noise:
+            w = crossbar.read_noise_weights_paired(noise, w, sigma_w)
+        else:
+            w = w + crossbar.read_noise_weights(noise, w.shape, w.device,
+                                                sigma_w)
+    if dev.line is not None and cfg.mode != "exact":
+        ln = dev.line
+        w = crossbar.ir_effective_weights_tiled(
+            w, ln.r_wl_ohm, ln.r_bl_ohm, ln.sourcing, ln.n_iter)
     return w
 
 
 def analog_matmul_act(x: torch.Tensor, w: torch.Tensor, cfg: AnalogConfig,
                       *, noise: Optional[NoiseSource] = None,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Crossbar MAC: PWM-quantized inputs times clipped, read-noisy weights,
-    float32 accumulation.  ``noise`` supplies the per-step draws; ``None``
-    draws nothing (exact mode)."""
+    """Crossbar MAC: PWM-quantized inputs (through the ``NonlinearIV``
+    read transform where the device model has one, outside exact mode)
+    times clipped, noisy, IR-corrected weights, float32 accumulation.
+    ``noise`` supplies the per-step draws; ``None`` draws nothing (exact
+    mode)."""
     if cfg.enabled:
         if cfg.input_bits is not None:
             x = pwm_quantize(x, cfg.input_bits, cfg.input_clip)
+        iv = cfg.device.nonlinear_iv
+        if iv is not None and cfg.mode != "exact":
+            x = crossbar.nonlinear_iv_read(x, iv.alpha, cfg.input_clip)
         w = _noisy_weights(w, cfg, noise)
     y = torch.matmul(x, w)
     if bias is not None:

@@ -14,17 +14,23 @@ stage                     physics
 :class:`StuckAt`          stuck-at-OFF device faults (Fig. 3a)
 :class:`Redundancy`       Supp. S11 best-of-R ramp copies in unused column rows
 :class:`Calibration`      Supp. S9 one-point ``V_init`` shift with bias devices
-:class:`LineResistance`   wordline/bitline IR drop (not ported yet: deploying
-                          or running under it raises)
-:class:`NonlinearIV`      nonlinear memristor I-V (not ported yet)
+:class:`LineResistance`   wordline/bitline IR drop: the weight crossbars'
+                          effective-conductance correction at step time,
+                          the ramp columns' series attenuation at build time
+:class:`NonlinearIV`      nonlinear memristor I-V (a per-input transform)
 ========================  =====================================================
 
-The **build stage** (write noise, faults, redundancy, calibration, drift)
-realizes the programmed NL-ADC ramps once per deployment, host-side in
-numpy: :meth:`DeviceModel.deploy_ramp` / :meth:`DeviceModel.deploy_ramp_bank`.
+The **build stage** (write noise, faults, redundancy, calibration, drift,
+and the line stage's ramp rebuild) realizes the programmed chip once per
+deployment, host-side in numpy float64: the NL-ADC ramps
+(:meth:`DeviceModel.deploy_ramp` / :meth:`DeviceModel.deploy_ramp_bank`)
+and the weight crossbars (:meth:`DeviceModel.age_weights`,
+:meth:`DeviceModel.age_weights_tiled`, :meth:`DeviceModel.age_params`).
 Its draws are ``numpy.random.Generator`` streams salted with ``zlib.crc32``
-of the ramp identity, so the thresholds are the same on every backend and
-every run.  The **step-time** sigmas (read / train noise) are read by
+of the ramp identity or of the weight's tree path and tile, so the chip
+is the same on every backend and every run, and bitwise the JAX
+package's.  The **step-time** stages (read / train noise, paired noise,
+the IR correction, the I-V transform) are applied by
 :mod:`repro_torch.core.analog_layer`.
 
 Presets are registered by name (``ideal``, ``paper``, ``paper-infer``,
@@ -41,6 +47,7 @@ import zlib
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import calibration as CAL
 from repro_torch.core import crossbar as CB
@@ -126,10 +133,12 @@ class Calibration:
 class LineResistance:
     """Wordline/bitline parasitic resistance (IR drop).
 
-    A position-dependent effective-conductance correction of the weight
-    crossbars at step time, and the series-resistance attenuation of the
-    sequentially-read ramp columns at build time.  Kept here so device
-    models serialize in full; neither correction is ported yet.
+    The position-dependent effective-conductance correction of
+    :func:`repro_torch.core.crossbar.ir_effective_weights_tiled` on the
+    weight crossbars (per physical tile, at step time, differentiable) and
+    the exact series-resistance attenuation of the sequentially-read ramp
+    columns at build time (so calibration and the INL probes see the
+    IR-induced curvature).
 
     ``sourcing``: ``"single"`` drives each wordline from the left only;
     ``"double"`` from both ends (halves the worst-case wordline drop).
@@ -148,7 +157,7 @@ class NonlinearIV:
 
     ``alpha = b*V_clip`` of the sinh read characteristic; the gain-
     normalized cubic distortion factors through the MAC as a per-input
-    transform (not ported yet).
+    transform (:func:`repro_torch.core.crossbar.nonlinear_iv_read`).
     """
 
     alpha: float = 0.5
@@ -196,8 +205,8 @@ class DeviceModel:
     # legacy one-draw-per-weight model.  Off by default so the pinned
     # S13/preset parities stay bitwise.
     paired_noise: bool = False
-    # Per-deployment seed for the build-stage draws (ramp programming)
-    # when no explicit rng is supplied.
+    # Per-deployment seed for the build-stage draws (ramp programming /
+    # weight aging) when no explicit rng is supplied.
     seed: int = 0
 
     def replace(self, **kw) -> "DeviceModel":
@@ -234,28 +243,72 @@ class DeviceModel:
                 or (self.drift is not None and self.drift.t_s > 0)
                 or self.line is not None)
 
-    def line_rebuild(self):
-        """Threshold-realization hook for the line stage.
+    # -- line-resistance hooks ---------------------------------------------
 
-        ``None`` (plain ``ramp_from_conductances``) without a line stage.
-        The IR-drop-aware ramp rebuild (with its per-bank wordline position
-        and bank-aware redundancy placement) is not ported yet, so a model
-        with a line stage raises here instead of deploying ideal-wire
-        ramps.
+    def line_rebuild(self, frac: float = 1.0):
+        """Threshold-realization hook threading the line stage into ramps.
+
+        ``None`` (plain ``ramp_from_conductances``) without a line stage;
+        otherwise ``(ideal, g_us) -> Ramp`` applying the sequential-read
+        series attenuation before the prefix-sum rebuild, so calibration,
+        redundancy INL selection and drift rebuilds judge the thresholds
+        the wires deliver.  ``frac`` is the normalized wordline run from
+        the voltage source to the ramp column's bank (1.0 = far end).
         """
         if self.line is None:
             return None
-        raise NotImplementedError(
-            f"device {self.name!r}: the LineResistance stage (IR drop) is "
-            f"not ported to repro_torch yet; ROADMAP.md queue A item 2 "
-            f"(the device stages) brings it")
+        ln = self.line
+
+        def rebuild(ideal: Ramp, g_us: np.ndarray) -> Ramp:
+            g = np.asarray(g_us, dtype=np.float64)
+            s = CB.ramp_series_attenuation(
+                g, ln.r_wl_ohm, ln.r_bl_ohm,
+                wl_segments=frac * g.shape[-1])
+            return ramp_from_conductances(ideal, g * s)
+
+        return rebuild
+
+    def bank_line_frac(self, j: int, n_banks: int) -> float:
+        """Normalized wordline run to bank ``j``'s ramp column: monotone
+        in the distance from the source for single-side sourcing, the
+        distance to the nearer source for double-side (worst in the
+        middle)."""
+        if self.line is None or n_banks <= 1:
+            return 1.0
+        if self.line.sourcing == "double":
+            return 2.0 * min(j + 1, n_banks - j) / (n_banks + 1)
+        return (j + 1) / n_banks
+
+    def worst_bank(self, n_banks: int) -> int:
+        """The col-tile whose ramp sees the largest IR drop."""
+        return max(range(n_banks),
+                   key=lambda j: (self.bank_line_frac(j, n_banks), j))
+
+    def bank_device(self, j: int, n_banks: int) -> "DeviceModel":
+        """Bank-aware Supp. S11 redundancy placement: under a line stage
+        the redundant ramp copies go to the worst col-tile and the other
+        banks are programmed single-copy.  Identity without a line stage
+        or redundancy, so every other banked deployment stays bitwise."""
+        if (self.line is None or n_banks <= 1
+                or self.redundancy.n_copies <= 1):
+            return self
+        if j == self.worst_bank(n_banks):
+            return self
+        return self.replace(redundancy=Redundancy(n_copies=1))
 
     def _build_rng(self, *salt: int) -> np.random.Generator:
         return np.random.default_rng([self.seed & 0xFFFFFFFF, *salt])
 
+    def tile_rng(self, key: str, *salt: int) -> np.random.Generator:
+        """RNG for one crossbar tile's build-stage draws, seeded by
+        ``(seed, crc32(key), *salt)`` (the leaf's tree path and the tile
+        coordinates), so a tile's devices do not depend on visit order."""
+        return self._build_rng(zlib.crc32(key.encode()), *salt)
+
     def program(self, ramp: Ramp,
                 rng: Optional[np.random.Generator] = None,
-                *, instance: str = "") -> ProgrammedRamp:
+                *, instance: str = "",
+                line_frac: float = 1.0) -> ProgrammedRamp:
         """Program one NL-ADC ramp column under this model.
 
         Wraps the Supp. S9/S11 pipeline (``program_ramp`` /
@@ -268,7 +321,8 @@ class DeviceModel:
         ``instance`` decorrelates physically distinct copies of the same
         ramp (e.g. the ADC periphery of different crossbar tiles): the
         default empty string reproduces the legacy one-chip-per-(name, bits)
-        stream bit-for-bit.
+        stream bit-for-bit.  ``line_frac`` positions the column along the
+        wordline for the line stage's rebuild.
         """
         if rng is None:
             salt = [zlib.crc32(ramp.name.encode()), ramp.bits]
@@ -278,7 +332,7 @@ class DeviceModel:
         sigma = self.write.sigma_us if self.write is not None else 0.0
         stuck = self.stuck.prob if self.stuck is not None else 0.0
         cal = self.calibration.one_point
-        rebuild = self.line_rebuild()
+        rebuild = self.line_rebuild(line_frac)
         if self.redundancy.n_copies > 1:
             prog = CAL.program_with_redundancy(
                 ramp, rng, copies=self.redundancy.n_copies, sigma_us=sigma,
@@ -300,18 +354,22 @@ class DeviceModel:
                                   n_cali_devices=n_cali)
         return prog
 
-    def deploy_ramp(self, ramp: Ramp, *, instance: str = "") -> Ramp:
+    def deploy_ramp(self, ramp: Ramp, *, instance: str = "",
+                    line_frac: float = 1.0) -> Ramp:
         """The comparator thresholds a deployed chip actually realizes.
 
         Identity when the model has no build-stage nonideality; otherwise
         the programmed (noisy/faulty/redundant/calibrated/drifted) ramp,
         drawn deterministically from ``seed`` + the ramp identity (plus the
         optional ``instance`` tile key) so every backend — and every
-        re-build of the activation — sees the same chip.
+        re-build of the activation — sees the same chip.  ``line_frac``
+        positions the column for the IR-drop rebuild (ignored without a
+        line stage).
         """
         if not self.has_build_stage:
             return ramp
-        return self.program(ramp, instance=instance).programmed
+        return self.program(ramp, instance=instance,
+                            line_frac=line_frac).programmed
 
     def deploy_ramp_bank(self, ramp: Ramp, n_banks: int, *,
                          instance: str = ""):
@@ -322,11 +380,110 @@ class DeviceModel:
         independently programmed (and independently drifting) ramps.  Each
         bank's draw is keyed purely by its col-tile index — independent of
         ``n_banks``, of realization order, and of which other banks exist
-        (the bank-permutation-independence property).
+        (the bank-permutation-independence property).  Under a line stage
+        each bank also gets its wordline position (:meth:`bank_line_frac`)
+        and the bank-aware redundancy placement (:meth:`bank_device`).
         """
         prefix = f"{instance}@" if instance else ""
-        return tuple(self.deploy_ramp(ramp, instance=f"{prefix}col{j}")
-                     for j in range(n_banks))
+        return tuple(
+            self.bank_device(j, n_banks).deploy_ramp(
+                ramp, instance=f"{prefix}col{j}",
+                line_frac=self.bank_line_frac(j, n_banks))
+            for j in range(n_banks))
+
+    # -- weight aging (host-side numpy float64) ------------------------------
+
+    def age_weights(self, w: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+        """Build-stage weight nonidealities: write noise (per weight, or per
+        device of the pair under ``paired_noise``), stuck-at-OFF faults,
+        retention drift, in that order, from ``rng`` (the caller owns the
+        stream: device errors are independent across crossbars)."""
+        w = np.asarray(w, dtype=np.float64)
+        if self.write is not None:
+            if self.paired_noise:
+                g_pos, g_neg = CB.weights_to_conductance_pairs(w)
+                g_pos, g_neg = CB.write_noise_pairs_np(
+                    rng, g_pos, g_neg, self.write.sigma_us)
+                w = CB.conductance_pairs_to_weights(g_pos, g_neg)
+            else:
+                w = np.clip(w + rng.normal(0.0, self.write.sigma_w, w.shape),
+                            -CB.W_CLIP, CB.W_CLIP)
+        if self.stuck is not None and self.stuck.prob > 0:
+            w = np.where(rng.random(w.shape) < self.stuck.prob, 0.0, w)
+        if self.drift is not None and self.drift.t_s > 0:
+            w = self.drift.model().drift_weights(w, self.drift.t_s, rng)
+        return w
+
+    def age_weights_tiled(self, w: np.ndarray, key: str,
+                          plan: Optional[CB.TilePlan] = None,
+                          generation: int = 0,
+                          col_overrides: Optional[Dict[int, tuple]] = None
+                          ) -> np.ndarray:
+        """:meth:`age_weights`, drawn independently per physical crossbar.
+
+        The last two dims are partitioned by ``plan`` (default: the paper's
+        633x512 tiling); tile (i, j) of leading matrix ``mi`` draws from
+        :meth:`tile_rng` keyed on ``(key, mi, i, j)``, so tiles carry
+        independent device populations and the result does not depend on
+        visit order.  A nonzero ``generation`` salts every tile (a field
+        re-program: fresh write noise); generation 0 is the pre-refresh
+        stream.  ``col_overrides`` maps a col-tile ``j`` to ``(generation,
+        t_eff_s)``: those crossbars were re-programmed on their own, with
+        their own salt and drift clock.
+        """
+        w = np.asarray(w, dtype=np.float64)
+        mats = w.reshape((-1,) + w.shape[-2:])
+        p = plan if plan is not None else CB.plan_tiles(
+            mats.shape[1], mats.shape[2])
+        if (p.n_in, p.n_out) != mats.shape[1:]:
+            raise ValueError(
+                f"plan covers ({p.n_in}, {p.n_out}) but the matrix is "
+                f"{mats.shape[1:]}; derive the plan from the leaf shape")
+        gen_salt = (generation,) if generation else ()
+        out = np.empty_like(mats)
+        for mi in range(mats.shape[0]):
+            for (ti, tj), rs, cs in p.blocks():
+                ov = col_overrides.get(tj) if col_overrides else None
+                if ov is None:
+                    out[mi, rs, cs] = self.age_weights(
+                        mats[mi, rs, cs],
+                        self.tile_rng(key, mi, ti, tj, *gen_salt))
+                else:
+                    gen_j, t_j = int(ov[0]), float(ov[1])
+                    dev_j = self.with_drift(t_j)
+                    salt_j = (gen_j,) if gen_j else ()
+                    out[mi, rs, cs] = dev_j.age_weights(
+                        mats[mi, rs, cs],
+                        dev_j.tile_rng(key, mi, ti, tj, *salt_j))
+        return out.reshape(w.shape)
+
+    def age_params(self, params, rng: Optional[np.random.Generator] = None):
+        """Build-stage aging of every matrix leaf of a params tree (nested
+        dicts, lists and tuples of tensors).
+
+        Leaves with fewer than 2 dims pass through untouched (they live in
+        digital registers, not crossbar cells); the others come back aged,
+        in their own dtype on their own device.  With ``rng=None`` (the
+        deployment path) each leaf is aged per crossbar tile
+        (:meth:`age_weights_tiled`, the default tile plan, generation 0)
+        keyed by its tree path in ``jax.tree_util.keystr``'s spelling
+        (``"['lstm']['w_gates']"``), so the chip is the JAX package's for
+        the same tree.  An explicit ``rng`` is threaded through the leaves
+        in the JAX flattening order (dict keys sorted).
+        """
+        if not self.has_build_stage:
+            return params
+
+        def one(path, w):
+            if getattr(w, "ndim", 0) < 2:
+                return w
+            w64 = w.detach().to("cpu", torch.float64).numpy()
+            aged = (self.age_weights_tiled(w64, path) if rng is None
+                    else self.age_weights(w64, rng))
+            return torch.from_numpy(aged).to(device=w.device, dtype=w.dtype)
+
+        return _map_with_path(params, one)
 
     # -- serialization -----------------------------------------------------
 
@@ -338,6 +495,20 @@ class DeviceModel:
             stage = getattr(self, field)
             out[field] = None if stage is None else dataclasses.asdict(stage)
         return out
+
+
+def _map_with_path(tree, fn, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts, lists and tuples, visiting
+    dict keys in sorted order (JAX's flattening order) and spelling each
+    path as ``jax.tree_util.keystr`` does: ``['key']`` for a dict entry,
+    ``[i]`` for a sequence item."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(tree[k], fn, f"{path}[{k!r}]")
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(v, fn, f"{path}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def device_from_dict(d: Dict[str, Any]) -> DeviceModel:

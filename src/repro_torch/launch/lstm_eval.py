@@ -5,12 +5,17 @@ char-LM: orthogonal char embeddings -> ``classifier_apply(all_steps=True)``
 -> mean NLL, reported as bits per character) and of ``fig4d_kws.py``'s
 test pass (KWS: last-step logits -> accuracy).  Weights come from
 ``--params`` (a classifier tree saved by :func:`repro_torch.convert.save_npz`)
-or are drawn from ``--seed``.
+or are drawn from ``--seed``.  ``--age-weights tiled`` ages them once per
+crossbar tile with the device model's build stage
+(``DeviceModel.age_params`` with no rng, the deployment path of the
+reference's ``ServingEngine`` and ``device_sweep(tiled=True)``) before the
+evaluation; every registered preset evaluates, the circuit-level
+``paper-ir`` and ``stressed-ir`` included.
 
     python -m repro_torch.launch.lstm_eval --config ptb_lstm \\
         [--device cuda|cpu] [--backend cuda|ref] \\
-        [--analog-device paper-infer] [--bank-cols N] \\
-        [--batches 4] [--batch 16] [--seq 128]
+        [--analog-device paper-infer] [--age-weights none|tiled] \\
+        [--bank-cols N] [--batches 4] [--batch 16] [--seq 128]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise.  TF32 is switched off for matmuls and cuDNN, so
@@ -36,9 +41,10 @@ from repro_torch.data.pipeline import CharCorpus, SyntheticKWS
 from repro_torch.kernels import lstm_cell
 from repro_torch.launch.common import (configure_numerics, device_profile,
                                       resolve_device)
-from repro_torch.nn.lstm import LSTMClassifier, LSTMSpec
+from repro_torch.nn.lstm import LSTMClassifier, LSTMSpec, classifier_init
 
 CONFIGS = ("kws_lstm", "ptb_lstm")
+AGING = ("none", "tiled")
 
 # fig5c's corpus size and eval offset; fig4d's quick-mode split sizes
 PTB_CORPUS_LEN = 60_000
@@ -50,10 +56,14 @@ Batch = Tuple[torch.Tensor, torch.Tensor]
 
 def build_model(config: str, device: torch.device, *, backend: str = "",
                 analog_device: str = "", bank_cols: int = 0,
-                params_path: Optional[str] = None,
-                seed: int = 0) -> LSTMClassifier:
+                params_path: Optional[str] = None, seed: int = 0,
+                age_weights: str = "none") -> LSTMClassifier:
     """The config's classifier at its published widths, deployed on the
-    analog device model (ramps programmed host-side, once)."""
+    analog device model (ramps programmed host-side, once; with
+    ``age_weights="tiled"`` the weights aged per crossbar tile, once)."""
+    if age_weights not in AGING:
+        raise ValueError(f"age_weights must be one of {AGING}, got "
+                         f"{age_weights!r}")
     cfg = configs.get(config)
     analog = AnalogConfig.from_spec(cfg.analog, device=analog_device,
                                     bank_cols=bank_cols).replace(
@@ -61,11 +71,14 @@ def build_model(config: str, device: torch.device, *, backend: str = "",
     spec = LSTMSpec(n_in=cfg.n_input_features, n_hidden=cfg.lstm_hidden,
                     n_proj=cfg.lstm_proj, analog=analog)
     if params_path:
-        return LSTMClassifier(spec, cfg.n_classes,
-                              params=load_npz(params_path), device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return LSTMClassifier(spec, cfg.n_classes, generator=gen, device=device)
+        params = load_npz(params_path)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = classifier_init(gen, spec, cfg.n_classes)
+    if age_weights == "tiled":
+        params = analog.device.age_params(params)
+    return LSTMClassifier(spec, cfg.n_classes, params=params, device=device)
 
 
 def ptb_batches(n_batches: int, batch: int, seq: int,
@@ -146,6 +159,9 @@ def main(argv=None) -> dict:
                     help="default: cuda on the GPU, ref on the CPU")
     ap.add_argument("--analog-device", default="paper-infer",
                     help="device-model preset programmed onto the chip")
+    ap.add_argument("--age-weights", default="none", choices=AGING,
+                    help="age the weights per crossbar tile before the "
+                         "evaluation (the device model's build stage)")
     ap.add_argument("--bank-cols", type=int, default=0,
                     help="columns per threshold bank (0 = one shared ramp)")
     ap.add_argument("--params", default=None,
@@ -167,13 +183,14 @@ def main(argv=None) -> dict:
     model = build_model(args.config, device, backend=backend,
                         analog_device=args.analog_device,
                         bank_cols=args.bank_cols, params_path=args.params,
-                        seed=args.seed)
+                        seed=args.seed, age_weights=args.age_weights)
     analog = model.spec.analog
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"[lstm_eval] {args.config} on {name}, backend "
           f"{analog.backend}, device model {analog.device.name}, "
-          f"bank_cols {analog.bank_cols}; TF32 off ({flags})")
+          f"weights aged: {args.age_weights}, bank_cols "
+          f"{analog.bank_cols}; TF32 off ({flags})")
     if args.config == "ptb_lstm":
         data = ptb_batches(args.batches, args.batch, args.seq, device)
     else:
@@ -184,6 +201,8 @@ def main(argv=None) -> dict:
     launches0 = lstm_cell.lstm_gates.launches
     res = evaluate(model, data, all_steps=all_steps, seed=args.seed)
     out = {"config": args.config, "device": name,
+           "analog_device": analog.device.name,
+           "age_weights": args.age_weights,
            "launches": lstm_cell.lstm_gates.launches - launches0,
            "nll": res["nll"], "bpc": res["nll"] / math.log(2.0),
            "accuracy": res["accuracy"], "tokens_per_s": res["tokens_per_s"],

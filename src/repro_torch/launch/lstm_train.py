@@ -8,7 +8,11 @@ batches of a per-epoch permutation).  Training runs in ``mode="train"`` on
 the device model's ``TrainNoise`` (the ``paper`` preset: 5 µS on the
 weights and on the ramp steps, drawn every step); evaluation runs the
 trained weights in ``mode="infer"`` on the same preset through
-:func:`repro_torch.launch.lstm_eval.evaluate`.
+:func:`repro_torch.launch.lstm_eval.evaluate`.  Under ``--analog-device
+paper-ir`` the IR correction of every crossbar and the I-V transform of
+its inputs are in the graph, so the gradient flows through them; that
+runs at KWS width (one crossbar a weight) and raises for PTB, whose
+residuals need a recomputing backward first.
 
     python -m repro_torch.launch.lstm_train --config ptb_lstm|kws_lstm \\
         [--device cuda|cpu] [--backend cuda|ref] [--analog-device paper] \\
@@ -47,7 +51,7 @@ import torch
 from repro_torch import configs
 from repro_torch.convert import save_npz
 from repro_torch.core.analog_layer import AnalogConfig
-from repro_torch.core.crossbar import GeneratorNoise, NoiseSource
+from repro_torch.core.crossbar import GeneratorNoise, NoiseSource, plan_tiles
 from repro_torch.data.pipeline import CharCorpus, SyntheticKWS
 from repro_torch.kernels import lstm_cell
 from repro_torch.launch import lstm_eval
@@ -77,16 +81,32 @@ def analog_config(mode: str, *, bits: int = 5, analog_device: str = "paper",
 def build_model(config: str, analog: AnalogConfig, device: torch.device, *,
                 params=None, seed: int = 0) -> LSTMClassifier:
     """The config's classifier at its published widths; weights from
-    ``params`` or drawn from ``seed``."""
+    ``params`` or drawn from ``seed``.
+
+    Raises ``NotImplementedError`` for train mode under a line stage where
+    a weight spans more than one crossbar tile (PTB on ``paper-ir``): the
+    IR correction's autograd residuals over a sequence outgrow the card
+    until the backward recomputes them (ROADMAP queue A item 2)."""
     cfg = configs.get(config)
     spec = LSTMSpec(n_in=cfg.n_input_features, n_hidden=cfg.lstm_hidden,
                     n_proj=cfg.lstm_proj, analog=analog)
     if params is not None:
-        return LSTMClassifier(spec, cfg.n_classes, params=params,
-                              device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return LSTMClassifier(spec, cfg.n_classes, generator=gen, device=device)
+        model = LSTMClassifier(spec, cfg.n_classes, params=params,
+                               device=device)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        model = LSTMClassifier(spec, cfg.n_classes, generator=gen,
+                               device=device)
+    if analog.mode == "train" and analog.device.line is not None:
+        for w in optim.tree_leaves(model.params()):
+            if w.ndim >= 2 and plan_tiles(*w.shape[-2:]).n_crossbars > 1:
+                raise NotImplementedError(
+                    f"{config} trains on {analog.device.name!r} only once "
+                    f"the IR correction recomputes its residuals in the "
+                    f"backward (ROADMAP queue A item 2): a {tuple(w.shape)} "
+                    f"weight spans several crossbar tiles")
+    return model
 
 
 def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

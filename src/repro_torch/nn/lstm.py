@@ -28,10 +28,18 @@ Per-step noise comes from one :class:`NoiseSource`, in call order.  One
 time step draws: the gate weights' noise, then (train mode only) one ramp
 draw ``z`` of the thresholds' shape, which the sigmoid and the tanh
 thresholds both take, then the projection weights' noise.  The FC
-weights' draw comes after the last step.  (The JAX reference derives the
-gate and projection draws of a step from one key, and both ramps from
-another; a replayed source reproduces that, a generator draws each
-afresh.)
+weights' draw comes after the last step.  Under ``paired_noise`` in infer
+mode each weight draw is two, the positive devices' then the negative
+devices' (train noise stays one draw per weight).  (The JAX reference
+derives the gate and projection draws of a step from one key, and both
+ramps from another; a replayed source reproduces that, a generator draws
+each afresh.)
+
+Under the circuit-level device stages (``paper-ir``, ``stressed-ir``)
+every crossbar read also takes the ``NonlinearIV`` transform of its
+inputs and the ``LineResistance`` correction of its noisy weights, per
+crossbar tile and before the backend seam
+(:mod:`repro_torch.core.analog_layer`).
 """
 
 from __future__ import annotations

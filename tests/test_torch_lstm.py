@@ -68,28 +68,33 @@ def _specs(mode, enabled=True, device="paper-infer", bank_cols=0):
             TL.LSTMSpec(analog=TAnalog(**kw), **dims))
 
 
-def _draws(key, params, spec, ramp_shape=None, *, steps=T, fc=True):
+def _draws(key, params, spec, ramp_shape=None, *, steps=T, fc=True,
+           paired=False):
     """The reference's noise draws, in the port's call order: per step the
     gate weights' (from ``k_mm``), the ramp's ``normal(k_g, ramp_shape)``
     when ``ramp_shape`` is given (train mode), the projection's (``k_mm``
-    again); then the FC layer's (``k_fc``)."""
+    again); then the FC layer's (``k_fc``).  ``paired`` (infer-mode read
+    noise per device) makes each weight draw two: the positive device's
+    from ``split(k_w)[0]``, then the negative's from ``split(k_w)[1]``."""
     def normal(k, w):
         _, k_w, _ = jax.random.split(k, 3)
-        return np.asarray(jax.random.normal(k_w, w.shape, jnp.float32))
+        keys = jax.random.split(k_w) if paired else (k_w,)
+        return [np.asarray(jax.random.normal(kk, w.shape, jnp.float32))
+                for kk in keys]
 
     k, k_fc = jax.random.split(key)
     out = []
     for _ in range(steps):
         k, k_t = jax.random.split(k)
         k_mm, k_g = jax.random.split(k_t)
-        out.append(normal(k_mm, params["lstm"]["w_gates"]))
+        out += normal(k_mm, params["lstm"]["w_gates"])
         if ramp_shape is not None:
             out.append(np.asarray(jax.random.normal(k_g, ramp_shape,
                                                     jnp.float32)))
         if spec.n_proj:
-            out.append(normal(k_mm, params["lstm"]["w_proj"]))
+            out += normal(k_mm, params["lstm"]["w_proj"])
     if fc:
-        out.append(normal(k_fc, params["fc"]["w"]))
+        out += normal(k_fc, params["fc"]["w"])
     return out
 
 
@@ -297,7 +302,7 @@ def test_train_mode_gradients_match(bank_cols, all_steps, monkeypatch):
         assert float(got.abs().max()) > 0
 
 
-def test_unported_modes_and_stages_raise():
+def test_train_mode_moves_weights_and_ir_stages_run():
     # train mode constructs, draws its noise and moves the weights
     _, ts = _specs("train", device="paper")
     model = TL.LSTMClassifier(ts, SMOKE.n_classes,
@@ -312,12 +317,18 @@ def test_unported_modes_and_stages_raise():
         model.w_gates -= 0.1 * model.w_gates.grad
     assert float(model.w_gates.grad.abs().max()) > 0
     assert not torch.equal(model.w_gates.detach(), before)
-    # the circuit-level stages are not ported yet
+    # the circuit-level stages run (paired noise, IR drop, I-V): one pair
+    # of draws per weight, and the stages move the read
     _, ts = _specs("infer", device="stressed-ir")
-    w = torch.zeros((4, 4))
-    with pytest.raises(NotImplementedError):
-        analog_matmul_act(torch.zeros(2, 4), w, ts.analog,
-                          noise=GeneratorNoise(torch.Generator()))
+    x = torch.full((2, 4), 0.5)
+    w = torch.full((4, 4), 0.5)
+    noise = ReplayNoise([np.zeros((4, 4), np.float32)] * 2)
+    y = analog_matmul_act(x, w, ts.analog, noise=noise)
+    assert noise.remaining == 0
+    ideal = analog_matmul_act(x, w, ts.analog.replace(
+        device=ts.analog.device.replace(line=None, nonlinear_iv=None)),
+        noise=ReplayNoise([np.zeros((4, 4), np.float32)] * 2))
+    assert torch.isfinite(y).all() and not torch.equal(y, ideal)
 
 
 def test_configs_match():
