@@ -69,7 +69,8 @@ Phases, one JSON line each:
 5. fused_matmul — the ``fused_matmul_nladc`` kernel against its plain
               version at the serving path's shapes (4 and 1 rows, K 2048,
               N 11008, bfloat16 x, float32 w) with one (P,) ramp and with
-              512-column threshold banks, and a ragged float32 case.  Codes
+              512-column threshold banks, a ragged float32 case, and the
+              training shape (M = B x S = 1024, flat and banked-512).  Codes
               equal except where the float64 accumulator lies within the
               float32 summation bound of a crossed threshold (the count of
               such flips is printed); outputs equal the table at the
@@ -90,7 +91,8 @@ Phases, one JSON line each:
               ``cuda`` and ``ref`` backends on the card: max |delta logits|
               < LSB/2 of the silu ramp.
 9. nladc    — the elementwise ``nladc`` kernel against its plain version
-              at the router's (4, 64) bfloat16 with one (P,) ramp, at
+              at the router's (4, 64) bfloat16 with one (P,) ramp (and
+              (1024, 64), the router at the training shape), at
               (4, 11008) bfloat16 with 512-column banks, and a ragged
               float32 (33, 1000): codes bitwise, values equal.
 10. moe_matmul — the ``moe_fused_matmul`` kernel (persistent CTAs, a TMA
@@ -100,7 +102,9 @@ Phases, one JSON line each:
               banked-512; the serving fill (x from ``dispatch_plan`` /
               ``gather_expert_buffer`` at B 4, top-6: the live experts
               counted, the bound counting only their weight); no expert
-              live; and a ragged float32 (5, 7, 300, 1000): the fused
+              live; a ragged float32 (5, 7, 300, 1000); and the training
+              fill (C 96 = 1024 tokens x top-6 / 64, every expert live):
+              the fused
               matmul's flip contract (at most 1%), outputs equal to the
               table at the kernel's codes, empty capacity rows the table at
               the zero code.
@@ -122,6 +126,33 @@ Phases, one JSON line each:
 13. agreement_moe — a 2-layer, full-width, float32 moonshot with an int8
               cache on the ``cuda`` and ``ref`` backends: max |delta
               logits| < LSB/2.
+13a. train_lm — qwen2.5-3b trained at full width and all 36 layers
+              (``repro_torch.launch.train``: B 8 x S 128, train mode on the
+              ``paper`` preset, flat thresholds, AdamW with clip 1.0, each
+              layer recomputed in the backward), ``cuda`` backend, 3 steps,
+              then ``train_lm_banked`` the same with 512-column banks:
+              every loss and gradient norm finite, ``fused_matmul_nladc``
+              36 x 2 launches a step and no other kernel; ms per step
+              (steps 2-3), tokens/s, peak device memory (< 80 GB).
+13b. train_moe — moonshot-v1-16b-a3b at full width, 4 of its 48 layers,
+              the same: ``nladc`` (the router), ``moe_fused_matmul`` (the
+              routed experts' gate) and ``fused_matmul_nladc`` (the shared
+              experts' gate) each 4 x 2 a step; the aux losses.
+13c. train_agreement — both families at full width, 2 layers, float32,
+              B 2 x S 32, train mode: ``cuda`` against ``ref`` on the same
+              weights and ramp draws; every NL-ADC call's outputs
+              compared, on the same inputs and in free runs: those that
+              differ (code flips) at most 1e-4 of them, each one level
+              of the decode table apart; the loss within rtol 2e-4 /
+              atol 2e-5; every gradient leaf within rtol 2e-4 / atol
+              2e-5 of ``ref`` given the cuda run's gate outputs, and of
+              ``ref`` itself where no code flipped, within that plus
+              2e-3 where codes flipped (a flip moves the gradients
+              downstream of it).
+13d. lm_infer — ``serve`` in infer mode on ``paper-infer`` (the ramps
+              programmed once at build time; ``paper`` has no build stage,
+              so infer mode on it is exact mode), 4 requests x 16 tokens;
+              then ``lm_infer_agreement``, ``agreement`` in infer mode.
 14. analog_tile — the crossbar-tile kernel against its plain version at
               the PTB gate crossbar as one tile (16, 632, 8064; bfloat16 x,
               5-bit PWM, read noise, tanh), the JAX sweep's (128, 256, 256)
@@ -134,7 +165,9 @@ Phases, one JSON line each:
               (``repro_torch.launch.kernel_tune --full``) on the card: every
               candidate config of the four tunable kernels computes the
               default config's bits, the chosen configs and times per
-              shape, the parity section; each kernel of that path launches;
+              shape, the parity section with its gradient halves (the
+              expert gate's and the cached attention's backward against
+              ``ref``, within 1e-5); each kernel of that path launches;
               then host µs per ``fused_matmul_nladc`` call at M 4 with the
               sweep's cache active against none.
 16. kernel_time — device time per call of each kernel, of its plain
@@ -197,6 +230,20 @@ SERVE_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=24,
                  max_new=16, repeats=3)
 FLASH_ATOL = 1e-5
 HOST_CALLS, HOST_REPEATS = 200, 5
+GRAD_HALF_ATOL = 1e-5      # kernel_tune's gradient halves, cuda vs ref
+TRAIN_LM = dict(arch="qwen2.5-3b", batch=8, seq=128, steps=3,
+                analog_device="paper")
+TRAIN_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=4, batch=8, seq=128,
+                 steps=3, analog_device="paper")
+TRAIN_AGREE = dict(n_layers=2, batch=2, seq=32)
+AGREE_FLIP_SHARE = 1e-4    # train_agreement: gate outputs that differ
+#                            between the backends, at most (qwen2.5-3b
+#                            showed 80 of 1409024 = 5.7e-5 on an H100)
+AGREE_FLIP_GRAD_EXCESS = 2e-3   # gradient excess over TRAIN_RTOL /
+#                            TRAIN_ATOL against ``ref`` itself where codes
+#                            flipped (qwen2.5-3b showed 1.016e-3 on an H100)
+LM_INFER_DEVICE = "paper-infer"   # `paper` has no build stage: infer = exact
+CARD_GB = 80.0
 
 
 def emit(obj) -> None:
@@ -731,9 +778,11 @@ def matmul_bound(m: int, k: int, n: int, p: int, banked: bool,
 
 
 def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
-                       x_dtype, bank_cols: int, bias: bool = False):
+                       x_dtype, bank_cols: int, bias: bool = False,
+                       reps: int = 20, inner: int = 50):
     """The fused matmul kernel against its plain version; the kernel's
-    codes come from a second launch with the counting table y(n) = n."""
+    codes come from a second launch with the counting table y(n) = n.
+    ``reps`` x ``inner`` calls time it (CUDA events)."""
     from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
     from repro_torch.kernels import fused_matmul_nladc as fmn
     from repro_torch.kernels import tune
@@ -789,8 +838,8 @@ def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
            "bias": bias, "layout": "(N,P)" if banked else "(P,)",
            "code_flips": flips, "unexplained_flips": unexplained,
            "elements": nk.numel(), "max_abs_err": err,
-           "call_ms": cuda_ms(kernel),
-           "plain_call_ms": cuda_ms(plain, inner=5),
+           "call_ms": cuda_ms(kernel, reps=reps, inner=inner),
+           "plain_call_ms": cuda_ms(plain, reps=reps, inner=min(inner, 5)),
            **matmul_bound(m, k, n, p, banked, x.element_size(), bias)}
     emit(out)
     return out, kernel, plain, library
@@ -880,13 +929,18 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int):
     return out, kernel, plain, library
 
 
-def phase_serve(torch, dev) -> dict:
-    """qwen2.5-3b at full width and depth on the cuda backend."""
+def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
+                analog_device: str = "", repeats: int = SERVE["repeats"]
+                ) -> dict:
+    """qwen2.5-3b at full width and depth on the cuda backend, in the
+    spec's analog mode or ``analog_mode`` on ``analog_device``."""
     from repro_torch.launch import serve
     from repro_torch.serve.engine import ServingEngine
 
     t0 = time.perf_counter()
-    cfg = serve.make_config(SERVE["arch"], backend="cuda")
+    cfg = serve.make_config(SERVE["arch"], backend="cuda",
+                            analog_mode=analog_mode,
+                            analog_device=analog_device)
     model, params = serve.build_lm(cfg, dev, seed=0)
     engine = ServingEngine(model, params, max_batch=SERVE["max_batch"],
                            max_len=SERVE["max_len"])
@@ -916,21 +970,23 @@ def phase_serve(torch, dev) -> dict:
                 if k in ("fused_matmul_nladc", "prefill_attention") else 0
                 for k in wrappers}
     check(launches == expected,
-          f"serve: launches {launches}, expected {expected}")
+          f"{name}: launches {launches}, expected {expected}")
     check(len(finite) == steps and all(bool(f) for f in finite),
-          "serve: non-finite logits")
+          f"{name}: non-finite logits")
     check(all(len(r.generated) == SERVE["max_new"] for r in reqs),
-          f"serve: token counts {[len(r.generated) for r in reqs]}")
+          f"{name}: token counts {[len(r.generated) for r in reqs]}")
 
     runs = [engine.run_offline(serve.make_requests(
         cfg, SERVE["requests"], SERVE["max_new"]))
-        for _ in range(SERVE["repeats"])]
+        for _ in range(repeats)]
     tps = [r["tokens_per_s"] for r in runs]
     dms = [r["decode_step_ms"] for r in runs]
     pms = [r["prefill_step_ms"] for r in runs]
-    out = {"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "d_ff": cfg.d_ff,
-           "dtype": cfg.dtype, "backend": "cuda", **{
+           "dtype": cfg.dtype, "backend": "cuda",
+           "analog_mode": cfg.analog.mode,
+           "analog_device": cfg.analog.device, **{
                k: SERVE[k] for k in ("requests", "max_batch", "max_len",
                                      "max_new")},
            "setup_s": setup_s, "tokens": stats["tokens"],
@@ -950,7 +1006,8 @@ def phase_serve(torch, dev) -> dict:
     return out
 
 
-def phase_agreement(torch, dev) -> dict:
+def phase_agreement(torch, dev, name: str = "agreement",
+                    analog_mode: str = "", analog_device: str = "") -> dict:
     """A 2-layer, full-width, float32 variant on the cuda and ref backends:
     the same weights and tokens, max |delta logits| < LSB/2."""
     from repro_torch.launch import serve
@@ -958,8 +1015,10 @@ def phase_agreement(torch, dev) -> dict:
 
     models = {}
     for bk in ("cuda", "ref"):
-        cfg = serve.make_config(SERVE["arch"], backend=bk).replace(
-            n_layers=AGREE_LAYERS, dtype="float32")
+        cfg = serve.make_config(
+            SERVE["arch"], backend=bk, analog_mode=analog_mode,
+            analog_device=analog_device).replace(n_layers=AGREE_LAYERS,
+                                                 dtype="float32")
         models[bk] = build(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -976,13 +1035,15 @@ def phase_agreement(torch, dev) -> dict:
             logits[bk], states[bk] = m.decode_step(params, states[bk],
                                                    tokens[t])
         check(bool(torch.isfinite(logits["cuda"]).all()),
-              "agreement: non-finite logits")
+              f"{name}: non-finite logits")
         worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
                                  .max()))
     lsb = models["cuda"].act.ramp.lsb
-    check(worst < lsb / 2, f"agreement: logits differ by {worst} >= "
+    check(worst < lsb / 2, f"{name}: logits differ by {worst} >= "
           f"LSB/2 = {lsb / 2}")
-    out = {"phase": "agreement", "n_layers": AGREE_LAYERS, "dtype": "float32",
+    out = {"phase": name, "analog_mode": cfg.analog.mode,
+           "analog_device": cfg.analog.device,
+           "n_layers": AGREE_LAYERS, "dtype": "float32",
            "B": b, "steps": AGREE_STEPS, "max_abs_logit_diff": worst,
            "lsb_half": lsb / 2}
     emit(out)
@@ -1367,7 +1428,9 @@ def phase_kernel_tune(torch, dev) -> dict:
     par = res["parity"]
     check(par["banked"]["bitwise_equal"] and
           par["moe_einsum"]["within_half_lsb"] and
-          par["attention"]["within_atol"],
+          par["attention"]["within_atol"] and
+          all(0.0 <= par[k]["grad_max_err"] <= GRAD_HALF_ATOL
+              for k in ("moe_einsum", "attention")),
           f"kernel_tune: parity section failed: {par}")
 
     # host time per wrapper call, the seam resolving from the sweep's cache
@@ -1576,6 +1639,244 @@ def phase_agreement_moe(torch, dev) -> dict:
     return out
 
 
+def phase_train_lm(torch, dev, name: str, spec: dict, path: dict,
+                   bank_cols: int = 0) -> dict:
+    """LM training at full width on the cuda backend through
+    ``repro_torch.launch.train`` (AdamW, clip 1.0, remat per layer), train
+    mode on ``spec``'s preset: every step's loss finite, each kernel of
+    ``path`` launched ``path[k]`` times a step (2 a layer: the forward and
+    its recompute), the others never; ms per step (the steps after the
+    first), tokens/s, peak device memory under the card's 80 GB."""
+    from repro_torch.launch import serve, train
+
+    overrides = {"n_layers": spec["n_layers"]} if "n_layers" in spec else {}
+    cfg = serve.make_config(spec["arch"], backend="cuda", bank_cols=bank_cols,
+                            analog_mode="train",
+                            analog_device=spec["analog_device"],
+                            overrides=overrides)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, trainer, state = train.build_trainer(
+        cfg, dev, steps=spec["steps"], batch=spec["batch"], seq=spec["seq"],
+        log=None)
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = train.train(trainer, state, spec["steps"], dev)
+    hist = trainer.history
+    expected = {k: path.get(k, 0) for k in wrappers}
+    check(all(step == expected for step in res["launches"]),
+          f"{name}: launches per step {res['launches']}, expected "
+          f"{expected}")
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == spec["steps"]
+          and all(math.isfinite(v) for v in losses + [h["grad_norm"]
+                                                       for h in hist]),
+          f"{name}: non-finite losses or gradient norms {hist}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(peak_gb < CARD_GB, f"{name}: peak memory {peak_gb} GB")
+    later = trainer.step_ms[1:]
+    step_ms = statistics.median(later)
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "params": n_params, "dtype": cfg.dtype, "backend": "cuda",
+           "analog_mode": "train", "analog_device": spec["analog_device"],
+           "bank_cols": bank_cols, "B": spec["batch"], "S": spec["seq"],
+           "steps": spec["steps"], "setup_s": setup_s, "losses": losses,
+           "aux_losses": [h["aux_loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms_all": trainer.step_ms, "step_ms": step_ms,
+           "step_ms_min": min(later), "step_ms_max": max(later),
+           "tokens_per_s": spec["batch"] * spec["seq"] * 1e3 / step_ms,
+           "launches_per_step": res["launches"][-1],
+           "expected_launches_per_step": expected,
+           "launches": {k: sum(r[k] for r in res["launches"])
+                        for k in wrappers},
+           "peak_memory_gb": peak_gb}
+    emit(out)
+    del model, trainer, state, res
+    return out
+
+
+def _wrap_gates(backend, on_output):
+    """Route each outermost call of ``backend``'s gate primitives (the ref
+    backend's fused gates call its ``nladc`` inside) through
+    ``on_output(y, adc) -> y'``; returns the undo."""
+    names = ("nladc", "matmul_nladc", "moe_matmul_nladc")
+    saved = {n: getattr(backend, n) for n in names}
+    depth = [0]
+
+    def wrap(fn):
+        def wrapped(*args, **kw):
+            depth[0] += 1
+            try:
+                y = fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+            if depth[0]:
+                return y
+            adc = next(a for a in (*args, *kw.values())
+                       if hasattr(a, "y_table"))
+            return on_output(y, adc)
+        return wrapped
+
+    for n in names:
+        setattr(backend, n, wrap(saved[n]))
+    return lambda: [delattr(backend, n) for n in names]
+
+
+def _grad_excess(torch, got, want) -> float:
+    """The largest ``|got - want| - (atol + rtol |want|)`` over every leaf
+    (<= 0: within TRAIN_RTOL / TRAIN_ATOL)."""
+    return max(float(((g - w).abs() - TRAIN_ATOL - TRAIN_RTOL * w.abs())
+                     .max()) for g, w in zip(got, want))
+
+
+def _level_steps(torch, adc, got, want):
+    """For each differing pair of NL-ADC outputs, the least distance
+    between their codes in ``adc``'s (flat) decode table (1: adjacent
+    levels, a single code flip; a value off the table counts as 10**9 or
+    more)."""
+    table = adc.y_table.to(device=got.device, dtype=got.dtype)
+    if table.dim() != 1:
+        raise ValueError("train_agreement compares flat NL-ADCs only")
+    diff = got != want
+    if not bool(diff.any()):
+        return torch.zeros(0, dtype=torch.int64)
+    idx = torch.arange(table.numel(), device=got.device)
+    big = torch.full_like(idx, 10 ** 9)
+    ig = torch.where(got[diff][:, None] == table, idx, big)
+    iw = torch.where(want[diff][:, None] == table, idx, -big)
+    dist = (ig[:, :, None] - iw[:, None, :]).abs()
+    return dist.flatten(1).min(1).values.cpu()
+
+
+def phase_train_agreement(torch, dev, arch: str) -> dict:
+    """A 2-layer, full-width, float32 variant in train mode on the cuda
+    and ref backends, the same weights and ramp draws (one generator
+    state), three runs: cuda, ref, and ref given the cuda run's gate
+    outputs (its own straight-through backward on its own accumulator,
+    the forward values replaced).
+
+    Forward: in the third run each gate sees the very inputs cuda's did,
+    so its own outputs against cuda's are the code flips of the fused
+    gate's float32 sum in another order than cuBLAS's: at most
+    AGREE_FLIP_SHARE of the outputs, each one level of the decode table
+    from cuda's (a wrong forward value is not one level away).  The
+    outputs of the free cuda and ref runs differ at most as often.  The
+    losses agree within TRAIN_RTOL / TRAIN_ATOL.
+
+    Backward: against the third run within TRAIN_RTOL / TRAIN_ATOL
+    whatever flipped; against ``ref`` itself within TRAIN_RTOL /
+    TRAIN_ATOL where nothing flipped, and within that plus
+    AGREE_FLIP_GRAD_EXCESS where codes flipped (a flip moves one output
+    by an LSB, its straight-through mask and every gradient downstream)."""
+    from repro_torch.core import backend as BK
+    from repro_torch.core.crossbar import GeneratorNoise
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+    from repro_torch.train import optim
+
+    b, s = TRAIN_AGREE["batch"], TRAIN_AGREE["seq"]
+    models = {}
+    for bk in ("cuda", "ref"):
+        cfg = serve.make_config(arch, backend=bk, analog_mode="train",
+                                analog_device="paper", overrides={
+                                    "n_layers": TRAIN_AGREE["n_layers"],
+                                    "dtype": "float32"})
+        models[bk] = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    params = models["cuda"].init(gen)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    gates = {"cuda": [], "ref": []}
+    same_inputs = {"flips": 0, "steps": []}
+
+    def record(outputs):
+        def on_output(y, adc):
+            outputs.append(y.detach())
+            return y
+        return on_output
+
+    def replay(y, adc):
+        z = gates["cuda"][replay.i]
+        replay.i += 1
+        steps = _level_steps(torch, adc, z, y.detach())
+        same_inputs["flips"] += steps.numel()
+        same_inputs["steps"].append(steps)
+        return z + (y - y.detach())       # cuda's values, ref's gradient
+    replay.i = 0
+
+    def run(bk, on_output):
+        undo = _wrap_gates(BK.get_backend(bk), on_output)
+        ng = torch.Generator(device=dev)
+        ng.manual_seed(5)
+        try:
+            total, _ = models[bk].loss(params, batch,
+                                       noise=GeneratorNoise(ng), remat=False)
+        finally:
+            undo()
+        return float(total.detach()), torch.autograd.grad(total, leaves)
+
+    loss_c, grad_c = run("cuda", record(gates["cuda"]))
+    loss_r, grad_r = run("ref", record(gates["ref"]))
+    loss_rc, grad_rc = run("ref", replay)
+    n_gate = sum(a.numel() for a in gates["cuda"])
+    flips = sum(int((a != r).sum()) for a, r in zip(gates["cuda"],
+                                                    gates["ref"]))
+    steps = torch.cat(same_inputs["steps"])
+    max_step = int(steps.max()) if steps.numel() else 0
+    out = {"phase": "train_agreement", "arch": arch,
+           "n_layers": TRAIN_AGREE["n_layers"], "dtype": "float32",
+           "B": b, "S": s, "loss_cuda": loss_c, "loss_ref": loss_r,
+           "loss_ref_on_cuda_codes": loss_rc, "leaves": len(leaves),
+           "gate_calls": len(gates["cuda"]), "gate_outputs": n_gate,
+           "code_flips": flips,
+           "code_flips_same_inputs": same_inputs["flips"],
+           "max_flip_levels": max_step, "max_flip_share": AGREE_FLIP_SHARE,
+           "grad_rtol": TRAIN_RTOL, "grad_atol": TRAIN_ATOL,
+           "grad_excess_limit_with_flips": AGREE_FLIP_GRAD_EXCESS,
+           "grad_max_abs_diff_vs_ref": max(
+               float((g - w).abs().max()) for g, w in zip(grad_c, grad_r)),
+           "grad_excess_vs_ref": _grad_excess(torch, grad_c, grad_r),
+           "grad_max_abs_diff_vs_ref_on_cuda_codes": max(
+               float((g - w).abs().max()) for g, w in zip(grad_c, grad_rc)),
+           "grad_excess_vs_ref_on_cuda_codes": _grad_excess(torch, grad_c,
+                                                            grad_rc)}
+    emit(out)
+    check(len(gates["cuda"]) == len(gates["ref"]) == replay.i > 0,
+          f"train_agreement/{arch}: gate calls {len(gates['cuda'])}, "
+          f"{len(gates['ref'])}, {replay.i}")
+    limit = AGREE_FLIP_SHARE * n_gate
+    check(flips <= limit and same_inputs["flips"] <= limit,
+          f"train_agreement/{arch}: {flips} gate outputs of {n_gate} differ "
+          f"({same_inputs['flips']} on the same inputs)")
+    check(max_step <= 1, f"train_agreement/{arch}: a gate output is "
+          f"{max_step} levels from ref's on the same inputs")
+    check(all(bool(torch.isfinite(g).all()) for g in grad_c),
+          f"train_agreement/{arch}: non-finite gradient")
+    check(out["grad_excess_vs_ref_on_cuda_codes"] <= 0.0,
+          f"train_agreement/{arch}: gradients differ from ref on cuda's "
+          f"codes beyond rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}")
+    check(out["grad_excess_vs_ref"]
+          <= (AGREE_FLIP_GRAD_EXCESS if flips else 0.0),
+          f"train_agreement/{arch}: gradients differ from ref by "
+          f"{out['grad_excess_vs_ref']} beyond rtol {TRAIN_RTOL}, atol "
+          f"{TRAIN_ATOL} with {flips} flips")
+    for other in (loss_r, loss_rc):
+        check(abs(loss_c - other) <= TRAIN_ATOL + TRAIN_RTOL * abs(other),
+              f"train_agreement/{arch}: losses {loss_c}, {loss_r}, "
+              f"{loss_rc}")
+    return out
+
+
 def free_device(torch) -> None:
     """Return the memory of a finished phase to the card."""
     import gc
@@ -1693,6 +1994,18 @@ def main() -> int:
                            bf16, 512),
         phase_fused_matmul(torch, dev, "ragged_f32", 33, 300, 1000, f32, 0,
                            bias=True)]
+    # the training shapes, timed after every earlier case: the profiler
+    # loses events once a process has run a few dozen sessions, so the
+    # earlier cases keep their place in the order
+    train_checked = [
+        phase_fused_matmul(torch, dev, "train_flat", 1024, 2048, 11008, bf16,
+                           0, reps=5, inner=3),
+        phase_fused_matmul(torch, dev, "train_banked", 1024, 2048, 11008,
+                           bf16, 512, reps=5, inner=3),
+        phase_moe_matmul(torch, dev, "train_fill", 64, 96, 2048, 1408, bf16,
+                         0),
+        phase_nladc(torch, dev, "router_train_bf16", (1024, 64), "sigmoid",
+                    bf16, 0)]
     attn_checked = [
         phase_attention(torch, dev, "serve_bf16", bf16, SERVE["max_len"]),
         phase_attention(torch, dev, "serve_f32", f32, SERVE["max_len"]),
@@ -1740,6 +2053,26 @@ def main() -> int:
     free_device(torch)
     phase_agreement_moe(torch, dev)
     free_device(torch)
+    layers = TRAIN_MOE["n_layers"]
+    trained = [phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
+        "fused_matmul_nladc": 2 * 36})]
+    free_device(torch)
+    trained.append(phase_train_lm(torch, dev, "train_lm_banked", TRAIN_LM, {
+        "fused_matmul_nladc": 2 * 36}, bank_cols=512))
+    free_device(torch)
+    trained.append(phase_train_lm(torch, dev, "train_moe", TRAIN_MOE, {
+        k: 2 * layers for k in ("fused_matmul_nladc", "nladc",
+                                "moe_fused_matmul")}))
+    free_device(torch)
+    for arch in (TRAIN_LM["arch"], TRAIN_MOE["arch"]):
+        phase_train_agreement(torch, dev, arch)
+        free_device(torch)
+    infer = phase_serve(torch, dev, "lm_infer", analog_mode="infer",
+                        analog_device=LM_INFER_DEVICE, repeats=1)
+    free_device(torch)
+    phase_agreement(torch, dev, "lm_infer_agreement", analog_mode="infer",
+                    analog_device=LM_INFER_DEVICE)
+    free_device(torch)
     tuned = phase_kernel_tune(torch, dev)
     free_device(torch)
 
@@ -1751,6 +2084,10 @@ def main() -> int:
     moe_cases = [phase_kernel_time(*c) for c in moe_checked]
     flash_cases = [phase_kernel_time(*c) for c in flash_checked]
     tile_cases = [phase_kernel_time(*c) for c in tile_checked]
+    train_cases = [phase_kernel_time(*c) for c in train_checked]
+    fm_cases += train_cases[:2]
+    moe_cases.append(train_cases[2])
+    nladc_cases.append(train_cases[3])
     for case, call in irs:
         phase_ir_time(torch, case, call)
     phase_launch_floor(torch, dev, launch_floor)
@@ -1772,7 +2109,10 @@ def main() -> int:
                "P": main_case["P"], "layout": main_case["layout"]})
     fm_main = fm_cases[0]
     fm_paths = {"serve": served["launches"]["fused_matmul_nladc"],
-                "serve_moe": served_moe["launches"]["fused_matmul_nladc"]}
+                "serve_moe": served_moe["launches"]["fused_matmul_nladc"],
+                "lm_infer": infer["launches"]["fused_matmul_nladc"],
+                **{t["phase"]: t["launches"]["fused_matmul_nladc"]
+                   for t in trained}}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -1781,32 +2121,49 @@ def main() -> int:
         launches_per_path=fm_paths,
         code_flips=sum(c["code_flips"] for c in fm_cases),
         shape={k: fm_main[k] for k in ("M", "K", "N", "P", "x_dtype",
-                                       "layout")})
+                                       "layout")},
+        per_case={c["case"]: {k: c[k] for k in (
+            "M", "layout", "ms", "plain_ms", "library_ms", "bound_ms",
+            "code_flips")} for c in fm_cases})
     at_main = attn_cases[0]
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
         "src/repro/kernels/prefill_attention.py:51",
-        served["launches"]["prefill_attention"], attn_cases, at_main,
+        served["launches"]["prefill_attention"]
+        + infer["launches"]["prefill_attention"], attn_cases, at_main,
+        launches_per_path={
+            "serve": served["launches"]["prefill_attention"],
+            "lm_infer": infer["launches"]["prefill_attention"]},
         shape={k: at_main[k] for k in ("B", "H", "Hkv", "D", "S", "dtype",
                                        "cluster")},
         per_case={c["case"]: {k: c[k] for k in (
             "S", "cluster", "ms", "plain_ms", "library_ms", "bound_ms",
             "max_abs_err", "max_bf16_ulps")} for c in attn_cases})
     nl_main = nladc_cases[0]
+    moe_train = trained[-1]["launches"]
     nl = kernel_entry(
         "nladc", "src/repro_torch/kernels/csrc/nladc.cu",
         "src/repro/kernels/nladc_kernel.py:56",
-        served_moe["launches"]["nladc"], nladc_cases, nl_main,
+        served_moe["launches"]["nladc"] + moe_train["nladc"], nladc_cases,
+        nl_main, launches_per_path={"serve_moe": served_moe["launches"][
+            "nladc"], "train_moe": moe_train["nladc"]},
         bitwise=all(c["max_abs_err"] == 0 and c["code_mismatches"] == 0
                     for c in nladc_cases),
-        shape={k: nl_main[k] for k in ("shape", "P", "x_dtype", "layout")})
+        shape={k: nl_main[k] for k in ("shape", "P", "x_dtype", "layout")},
+        per_case={c["case"]: {k: c[k] for k in (
+            "shape", "layout", "ms", "plain_ms", "bound_ms")}
+            for c in nladc_cases})
     moe_main = moe_cases[0]
     moe = kernel_entry(
         "moe_fused_matmul",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
         "src/repro/kernels/ops.py:238",
-        served_moe["launches"]["moe_fused_matmul"], moe_cases, moe_main,
+        served_moe["launches"]["moe_fused_matmul"]
+        + moe_train["moe_fused_matmul"], moe_cases, moe_main,
+        launches_per_path={
+            "serve_moe": served_moe["launches"]["moe_fused_matmul"],
+            "train_moe": moe_train["moe_fused_matmul"]},
         code_flips=sum(c["code_flips"] for c in moe_cases),
         shape={k: moe_main[k] for k in ("E", "C", "K", "N", "P", "x_dtype",
                                         "layout", "blocks")},

@@ -45,7 +45,7 @@ draws are shared code, and the LSTM tail, the elementwise NL-ADC
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -239,6 +239,11 @@ class AnalogActivation:
             return 0.0
         return self.cfg.device.ramp_sigma_us(self.cfg.mode)
 
+    def _ramp_shape(self, width: int) -> tuple:
+        bank = self.bank_for(width) if width else None
+        return tuple(bank.thresholds.thr.shape) if bank is not None \
+            else tuple(self._adc.thresholds.shape)
+
     def ramp_noise(self, noise: Optional[NoiseSource],
                    width: int = 0) -> Optional[torch.Tensor]:
         """One call's standard-normal ramp draw at ``width``: ``(P,)``, or
@@ -246,10 +251,28 @@ class AnalogActivation:
         when there is no source or no ramp noise in this mode."""
         if noise is None or self.ramp_sigma_us() <= 0:
             return None
-        bank = self.bank_for(width) if width else None
-        shape = tuple(bank.thresholds.thr.shape) if bank is not None \
-            else tuple(self._adc.thresholds.shape)
-        return noise.normal(shape, self._adc.thresholds.device)
+        return noise.normal(self._ramp_shape(width),
+                            self._adc.thresholds.device)
+
+    def ramp_draws(self, noise: Optional[NoiseSource],
+                   widths) -> Optional[Dict[int, torch.Tensor]]:
+        """The ramp draws of applications at ``widths`` that share one
+        key in the reference: ``{width: z}``, one draw per distinct
+        threshold shape in the order of first use, so widths of one shape
+        see the same thresholds (``normal(key, shape)`` twice).  The LM
+        draws a layer's before its (checkpointed) body.  ``None`` when
+        :meth:`ramp_noise` would draw nothing."""
+        if noise is None or self.ramp_sigma_us() <= 0:
+            return None
+        by_shape: Dict[tuple, torch.Tensor] = {}
+        draws = {}
+        for width in widths:
+            shape = self._ramp_shape(width)
+            if shape not in by_shape:
+                by_shape[shape] = noise.normal(shape,
+                                               self._adc.thresholds.device)
+            draws[width] = by_shape[shape]
+        return draws
 
     def thresholds_for(self, width: int = 0,
                        noise: Optional[NoiseSource] = None, *,
@@ -337,15 +360,17 @@ def analog_matmul_act(x: torch.Tensor, w: torch.Tensor, cfg: AnalogConfig,
     return y
 
 
-def dense_nladc(p, x: torch.Tensor,
-                act: Optional[AnalogActivation]) -> torch.Tensor:
+def dense_nladc(p, x: torch.Tensor, act: Optional[AnalogActivation], *,
+                z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense layer (params dict ``{w[, b]}``) with a fused NL-ADC epilogue.
 
     The LM-family path: the analog spec quantizes activations only (no
-    crossbar weight or input noise), so this is dense -> NL-ADC, one
-    kernel on the ``cuda`` backend.  Matches
+    crossbar weight or input noise, in every mode), so this is dense ->
+    NL-ADC, one kernel on the ``cuda`` backend.  Matches
     ``act(layers.dense_apply(p, x))`` on the ``ref`` backend (matmul in
-    x's compute dtype).
+    x's compute dtype).  ``z``: the call's train-mode ramp draw
+    (:meth:`AnalogActivation.ramp_draws`); infer mode reads the ramps
+    programmed at build time.
     """
     w, b = p["w"], p.get("b")
     if act is None or not act.cfg.enabled or act.ramp is None:
@@ -355,18 +380,19 @@ def dense_nladc(p, x: torch.Tensor,
         return act(y) if act is not None else y
     bk = BK.get_backend(act.cfg.backend)
     return bk.matmul_nladc(x, w, act.adc, bias=b,
-                           thresholds=act.thresholds_for(w.shape[-1]))
+                           thresholds=act.thresholds_for(w.shape[-1], z=z))
 
 
 def moe_gate_nladc(x_buf: torch.Tensor, w_gate: torch.Tensor,
-                   act: Optional[AnalogActivation]) -> torch.Tensor:
+                   act: Optional[AnalogActivation], *,
+                   z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-expert MoE gate einsum with a fused NL-ADC epilogue.
 
     x_buf: (E, C, d) dispatched expert buffers, w_gate: (E, d, f) stacked
     expert weights.  Matches ``act(einsum("ecd,edf->ecf", x_buf,
     w_gate.to(x_buf.dtype)))`` on the ``ref`` backend; on ``cuda`` the
     einsum and the NL-ADC are one grouped kernel over the experts (the
-    backend's ``moe_matmul_nladc``).
+    backend's ``moe_matmul_nladc``).  ``z`` as in :func:`dense_nladc`.
     """
     if act is None or not act.cfg.enabled or act.ramp is None:
         h = torch.einsum("ecd,edf->ecf", x_buf, w_gate.to(x_buf.dtype))
@@ -374,4 +400,4 @@ def moe_gate_nladc(x_buf: torch.Tensor, w_gate: torch.Tensor,
     bk = BK.get_backend(act.cfg.backend)
     return bk.moe_matmul_nladc(
         x_buf, w_gate, act.adc,
-        thresholds=act.thresholds_for(w_gate.shape[-1]))
+        thresholds=act.thresholds_for(w_gate.shape[-1], z=z))

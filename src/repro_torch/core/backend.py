@@ -30,7 +30,15 @@ whose forward is the backend's tail and whose backward is the reference's
 hand-written chain (``src/repro/core/backend.py:279-307``): it saves only
 the residuals ``(gates, c, thresholds)`` and rematerializes the tail, on
 ``ref`` with :func:`~repro_torch.kernels.lstm_cell.lstm_gates_bwd_plain`,
-on ``cuda`` with the backward kernel.  The thresholds get no gradient.
+on ``cuda`` with the backward kernel.  The ``cuda`` backend's ``nladc``,
+``matmul_nladc``, ``moe_matmul_nladc`` and ``prefill_attention`` are
+Functions too (:class:`_NLADCKernel`, :class:`_GateKernel`,
+:class:`_ExpertGateKernel`, :class:`_AttentionKernel`): the kernel
+forward, and the backward of the JAX ``pallas`` backend's ``custom_vjp``
+in plain torch (``src/repro/core/backend.py:182-251``, ``:318-373``).
+Each is taken only where an input requires a gradient under grad mode, so
+the infer and serve steps launch the kernel alone.  The thresholds get no
+gradient.
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from typing import Dict
 import torch
 
 from repro_torch.core import functions as F
-from repro_torch.core.nladc import NLADC, BankedThresholds, nladc_apply
+from repro_torch.core.nladc import (NLADC, BankedThresholds, nladc_apply,
+                                    nladc_ste)
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import lstm_cell
@@ -189,12 +198,6 @@ class RefBackend:
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, length)
 
 
-def _on_cuda(t: torch.Tensor, name: str) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"the cuda backend takes CUDA tensors; {name} is on "
-                         f"{t.device}")
-
-
 def _dense(thr, adc: NLADC) -> torch.Tensor:
     """A ``(P,)`` or per-column ``(H, P)`` kernel operand."""
     thr = adc.thresholds if thr is None else thr
@@ -203,18 +206,135 @@ def _dense(thr, adc: NLADC) -> torch.Tensor:
     return thr
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+class _NLADCKernel(torch.autograd.Function):
+    """The NL-ADC kernel forward; backward :func:`nladc_ste` on the saved
+    input (``_pallas_nladc_fn``)."""
+
+    @staticmethod
+    def forward(ctx, x, thr, y_table, grad_name):
+        ctx.grad_name = grad_name
+        ctx.save_for_backward(x)
+        return nk.nladc(x, thr, y_table)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        return nladc_ste(ctx.grad_name, x, ct), None, None, None
+
+
+class _GateKernel(torch.autograd.Function):
+    """The fused gate kernel forward on (M, K) rows; the backward of
+    ``_pallas_matmul_fn``: the accumulator recomputed as the ``ref``
+    backend computes it (``x @ w`` in x's dtype, plus the bias), the
+    straight-through mask on it, then the dx / dw / db products in x's
+    dtype (full-precision GEMMs: ``launch.common.configure_numerics``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, thr, y_table, grad_name):
+        ctx.grad_name = grad_name
+        ctx.save_for_backward(x, w, bias)
+        return fmn.fused_matmul_nladc(x, w, bias, thr, y_table)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w, bias = ctx.saved_tensors
+        w_used = w.to(x.dtype)
+        pre = x @ w_used
+        if bias is not None:
+            pre = pre + bias.to(pre.dtype)
+        d_pre = nladc_ste(ctx.grad_name, pre, ct.to(pre.dtype))
+        dx = (d_pre @ w_used.T).to(x.dtype)
+        dw = (x.T @ d_pre).to(w.dtype)
+        db = None if bias is None else d_pre.sum(0).to(bias.dtype)
+        return dx, dw, db, None, None, None
+
+
+class _ExpertGateKernel(torch.autograd.Function):
+    """The expert-gate kernel forward on (E, C, d) buffers; the backward of
+    ``_pallas_moe_fn``: ``pre = einsum("ecd,edf->ecf")`` in x's dtype, the
+    straight-through mask, then the batched dx / dw products."""
+
+    @staticmethod
+    def forward(ctx, x, w, thr, y_table, grad_name):
+        ctx.grad_name = grad_name
+        ctx.save_for_backward(x, w)
+        return fmn.moe_fused_matmul(x, w, thr, y_table)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        w_used = w.to(x.dtype)
+        pre = torch.bmm(x, w_used)
+        d_pre = nladc_ste(ctx.grad_name, pre, ct.to(pre.dtype))
+        dx = torch.bmm(d_pre, w_used.transpose(1, 2)).to(x.dtype)
+        dw = torch.bmm(x.transpose(1, 2), d_pre).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def _attention_kernel(q, k, v, mask):
+    """(B, 1, H, D) queries over (B, S, H_kv, D) through the kernel."""
+    mask2 = torch.broadcast_to(mask, (q.shape[0], 1, k.shape[1]))[:, 0]
+    out = pa.prefill_attention(q[:, 0].contiguous(), k.contiguous(),
+                               v.contiguous(),
+                               mask2.to(torch.int32).contiguous())
+    return out[:, None]
+
+
+class _AttentionKernel(torch.autograd.Function):
+    """The cached-attention kernel forward; the backward of
+    ``_pallas_prefill_attention_fn``: autograd through ``attend_full`` on
+    the saved q, k, v and mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _attention_kernel(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from repro_torch.nn.attention import attend_full  # nn imports core
+
+        q, k, v, mask = ctx.saved_tensors
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = attend_full(*qkv, mask)
+        dq, dk, dv = torch.autograd.grad(out, qkv, ct)
+        return dq, dk, dv, None
+
+
 class CudaBackend(RefBackend):
-    """Hand-written CUDA kernels for the primitives that have one."""
+    """Hand-written CUDA kernels for the primitives that have one.  Its
+    operands must lie on ``device_type`` (``cuda``); the kernel wrappers
+    take their plain versions on the CPU, so ``CudaBackend("cpu")`` runs
+    this backend's code there."""
 
     name = "cuda"
 
+    def __init__(self, device_type: str = "cuda"):
+        self.device_type = device_type
+
+    def _on_device(self, t: torch.Tensor, name: str) -> None:
+        if t.device.type != self.device_type:
+            raise ValueError(f"the {self.name} backend takes "
+                             f"{self.device_type.upper()} tensors; {name} "
+                             f"is on {t.device}")
+
     def nladc(self, x, adc, thresholds=None):
-        _on_cuda(x, "x")
-        return nk.nladc(x.contiguous(), _dense(thresholds, adc), adc.y_table)
+        self._on_device(x, "x")
+        thr = _dense(thresholds, adc)
+        if _wants_grad(x):
+            return _NLADCKernel.apply(x.contiguous(), thr, adc.y_table,
+                                      adc.ramp.name)
+        return nk.nladc(x.contiguous(), thr, adc.y_table)
 
     def lstm_gates(self, gates, c, sig_adc, tanh_adc,
                    sig_thr=None, tanh_thr=None):
-        _on_cuda(gates, "gates")
+        self._on_device(gates, "gates")
         return _lstm_gates(self, gates, c, sig_adc, tanh_adc, sig_thr,
                            tanh_thr)
 
@@ -225,40 +345,44 @@ class CudaBackend(RefBackend):
 
     def _lstm_tail_bwd(self, gates, c, sig_thr, tanh_thr, sig_adc, tanh_adc,
                        ct_h, ct_c):
-        _on_cuda(gates, "gates")
+        self._on_device(gates, "gates")
         return lstm_cell.lstm_gates_bwd(
             gates, c, sig_thr, sig_adc.y_table, tanh_thr, tanh_adc.y_table,
             ct_h, ct_c, sig_domain=_domain(sig_adc),
             tanh_domain=_domain(tanh_adc))
 
     def matmul_nladc(self, x, w, adc, bias=None, thresholds=None):
-        _on_cuda(x, "x")
+        self._on_device(x, "x")
         lead = x.shape[:-1]
-        y = fmn.fused_matmul_nladc(
-            x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous(), bias,
-            _dense(thresholds, adc), adc.y_table)
+        args = (x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous(),
+                bias, _dense(thresholds, adc), adc.y_table)
+        if _wants_grad(x, w, bias):
+            y = _GateKernel.apply(*args, adc.ramp.name)
+        else:
+            y = fmn.fused_matmul_nladc(*args)
         return y.reshape(lead + (w.shape[-1],))
 
     def moe_matmul_nladc(self, x, w, adc, thresholds=None):
-        _on_cuda(x, "x")
-        return fmn.moe_fused_matmul(x.contiguous(), w.contiguous(),
-                                    _dense(thresholds, adc), adc.y_table)
+        self._on_device(x, "x")
+        args = (x.contiguous(), w.contiguous(), _dense(thresholds, adc),
+                adc.y_table)
+        if _wants_grad(x, w):
+            return _ExpertGateKernel.apply(*args, adc.ramp.name)
+        return fmn.moe_fused_matmul(*args)
 
     def decode_attention_int8(self, q, k8, k_scale, v8, v_scale, length):
-        _on_cuda(q, "q")
+        self._on_device(q, "q")
         return fd.flash_decode_int8(q.contiguous(), k8, k_scale, v8, v_scale,
                                     length)
 
     def prefill_attention(self, q, k, v, mask):
-        _on_cuda(q, "q")
-        b, q_len, _, _ = q.shape
-        if q_len != 1:
+        self._on_device(q, "q")
+        if q.shape[1] != 1:
             raise ValueError(f"prefill_attention is one-query; got q_len "
-                             f"{q_len}")
-        mask2 = torch.broadcast_to(mask, (b, 1, k.shape[1]))[:, 0]
-        out = pa.prefill_attention(q[:, 0].contiguous(), k, v,
-                                   mask2.to(torch.int32).contiguous())
-        return out[:, None]
+                             f"{q.shape[1]}")
+        if _wants_grad(q, k, v):
+            return _AttentionKernel.apply(q, k, v, mask)
+        return _attention_kernel(q, k, v, mask)
 
 
 _REGISTRY: Dict[str, object] = {}

@@ -3,6 +3,8 @@
 Offline stand-ins for the paper's datasets, in numpy, drawing the same
 numbers as the JAX package's pipelines for the same seed:
 
+* ``SyntheticLM``   — Zipf-distributed token stream with Markov structure
+                     (so loss curves descend), the LM trainer's data;
 * ``CharCorpus``   — PTB-like 50-char stream (char-LM, BPC metric);
 * ``SyntheticKWS`` — GSCD-like MFCC sequences (49x40) in 12 classes.
 """
@@ -10,7 +12,7 @@ numbers as the JAX package's pipelines for the same seed:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -24,6 +26,54 @@ class PipelineState:
 
     def load_state_dict(self, d: Dict):
         self.step = int(d["step"])
+
+
+class SyntheticLM:
+    """Zipf+Markov token stream: ``batch_at(step)`` is pure in (seed,
+    step).  One host draws the whole batch; the reference's ``host_id`` /
+    ``n_hosts`` split belongs to multi-host training (``ROADMAP.md`` queue
+    A item 6), and its seed tuple keeps host 0 here."""
+
+    def __init__(self, vocab: int, seq_len: int, global_batch: int,
+                 *, seed: int = 0):
+        self.vocab = vocab
+        self.seq_len = seq_len
+        self.global_batch = global_batch
+        self.seed = seed
+        self.state = PipelineState()
+        # fixed sparse Markov structure
+        mix_rng = np.random.default_rng(seed)
+        self._succ = mix_rng.integers(0, vocab, size=(min(vocab, 4096), 8))
+
+    def _zipf(self, rng, size):
+        # bounded zipf via inverse-cdf on a truncated harmonic series
+        u = rng.random(size)
+        ranks = np.exp(u * np.log(self.vocab)).astype(np.int64) - 1
+        return np.clip(ranks, 0, self.vocab - 1)
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """``tokens`` and next-token ``labels``, (global batch, seq_len)
+        int32."""
+        rng = np.random.default_rng((self.seed, step, 0, 0xDA7A))
+        b, s = self.global_batch, self.seq_len
+        toks = self._zipf(rng, (b, s + 1))
+        # 50% of positions follow the Markov successor of the previous token
+        follow = rng.random((b, s)) < 0.5
+        prev = toks[:, :-1] % self._succ.shape[0]
+        choice = rng.integers(0, self._succ.shape[1], size=(b, s))
+        succ = self._succ[prev, choice]
+        toks[:, 1:] = np.where(follow, succ, toks[:, 1:])
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        batch = self.batch_at(self.state.step)
+        self.state.step += 1
+        return batch
 
 
 class CharCorpus:

@@ -19,12 +19,15 @@ Three jobs in one run:
   effective operands for ``analog_tile``) and, on the card, the kernel's
   device time per call, timed again apart from the sweep (``us``) beside
   the sweep's own times of the winner and the default;
-* the parity section, forward halves: per-column ``(N, P)`` thresholds
-  that repeat one bank against the ``(P,)`` bank (bitwise), the grouped
-  expert gate against the ``ref`` backend (codes within LSB/2), and the
-  cached-attention kernel against ``attend_full`` (1e-6).  The gradient
-  halves (the expert gate's and the attention's backward) wait for the
-  LM's training and are written as null.
+* the parity section: per-column ``(N, P)`` thresholds that repeat one
+  bank against the ``(P,)`` bank (bitwise), the grouped expert gate
+  against the ``ref`` backend (codes within LSB/2), and the
+  cached-attention kernel against ``attend_full`` (1e-6); and their
+  gradient halves, as the JAX sweep computes them: the largest difference
+  between the gradient with respect to the expert buffer (the query) of
+  the summed output through the ``cuda`` backend's Function and through
+  the ``ref`` backend (:func:`expert_gate_grad_err`,
+  :func:`attention_grad_err`).
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise.  The result (the tune cache under ``"tune"``,
@@ -42,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.core.backend import get_backend
+from repro_torch.core.backend import CudaBackend, get_backend
 from repro_torch.core.nladc import NLADC, BankedThresholds, bank_map_for, \
     build_ramp
 from repro_torch.kernels import _build, tune
@@ -87,8 +90,6 @@ SHAPES_MAIN = {
 }
 BANK_COLS = 128
 ATTN_ATOL = 1e-6
-GRAD_NOTE = ("not ported: the expert gate's and the cached attention's "
-             "backward come with the LM's training (ROADMAP queue A item 3)")
 
 
 def sweep_shapes(full: bool) -> dict:
@@ -157,8 +158,34 @@ def shape_cell(kernel, shape, dtype, experts, blocks, device) -> dict:
     return cell
 
 
+def _grad_err(fn, x, *rest) -> float:
+    """The largest difference of ``d sum(fn(x)) / dx`` between the cuda
+    backend's code (its kernels on the GPU, their plain versions on the
+    CPU) and the ref backend."""
+    grads = []
+    for bk in (CudaBackend(x.device.type), get_backend("ref")):
+        xg = x.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(torch.sum(fn(bk, xg, *rest)), xg)
+        grads.append(g)
+    return float((grads[0] - grads[1]).abs().max())
+
+
+def expert_gate_grad_err(xe, we, adc, thr) -> float:
+    """The expert gate's gradient half (``benchmarks/kernel_tune.py``'s
+    ``moe_einsum.grad_max_err``)."""
+    return _grad_err(lambda bk, a, w: bk.moe_matmul_nladc(a, w, adc, thr),
+                     xe, we)
+
+
+def attention_grad_err(q, kc, vc, mask) -> float:
+    """The cached attention's gradient half (``attention.grad_max_err``):
+    with respect to the query."""
+    return _grad_err(lambda bk, a, k, v: bk.prefill_attention(a, k, v, mask),
+                     q, kc, vc)
+
+
 def parity_section(device, rng) -> dict:
-    """The forward halves of the JAX sweep's parity cells."""
+    """The JAX sweep's parity cells."""
     ramp = build_ramp("swish", 5)
     adc = NLADC(ramp, device)
     lsb = float(ramp.lsb)
@@ -195,8 +222,10 @@ def parity_section(device, rng) -> dict:
     y_r = get_backend("ref").moe_matmul_nladc(xe, we, adc, bt)
     err_lsb = float((y_k - y_r).abs().max()) / lsb
     out["moe_einsum"] = {"max_err_lsb": err_lsb, "within_half_lsb":
-                         err_lsb <= 0.5, "grad_max_err": None,
-                         "grad_note": GRAD_NOTE, "digest": tune.digest(y_k)}
+                         err_lsb <= 0.5,
+                         "grad_max_err": expert_gate_grad_err(xe, we, adc,
+                                                              bt),
+                         "digest": tune.digest(y_k)}
 
     # the cached-attention kernel vs attend_full
     from repro_torch.nn.attention import attend_full
@@ -213,7 +242,8 @@ def parity_section(device, rng) -> dict:
     out["attention"] = {"max_abs_err": err, "atol": ATTN_ATOL,
                         "within_atol": err <= ATTN_ATOL,
                         "bitwise_equal": bool(torch.equal(o_k, o_r)),
-                        "grad_max_err": None, "grad_note": GRAD_NOTE,
+                        "grad_max_err": attention_grad_err(q, kc, vc,
+                                                           mask),
                         "digest": tune.digest(o_k)}
     return out
 

@@ -19,6 +19,7 @@ summary line.  Weights come from ``--params`` (an LM tree saved by
         [--smoke] [--override key=value ...] [--requests 6] \\
         [--max-new 16] [--max-batch 4] [--max-len 128] \\
         [--backend cuda|ref] [--bank-cols N] \\
+        [--analog-mode exact|infer|train] [--analog-device PRESET] \\
         [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile] \\
         [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC]
 
@@ -31,8 +32,12 @@ expert gate in the hand-written kernels), on the CPU to ``ref``.  A
 one-request warm-up wave builds the kernels and initialises cuBLAS before
 the measured run.  ``--profile`` serves the
 wave once more under ``torch.profiler`` and prints the device time per
-kernel name and the device's idle share.  Only exact analog mode is
-ported; ``--analog-mode infer|train`` raises.  ``--kernel-cache`` (a
+kernel name and the device's idle share.  ``--analog-mode infer`` serves
+on ramps programmed once at build time by the ``--analog-device`` preset
+(the LM spec carries no weight noise, so a step draws nothing; the
+reference's engine hands its steps keys that nothing reads); in train mode
+the ramps are the ideal ones, as the reference's engine passes no key
+there.  ``--kernel-cache`` (a
 ``repro_torch.launch.kernel_tune`` result) and ``--kernel-blocks``
 (``fused_matmul_nladc=4x64x512,nladc=8x32``) choose the kernels' launch
 configs per shape (:mod:`repro_torch.kernels.tune`); a bad spec or file is
@@ -92,15 +97,17 @@ def parse_overrides(items: Sequence[str]) -> Dict[str, object]:
 
 def make_config(arch: str, *, smoke: bool = False, backend: str = "",
                 bank_cols: int = 0, analog_mode: str = "",
-                overrides=None) -> ModelConfig:
+                analog_device: str = "", overrides=None) -> ModelConfig:
     """The arch's config (or SMOKE variant) with ``overrides`` applied and
-    the CLI's analog knobs."""
+    the CLI's analog knobs (an empty mode or device keeps the spec's)."""
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
     spec_kw = {"backend": backend, "bank_cols": bank_cols}
     if analog_mode:
         spec_kw["mode"] = analog_mode
+    if analog_device:
+        spec_kw["device"] = analog_device
     return cfg.replace(analog=dataclasses.replace(cfg.analog, **spec_kw))
 
 
@@ -144,7 +151,10 @@ def main(argv=None) -> dict:
                     help="columns per threshold bank (0 = one shared ramp)")
     ap.add_argument("--analog-mode", default="",
                     choices=("", "exact", "infer", "train"),
-                    help="override the spec's mode (only exact is ported)")
+                    help="override the spec's mode")
+    ap.add_argument("--analog-device", default="",
+                    help="device-model preset (default: the spec's, i.e. "
+                         "REPRO_DEVICE or paper)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--params", default="",
                     help=".npz LM tree (convert.save_npz)")
@@ -175,6 +185,7 @@ def main(argv=None) -> dict:
     flags = configure_numerics()
     cfg = make_config(args.arch, smoke=args.smoke, backend=backend,
                       bank_cols=args.bank_cols, analog_mode=args.analog_mode,
+                      analog_device=args.analog_device,
                       overrides=parse_overrides(args.override))
     model, params = build_lm(cfg, device, params_path=args.params,
                              seed=args.seed)
@@ -182,7 +193,8 @@ def main(argv=None) -> dict:
         else "cpu"
     print(f"[serve] {cfg.name} ({cfg.n_layers} layers, {cfg.kv_cache_dtype} "
           f"KV cache) on {name}, backend {backend}, {cfg.dtype} compute, "
-          f"bank_cols {cfg.analog.bank_cols}; TF32 and reduced-precision "
+          f"analog mode {cfg.analog.mode}, bank_cols "
+          f"{cfg.analog.bank_cols}; TF32 and reduced-precision "
           f"bf16 sums off ({flags})", flush=True)
     engine = ServingEngine(model, params, max_batch=args.max_batch,
                            max_len=args.max_len)

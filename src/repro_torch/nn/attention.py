@@ -1,17 +1,19 @@
-"""Attention: GQA over a decode cache, one new token at a time.
+"""Attention: GQA over a full sequence and over a decode cache.
 
-The serving slice of the JAX package's ``repro/nn/attention.py``: the
-parameter init, the grouped layout, ``attend_full`` (unchunked attention,
-the reference for the cached-attention kernel), the bf16/f32 and int8
-decode caches, and the global-attention branches of
+The JAX package's ``repro/nn/attention.py`` for the dense and MoE
+families: the parameter init, the grouped layout, ``attend_chunked`` (the
+online softmax over KV chunks) and the causal, optionally windowed
+``self_attention`` over a full sequence, ``attend_full`` (unchunked
+attention, the reference for the cached-attention kernel), the bf16/f32
+and int8 decode caches, and the global-attention branches of
 ``decode_self_attention``.  A bf16/f32 cache attends through the analog
 backend's ``prefill_attention`` primitive (``ref``: ``attend_full``;
 ``cuda``: the hand-written kernel), an int8 cache through
 ``decode_attention_int8`` (``ref``: the dequantize-all oracle; ``cuda``:
 the flash-decode kernel, which dequantizes per tile inside the kernel).
-Chunked attention and the full-sequence ``self_attention`` belong to the
-forward/training slice, the rolling-window cache (and its int8
-dequantize-all fallback) to the hybrid family.
+The full-sequence path is plain torch, as the reference's is plain jnp.
+The rolling-window cache (and its int8 dequantize-all fallback) belongs to
+the hybrid family; cross-attention to the encoder-decoder one.
 
 GQA is computed in the grouped layout ``(B, S, H_kv, G, D)`` so KV heads
 are never repeated.  RoPE is applied before caching.
@@ -73,6 +75,79 @@ def attend_full(q, k, v, mask, *, scale: Optional[float] = None):
     p = e / torch.sum(e, dim=-1, keepdim=True)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype).float(), v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def attend_chunked(q, k, v, *, mask_fn, kv_chunk: int = 1024,
+                   scale: Optional[float] = None):
+    """Online-softmax attention over KV chunks of ``kv_chunk`` slots.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, H_kv, D); ``mask_fn(kv_start,
+    kv_len) -> (Sq, kv_len)`` bool (True = attend) for one chunk.  Returns
+    (B, Sq, H, D) in q.dtype.  The reference's scan as a Python loop, in
+    its chunk order: K and V padded to whole chunks and the padding masked,
+    q-dtype operands summed in float32 (its ``preferred_element_type``),
+    the running max, sum and accumulator in float32, the probabilities
+    rounded to q's dtype before the PV sum.
+    """
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    g = h // hkv
+    qg = (_grouped(q, hkv) * torch.tensor(scale, dtype=q.dtype,
+                                          device=q.device)).float()
+    n_chunks = math.ceil(skv / kv_chunk)
+    pad = n_chunks * kv_chunk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for ci in range(n_chunks):
+        kv_start = ci * kv_chunk
+        kci = k[:, kv_start:kv_start + kv_chunk].float()
+        vci = v[:, kv_start:kv_start + kv_chunk].float()
+        s = torch.einsum("bqhgd,bchd->bhgqc", qg, kci)
+        mask = mask_fn(kv_start, kv_chunk)
+        if pad:
+            in_range = kv_start + torch.arange(kv_chunk, device=q.device) \
+                < skv
+            mask = mask & in_range[None, :]
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        pv = torch.einsum("bhgqc,bchd->bhgqd", p.to(q.dtype).float(), vci)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def self_attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
+                   rope_theta: float, window: int = 0, positions=None,
+                   kv_chunk: int = 1024):
+    """Causal (optionally windowed) self-attention over a full sequence.
+    x: (B, S, d_model).  The reference's ``return_kv`` (the roped k, v for
+    ``prefill_cache``) comes with that port (``ROADMAP.md`` queue A)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = _split_heads(L.dense_apply(p["wq"], x), n_heads, head_dim)
+    k = _split_heads(L.dense_apply(p["wk"], x), n_kv_heads, head_dim)
+    v = _split_heads(L.dense_apply(p["wv"], x), n_kv_heads, head_dim)
+    q = L.apply_rope(q, positions, rope_theta)
+    k = L.apply_rope(k, positions, rope_theta)
+
+    def mask_fn(kv_start, kv_len):
+        return L.causal_mask(s, kv_len, q_offset=-kv_start, window=window,
+                             device=x.device)
+
+    out = attend_chunked(q, k, v, mask_fn=mask_fn, kv_chunk=kv_chunk)
+    return L.dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
 
 
 def init_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,

@@ -94,3 +94,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     r1 = x1 * cos - x2 * sin
     r2 = x2 * cos + x1 * sin
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def causal_mask(q_len: int, kv_len: int, *, q_offset: int = 0,
+                window: int = 0, device=None) -> torch.Tensor:
+    """Boolean (q_len, kv_len) mask; True = attend.
+
+    ``q_offset`` shifts query positions (decode with a cache).  ``window``
+    > 0 restricts to a local band of that width (recurrentgemma local
+    attention).
+    """
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    mask = k_pos <= q_pos
+    if window > 0:
+        mask = mask & (k_pos > q_pos - window)
+    return mask

@@ -15,6 +15,8 @@ hand-written kernel on the ``cuda`` backend.
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 
 from repro_torch.core.analog_layer import (AnalogActivation, AnalogConfig,
@@ -53,11 +55,15 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp_apply(p, x: torch.Tensor, kind: str,
-              act: AnalogActivation) -> torch.Tensor:
-    if kind in ("swiglu", "geglu"):
-        gate = dense_nladc(p["wi_gate"], x, act)
-        up = L.dense_apply(p["wi_up"], x)
-        return L.dense_apply(p["wo"], gate * up)
-    h = dense_nladc(p["wi"], x, act)
+def mlp_apply(p, x: torch.Tensor, kind: str, act: AnalogActivation, *,
+              draws: Optional[Dict[int, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """The MLP; ``draws``: the call's train-mode ramp draws by gate width
+    (:meth:`AnalogActivation.ramp_draws`), None for none."""
+    gated = kind in ("swiglu", "geglu")
+    gate_p = p["wi_gate"] if gated else p["wi"]
+    h = dense_nladc(gate_p, x, act,
+                    z=draws[gate_p["w"].shape[-1]] if draws else None)
+    if gated:
+        h = h * L.dense_apply(p["wi_up"], x)
     return L.dense_apply(p["wo"], h)

@@ -17,7 +17,8 @@ A sigmoid router (``router_score="sigmoid"``, moonlight) is elementwise
 and is NL-ADC'd; a softmax router stays full precision.  The reference's
 sharding constraints (``_maybe_shard``) are the identity on one device;
 expert parallelism over ``torch.distributed`` is ROADMAP.md queue A item
-6.  The load-balance auxiliary loss waits for training.
+6.  Training adds the Switch-style load-balance loss
+(:func:`aux_load_balance_loss`, ``moe_apply(..., return_aux=True)``).
 
 Three places where a plain port would give another answer than the
 reference, and what this module does:
@@ -38,7 +39,7 @@ reference, and what this module does:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -86,8 +87,9 @@ def router_gates(logits: torch.Tensor, top_k: int, score: str,
 
     Returns ``(gates in logits' dtype, indices, probs)``: ``probs`` are the
     float32 softmax probabilities the load-balance loss reads, for the
-    softmax router; the sigmoid router returns None there until training
-    is ported (the reference computes a softmax that serving never reads).
+    softmax router; the sigmoid router returns None there, and
+    :func:`moe_apply` computes the softmax only when it returns the loss
+    (the reference computes one that serving never reads).
     """
     if score == "sigmoid":
         probs = router_act(logits) if router_act is not None \
@@ -105,6 +107,20 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` op for op: ``exp(x - max) / sum``."""
     e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
     return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def aux_load_balance_loss(probs_f32: torch.Tensor, idx: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (mean prob x mean load):
+    the load counts each routing slot once (whole numbers: exact in any
+    order)."""
+    flat = idx.reshape(-1)
+    load = torch.zeros(n_experts, dtype=torch.float32, device=idx.device)
+    load = load.index_add(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                              device=idx.device))
+    load = load / torch.clamp_min(torch.sum(load), 1.0)
+    imp = torch.mean(probs_f32, dim=0)
+    return n_experts * torch.sum(imp * load)
 
 
 def dispatch_plan(idx: torch.Tensor, gates: torch.Tensor, n_tokens: int,
@@ -181,8 +197,14 @@ def expert_capacity(n_tokens: int, top_k: int, n_experts: int,
 
 def moe_apply(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
               act: AnalogActivation, router_score: str = "softmax",
-              router_act: Optional[AnalogActivation] = None) -> torch.Tensor:
-    """x: (..., d) -> (..., d).  Flattens leading dims for routing."""
+              router_act: Optional[AnalogActivation] = None,
+              draws: Optional[Dict[int, torch.Tensor]] = None,
+              return_aux: bool = False):
+    """x: (..., d) -> (..., d), and with ``return_aux`` the load-balance
+    loss beside it.  Flattens leading dims for routing.  ``draws``: the
+    call's train-mode ramp draws by gate width
+    (:meth:`AnalogActivation.ramp_draws`): the routed experts' gate and
+    the shared experts' take them from one key in the reference."""
     orig_shape = x.shape
     d = x.shape[-1]
     xf = x.reshape(-1, d)
@@ -190,7 +212,8 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
     n_experts = p["router"].shape[-1]
 
     logits = xf @ p["router"].to(xf.dtype)
-    gates, idx, _ = router_gates(logits, top_k, router_score, router_act)
+    gates, idx, probs_f32 = router_gates(logits, top_k, router_score,
+                                         router_act)
 
     # slot assignment (sort by expert, capacity-crop)
     capacity = expert_capacity(n, top_k, n_experts, capacity_factor)
@@ -201,7 +224,8 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
 
     # expert FFN: the gate einsum + NL-ADC pair is one grouped kernel on
     # the cuda backend
-    gate_h = moe_gate_nladc(x_buf, p["w_gate"], act)
+    z = draws[p["w_gate"].shape[-1]] if draws else None
+    gate_h = moe_gate_nladc(x_buf, p["w_gate"], act, z=z)
     up_h = torch.einsum("ecd,edf->ecf", x_buf, p["w_up"].to(x_buf.dtype))
     h = torch.einsum("ecf,efd->ecd", gate_h * up_h,
                      p["w_down"].to(x_buf.dtype))
@@ -211,5 +235,10 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
 
     # shared experts (always on)
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], xf, "swiglu", act)
-    return out.reshape(orig_shape)
+        out = out + mlp_apply(p["shared"], xf, "swiglu", act, draws=draws)
+    out = out.reshape(orig_shape)
+    if return_aux:
+        if probs_f32 is None:
+            probs_f32 = _softmax(logits.float())
+        return out, aux_load_balance_loss(probs_f32, idx, n_experts)
+    return out

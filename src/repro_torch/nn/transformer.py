@@ -1,29 +1,40 @@
-"""Decoder-only LM: the dense and MoE families' decode path.
+"""Decoder-only LM: the dense and MoE families.
 
-The serving slice of the JAX package's ``repro/nn/transformer.py``:
-``init``, ``embed``, ``logits``, ``layer_kinds``, ``init_decode_state``
-(bf16/f32 or int8 KV cache), the ``attn`` and ``moe_attn`` blocks'
-``_decode_block`` and ``decode_step``.  Where the reference scans over
-stacked layer params, the port keeps one param dict and one cache dict per
-layer and loops over them.  One NL-ADC activation (the hidden ``silu``
-ramp, thresholds on the model's device) is shared by every layer, and one
-sigmoid NL-ADC by every MoE router.
+The JAX package's ``repro/nn/transformer.py`` for its ``attn`` and
+``moe_attn`` blocks: ``init``, ``embed``, ``logits``, ``layer_kinds``,
+the full-sequence ``forward`` / ``loss`` / ``prefill``, and the decode
+path (``init_decode_state`` with a bf16/f32 or int8 KV cache,
+``decode_step``).  Where the reference scans over stacked layer params,
+the port keeps one param dict and one cache dict per layer and loops over
+them.  One NL-ADC activation (the hidden ``silu`` ramp, thresholds on the
+model's device) is shared by every layer, and one sigmoid NL-ADC by every
+MoE router.
 
-Only ``family`` ``"dense"`` and ``"moe"`` in ``exact`` analog mode are
-ported: the other families and the ``infer``/``train`` modes raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them,
-and the full-sequence ``forward``/``loss`` wait for the forward/training
-slice.  The model lives on the GPU unless the caller asks for the CPU.
+Analog modes: ``exact``; ``infer`` (the ramps and banks programmed once at
+build time by the device model: the LM spec carries no weight noise, so a
+step draws nothing); ``train`` (fresh ramp-step noise on every call of the
+hidden activation, straight-through gradients).  The reference splits one
+key per layer inside its scan and hands it to every gate of the layer; the
+port draws a layer's ramp noise from the caller's :class:`NoiseSource`
+before the layer (:meth:`AnalogActivation.ramp_draws`), so a recompute
+under ``remat`` sees the same thresholds.  The router's sigmoid NL-ADC
+takes no key: its thresholds are noiseless.
+
+The other families, ``moe_impl="ep_shardmap"`` and ``remat_policy="dots"``
+raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
+them.  The model lives on the GPU unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+from repro_torch.core.crossbar import NoiseSource
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as MOE
@@ -53,11 +64,6 @@ class LM:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet; "
                 f"ROADMAP.md queue A item 5 (LM families) brings it")
-        if cfg.analog.enabled and cfg.analog.mode != "exact":
-            raise NotImplementedError(
-                f"analog mode {cfg.analog.mode!r} on the LM is not ported "
-                f"yet; ROADMAP.md queue A item 3 (the LM's infer and train "
-                f"modes) brings it")
         if cfg.family == "moe" and cfg.moe_impl != "gspmd":
             raise NotImplementedError(
                 f"moe_impl={cfg.moe_impl!r} (expert parallelism) is not "
@@ -75,6 +81,7 @@ class LM:
         # realize the d_ff-wide threshold bank (the MLP gate's output)
         # once, here, rather than inside the first step
         self.act.bank_for(cfg.d_ff)
+        self.kv_chunk = 1024       # flash-style attention's KV chunk
 
     # -- init -----------------------------------------------------------
 
@@ -128,6 +135,104 @@ class LM:
             return L.embedding_attend(params["embed"], x)
         return L.dense_apply(params["lm_head"], x,
                              compute_dtype=self.compute_dtype).float()
+
+    # -- full sequence -----------------------------------------------------
+
+    def _gate_widths(self, kind: str):
+        """The output widths of the hidden activation's calls in a block:
+        the MLP gate, or the routed experts' gate and the shared experts'
+        (one key for both in the reference)."""
+        cfg = self.cfg
+        if kind == "moe_attn" and cfg.n_shared_experts > 0:
+            return (cfg.d_ff, cfg.n_shared_experts * cfg.d_ff)
+        return (cfg.d_ff,)
+
+    def _apply_block(self, p, x, kind: str, positions, draws,
+                     collect_aux: bool):
+        cfg = self.cfg
+        h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        x = x + A.self_attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            positions=positions, kv_chunk=self.kv_chunk)
+        h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if kind == "moe_attn":
+            out = MOE.moe_apply(
+                p["moe"], h, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, act=self.act,
+                router_score=cfg.router_score, router_act=self.sigmoid_act,
+                draws=draws, return_aux=collect_aux)
+            if collect_aux:
+                out, aux = out
+            return x + out, aux
+        return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act,
+                             draws=draws), aux
+
+    def forward(self, params, tokens: torch.Tensor, *,
+                noise: Optional[NoiseSource] = None,
+                collect_aux: bool = False, remat: bool = False):
+        """Full-sequence logits.  tokens: (B, S) -> (B, S, padded_vocab)
+        float32, and with ``collect_aux`` the MoE load-balance loss summed
+        over layers.  ``noise``: the train-mode ramp draws, one layer
+        after another (None: the programmed ramps).  ``remat`` recomputes
+        each layer's body in the backward (``remat_policy="full"``, the
+        reference's ``nothing_saveable``; ``"none"`` keeps everything);
+        the result is the same bits either way."""
+        cfg = self.cfg
+        if remat and cfg.remat_policy not in ("full", "none"):
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet; "
+                f"ROADMAP.md queue A item 3 (what is left of the LM "
+                f"forward) brings it")
+        x = self.embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, kind in zip(params["layers"], self.layer_kinds()):
+            draws = self.act.ramp_draws(noise, self._gate_widths(kind))
+            if remat and cfg.remat_policy == "full":
+                x, aux = checkpoint(self._apply_block, p, x, kind, positions,
+                                    draws, collect_aux, use_reentrant=False)
+            else:
+                x, aux = self._apply_block(p, x, kind, positions, draws,
+                                           collect_aux)
+            total_aux = total_aux + aux
+        logits = self.logits(params, x)
+        if collect_aux:
+            return logits, total_aux
+        return logits
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], *,
+             noise: Optional[NoiseSource] = None, remat: bool = True):
+        """Next-token cross entropy over ``batch["labels"]`` (-1 = masked),
+        plus ``router_aux_coef`` x the load-balance loss for a MoE.
+        Returns ``(total, metrics)``: ``loss``, ``aux_loss`` and
+        ``tokens``, the true count of valid labels (0 for an all-masked
+        batch; only the division is clamped)."""
+        cfg = self.cfg
+        moe = cfg.family == "moe"
+        out = self.forward(params, batch["tokens"], noise=noise,
+                           collect_aux=moe, remat=remat)
+        logits, aux = out if moe else (out, torch.zeros(
+            (), dtype=torch.float32, device=out.device))
+        labels = batch["labels"]
+        valid = labels >= 0
+        safe = torch.clamp_min(labels, 0).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        n_valid = torch.sum(valid)
+        loss = torch.sum(nll) / torch.clamp_min(n_valid, 1)
+        total = loss + cfg.router_aux_coef * aux
+        return total, {"loss": loss, "aux_loss": aux,
+                       "tokens": n_valid.to(torch.float32)}
+
+    def prefill(self, params, tokens: torch.Tensor, *,
+                noise: Optional[NoiseSource] = None) -> torch.Tensor:
+        """Forward a prompt, returning the last position's logits (B, 1,
+        V); no cache is written (the cache-writing prefill is
+        ``prefill_cache``, ROADMAP.md queue A item 3)."""
+        return self.forward(params, tokens, noise=noise)[:, -1:]
 
     # -- decode path -------------------------------------------------------
 

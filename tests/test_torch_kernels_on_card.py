@@ -65,6 +65,15 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   (qwen2.5-3b; moonshot-v1-16b-a3b with an int8 KV cache): logits within
   LSB/2 of the silu ramp, and each kernel of the path launched once per
   layer per step.
+* The ``cuda`` backend's autograd Functions (the NL-ADC, the fused gate
+  with and without a bias, the expert gate, the cached attention): with
+  an input that requires a gradient the output carries a ``grad_fn`` and
+  the kernel launches once; the gradients equal the ``ref`` backend's on
+  the card within rtol and atol 1e-5 in float32 (both recompute the same
+  accumulator in plain torch), non-zero; without a gradient no graph.
+* The SMOKE LMs' train-mode loss and gradients on the ``cuda`` backend
+  against ``ref`` (same weights, same generator state), rtol 2e-4 / atol
+  2e-5, each gate kernel launched twice per layer (``remat``).
 """
 
 import dataclasses
@@ -813,3 +822,105 @@ def test_smoke_lm_cuda_backend_matches_ref(arch, kv, path):
         == {name: cfg.n_layers * 8 if name in path else 0
             for name in KERNELS}
     assert worst < models["cuda"].act.ramp.lsb / 2
+
+
+FN_TOL = 1e-5
+
+
+def _grads(fn, args, ct):
+    targs = [a.detach().clone().requires_grad_(True) for a in args]
+    y = fn(*targs)
+    return y, torch.autograd.grad(y, targs, ct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["nladc", "gate", "gate_bias", "expert_gate",
+                                  "attention"])
+def test_cuda_functions_carry_the_reference_gradient(what):
+    from repro_torch.core.backend import get_backend
+
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(what))
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    adc = TN.NLADC(TN.build_ramp("sigmoid" if what == "nladc" else "silu",
+                                 5), dev)
+    if what == "nladc":
+        args, kernel = [rn(24, 64, scale=4.0)], TNK.nladc
+        call = lambda bk, x: bk.nladc(x, adc)
+    elif what.startswith("gate"):
+        bias = rn(160, scale=0.5) if what == "gate_bias" else None
+        args, kernel = [rn(3, 5, 64), rn(64, 160, scale=0.3)], \
+            TFM.fused_matmul_nladc
+        call = lambda bk, x, w: bk.matmul_nladc(x, w, adc, bias=bias)
+    elif what == "expert_gate":
+        x = rn(4, 6, 64)
+        x[1, -2:] = 0.0
+        args, kernel = [x, rn(4, 64, 32, scale=0.3)], TFM.moe_fused_matmul
+        call = lambda bk, a, w: bk.moe_matmul_nladc(a, w, adc)
+    else:
+        mask = (torch.arange(10, device=dev)[None, None, :]
+                < torch.tensor([10, 1, 6], device=dev)[:, None, None])
+        args, kernel = [rn(3, 1, 4, 16), rn(3, 10, 2, 16),
+                        rn(3, 10, 2, 16)], TPA.prefill_attention
+        call = lambda bk, q, k, v: bk.prefill_attention(q, k, v, mask)
+    cuda, ref = get_backend("cuda"), get_backend("ref")
+    with torch.no_grad():
+        n0 = kernel.launches
+        assert call(cuda, *args).grad_fn is None
+        assert kernel.launches == n0 + 1
+    y_ref = call(ref, *args)
+    ct = rn(*y_ref.shape)
+    n0 = kernel.launches
+    y, got = _grads(lambda *a: call(cuda, *a), args, ct)
+    assert y.grad_fn is not None and kernel.launches == n0 + 1
+    _, want = _grads(lambda *a: call(ref, *a), args, ct)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=FN_TOL, atol=FN_TOL)
+        assert float(g.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b"])
+def test_smoke_lm_train_grads_cuda_match_ref(arch):
+    from repro_torch.core.crossbar import GeneratorNoise
+    from repro_torch.train import optim
+
+    dev = _card()
+    models, grads, losses, launched = {}, {}, {}, {}
+    for bk in ("cuda", "ref"):
+        cfg = configs.get_smoke(arch)
+        cfg = cfg.replace(dtype="float32", analog=dataclasses.replace(
+            cfg.analog, backend=bk, mode="train", device="paper"))
+        models[bk] = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = models["cuda"].init(gen)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    for bk, m in models.items():
+        ng = torch.Generator(device=dev)
+        ng.manual_seed(1)
+        n0 = {name: fn.launches for name, fn in KERNELS.items()}
+        total, _ = m.loss(params, batch, noise=GeneratorNoise(ng),
+                          remat=True)
+        grads[bk] = torch.autograd.grad(total, leaves)
+        losses[bk] = total.detach()
+        launched[bk] = {name: fn.launches - n0[name]
+                        for name, fn in KERNELS.items()}
+    path = ("fused_matmul_nladc",) if arch == "qwen2.5-3b" else \
+        ("fused_matmul_nladc", "nladc", "moe_fused_matmul")
+    assert launched == {
+        "cuda": {name: 2 * cfg.n_layers if name in path else 0
+                 for name in KERNELS},
+        "ref": {name: 0 for name in KERNELS}}
+    torch.testing.assert_close(losses["cuda"], losses["ref"], rtol=2e-4,
+                               atol=2e-5)
+    for g, w in zip(grads["cuda"], grads["ref"]):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)

@@ -176,12 +176,13 @@ def test_init_layout_matches_jax():
     assert "lm_head" not in tp                   # tied embeddings
 
 
-@pytest.mark.parametrize("what", ["family", "mode", "int8"])
+@pytest.mark.parametrize("what", ["family", "ep_shardmap", "int8"])
 def test_outside_the_slice_raises(what):
-    """Families other than dense and moe, analog modes other than exact,
-    and the int8 cache's windowed (rolling-buffer) fallback are not
-    ported; the dense and MoE int8 caches are (tests/test_torch_moe.py,
-    tests/test_torch_flash_decode.py)."""
+    """Families other than dense and moe, expert parallelism
+    (``moe_impl="ep_shardmap"``) and the int8 cache's windowed
+    (rolling-buffer) fallback are not ported; the dense and MoE int8
+    caches are (tests/test_torch_moe.py, tests/test_torch_flash_decode.py),
+    and so are the infer and train modes (tests/test_torch_lm_forward.py)."""
     cfg = TC.get_smoke("qwen2.5-3b")
     if what == "int8":
         model = tbuild(cfg.replace(kv_cache_dtype="int8"), device="cpu")
@@ -194,8 +195,8 @@ def test_outside_the_slice_raises(what):
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=2)
         return
     cfg = {"family": cfg.replace(family="hybrid"),
-           "mode": cfg.replace(analog=dataclasses.replace(cfg.analog,
-                                                          mode="infer"))}[what]
+           "ep_shardmap": TC.get_smoke("moonshot-v1-16b-a3b").replace(
+               moe_impl="ep_shardmap")}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild(cfg, device="cpu").init_decode_state(1, 4)
 

@@ -20,6 +20,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import configs as JC
 from repro.configs.base import AnalogSpec as JSpec
@@ -233,13 +234,37 @@ def test_launcher_overrides_config_fields():
         TSERVE.parse_overrides(["n_layers"])
 
 
+def test_launcher_serves_every_analog_mode():
+    """Infer mode serves on the preset's programmed ramps, train mode on
+    the ideal ramps."""
+    kw = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+          "--requests", "2", "--max-new", "4"]
+    outs = {mode: TSERVE.main(kw + ["--analog-mode", mode,
+                                    "--analog-device", "paper-infer"])
+            for mode in ("exact", "infer", "train")}
+    assert all(o["tokens"] == 8 for o in outs.values())
+    cfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref",
+                             analog_mode="infer", analog_device="paper-infer")
+    model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
+    assert model.act.cfg.mode == "infer" and model.act.cfg.device.name \
+        == "paper-infer"
+    assert not torch.equal(model.act.adc.thresholds, TSERVE.build_lm(
+        TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref"),
+        TSERVE.resolve_device("cpu"))[0].act.adc.thresholds)
+
+
 def test_launcher_refuses_unported_modes():
+    """Expert parallelism and the engine's lifecycle (``device=``) stay
+    unported, and each refusal names its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSERVE.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                     "--analog-mode", "infer"])
-    with pytest.raises(NotImplementedError):
-        TSERVE.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                     "--analog-mode", "train"])
+        TSERVE.main(["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device",
+                     "cpu", "--override", "moe_impl=ep_shardmap",
+                     "--requests", "1", "--max-new", "1"])
+    cfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref",
+                             analog_mode="infer", analog_device="paper-infer")
+    model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TEngine(model, params, max_batch=1, max_len=8, device="paper")
 
 
 def test_launcher_reads_params_npz(tmp_path, capsys):

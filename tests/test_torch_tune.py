@@ -372,8 +372,8 @@ def test_kernel_tune_quick_on_cpu_end_to_end(tmp_path):
     assert par["banked"]["bitwise_equal"]
     assert par["moe_einsum"]["within_half_lsb"]
     assert par["attention"]["within_atol"]
-    for k in ("moe_einsum", "attention"):
-        assert par[k]["grad_max_err"] is None and par[k]["grad_note"]
+    for k in ("moe_einsum", "attention"):            # the gradient halves
+        assert 0.0 <= par[k]["grad_max_err"] <= 1e-5
     cache = TT.TuneCache.load(str(out_a))
     assert cache.lookup("nladc", (128, 512), torch.float32, CPU) == \
         tuple(res["shapes"]["nladc|128x512|float32"]["blocks"])
