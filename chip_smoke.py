@@ -68,13 +68,16 @@ Phases, one JSON line each:
               gated, as the benchmark prints it).
 5. fused_matmul — the ``fused_matmul_nladc`` kernel against its plain
               version at the serving path's shapes (4 and 1 rows, K 2048,
-              N 11008, bfloat16 x, float32 w) with one (P,) ramp and with
-              512-column threshold banks, a ragged float32 case, and the
-              training shape (M = B x S = 1024, flat and banked-512).  Codes
-              equal except where the float64 accumulator lies within the
-              float32 summation bound of a crossed threshold (the count of
-              such flips is printed); outputs equal the table at the
-              kernel's codes.
+              N 11008, bfloat16 x, float32 w: the GEMV, M <= 8) with one
+              (P,) ramp and with 512-column threshold banks, a ragged
+              float32 case (M 33: the tensor-core GEMM, x split in three
+              bfloat16 parts), and the training shape (M = B x S = 1024,
+              flat and banked-512: the GEMM).  Codes equal except where the
+              float64 accumulator lies within the float32 summation bound
+              of a crossed threshold (the count of such flips is printed);
+              outputs equal the table at the kernel's codes.  Each case's
+              bound is its route's (``matmul_bound``), the float32
+              CUDA-core bound beside it.
 6. attention — the ``prefill_attention`` kernel (one thread-block cluster
               per KV head and batch row) against its plain version at
               (B 4, H 16, Hkv 2, D 128, S 128), bfloat16 and float32, and
@@ -139,8 +142,10 @@ Phases, one JSON line each:
               routed experts' gate) and ``fused_matmul_nladc`` (the shared
               experts' gate) each 4 x 2 a step; the aux losses.
 13c. train_agreement — both families at full width, 2 layers, float32,
-              B 2 x S 32, train mode: ``cuda`` against ``ref`` on the same
-              weights and ramp draws; every NL-ADC call's outputs
+              B 2 x S 32, train mode, seed 4 (``--agreement-seeds`` runs
+              other seeds alone; the M 64 gate is the tensor-core GEMM
+              with float32 x split in three): ``cuda`` against ``ref`` on
+              the same weights and ramp draws; every NL-ADC call's outputs
               compared, on the same inputs and in free runs: those that
               differ (code flips) at most 1e-4 of them, each one level
               of the decode table apart; the loss within rtol 2e-4 /
@@ -170,22 +175,26 @@ Phases, one JSON line each:
               ``ref``, within 1e-5); each kernel of that path launches;
               then host µs per ``fused_matmul_nladc`` call at M 4 with the
               sweep's cache active against none.
-16. kernel_time — device time per call of each kernel, of its plain
+16. launch_floor — the device time of one launch of a kernel of one
+              block that writes one word (``kernels/launch_floor.py``),
+              by the profiler: what any launch costs on this card, beside
+              which the tiny cases are read.  No bound.
+    kernel_time — device time per call of each kernel, of its plain
               version and of the PyTorch call used as a yardstick
               (torch.profiler; CUDA events where three profiler sessions
-              in a row record no device time), after the main paths; the
+              in a row record no device time, or where a reading falls
+              under the launch floor or, for a kernel and its plain
+              version, under the case's bound), after the main paths; the
               same clock for the IR correction (``ir_time``: kernels
               launched per call, device ms).
-    launch_floor — the device time of one launch of a kernel of one block
-              that writes one word (``kernels/launch_floor.py``), on the
-              same clock: what any launch costs on this card, beside which
-              the tiny cases are read.  No bound.
 17. kernels — one line listing every ported kernel with its launches on
               the main paths (``lstm_gates_bwd``: on the train paths), its
               error against the plain version and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
-raises.  Without a GPU, or without the repository's ``src/repro_torch``
+raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
+``train_agreement``, for both families at each seed, and prints no
+``ok`` line.  Without a GPU, or without the repository's ``src/repro_torch``
 beside this script, it exits non-zero and prints no result.
 """
 
@@ -235,7 +244,7 @@ TRAIN_LM = dict(arch="qwen2.5-3b", batch=8, seq=128, steps=3,
                 analog_device="paper")
 TRAIN_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=4, batch=8, seq=128,
                  steps=3, analog_device="paper")
-TRAIN_AGREE = dict(n_layers=2, batch=2, seq=32)
+TRAIN_AGREE = dict(n_layers=2, batch=2, seq=32, seed=4)
 AGREE_FLIP_SHARE = 1e-4    # train_agreement: gate outputs that differ
 #                            between the backends, at most (qwen2.5-3b
 #                            showed 80 of 1409024 = 5.7e-5 on an H100)
@@ -274,16 +283,19 @@ def cuda_ms(fn, *, reps: int = 20, inner: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, *, calls: int = 50) -> tuple[float, str]:
+def device_ms(fn, *, calls: int = 50,
+              floor_ms: float = 0.0) -> tuple[float, str]:
     """Device time per call (ms) and the clock that gave it: the summed
     device time of every kernel ``fn`` launched under ``torch.profiler``
     (host time between launches is not counted), or CUDA events around
     back-to-back calls where three profiler sessions recorded no device
-    event (``repro_torch.kernels.tune.device_us``, which also makes up for
-    the events a session loses)."""
+    event or the profiler read less than ``floor_ms`` (the launch floor or
+    the call's bound, which no reading can beat)
+    (``repro_torch.kernels.tune.device_us``, which also makes up for the
+    events a session loses)."""
     from repro_torch.kernels.tune import device_us
 
-    us, clock = device_us(fn, calls=calls)
+    us, clock = device_us(fn, calls=calls, floor_us=floor_ms * 1e3)
     check(us > 0, "neither the profiler nor CUDA events timed the call")
     return us / 1e3, clock
 
@@ -556,14 +568,19 @@ def phase_fig4d(torch, dev) -> dict:
     return out
 
 
-def phase_kernel_time(case: dict, kernel, plain, library=None) -> dict:
+def phase_kernel_time(case: dict, kernel, plain, library=None,
+                      floor_ms: float = 0.0) -> dict:
     """Device time per call (torch.profiler) of a kernel, its plain version
     and, where there is one, the PyTorch call used as a yardstick.  Run
     after the main paths: once the profiler has attached in a process,
-    host launches there are slower, which would skew the step times."""
-    ms, ms_by = device_ms(kernel)
-    plain_ms, plain_by = device_ms(plain, calls=10)
-    library_ms, library_by = device_ms(library) if library else (None, None)
+    host launches there are slower, which would skew the step times.  A
+    reading under the launch floor ``floor_ms``, or for the kernel and its
+    plain version under the case's bound, is taken again by CUDA events."""
+    least = max(floor_ms, case["bound_ms"])
+    ms, ms_by = device_ms(kernel, floor_ms=least)
+    plain_ms, plain_by = device_ms(plain, calls=10, floor_ms=least)
+    library_ms, library_by = device_ms(library, floor_ms=floor_ms) \
+        if library else (None, None)
     timed_by = {"ms": ms_by, "plain_ms": plain_by, "library_ms": library_by}
     out = {"phase": "kernel_time", "case": case["case"], "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
@@ -763,18 +780,35 @@ def phase_ir_time(torch, case: dict, call) -> dict:
 
 def matmul_bound(m: int, k: int, n: int, p: int, banked: bool,
                  x_bytes: int, bias: bool) -> dict:
-    """The least time the card needs for one fused_matmul_nladc call:
-    x, w, bias, thresholds and table read once and the output written
-    once, against the 2*M*K*N multiply-adds and the M*N*P compares at the
-    float32 rate (the weight is float32, so no faster unit applies)."""
+    """The least time the card needs for one fused_matmul_nladc call on the
+    route the kernel takes: x, w, bias, thresholds and table read once and
+    the output written once, against its operations at their unit's rate.
+    At M <= 8 (the GEMV) the 2*M*K*N multiply-adds and the M*N*P compares
+    run on the float32 CUDA cores.  At M > 8 (the GEMM) each multiply-add
+    is 3 (bfloat16 x) or 9 (float32 x) exact products of bfloat16 parts on
+    the tensor cores, at the bfloat16 rate, and the compares run on the
+    CUDA cores beside them (the larger of the two times).  ``bound_f32_ms``
+    is the whole function at the float32 CUDA-core rate: a float32 SIMT
+    kernel's bound, printed beside the route's."""
+    from repro_torch.kernels.tune import GEMV_MAX_ROWS
+
     n_bytes = (x_bytes * m * k + 4 * k * n + (4 * n if bias else 0)
                + 4 * (n * p if banked else p) + 4 * (p + 1)
                + x_bytes * m * n)
-    n_ops = 2 * m * k * n + m * n * p
+    mac, cmp = 2 * m * k * n, m * n * p
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
-    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_f32 = (mac + cmp) / H100_F32_OPS_PER_S * 1e3
+    if m > GEMV_MAX_ROWS:
+        products = 3 if x_bytes == 2 else 9
+        route, n_ops = "tensor cores, bfloat16 split", mac * products + cmp
+        t_ops = max(mac * products / H100_BF16_OPS_PER_S,
+                    cmp / H100_F32_OPS_PER_S) * 1e3
+    else:
+        route, n_ops, t_ops = "float32 CUDA cores", mac + cmp, t_f32
+    return {"route": route, "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_ms": max(t_bytes, t_f32)}
 
 
 def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
@@ -1754,7 +1788,8 @@ def _level_steps(torch, adc, got, want):
     return dist.flatten(1).min(1).values.cpu()
 
 
-def phase_train_agreement(torch, dev, arch: str) -> dict:
+def phase_train_agreement(torch, dev, arch: str,
+                          seed: int = TRAIN_AGREE["seed"]) -> dict:
     """A 2-layer, full-width, float32 variant in train mode on the cuda
     and ref backends, the same weights and ramp draws (one generator
     state), three runs: cuda, ref, and ref given the cuda run's gate
@@ -1789,7 +1824,7 @@ def phase_train_agreement(torch, dev, arch: str) -> dict:
                                     "dtype": "float32"})
         models[bk] = build(cfg, dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
+    gen.manual_seed(seed)
     params = models["cuda"].init(gen)
     leaves = optim.tree_leaves(params)
     for p in leaves:
@@ -1817,7 +1852,7 @@ def phase_train_agreement(torch, dev, arch: str) -> dict:
     def run(bk, on_output):
         undo = _wrap_gates(BK.get_backend(bk), on_output)
         ng = torch.Generator(device=dev)
-        ng.manual_seed(5)
+        ng.manual_seed(seed + 1)
         try:
             total, _ = models[bk].loss(params, batch,
                                        noise=GeneratorNoise(ng), remat=False)
@@ -1833,7 +1868,7 @@ def phase_train_agreement(torch, dev, arch: str) -> dict:
                                                     gates["ref"]))
     steps = torch.cat(same_inputs["steps"])
     max_step = int(steps.max()) if steps.numel() else 0
-    out = {"phase": "train_agreement", "arch": arch,
+    out = {"phase": "train_agreement", "arch": arch, "seed": seed,
            "n_layers": TRAIN_AGREE["n_layers"], "dtype": "float32",
            "B": b, "S": s, "loss_cuda": loss_c, "loss_ref": loss_r,
            "loss_ref_on_cuda_codes": loss_rc, "leaves": len(leaves),
@@ -1898,9 +1933,27 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
             "timed_by": main_case["timed_by"], **extra}
 
 
-def main() -> int:
+def agreement_seeds(torch, dev, seeds) -> int:
+    """``--agreement-seeds``: only ``train_agreement``, both families, at
+    each of ``seeds`` (the model's weights, tokens and ramp draws; the
+    default run takes seed 4); every check as in the full run."""
+    for seed in seeds:
+        for arch in (TRAIN_LM["arch"], TRAIN_MOE["arch"]):
+            phase_train_agreement(torch, dev, arch, seed)
+            free_device(torch)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--agreement-seeds", type=int, nargs="+", metavar="SEED",
+                    help="run only train_agreement, at these seeds (one-off "
+                         "readings of the gradient agreement)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1918,6 +1971,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     flags = configure_numerics()
+    if args.agreement_seeds:
+        return agreement_seeds(torch, dev, args.agreement_seeds)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2076,21 +2131,26 @@ def main() -> int:
     tuned = phase_kernel_tune(torch, dev)
     free_device(torch)
 
-    cases = [phase_kernel_time(*c) for c in checked]
-    bwd_cases = [phase_kernel_time(*c) for c in bwd_checked]
-    fm_cases = [phase_kernel_time(*c) for c in fm_checked]
-    attn_cases = [phase_kernel_time(*c) for c in attn_checked]
-    nladc_cases = [phase_kernel_time(*c) for c in nladc_checked]
-    moe_cases = [phase_kernel_time(*c) for c in moe_checked]
-    flash_cases = [phase_kernel_time(*c) for c in flash_checked]
-    tile_cases = [phase_kernel_time(*c) for c in tile_checked]
-    train_cases = [phase_kernel_time(*c) for c in train_checked]
+    floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+
+    def timed(checked_cases):
+        return [phase_kernel_time(*c, floor_ms=floor_ms)
+                for c in checked_cases]
+
+    cases = timed(checked)
+    bwd_cases = timed(bwd_checked)
+    fm_cases = timed(fm_checked)
+    attn_cases = timed(attn_checked)
+    nladc_cases = timed(nladc_checked)
+    moe_cases = timed(moe_checked)
+    flash_cases = timed(flash_checked)
+    tile_cases = timed(tile_checked)
+    train_cases = timed(train_checked)
     fm_cases += train_cases[:2]
     moe_cases.append(train_cases[2])
     nladc_cases.append(train_cases[3])
     for case, call in irs:
         phase_ir_time(torch, case, call)
-    phase_launch_floor(torch, dev, launch_floor)
 
     main_case = cases[0]
     lstm = kernel_entry(
@@ -2123,8 +2183,8 @@ def main() -> int:
         shape={k: fm_main[k] for k in ("M", "K", "N", "P", "x_dtype",
                                        "layout")},
         per_case={c["case"]: {k: c[k] for k in (
-            "M", "layout", "ms", "plain_ms", "library_ms", "bound_ms",
-            "code_flips")} for c in fm_cases})
+            "M", "layout", "route", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_f32_ms", "code_flips")} for c in fm_cases})
     at_main = attn_cases[0]
     attention = kernel_entry(
         "prefill_attention",

@@ -7,6 +7,8 @@
 //      acc[m, n] = sum_k float(x[m, k]) * w[k, n]   (+ bias[n])     in float32
 //      out[m, n] = y_table[#{j : acc[m, n] > thr[j]}]  rounded to x's type
 //
+//    It has two kernels here, picked by M alone (M <= 8: the GEMV, M > 8:
+//    the GEMM; the wrapper's constant, no launch config picks).
 //  * src/repro/kernels/ops.py::moe_fused_matmul, the same vmapped over the
 //    experts (the MoE's routed-expert gate): out[e] = NLADC(x[e] @ w[e]),
 //    one threshold set shared by every expert.  It has a kernel of its own
@@ -19,16 +21,22 @@
 // layout).  The comparator is strict, and the decode is a lookup in the
 // ramp's y table, as the port's reference backend decodes.
 //
-// Both kernels sum in one fixed order: 16 partial sums, partial j over
-// k = j, j + 16, j + 32, ... in increasing k, then the 16 partials added in
-// the order j = 0, 1, ..., 15.  No launch config changes that order, so
-// every config, of either kernel, computes the same bits.  Products and
-// sums are written as __fmaf_rn / __fadd_rn so nvcc's --fmad choice cannot
-// change the rounding.
+// The contract (kernels/fused_matmul_nladc.py::code_flips): codes equal
+// the float32 reference's except where the float64 accumulator lies within
+// (K+1) 2^-24 (sum |x w| + |b|) of a crossed threshold.  Each kernel sums
+// every output in one fixed order that no launch config changes, so every
+// config computes the same bits.
 //
-// The dense gate.  Bound on this card: the LM's MLP gate (qwen2.5-3b,
-// K 2048, N 11008) runs with M = 4 (a decode step) or M = 1 (a prefill
-// step).  Each call then reads the 90.2 MB float32 weight once and does
+// The GEMV (M <= 8; fused_matmul_nladc_kernel) and the expert gate sum in
+// 16 partial sums, partial j over k = j, j + 16, j + 32, ... in increasing
+// k, then the 16 partials added in the order j = 0, 1, ..., 15, with
+// __fmaf_rn / __fadd_rn so nvcc's --fmad choice cannot change the
+// rounding: IEEE round-to-nearest sums, for which the bound above is
+// proven.
+//
+// The GEMV.  Bound on this card: the LM's MLP gate (qwen2.5-3b, K 2048,
+// N 11008) serves with M = 4 (a decode step) or M = 1 (a prefill step).
+// Each call then reads the 90.2 MB float32 weight once and does
 // 2*M*K*N = 180 MFLOP, so it is bound by bytes: 27 us at 3.35 TB/s,
 // against 2.7 us of float32 operations at 67 TFLOP/s.  Tensor cores would
 // not help a GEMV.  The design streams w through the card once, with
@@ -55,6 +63,62 @@
 // at run time: rows of x per block (1, 2, 4 or 8; template instances),
 // columns per block (32 or 64: one or two per lane) and the K tile staged
 // at a time (a power of two from 16 to 2048).
+//
+// The GEMM (M > 8; fused_gemm_nladc_kernel).  The LM trains with M = B x S
+// = 1024: at (1024, 2048, 11008) the GEMV would read w once per 4 rows
+// (23 GB a call).  The float32 product is 46.2 GFLOP, 0.694 ms at the
+// CUDA cores' 67 TFLOP/s (a SIMT GEMM's bound), and a tensor-core route
+// must keep its float32 result:
+//
+//   * w is split on the card, from the float32 master weight at every
+//     call (hopper.cuh::split3_pair), into three bfloat16 parts w1 + w2 +
+//     w3 = w exactly (|w| >= 2^-110); bfloat16 x is one part, float32 x
+//     splits as w does.  Every product of two parts is exact in float32,
+//     so 3 (or 9) bfloat16 wgmma products make each multiply-add:
+//     3 x 46.2 GFLOP = 0.140 ms at 989 TFLOP/s, the bound at the training
+//     shape (bytes 0.035 ms: x 4.2 MB, w 90.2 MB, out 22.5 MB);
+//   * the product is computed transposed, out^T = w^T x^T: the split w is
+//     wgmma's register-sourced A operand (split by the consumer threads
+//     from float32 tiles in shared memory, no bfloat16 copy of w is ever
+//     stored), x's parts the K-major B operand in shared memory, so a
+//     tile's accumulator row is one output column and a thread's banked
+//     thresholds are two columns' strips;
+//   * one producer warp streams every stage (64 K rows: w as 32-column
+//     float32 boxes, x's parts as rows x 64 bfloat16, both 2-D TMA boxes
+//     with the 128-byte swizzle) through a ring of up to 4 stages with
+//     mbarrier completion; one or two consumer warpgroups (64 output
+//     columns each) issue wgmma.mma_async; one persistent CTA per SM walks
+//     the tiles, x rows fastest, so the CTAs in flight share a w strip in
+//     L2 and a tile's epilogue overlaps the producer's next loads;
+//   * summation: every 32 K rows (kPromoteSteps 16-row steps, each step's
+//     3 (or 9) products smallest parts first) are summed on the tensor
+//     cores from zero, then added to a float32 register sum with
+//     __fadd_rn, in increasing K.  The tensor cores' own accumulation is
+//     not documented as IEEE round-to-nearest, so the bound above holds
+//     here by measurement, not by proof: at the training shape no flip has
+//     fallen outside it (chip_smoke.py's fused_matmul phase counts them;
+//     a flip outside it fails the run).  Summing all of K on the tensor
+//     cores flipped ten times as many codes;
+//   * the epilogue runs from the accumulator registers: bias (__fadd_rn),
+//     the strict count (one set.gt a compare) against the thread's two
+//     columns' thresholds (a banked strip of 64 columns staged in shared
+//     memory by one bulk copy per tile; an even P starts lane group q at
+//     threshold q so the groups' rows spread over the banks, as
+//     count_above's rotated start), the y table lookup, and the rounded
+//     pair stored per output row;
+//   * ragged M, N and K: TMA fills rows and columns past the edge with
+//     zeros, and no output past M or N is stored.  bfloat16 x goes to TMA
+//     as it is where K x 2 bytes is a multiple of 16 and x is 16-byte
+//     aligned; else (and for float32 x) a first launch writes its parts,
+//     K padded to a multiple of 8, to the wrapper's scratch.  Needs N a
+//     multiple of 4 and w 16-byte aligned (the TMA map's row pitch).
+//
+// Launch configs (kernels/tune.py, the M > 8 space): (rows, cols, stages)
+// = x rows a tile (64 or 128: the wgmma N), output columns a tile (64 or
+// 128: one or two consumer warpgroups) and the ring depth at most (2, 3
+// or 4; as many run as fit in 227 KB).  Two accumulator sets of rows / 2
+// floats a thread (the float32 sum and the tensor cores' step sum) are
+// why a tile holds at most 128 rows.
 //
 // The expert gate (moonshot-v1-16b-a3b: E 64, C 6, K 2048, N 1408).  Bound
 // on this card: all 64 experts' 738 MB of float32 weight, 220 us at
@@ -86,8 +150,10 @@
 //   * 16 consumer warps, warp j summing k = j, j + 16, ... of each stage
 //     against the x rows (4 or 8 columns a lane), release each stage to the
 //     producer; their partial sums meet in shared memory, are added in
-//     warp order, and the epilogue is the dense gate's.  The bits are those
-//     of the dense kernel run on each expert's slab.
+//     warp order, and the epilogue is the GEMV's.  Its bits are those of
+//     the GEMV run on each expert's slab (the GEMV's summation order at
+//     any C; the dense gate takes the GEMM above C = 8, the expert gate
+//     never).
 //
 // Launch configs for the expert gate (kernels/tune.py, resolved at the
 // per-expert (C, K, N) key): (rows, cols, tile_k) = rows of x per item
@@ -99,6 +165,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -269,6 +336,489 @@ int dispatch(const void* x, const float* w, const float* bias,
   FMN_CASE(1, 1) FMN_CASE(2, 1) FMN_CASE(4, 1) FMN_CASE(8, 1)
   FMN_CASE(1, 2) FMN_CASE(2, 2) FMN_CASE(4, 2) FMN_CASE(8, 2)
 #undef FMN_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The dense gate for M > 8: a tensor-core GEMM over the split weight
+// ---------------------------------------------------------------------------
+
+// D = A * B + (scale_d ? D : 0) on the tensor cores, for one warpgroup:
+// A the 64 x 16 bfloat16 tile in registers (four bf16x2 words a thread in
+// wgmma's register layout: rows lane/4 and lane/4 + 8 of the warp's 16, K
+// columns 2 (lane % 4) + {0, 1} and + 8), B the K-major 16 x kN bfloat16
+// tile in shared memory at descriptor `desc`, D the 64 x kN float32
+// accumulator, kN / 2 floats a thread (d[4 j + 2 h + c]: row lane/4 + 8 h
+// of the warp's 16, column 8 j + 2 (lane % 4) + c).
+template <int kN>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+
+constexpr int kTileK = 64;     // K rows a ring stage: one 128-byte row of bf16 x
+constexpr int kWgCols = 64;    // output columns a consumer warpgroup owns
+constexpr int kBoxCols = 32;   // columns of a w box: 32 float32, 128 bytes
+constexpr int kBoxBytes = kTileK * 128;
+constexpr int kTcMaxStages = 4;
+constexpr size_t kTcSmemMax = 232448;
+// 16-row K steps the tensor cores sum before one float32 add: a kernel
+// constant (it sets the summation order)
+constexpr int kPromoteSteps = 2;
+static_assert((kTileK / 16) % kPromoteSteps == 0,
+              "a ring stage holds whole promotion intervals");
+
+// x's bfloat16 parts as TMA sees them: one 2-D map a part
+struct XMaps {
+  CUtensorMap part[3];
+};
+
+// The GEMM's tiles and shared-memory layout, in bytes from the 1024-aligned
+// base (kernels/fused_matmul_nladc.py::gemm_stages mirrors it): barriers,
+// the y table, the flat thresholds, one banked threshold strip per
+// consumer warpgroup, then the ring, each stage the w boxes then the x
+// parts' tiles.
+struct TcPlan {
+  int stages, m_tiles, n_tiles, tiles;
+  uint32_t off_y, off_thr, off_strip, strip_floats, off_ring, w_bytes,
+      x_bytes, stage_bytes;
+  size_t total;  // + 1024 bytes of slack to align the base
+};
+
+inline uint32_t align_up(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
+
+inline TcPlan tc_plan(int rows, int wgs, int parts, int stages_cap, int m_dim,
+                      int n_dim, int p, bool banked) {
+  TcPlan t;
+  t.m_tiles = (m_dim + rows - 1) / rows;
+  t.n_tiles = (n_dim + kWgCols * wgs - 1) / (kWgCols * wgs);
+  t.tiles = t.m_tiles * t.n_tiles;
+  t.off_y = 128;  // full[4], empty[4], strip[2] barriers first
+  t.off_thr = align_up(t.off_y + 4u * (p + 1), 16);
+  t.off_strip = align_up(t.off_thr + 4u * p, 16);
+  t.strip_floats = banked ? (uint32_t)(kWgCols * p) : 0u;
+  t.off_ring = align_up(t.off_strip + 4u * wgs * t.strip_floats, 1024);
+  t.w_bytes = (uint32_t)(wgs * 2 * kBoxBytes);
+  t.x_bytes = (uint32_t)(rows * 128);
+  t.stage_bytes = t.w_bytes + parts * t.x_bytes;
+  const size_t used = (size_t)t.off_ring + 1024;
+  const size_t room = kTcSmemMax > used ? kTcSmemMax - used : 0;
+  t.stages = (int)(room / t.stage_bytes);
+  if (t.stages > stages_cap) t.stages = stages_cap;
+  t.total = (size_t)t.off_ring + (size_t)t.stages * t.stage_bytes + 1024;
+  return t;
+}
+
+// outputs n and n + 1 of a row (n even and N a multiple of 4: both lie
+// inside the row or neither does)
+__device__ __forceinline__ void store_pair(float* row, int n, float y0,
+                                           float y1) {
+  *reinterpret_cast<float2*>(row + n) = make_float2(y0, y1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int n,
+                                           float y0, float y1) {
+  *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(y0, y1);
+}
+
+// A thread's 8 w values of a 16-row step (rows 2t, 2t + 1, 2t + 8, 2t + 9
+// at byte offsets r0, r1 (+1024) of the step's 16 rows, each a float2 of
+// two adjacent columns), split into three parts of four bf16x2 words in
+// wgmma's A register layout
+__device__ __forceinline__ void split_w_step(const unsigned char* wk,
+                                             uint32_t r0, uint32_t r1,
+                                             uint32_t (&a)[3][4]) {
+  const float2 v0 = *reinterpret_cast<const float2*>(wk + r0);
+  const float2 v1 = *reinterpret_cast<const float2*>(wk + r1);
+  const float2 v2 = *reinterpret_cast<const float2*>(wk + 1024 + r0);
+  const float2 v3 = *reinterpret_cast<const float2*>(wk + 1024 + r1);
+  hopper::split3_pair(v0.x, v1.x, a[0][0], a[1][0], a[2][0]);
+  hopper::split3_pair(v0.y, v1.y, a[0][1], a[1][1], a[2][1]);
+  hopper::split3_pair(v2.x, v3.x, a[0][2], a[1][2], a[2][2]);
+  hopper::split3_pair(v2.y, v3.y, a[0][3], a[1][3], a[2][3]);
+}
+
+// One persistent CTA per SM walks the (x rows, output columns) tiles, x
+// rows fastest, so the CTAs in flight share a w strip in L2.  Warps
+// 0 .. 4 kWgs - 1 are the consumer warpgroups, warp 4 kWgs the producer.
+// The product is computed transposed, out^T = w^T x^T: warpgroup g's
+// wgmma A operand is the split w (64 columns by 16 K rows, from float32
+// tiles in shared memory into registers), its B operand a bf16 x part's
+// K-major tile, its 64 x kRows accumulator one output column a row.  A
+// warp's 16 A rows are the permuted columns 2 (r % 8) + r / 8, so a
+// thread's two rows are adjacent columns: its float2 loads of w and its
+// output stores are pairs.
+template <typename T, int kRows, int kWgs>
+__global__ void __launch_bounds__(128 * kWgs + 32, 1) fused_gemm_nladc_kernel(
+    const __grid_constant__ CUtensorMap w_map,
+    const __grid_constant__ XMaps x_maps, const float* __restrict__ bias,
+    const float* __restrict__ thr, const float* __restrict__ y_table,
+    T* __restrict__ out, int m_dim, int k_dim, int n_dim, int p,
+    int thr_stride, TcPlan plan) {
+  using hopper::mbar_arrive;
+  using hopper::mbar_expect_tx;
+  using hopper::mbar_init;
+  using hopper::mbar_wait;
+  constexpr int kParts = sizeof(T) == 4 ? 3 : 1;  // x's bf16 parts
+  constexpr int kCols = kWgCols * kWgs;
+  constexpr int kAcc = kRows / 2;
+  // the products of a 16-row step, smallest first: (w part i, x part j)
+  // by i + j descending (part i holds bits 8 i .. 8 i + 7 below the top):
+  // with three x parts (2,2) (2,1) (1,2) (2,0) (1,1) (0,2) (1,0) (0,1)
+  // (0,0), two bits an entry; with one, (2,0) (1,0) (0,0)
+  constexpr int kProducts = 3 * kParts;
+  constexpr uint32_t kOrderI = kParts == 3 ? 0x119Au : 0x06u;
+  constexpr uint32_t kOrderJ = kParts == 3 ? 0x4926u : 0x00u;
+  extern __shared__ unsigned char tc_smem_raw[];
+  unsigned char* smem =
+      tc_smem_raw + ((1024 - (hopper::smem_addr(tc_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // stage loaded
+  uint64_t* empty = full + kTcMaxStages;                // stage consumed
+  uint64_t* strip_bar = empty + kTcMaxStages;           // strip staged
+  float* s_y = reinterpret_cast<float*>(smem + plan.off_y);
+  float* s_thr = reinterpret_cast<float*>(smem + plan.off_thr);
+  float* s_strip = reinterpret_cast<float*>(smem + plan.off_strip);
+  unsigned char* ring = smem + plan.off_ring;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < plan.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWgs);
+    }
+    for (int g = 0; g < kWgs; ++g) mbar_init(&strip_bar[g], 1);
+    hopper::fence_mbar_init();
+  }
+  for (int i = threadIdx.x; i <= p; i += blockDim.x) s_y[i] = y_table[i];
+  if (!thr_stride)
+    for (int i = threadIdx.x; i < p; i += blockDim.x) s_thr[i] = thr[i];
+  __syncthreads();
+  const int k_tiles = (k_dim + kTileK - 1) / kTileK;
+
+  if (warp == 4 * kWgs) {
+    // the producer: every stage's w boxes and x tiles by TMA
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < plan.tiles; tile += gridDim.x) {
+        const int m0 = (tile % plan.m_tiles) * kRows;
+        const int n0 = (tile / plan.m_tiles) * kCols;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], plan.stage_bytes);
+          unsigned char* dst = ring + stage * plan.stage_bytes;
+#pragma unroll
+          for (int b = 0; b < kCols / kBoxCols; ++b)
+            hopper::tma_load_2d(dst + b * kBoxBytes, &w_map, n0 + b * kBoxCols,
+                                kt * kTileK, &full[stage]);
+#pragma unroll
+          for (int q = 0; q < kParts; ++q)
+            hopper::tma_load_2d(dst + plan.w_bytes + q * plan.x_bytes,
+                                &x_maps.part[q], kt * kTileK, m0,
+                                &full[stage]);
+          if (++stage == plan.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warp wq of warpgroup g, lane (q, t) = (lane / 4, lane % 4)
+  const int g = warp / 4, wq = warp % 4, q = lane / 4, t = lane % 4;
+  // its w pairs: columns 64 g + 16 wq + 2 q (+1) of the tile, in box
+  // 2 g + wq / 2 at column 16 (wq % 2) + 2 q; K rows 2t, 2t + 1 (+8) of
+  // each 16, their 16-byte chunk swizzled with the row (the TMA's 128-byte
+  // swizzle on a 1024-aligned box)
+  const int chunk = 4 * (wq & 1) + q / 2;
+  const uint32_t a_off = (2 * g + wq / 2) * kBoxBytes + 8 * (q & 1);
+  const uint32_t r0 = a_off + 2 * t * 128 + ((chunk ^ (2 * t)) << 4);
+  const uint32_t r1 = a_off + (2 * t + 1) * 128 + ((chunk ^ (2 * t + 1)) << 4);
+  const uint32_t ring_s = hopper::smem_addr(ring);
+  const int ng0 = kWgCols * g, nl = 16 * wq + 2 * q;
+  float* strip = s_strip + g * plan.strip_floats;
+  const int start = (thr_stride && !(p & 1)) ? q % p : 0;
+
+  int stage = 0;
+  uint32_t phase = 0, strip_phase = 0;
+  float acc[kAcc], part[kAcc];
+  for (int tile = blockIdx.x; tile < plan.tiles; tile += gridDim.x) {
+    const int m0 = (tile % plan.m_tiles) * kRows;
+    const int ng = (tile / plan.m_tiles) * kCols + ng0;
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    // every output sums its K in one order, whatever the tile or ring
+    // depth: 32 rows at a time in increasing K, each 32's products summed
+    // on the tensor cores from zero (16 rows at a time, smallest products
+    // first), then added to the float32 sum with one rounding
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = ring + stage * plan.stage_bytes;
+      const uint32_t xs = ring_s + stage * plan.stage_bytes + plan.w_bytes;
+      // a 16-row step's w parts are split while the step before it runs
+      uint32_t a[2][3][4];
+      split_w_step(st, r0, r1, a[0]);
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 16; ++kk) {
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < kProducts; ++u) {
+          const int i = (kOrderI >> (2 * u)) & 3;
+          const int j = (kOrderJ >> (2 * u)) & 3;
+          WgmmaRS<kRows>::mma(
+              part, a[kk & 1][i],
+              hopper::kmajor_sw128_desc(xs + j * plan.x_bytes + 32 * kk),
+              u > 0 || kk % kPromoteSteps);
+        }
+        hopper::wgmma_commit();
+        if (kk + 1 < kTileK / 16)
+          split_w_step(st + (kk + 1) * 16 * 128, r0, r1, a[(kk + 1) & 1]);
+        hopper::wgmma_wait<0>();
+        if (kk % kPromoteSteps == kPromoteSteps - 1) {
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == plan.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // the epilogue, from the accumulators: bias, the strict count against
+    // this thread's two columns' thresholds (a banked strip staged in
+    // shared memory by one bulk copy; an even P starts lane group q at
+    // threshold q so the 8 groups' rows spread over the banks), the table
+    const float* t0 = s_thr;
+    const float* t1 = s_thr;
+    if (thr_stride) {
+      hopper::named_sync(2 + g, 128);  // the strip's last readers are done
+      const int n_here = min(kWgCols, n_dim - ng);
+      const int nf = n_here > 0 ? n_here * p : 0;
+      const float* src = thr + (size_t)(ng < n_dim ? ng : 0) * thr_stride;
+      if (nf > 0 && nf % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+        if (threadIdx.x % 128 == 0) {
+          mbar_expect_tx(&strip_bar[g], 4u * nf);
+          hopper::bulk_load(strip, src, 4u * nf, &strip_bar[g]);
+        }
+        mbar_wait(&strip_bar[g], strip_phase);
+        strip_phase ^= 1;
+      } else {
+        for (int i = threadIdx.x % 128; i < nf; i += 128) strip[i] = src[i];
+        hopper::named_sync(2 + g, 128);
+      }
+      t0 = strip + nl * p;
+      t1 = t0 + p;
+    }
+    const int n = ng + nl;
+    const float b0 = (bias != nullptr && n < n_dim) ? bias[n] : 0.f;
+    const float b1 = (bias != nullptr && n + 1 < n_dim) ? bias[n + 1] : 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < kRows / 8; j0 += 4) {
+      float v[4][2][2];
+      int c[4][2][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          v[u][0][cc] = acc[4 * (j0 + u) + cc];
+          v[u][1][cc] = acc[4 * (j0 + u) + 2 + cc];
+          if (bias != nullptr) {
+            v[u][0][cc] = __fadd_rn(v[u][0][cc], b0);
+            v[u][1][cc] = __fadd_rn(v[u][1][cc], b1);
+          }
+          c[u][0][cc] = 0;
+          c[u][1][cc] = 0;
+        }
+      int j = start;
+      for (int jj = 0; jj < p; ++jj) {
+        const float ta = t0[j], tb = t1[j];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            c[u][0][cc] -= hopper::gt_mask(v[u][0][cc], ta);
+            c[u][1][cc] -= hopper::gt_mask(v[u][1][cc], tb);
+          }
+        j = j + 1 == p ? 0 : j + 1;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int m = m0 + 8 * (j0 + u) + 2 * t + cc;
+          if (m < m_dim && n < n_dim)
+            store_pair(out + (size_t)m * n_dim, n, s_y[c[u][0][cc]],
+                       s_y[c[u][1][cc]]);
+        }
+    }
+  }
+}
+
+// x (M, K) as kParts bfloat16 parts (kParts, M, k_pad), K padded with
+// zeros to k_pad: float32 x split as w is (three parts), bfloat16 x copied
+// (one part: a row pitch TMA takes, or an aligned base)
+template <typename T>
+__global__ void stage_x_kernel(const T* __restrict__ x,
+                               uint16_t* __restrict__ parts, int m_dim,
+                               int k_dim, int k_pad) {
+  const size_t total = (size_t)m_dim * k_pad;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t m = i / k_pad;
+    const int k = (int)(i % k_pad);
+    const float v = k < k_dim ? to_float(x[m * k_dim + k]) : 0.f;
+    if (sizeof(T) == 2) {
+      parts[i] = (uint16_t)(__float_as_uint(v) >> 16);  // v is a bfloat16
+    } else {
+      uint32_t p1, p2, p3;
+      hopper::split3_pair(v, 0.f, p1, p2, p3);
+      parts[i] = (uint16_t)p1;
+      parts[total + i] = (uint16_t)p2;
+      parts[2 * total + i] = (uint16_t)p3;
+    }
+  }
+}
+
+template <typename T, int kRows, int kWgs>
+int tc_launch(const void* x, void* x_parts, const float* w, const float* bias,
+              const float* thr, const float* y_table, void* out, int m_dim,
+              int k_dim, int n_dim, int p, int thr_stride, int stages_cap,
+              cudaStream_t stream) {
+  constexpr int kParts = sizeof(T) == 4 ? 3 : 1;
+  if (stages_cap < 2 || stages_cap > kTcMaxStages || n_dim % 4 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      (x_parts == nullptr && (kParts != 1 || ((size_t)k_dim * 2) % 16 ||
+                              reinterpret_cast<uintptr_t>(x) % 16)))
+    return (int)cudaErrorInvalidValue;
+  const TcPlan plan = tc_plan(kRows, kWgs, kParts, stages_cap, m_dim, n_dim,
+                              p, thr_stride != 0);
+  if (plan.stages < 2) return (int)cudaErrorInvalidValue;
+  const int kk = k_dim > 0 ? k_dim : 1;
+  CUtensorMap w_map;
+  {
+    const uint64_t dims[2] = {(uint64_t)n_dim, (uint64_t)kk};
+    const uint32_t box[2] = {kBoxCols, kTileK};
+    if (hopper::tensor_map_2d_sw128(w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dims,
+                                    (uint64_t)n_dim * 4, box, &w_map) != 0)
+      return (int)cudaErrorInvalidValue;
+  }
+  XMaps xm;
+  memset(&xm, 0, sizeof(xm));
+  const uint32_t xbox[2] = {kTileK, kRows};
+  if (x_parts != nullptr) {
+    const int k_pad = (kk + 7) / 8 * 8;
+    const size_t total = (size_t)m_dim * k_pad;
+    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
+                                                         : 4096);
+    stage_x_kernel<T><<<blocks, 256, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<uint16_t*>(x_parts), m_dim,
+        k_dim, k_pad);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    for (int q = 0; q < kParts; ++q) {
+      const uint64_t dims[2] = {(uint64_t)k_pad, (uint64_t)m_dim};
+      if (hopper::tensor_map_2d_sw128(
+              static_cast<uint16_t*>(x_parts) + q * total,
+              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims, (uint64_t)k_pad * 2,
+              xbox, &xm.part[q]) != 0)
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    const uint64_t dims[2] = {(uint64_t)kk, (uint64_t)m_dim};
+    if (hopper::tensor_map_2d_sw128(x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims,
+                                    (uint64_t)k_dim * 2, xbox,
+                                    &xm.part[0]) != 0)
+      return (int)cudaErrorInvalidValue;
+  }
+  const int set = hopper::func_attribute_at_least<
+      fused_gemm_nladc_kernel<T, kRows, kWgs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize>((int)plan.total);
+  if (set != 0) return set;
+  const int sms = hopper::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int grid = plan.tiles < sms ? plan.tiles : sms;
+  fused_gemm_nladc_kernel<T, kRows, kWgs>
+      <<<grid, 128 * kWgs + 32, plan.total, stream>>>(
+          w_map, xm, bias, thr, y_table, static_cast<T*>(out), m_dim, k_dim,
+          n_dim, p, thr_stride, plan);
+  return (int)cudaGetLastError();
+}
+
+// The template instance of a GEMM config (rows, cols, stages): x rows a
+// tile (64 or 128), output columns a tile (64 or 128: one or two consumer
+// warpgroups), the ring depth cap (2 to 4).
+template <typename T>
+int tc_dispatch(const void* x, void* x_parts, const float* w,
+                const float* bias, const float* thr, const float* y_table,
+                void* out, int m_dim, int k_dim, int n_dim, int p,
+                int thr_stride, int rows, int cols, int stages,
+                cudaStream_t stream) {
+#define TC_CASE(R, W)                                                       \
+  if (rows == R && cols == kWgCols * W)                                     \
+    return tc_launch<T, R, W>(x, x_parts, w, bias, thr, y_table, out,       \
+                              m_dim, k_dim, n_dim, p, thr_stride, stages,  \
+                              stream);
+  TC_CASE(64, 1) TC_CASE(64, 2) TC_CASE(128, 1) TC_CASE(128, 2)
+#undef TC_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -719,6 +1269,30 @@ int fused_matmul_nladc_launch(const void* x, const float* w,
                                    tile_k, s);
   return dispatch<float>(x, w, bias, thr, y_table, out, m_dim, k_dim, n_dim,
                          p, thr_stride, rows, cols, tile_k, s);
+}
+
+// The dense gate for M > 8 (fused_gemm_nladc_kernel) with the GEMM config
+// (rows, cols, stages).  x_parts: null to read bfloat16 x in place (K x 2
+// bytes a multiple of 16, x 16-byte aligned), else P x M x k_pad bfloat16
+// of device memory (P 3 for float32 x, 1 for bfloat16; k_pad = K rounded
+// up to 8) that the launch fills first.  Needs N a multiple of 4 and w
+// 16-byte aligned.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a config or shape the kernel does not take.
+int fused_gemm_nladc_launch(const void* x, void* x_parts, const float* w,
+                            const float* bias, const float* thr,
+                            const float* y_table, void* out, int m_dim,
+                            int k_dim, int n_dim, int p, int thr_stride,
+                            int x_bf16, int rows, int cols, int stages,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_bf16)
+    return tc_dispatch<__nv_bfloat16>(x, x_parts, w, bias, thr, y_table, out,
+                                      m_dim, k_dim, n_dim, p, thr_stride,
+                                      rows, cols, stages, s);
+  if (x_parts == nullptr) return (int)cudaErrorInvalidValue;
+  return tc_dispatch<float>(x, x_parts, w, bias, thr, y_table, out, m_dim,
+                            k_dim, n_dim, p, thr_stride, rows, cols, stages,
+                            s);
 }
 
 // The expert gate: x (E, C, K), w (E, K, N), out (E, C, N), one threshold

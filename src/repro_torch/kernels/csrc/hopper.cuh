@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the kernels of this directory: mbarrier
 // operations, bulk and tensor (TMA) copies from device memory into shared
-// memory (and a stager of small runs built on them), host-side tensor maps,
-// and the NL-ADC's comparator count and table decode on thresholds held in
-// registers.
+// memory (and a stager of small runs built on them), host-side tensor maps
+// (2-D with a 128-byte swizzle, 3-D without), warpgroup matrix-multiply
+// (wgmma) fences and shared-memory descriptors, the exact three-way
+// bfloat16 split of a float32, and the NL-ADC's comparator count and table
+// decode on thresholds held in registers.
 //
 // A tensor map is encoded by the driver's cuTensorMapEncodeTiled, found in
 // the loaded driver library with dlopen, so a kernel library needs neither
@@ -87,6 +89,77 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// the box of a 2-D tensor map at (c0, c1) into this CTA's shared memory
+// (1024-aligned for a 128-byte swizzle), completing on `bar`;
+// out-of-bounds elements are 0
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads) by `threads`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma: the fence before a warpgroup's first matrix multiply that reads
+// registers written since, the commit of the issued ones as a group, and
+// the wait until at most kPending groups are in flight
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// The wgmma descriptor of a K-major bfloat16 operand at shared address
+// `addr` in the layout a 2-D TMA box of 64 K elements (128 bytes) a row
+// writes with the 128-byte swizzle: rows 128 bytes apart, groups of 8 rows
+// 1024 bytes apart (the stride byte offset), the swizzle mode in bits
+// 62-63.  The K step of 16 elements is +32 bytes on `addr` inside the
+// 1024-aligned atom (the hardware swizzles on the address bits).
+__device__ __forceinline__ uint64_t kmajor_sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// The exact three-way bfloat16 split of float32 values: v = h1 + h2 + h3,
+// each part the next 8 significant bits, by truncation (round toward
+// zero), so the top part cannot round up to infinity at +-FLT_MAX.  The
+// residuals v - h1 and r1 - h2 are exact float32 subtractions.  Exact for
+// |v| >= 2^-110 and for 0 (below, bits under bfloat16's smallest
+// subnormal, 2^-133, are lost); +-inf and NaN go whole into h1 (the
+// residual v - h1 is NaN there and is replaced by 0).
+// kernels/ref.py::split_bf16x3 is the same split in torch.
+__device__ __forceinline__ float trunc16(float v) {  // the top 16 bits
+  return __uint_as_float(__float_as_uint(v) & 0xFFFF0000u);
+}
+__device__ __forceinline__ float split_residual(float v) {
+  const float r = __fsub_rn(v, trunc16(v));
+  return r == r ? r : 0.f;
+}
+
+// (lo, hi) -> three bfloat16x2 words, lo in the low half of each
+__device__ __forceinline__ void split3_pair(float lo, float hi, uint32_t& p1,
+                                            uint32_t& p2, uint32_t& p3) {
+  asm("cvt.rz.bf16x2.f32 %0, %1, %2;" : "=r"(p1) : "f"(hi), "f"(lo));
+  const float rl = split_residual(lo), rh = split_residual(hi);
+  p2 = __byte_perm(__float_as_uint(rl), __float_as_uint(rh), 0x7632);
+  const float sl = __fsub_rn(rl, trunc16(rl));
+  const float sh = __fsub_rn(rh, trunc16(rh));
+  p3 = __byte_perm(__float_as_uint(sl), __float_as_uint(sh), 0x7632);
 }
 
 // kP thresholds at `src` into registers: 16-byte loads where `src` is
@@ -176,6 +249,14 @@ __device__ __forceinline__ void load_rotated(float (&t)[kP], const float* src,
   }
 }
 
+// -1 where x > t, else 0 (NaN compares false): one set.gt, so a count is a
+// subtraction a compare
+__device__ __forceinline__ int gt_mask(float x, float t) {
+  int m;
+  asm("set.gt.s32.f32 %0, %1, %2;" : "=r"(m) : "f"(x), "f"(t));
+  return m;
+}
+
 // #{k : x > t[k]} over kP thresholds in registers: each compare is one
 // set.gt (-1 or 0; NaN compares false), summed as a tree in groups of 8, so
 // no compare waits on the one before it.  The count is an integer sum, so it
@@ -230,17 +311,18 @@ inline EncodeTiled encode_tiled() {
 
 struct MapKey {
   const void* base;
-  int type;
+  int type, rank, swizzle;
   uint64_t dims[3], strides[2];
   uint32_t box[3];
 };
 
-// The 3-D tensor map of `base` (dims innermost first; byte strides of dims
-// 1 and 2) with a `box`, no swizzle, out-of-bounds reads as zeros.
-// Returns 0, or a nonzero CUresult.
-inline int tensor_map_3d(const void* base, CUtensorMapDataType type,
-                         const uint64_t dims[3], const uint64_t strides[2],
-                         const uint32_t box[3], CUtensorMap* out) {
+// The tensor map of `base` of rank 2 or 3 (dims innermost first; byte
+// strides of dims 1 and 2) with a `box` and a swizzle mode, out-of-bounds
+// reads as zeros.  Returns 0, or a nonzero CUresult.
+inline int tensor_map(int rank, const void* base, CUtensorMapDataType type,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box, CUtensorMapSwizzle swizzle,
+                      CUtensorMap* out) {
   constexpr int kCache = 256;
   static MapKey keys[kCache];
   static CUtensorMap maps[kCache];
@@ -249,9 +331,10 @@ inline int tensor_map_3d(const void* base, CUtensorMapDataType type,
   memset(&key, 0, sizeof(key));
   key.base = base;
   key.type = static_cast<int>(type);
-  for (int i = 0; i < 3; ++i) key.dims[i] = dims[i], key.box[i] = box[i];
-  key.strides[0] = strides[0];
-  key.strides[1] = strides[1];
+  key.rank = rank;
+  key.swizzle = static_cast<int>(swizzle);
+  for (int i = 0; i < rank; ++i) key.dims[i] = dims[i], key.box[i] = box[i];
+  for (int i = 0; i < rank - 1; ++i) key.strides[i] = strides[i];
   // a serving step asks for its layers' maps in the order it first made
   // them, so the scan starts after the last hit
   static int last = -1;
@@ -265,14 +348,14 @@ inline int tensor_map_3d(const void* base, CUtensorMapDataType type,
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
-  const cuuint64_t s[2] = {strides[0], strides[1]};
-  const cuuint32_t b[3] = {box[0], box[1], box[2]};
+  const cuuint64_t d[3] = {key.dims[0], key.dims[1], key.dims[2]};
+  const cuuint64_t s[2] = {key.strides[0], key.strides[1]};
+  const cuuint32_t b[3] = {key.box[0], key.box[1], key.box[2]};
   const cuuint32_t e[3] = {1, 1, 1};
   CUtensorMap map;
   const CUresult res = encode(
-      &map, type, 3, const_cast<void*>(base), d, s, b, e,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      &map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d,
+      s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return static_cast<int>(res);
   keys[next] = key;
@@ -282,6 +365,24 @@ inline int tensor_map_3d(const void* base, CUtensorMapDataType type,
   if (n_cached < kCache) ++n_cached;
   *out = map;
   return 0;
+}
+
+// The 3-D tensor map of `base` with a `box`, no swizzle.
+inline int tensor_map_3d(const void* base, CUtensorMapDataType type,
+                         const uint64_t dims[3], const uint64_t strides[2],
+                         const uint32_t box[3], CUtensorMap* out) {
+  return tensor_map(3, base, type, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE, out);
+}
+
+// The 2-D tensor map of `base` (dims innermost first; the byte stride of
+// dim 1) with a `box` of at most 128 bytes a row, the 128-byte swizzle:
+// the layout a wgmma descriptor reads (kmajor_sw128_desc).
+inline int tensor_map_2d_sw128(const void* base, CUtensorMapDataType type,
+                               const uint64_t dims[2], uint64_t stride,
+                               const uint32_t box[2], CUtensorMap* out) {
+  return tensor_map(2, base, type, dims, &stride, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B, out);
 }
 
 // Sets attribute kAttr of kernel kKernel on the current device to `value`

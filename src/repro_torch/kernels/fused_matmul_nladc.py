@@ -1,4 +1,4 @@
-"""Matmul with a fused NL-ADC epilogue as a CUDA kernel, dense and per
+"""Matmul with a fused NL-ADC epilogue as CUDA kernels, dense and per
 expert.
 
 Replaces the TPU kernel
@@ -12,32 +12,50 @@ over the experts of a MoE layer (:func:`moe_fused_matmul`: one launch of
 a kernel of its own, persistent CTAs that stream the experts' weights
 through a TMA ring and read no weight of an expert whose capacity rows
 are all zero; one threshold set for every expert).
-Like the Pallas kernel it promotes both operands to float32 and quantizes
-the float32 accumulator; it decodes by a lookup in the ramp's
-``y_table``, as the reference backend does.  Both kernels
-(``csrc/fused_matmul_nladc.cu``) are bound by the bytes of the weight at
-the serving path's GEMV shapes; the source says how they stream them.
+Like the Pallas kernel it quantizes a float32 accumulator of the float32
+product; it decodes by a lookup in the ramp's ``y_table``, as the
+reference backend does.
 
-Its summation order is not the plain version's, so an accumulator within
+The dense gate has two kernels (``csrc/fused_matmul_nladc.cu``), picked by
+M alone (``tune.GEMV_MAX_ROWS``, 8; no launch config picks):
+
+* M <= 8, serving's decode and prefill steps: a GEMV on the float32 CUDA
+  cores, bound by the bytes of the weight, which it streams once;
+* M > 8, training's M = B x S: a GEMM on the tensor cores.  The float32
+  weight is split on the card at every call into three bfloat16 parts
+  that sum to it exactly (:func:`~repro_torch.kernels.ref.split_bf16x3`),
+  float32 x likewise (bfloat16 x is one part), so 3 (or 9) exact bfloat16
+  products make each float32 multiply-add; every 32 K rows' products
+  are summed on the tensor cores and added to a float32 sum with one
+  rounding.  bfloat16 x whose rows are not a multiple of 16 bytes (or
+  whose base is not 16-byte aligned), and float32 x, are first written as
+  bfloat16 parts to a scratch tensor of the call.  It needs N a multiple
+  of 4 and w 16-byte aligned, or it raises.
+
+Both sum in another order than the plain version, so an accumulator within
 float32 rounding of a threshold may land on the other side of it: the
 contract is equal codes except where the float64 accumulator lies within
 the float32 summation error bound ``(K+1) * 2**-24 * (sum|x*w| + |b|)`` of
 a threshold between the two codes (:func:`accumulator_bound`,
-:func:`code_flips`).
+:func:`code_flips`).  The GEMV sums with IEEE round-to-nearest, for which
+the bound is proven; the tensor cores' accumulation inside 32 K rows
+is not documented as such, so for the GEMM the bound holds by the card's
+measurement.
 
 :func:`fused_matmul_nladc` and :func:`moe_fused_matmul` send CPU tensors
 to their plain versions (:func:`fused_matmul_nladc_plain`,
-:func:`moe_fused_matmul_plain`) and CUDA tensors to the kernel; anything
-else raises.  Each keeps its own count of kernel launches in
-``.launches``.  A launch takes its config from
+:func:`moe_fused_matmul_plain`) and CUDA tensors to the kernels; anything
+else raises.  Each keeps its own count of calls that launched its kernel
+in ``.launches``.  A launch takes its config from
 :mod:`repro_torch.kernels.tune` at the call's ``(M, K, N)``, the expert
 gate at its per-expert ``(C, K, N)`` as the JAX package's vmapped gate
-does.  For the dense gate the config is (rows, columns, K tile) of a
-block, by default 4 rows, 32 columns and a K tile of 512; for the expert
-gate it is (rows, columns, K tile) of a work item, by default 8 capacity
-rows, a 128-column strip and 64 K rows a ring stage
-(:func:`expert_gate_stages`).  Every config of either computes the same
-bits.
+does.  For the GEMV the config is (rows, columns, K tile) of a block, by
+default 4 rows, 32 columns and a K tile of 512; for the GEMM (x rows,
+output columns, ring stages at most) of a tile, by default 128, 128 and 4
+(:func:`gemm_stages`); for the expert gate (rows, cols, K tile) of a work
+item, by default 8 capacity rows, a 128-column strip and 64 K rows a ring
+stage (:func:`expert_gate_stages`).  Every config of each computes the
+same bits.
 """
 
 from __future__ import annotations
@@ -51,16 +69,17 @@ from repro_torch.kernels import _build, tune
 from repro_torch.kernels.ref import (fused_matmul_nladc_plain,
                                     moe_fused_matmul_plain)
 
-_GRID_Y_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 _SMEM_MAX = 232448           # bytes of shared memory a CTA can use
+_GEMM_WG_COLS = 64           # csrc: kWgCols, output columns a warpgroup
+_GEMM_BOX_BYTES = 64 * 128   # csrc: kBoxBytes, a w box of a ring stage
 _GATE_WARPS = 16             # csrc: kGateWarps, the K split
 _GATE_MAX_STAGES = 8         # csrc: kGateMaxStages
 _GATE_PART_OUTPUTS = 256     # csrc: kPartOutputs
 
 __all__ = ["accumulator_bound", "code_flips", "expert_gate_stages",
-           "fused_matmul_nladc", "fused_matmul_nladc_plain", "library",
-           "moe_fused_matmul", "moe_fused_matmul_plain"]
+           "fused_matmul_nladc", "fused_matmul_nladc_plain", "gemm_stages",
+           "library", "moe_fused_matmul", "moe_fused_matmul_plain"]
 
 
 def accumulator_bound(x, w, bias=None):
@@ -133,6 +152,9 @@ def library() -> ctypes.CDLL:
     lib.fused_matmul_nladc_launch.argtypes = [ctypes.c_void_p] * 6 + \
         [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.fused_matmul_nladc_launch.restype = ctypes.c_int
+    lib.fused_gemm_nladc_launch.argtypes = [ctypes.c_void_p] * 7 + \
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.fused_gemm_nladc_launch.restype = ctypes.c_int
     lib.moe_fused_matmul_launch.argtypes = [ctypes.c_void_p] * 6 + \
         [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.moe_fused_matmul_launch.restype = ctypes.c_int
@@ -145,34 +167,55 @@ def fused_matmul_nladc(x, w, bias, thr, y_table, *, blocks=None):
     """``NLADC(f32(x) @ w + bias)`` in x.dtype.  x: (M, K) float32 or
     bfloat16; w: (K, N) float32; bias: (N,) float32 or None; thr: (P,) or
     per-column (N, P) float32; y_table: (P+1,) float32; ``blocks``: a
-    launch config ``(rows, cols, k_tile)`` in place of the tune seam's.
+    launch config in place of the tune seam's, ``(rows, cols, k_tile)``
+    for M <= 8 (the GEMV), ``(rows, cols, stages)`` for M > 8 (the GEMM).
 
     CPU tensors take :func:`fused_matmul_nladc_plain`; CUDA tensors launch
-    the kernel on the current stream, and a refused launch raises.
+    the kernel M picks on the current stream, and a refused launch raises.
     """
     m_dim, k_dim, n_dim, p = _check(x, w, bias, thr, y_table)
     if x.device.type == "cpu":
         return fused_matmul_nladc_plain(x, w, bias, thr, y_table)
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_nladc: no kernel for {x.device}")
-    rows, cols, k_tile = tune.launch_config(
+    blocks = tune.launch_config(
         "fused_matmul_nladc", (m_dim, k_dim, n_dim), x.dtype, x.device,
         blocks)
-    if -(-m_dim // rows) > _GRID_Y_MAX:
-        raise ValueError(f"fused_matmul_nladc: {m_dim} rows exceed the "
-                         f"grid's {_GRID_Y_MAX * rows}")
+    gemm = m_dim > tune.GEMV_MAX_ROWS
+    parts = 3 if x.dtype == torch.float32 else 1
+    if gemm and (n_dim % 4 or w.data_ptr() % 16):
+        raise ValueError(f"fused_matmul_nladc: the tensor-core path (M > "
+                         f"{tune.GEMV_MAX_ROWS}) reads w by TMA: N must be a "
+                         f"multiple of 4 and w 16-byte aligned; got N "
+                         f"{n_dim}")
+    if gemm and gemm_stages(blocks, p, thr.dim() == 2, parts) < 2:
+        raise ValueError(f"fused_matmul_nladc: config {blocks} at P {p} "
+                         f"leaves no room for two ring stages in a CTA's "
+                         f"shared memory")
     out = torch.empty((m_dim, n_dim), dtype=x.dtype, device=x.device)
     if m_dim == 0 or n_dim == 0:
         return out
     lib = library()
+    args = (w.data_ptr(), bias.data_ptr() if bias is not None else None,
+            thr.data_ptr(), y_table.data_ptr(), out.data_ptr(), m_dim, k_dim,
+            n_dim, p, p if thr.dim() == 2 else 0,
+            int(x.dtype == torch.bfloat16), *blocks)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_matmul_nladc_launch(
-            x.data_ptr(), w.data_ptr(),
-            bias.data_ptr() if bias is not None else None,
-            thr.data_ptr(), y_table.data_ptr(), out.data_ptr(),
-            m_dim, k_dim, n_dim, p, p if thr.dim() == 2 else 0,
-            int(x.dtype == torch.bfloat16), rows, cols, k_tile, stream)
+        if gemm:
+            # bfloat16 x goes to TMA as it is where its rows and base are
+            # 16-byte aligned; else the launch first writes its parts here
+            staged = None
+            if parts == 3 or (2 * k_dim) % 16 or x.data_ptr() % 16:
+                k_pad = -(-max(k_dim, 1) // 8) * 8
+                staged = torch.empty((parts, m_dim, k_pad),
+                                     dtype=torch.bfloat16, device=x.device)
+            err = lib.fused_gemm_nladc_launch(
+                x.data_ptr(),
+                staged.data_ptr() if staged is not None else None, *args,
+                stream)
+        else:
+            err = lib.fused_matmul_nladc_launch(x.data_ptr(), *args, stream)
     if err != 0:
         raise RuntimeError(f"fused_matmul_nladc kernel launch failed: "
                            f"{lib.cuda_error_string(err).decode()}")
@@ -183,8 +226,25 @@ def fused_matmul_nladc(x, w, bias, thr, y_table, *, blocks=None):
 fused_matmul_nladc.launches = 0
 
 
-def _align128(v: int) -> int:
-    return (v + 127) // 128 * 128
+def _align(v: int, to: int = 128) -> int:
+    return (v + to - 1) // to * to
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_stages(blocks, p: int, banked: bool, parts: int) -> int:
+    """The ring stages the M > 8 GEMM runs with config ``blocks`` (rows,
+    cols, stages at most) at P (``csrc: tc_plan``): what is left of a CTA's
+    227 KB after the barriers, the table, the flat thresholds and (banked)
+    one 64-column threshold strip per consumer warpgroup, in stages of
+    cols / 32 float32 w boxes (64 K rows of 32 columns) and ``parts``
+    bfloat16 x tiles of rows x 64.  The kernel needs at least 2."""
+    rows, cols, cap = blocks
+    wgs = cols // _GEMM_WG_COLS
+    off_strip = _align(_align(128 + 4 * (p + 1), 16) + 4 * p, 16)
+    strip = _GEMM_WG_COLS * p if banked else 0
+    off_ring = _align(off_strip + 4 * wgs * strip, 1024)
+    stage = wgs * 2 * _GEMM_BOX_BYTES + parts * rows * 128
+    return min(max(_SMEM_MAX - off_ring - 1024, 0) // stage, cap)
 
 
 @functools.lru_cache(maxsize=256)   # a serve step asks for one shape
@@ -198,12 +258,12 @@ def expert_gate_stages(blocks, e_dim: int, c_dim: int, k_dim: int, p: int,
     float32 weights, at most 8.  The kernel needs at least 2."""
     rows, cols, k_tile = blocks
     r2 = min(_GATE_PART_OUTPUTS // cols, rows)
-    off_code = _align128(256 + 4 * (2 * p + 1))
-    off_units = _align128(off_code + 4 * cols)
-    off_part = _align128(off_units + 4 * e_dim * -(-c_dim // rows))
-    off_x = _align128(off_part + 4 * _GATE_WARPS * r2 * cols)
-    off_ring = off_x + 2 * _align128(rows * k_dim * elem) \
-        + (2 * _align128(4 * cols * p) if banked else 0)
+    off_code = _align(256 + 4 * (2 * p + 1))
+    off_units = _align(off_code + 4 * cols)
+    off_part = _align(off_units + 4 * e_dim * -(-c_dim // rows))
+    off_x = _align(off_part + 4 * _GATE_WARPS * r2 * cols)
+    off_ring = off_x + 2 * _align(rows * k_dim * elem) \
+        + (2 * _align(4 * cols * p) if banked else 0)
     room = max(_SMEM_MAX - off_ring, 0)
     return min(room // (4 * k_tile * cols), _GATE_MAX_STAGES)
 
@@ -232,7 +292,8 @@ def _check_moe(x, w, thr, y_table):
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"moe_fused_matmul: x (E, C, d) and w (E, d, f) do "
                          f"not match: {tuple(x.shape)}, {tuple(w.shape)}")
-    # the per-expert (C, d) @ (d, f) slabs obey the dense kernel's rules
+    # the per-expert (C, d) @ (d, f) slabs obey the dense gate's operand
+    # rules
     _check(x[0], w[0], None, thr, y_table)
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():

@@ -8,7 +8,8 @@ The two agree on every code and differ by float rounding only.
 
 :func:`fma_f32` is the LSTM tail's cell-update contract,
 ``c' = fma(f, c, i*a)`` with one rounding, shared by every torch path that
-computes ``c'``.
+computes ``c'``.  :func:`split_bf16x3` is the dense gate's exact three-way
+bfloat16 split of its float32 operands at M > 8 (the tensor-core route).
 
 :func:`nladc_plain`, :func:`fused_matmul_nladc_plain`,
 :func:`moe_fused_matmul_plain`, :func:`prefill_attention_plain` and
@@ -164,6 +165,35 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.float()
+
+
+def _trunc16(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` with its low 16 bits cleared: the bfloat16 of ``v``
+    rounded toward zero, as a float32."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+def split_bf16x3(w: torch.Tensor):
+    """The M > 8 dense gate's split of a float32 tensor into three bfloat16
+    parts, ``w == h1 + h2 + h3`` (``csrc/hopper.cuh::split3_pair``): each
+    part the next 8 significant bits, cut by truncation (round toward zero,
+    so the top part cannot round up to infinity at +-FLT_MAX), the
+    residuals exact float32 subtractions.  Then every product of a part
+    with a bfloat16 is exact in float32.
+
+    The sum is exact for ``|w| >= 2**-110`` and for 0: below, the bits under
+    bfloat16's smallest subnormal (2**-133) are lost from the third part.
+    +-inf and NaN go whole into ``h1`` (the residual ``w - h1`` is NaN there
+    and is replaced by 0), so they stay inf and NaN.
+    """
+    w = w.float().contiguous()
+    t1 = _trunc16(w)
+    h1 = torch.where(torch.isnan(w), w, t1)    # cvt.rz keeps a NaN a NaN
+    r1 = w - t1
+    r1 = torch.where(torch.isnan(r1), torch.zeros_like(r1), r1)
+    t2 = _trunc16(r1)
+    t3 = _trunc16(r1 - t2)
+    return h1.bfloat16(), t2.bfloat16(), t3.bfloat16()
 
 
 def lstm_gates(gates: torch.Tensor, c: torch.Tensor, sig_ramp: Ramp,

@@ -9,12 +9,19 @@ not its TPU cost model.  A tuple names a CUDA kernel's launch config:
 ====================  =====================  ================================
 kernel                tuple                  meaning
 ====================  =====================  ================================
-fused_matmul_nladc    (rows, cols, k_tile)   rows of x per block (1, 2, 4 or
-                                             8), output columns per block
-                                             (32 or 64: one or two a lane),
-                                             K columns of x staged in shared
+fused_matmul_nladc    (rows, cols, k_tile)   M <= 8 (the GEMV): rows of x
+                                             per block (1, 2, 4 or 8),
+                                             output columns per block (32
+                                             or 64: one or two a lane), K
+                                             columns of x staged in shared
                                              memory at a time (a power of
                                              two, 16 to 2048)
+  M > 8               (rows, cols, stages)   the tensor-core GEMM: rows of x
+                                             a tile (64 or 128), output
+                                             columns a tile (64 or 128: one
+                                             or two consumer warpgroups),
+                                             TMA ring stages at most (2, 3
+                                             or 4; as many run as fit)
   the expert gate     (rows, cols, k_tile)   capacity rows per work item (1,
                                              2, 4 or 8), columns per weight
                                              strip (128 or 256), K rows per
@@ -35,11 +42,13 @@ lstm_gates            (rows, threads)        batch rows a thread takes (1, 2
                                              batch rows
 ====================  =====================  ================================
 
-Every config of a kernel computes the same bits: the matmul kernels keep
-their K split fixed (16 warps, warp w summing k = w, w + 16, ... in order,
-the partial sums added in warp order), which no config above changes, and
-the elementwise kernels compute each element on its own.  The sweep checks
-it: each candidate's output digest must equal the default config's.
+Every config of a kernel computes the same bits: the SIMT matmul kernels
+keep their K split fixed (16 warps, warp w summing k = w, w + 16, ... in
+order, the partial sums added in warp order), the tensor-core GEMM sums
+each output's K in increasing 32-row steps whatever its tile or ring, no
+config above changes either, and the elementwise kernels compute each
+element on its own.  The sweep checks it: each candidate's output digest
+must equal the default config's.
 
 * :class:`TuneCache` -- best configs per shape, JSON (``version`` 1), keyed
   ``kernel|MxKxN|dtype|platform|mode``: the platform is ``sm_90`` (from the
@@ -53,8 +62,9 @@ it: each candidate's output digest must equal the default config's.
       3. the active cache (:func:`set_active_cache`, ``--kernel-cache``);
       4. the cache at the ``REPRO_TORCH_KERNEL_CACHE`` env var's path;
       5. the kernel's current constants (:data:`DEFAULT_BLOCKS`;
-         :data:`EXPERT_GATE_BLOCKS` for the grouped expert gate): a miss
-         launches the kernel's default config.
+         :data:`EXPERT_GATE_BLOCKS` for the grouped expert gate,
+         :data:`GEMM_BLOCKS` for the dense gate at M > 8): a miss launches
+         the kernel's default config (:func:`default_for`).
 
   The env vars carry the port's prefix, as ``REPRO_TORCH_BACKEND`` does, so
   a process that imports both packages never shares them with ``repro``.
@@ -67,12 +77,17 @@ it: each candidate's output digest must equal the default config's.
   process that changes one calls :func:`configure` after it.
 * :func:`launch_config` -- the resolved tuple made one the kernel can
   launch (:func:`supported`); a tuple that had to change raises a one-time
-  :class:`KernelBlockClampWarning` and is noted on the active cache.
+  :class:`KernelBlockClampWarning` and is noted on the active cache.  At
+  M > 8 the dense gate's tuple means the GEMM's (rows, cols, stages): a
+  tuple of the GEMV's meaning (rows <= 8), as a cache from before the GEMM
+  holds for such shapes, is rejected for the GEMM's default with the same
+  one-time warning; any other tuple is clamped.
 * :func:`autotune` / :func:`autotune_kernel` -- the sweep.  On the card
   (``measure="wall"``) every candidate runs on seeded inputs and is timed
   by device time per call after a warm-up (:func:`device_us`: the
   profiler's kernel time, the clock ``chip_smoke.py`` reports; CUDA events
-  where three profiler sessions record nothing); on the CPU (``"proxy"``)
+  where three profiler sessions record nothing, or where a reading falls
+  under the launch floor, which no launch beats); on the CPU (``"proxy"``)
   candidates are ranked by a deterministic static score, so the cache
   bytes repeat.  A candidate that fails to launch, or computes other bits,
   fails the sweep.
@@ -86,7 +101,10 @@ own default and its own rules: the wrapper and the sweep name it by one
 argument, ``experts`` > 0, to :func:`launch_config`, :func:`supported`,
 :func:`candidates` and :func:`proxy_score`.  So an entry written for the
 earlier grouped kernel (32 or 64 columns, K tiles up to 2048) still loads
-and is clamped, with the one-time warning, to the config nearest it.
+and is clamped, with the one-time warning, to the config nearest it.  The
+dense gate's two kernels are told apart by the shape alone: M above
+:data:`GEMV_MAX_ROWS` is the GEMM's (its space, default and rules, through
+``shape`` to :func:`supported` and the shape to the others).
 """
 
 from __future__ import annotations
@@ -115,6 +133,12 @@ DEFAULT_BLOCKS: Dict[str, Tuple[int, ...]] = {
 }
 # moe_fused_matmul: 8 capacity rows, a 128-column strip, 64 K rows a stage
 EXPERT_GATE_BLOCKS = (8, 128, 64)
+# fused_matmul_nladc takes its GEMV for M <= GEMV_MAX_ROWS and its
+# tensor-core GEMM above: the shape picks the kernel, no config does
+GEMV_MAX_ROWS = 8
+# the GEMM's (x rows a tile, output columns a tile, ring stages at most)
+GEMM_BLOCKS = (128, 128, 4)
+_GEMM_ROWS, _GEMM_COLS, _GEMM_STAGES = (64, 128), (64, 128), (2, 3, 4)
 
 _MATMUL_ROWS = {"fused_matmul_nladc": (1, 2, 4, 8), "analog_tile": (4, 8, 16)}
 _MATMUL_COLS = (32, 64)
@@ -147,6 +171,24 @@ def default_blocks(kernel: str) -> Tuple[int, ...]:
     except KeyError:
         raise KeyError(f"unknown tunable kernel {kernel!r}; "
                        f"known: {sorted(DEFAULT_BLOCKS)}") from None
+
+
+def _gemm(kernel: str, shape, experts: int = 0) -> bool:
+    """Whether ``shape`` takes the dense gate's tensor-core GEMM."""
+    return (kernel == "fused_matmul_nladc" and not experts
+            and shape is not None and int(shape[0]) > GEMV_MAX_ROWS)
+
+
+def default_for(kernel: str, shape=None, experts: int = 0
+                ) -> Tuple[int, ...]:
+    """The default config of the kernel that ``shape`` launches: the
+    expert gate's with ``experts`` > 0, the GEMM's for the dense gate at
+    M > 8, else :func:`default_blocks`."""
+    if experts and kernel == "fused_matmul_nladc":
+        return EXPERT_GATE_BLOCKS
+    if _gemm(kernel, shape):
+        return GEMM_BLOCKS
+    return default_blocks(kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -387,13 +429,19 @@ def _floor_multiple(v: int, unit: int, top: int) -> int:
     return min(max(unit, v // unit * unit), top)
 
 
-def supported(kernel: str, blocks: Sequence[int],
-              experts: int = 0) -> Tuple[int, ...]:
+def supported(kernel: str, blocks: Sequence[int], experts: int = 0, *,
+              shape=None) -> Tuple[int, ...]:
     """The launch config nearest ``blocks`` that the kernel takes: each
     extent rounded down to a value it has (a template instance, a power of
     two or a multiple of 32) and into its range.  ``experts`` > 0: the
-    grouped expert gate's rules."""
+    grouped expert gate's rules; a dense gate ``shape`` with M > 8: the
+    GEMM's."""
     blocks = tuple(int(b) for b in blocks)
+    if _gemm(kernel, shape, experts):
+        rows, cols, stages = blocks
+        return (_floor_choice(rows, _GEMM_ROWS),
+                _floor_choice(cols, _GEMM_COLS),
+                _floor_choice(stages, _GEMM_STAGES))
     if experts and kernel == "fused_matmul_nladc":
         rows, cols, k_tile = blocks
         return (_floor_choice(rows, _GATE_ROWS),
@@ -421,37 +469,44 @@ def launch_config(kernel: str, shape: Tuple[int, ...], dtype, device,
     :func:`resolve_blocks`, made :func:`supported`, a change warning once.
     ``experts`` > 0: the grouped expert gate over that many experts at the
     per-expert ``shape`` (its default :data:`EXPERT_GATE_BLOCKS` and its
-    rules).  Memoized like :func:`resolve_blocks`; ``shape`` is a tuple of
-    ints."""
+    rules).  The dense gate at M > 8: the GEMM's default and rules, and a
+    GEMV tuple (rows <= 8) is rejected for the GEMM's default.  Memoized
+    like :func:`resolve_blocks`; ``shape`` is a tuple of ints."""
     if blocks is not None:
         blocks = tuple(blocks)
     gate = bool(experts)
     key = (kernel, shape, dtype, device, blocks, gate)
     cfg = _LAUNCH.get(key)
     if cfg is None:
+        default = default_for(kernel, shape, experts)
         raw = blocks if blocks is not None else resolve_blocks(
-            kernel, shape, dtype, device,
-            default=EXPERT_GATE_BLOCKS if gate else None)
-        cfg = supported(kernel, raw, experts)
-        if cfg != raw:
-            warn_clamp(kernel, shape, raw, cfg, dtype, device)
+            kernel, shape, dtype, device, default=default)
+        if _gemm(kernel, shape, experts) and raw[0] <= GEMV_MAX_ROWS:
+            cfg = default
+            warn_clamp(kernel, shape, raw, cfg, dtype, device,
+                       "rejected (a GEMV config: at M > 8 a tuple is the "
+                       "GEMM's (rows, cols, stages)) for the GEMM's default")
+        else:
+            cfg = supported(kernel, raw, experts, shape=shape)
+            if cfg != raw:
+                warn_clamp(kernel, shape, raw, cfg, dtype, device)
         _LAUNCH[key] = cfg
     return cfg
 
 
 def warn_clamp(kernel: str, shape: Sequence[int], requested: Sequence[int],
                clamped: Sequence[int], dtype=torch.float32,
-               device=None) -> None:
-    """One-time warning (per kernel x shape x request) on a clamped config;
-    the applied config is also noted on the active cache, so a re-recorded
-    cache ships the config that ran."""
+               device=None, what: str = "clamped to") -> None:
+    """One-time warning (per kernel x shape x request) on a clamped (or
+    rejected) config; the applied config is also noted on the active
+    cache, so a re-recorded cache ships the config that ran."""
     key = (kernel, tuple(int(d) for d in shape),
            tuple(int(b) for b in requested))
     if key not in _WARNED:
         _WARNED.add(key)
         warnings.warn(
-            f"{kernel}: requested launch config {tuple(requested)} clamped "
-            f"to {tuple(clamped)} for shape {tuple(shape)}: tune this shape "
+            f"{kernel}: requested launch config {tuple(requested)} {what} "
+            f"{tuple(clamped)} for shape {tuple(shape)}: tune this shape "
             f"(python -m repro_torch.launch.kernel_tune) or pass a config "
             f"the kernel takes", KernelBlockClampWarning, stacklevel=3)
     cache = active_cache()
@@ -480,12 +535,17 @@ def candidates(kernel: str, shape: Sequence[int],
     past the smallest value that covers the shape, and K tiles past the
     smallest that covers the shape's K, would repeat a config's work and
     are left out.  ``experts`` > 0: the expert gate's configs (its own
-    rules and default)."""
+    rules and default); the dense gate at M > 8: the GEMM's."""
     def upto(values, size):
         cover = [v for v in values if v >= size]
         return sorted({v for v in values if v < size} |
                       ({min(cover)} if cover else set()))
 
+    if _gemm(kernel, shape, experts):
+        m, k, n = shape
+        cands = {(r, c, s) for r in upto(_GEMM_ROWS, m)
+                 for c in upto(_GEMM_COLS, n) for s in _GEMM_STAGES}
+        return sorted(cands | {GEMM_BLOCKS})
     if experts and kernel == "fused_matmul_nladc":
         m, k, n = shape
         cands = {(r, c, t) for r in upto(_GATE_ROWS, m)
@@ -514,7 +574,9 @@ def proxy_score(kernel: str, shape: Sequence[int], blocks: Sequence[int],
     column block; the elementwise tensor with its padding) times a small
     per-block and per-K-tile overhead.  Not a performance claim: the card
     times the candidates.  ``experts`` > 0 scores the expert gate's work
-    items over that many experts, walked by one CTA per SM."""
+    items over that many experts, walked by one CTA per SM; the dense gate
+    at M > 8 its GEMM's tiles (w read once per row tile, x once per column
+    tile)."""
     if experts and kernel == "fused_matmul_nladc":
         m, k, n = shape
         rows, cols, k_tile = blocks
@@ -524,6 +586,13 @@ def proxy_score(kernel: str, shape: Sequence[int], blocks: Sequence[int],
         items = experts * row_blocks * strips
         rounds = -(-items // _SMS)
         return moved * (1.0 + 0.01 * rounds) * (1.0 + 0.01 * -(-k // k_tile))
+    if _gemm(kernel, shape):
+        m, k, n = shape
+        rows, cols, stages = blocks
+        row_tiles, col_tiles = -(-m // rows), -(-n // cols)
+        moved = row_tiles * 4.0 * k * n + col_tiles * 2.0 * k * m
+        waves = -(-(row_tiles * col_tiles) // _SMS)
+        return moved * (1.0 + 0.01 * waves) * (1.0 + 0.01 / stages)
     if kernel in _MATMUL_ROWS:
         m, k, n = shape
         rows, cols, k_tile = blocks
@@ -617,7 +686,21 @@ def kernel_fn(kernel: str, experts: int = 0):
     raise KeyError(kernel)
 
 
-def device_us(fn, *, calls: int = 20, tries: int = 3) -> Tuple[float, str]:
+def events_us(fn, calls: int = 20) -> float:
+    """µs per call of ``fn`` by CUDA events around ``calls`` back-to-back
+    calls (host gaps between launches count)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return 1e3 * start.elapsed_time(end) / calls
+
+
+def device_us(fn, *, calls: int = 20, tries: int = 3,
+              floor_us: float = 0.0) -> Tuple[float, str]:
     """Device time per call of ``fn`` in µs after a warm-up, from
     ``torch.profiler``: each kernel's median time over the events the
     session recorded, times its launches per call (its event count over
@@ -626,8 +709,11 @@ def device_us(fn, *, calls: int = 20, tries: int = 3) -> Tuple[float, str]:
     and now and then records an event with a broken duration: a plain sum
     over ``calls`` read up to 5% low, and one case half its time.  After
     ``tries`` sessions without a device event, CUDA events around
-    back-to-back calls (host gaps then count).  Returns the time and the
-    clock (``"profiler"`` or ``"cuda_events"``)."""
+    back-to-back calls (:func:`events_us`).  A profiler reading under
+    ``floor_us`` (the launch floor, or the least time the work can take)
+    cannot be right: CUDA events time the call instead.  Returns the time
+    and the clock (``"profiler"``, ``"cuda_events"``, or
+    ``"cuda_events: profiler read <us> under <floor_us>"``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -645,26 +731,25 @@ def device_us(fn, *, calls: int = 20, tries: int = 3) -> Tuple[float, str]:
                 kernels.setdefault(e.name, []).append(e.self_device_time_total)
         us = sum(statistics.median(d) * round(len(d) / calls)
                  for d in kernels.values())
-        if us > 0:
+        if us >= floor_us and us > 0:
             return us, "profiler"
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return 1e3 * start.elapsed_time(end) / calls, "cuda_events"
+        if us > 0:
+            return (events_us(fn, calls),
+                    f"cuda_events: profiler read {us:.4g} under "
+                    f"{floor_us:.4g}")
+    return events_us(fn, calls), "cuda_events"
 
 
 def autotune_kernel(kernel: str, shape: Sequence[int], dtype=torch.float32,
                     *, cache: TuneCache, measure: Optional[str] = None,
-                    device=None, experts: int = 0, calls: int = 20) -> dict:
+                    device=None, experts: int = 0, calls: int = 20,
+                    floor_us: float = 0.0) -> dict:
     """Sweep the candidates of one kernel x shape and record the winner.
 
     ``measure``: ``"wall"`` runs every candidate on the card, holds its
     output digest to the default config's (a mismatch or a failed launch
-    raises) and times it (:func:`device_us`); ``"proxy"`` ranks by
+    raises) and times it (:func:`device_us`, a reading under ``floor_us``
+    timed again by CUDA events); ``"proxy"`` ranks by
     :func:`proxy_score`.  ``None`` takes ``"wall"`` on a CUDA device and
     ``"proxy"`` on the CPU.  ``experts`` > 0 sweeps the grouped expert
     gate over that many per-expert ``shape`` slabs, from its own default.
@@ -678,7 +763,7 @@ def autotune_kernel(kernel: str, shape: Sequence[int], dtype=torch.float32,
         raise ValueError("measure='wall' times the card; it needs a CUDA "
                          "device")
     shape = tuple(int(d) for d in shape)
-    default = EXPERT_GATE_BLOCKS if experts else default_blocks(kernel)
+    default = default_for(kernel, shape, experts)
     cands = sorted(set(candidates(kernel, shape, experts)) | {default})
     extra = {"default": list(default), "candidates": len(cands)}
     if experts:
@@ -695,7 +780,7 @@ def autotune_kernel(kernel: str, shape: Sequence[int], dtype=torch.float32,
                     f"{kernel} {shape}: config {blocks} computes digest "
                     f"{got}, the default {default} {want}")
             timed[blocks] = device_us(lambda b=blocks: fn(*args, blocks=b),
-                                      calls=calls)
+                                      calls=calls, floor_us=floor_us)
         best = min(cands, key=lambda b: (timed[b][0], b))
         extra.update(source="measured", us=timed[best][0],
                      default_us=timed[default][0], digest=want,
@@ -730,7 +815,9 @@ def autotune(shapes: Dict[str, Iterable], dtype=torch.float32, *,
              measure: Optional[str] = None, device=None,
              calls: int = 20) -> TuneCache:
     """Sweep ``{kernel: [shape, (shape, dtype) or (shape, dtype,
-    experts), ...]}`` into a (new or given) cache."""
+    experts), ...]}`` into a (new or given) cache.  On the card every
+    reading under the launch floor (:func:`launch_floor_us`) is timed again
+    by CUDA events."""
     device = _device(device)
     if cache is None:
         meta = {"platform": platform(device),
@@ -738,8 +825,21 @@ def autotune(shapes: Dict[str, Iterable], dtype=torch.float32, *,
         if device.type == "cuda":
             meta["device_name"] = torch.cuda.get_device_name(device)
         cache = TuneCache(meta=meta)
+    wall = (measure or ("wall" if device.type == "cuda" else "proxy")) \
+        == "wall"
+    floor = launch_floor_us(device) if wall else 0.0
     for kernel, shape_list in sorted(shapes.items()):
         for shape, dt, experts in shape_entries(shape_list, dtype):
             autotune_kernel(kernel, shape, dt, cache=cache, measure=measure,
-                            device=device, experts=experts, calls=calls)
+                            device=device, experts=experts, calls=calls,
+                            floor_us=floor)
     return cache
+
+
+def launch_floor_us(device) -> float:
+    """Device µs of one launch of the one-block kernel that writes one word
+    (``kernels/launch_floor.py``), by the profiler: no launch takes less."""
+    from repro_torch.kernels.launch_floor import launch_floor
+
+    word = torch.zeros(1, dtype=torch.int32, device=device)
+    return device_us(lambda: launch_floor(word))[0]

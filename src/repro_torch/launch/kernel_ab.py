@@ -26,8 +26,10 @@ The cases, all from seeded inputs made on the card:
   moonshot expert gate's shape (E 64, C 6, K 2048, N 1408, bfloat16 x,
   float32 w, 31 flat thresholds) with every expert live, and with 17
   experts live (1 to 6 rows each; the other rows are +-0);
-* ``dense_gate``: ``fused_matmul_nladc`` at qwen2.5-3b's MLP gate
-  (4, 2048, 11008), bfloat16 x;
+* ``dense_gate`` / ``dense_gate_prefill`` / ``dense_gate_train``:
+  ``fused_matmul_nladc`` at qwen2.5-3b's MLP gate, bfloat16 x, at a decode
+  step's (4, 2048, 11008) and a prefill step's M 1 (the GEMV, M <= 8) and
+  at the training shape M = B x S = 1024 (the tensor-core GEMM);
 * ``flash_serve`` / ``flash_gqa``: ``flash_decode_int8`` at
   ``chip_smoke.py``'s shapes, bfloat16 q: moonshot's serving shape (B 4,
   H = Hkv = 16, D 128, S 128, full rows) and a GQA case (Hkv 2, lengths
@@ -200,8 +202,11 @@ def _cases(torch, dev):
 
     xd = randn(4, 2048).bfloat16()
     wd = randn(2048, 11008) / math.sqrt(2048)
-    cases["dense_gate"] = lambda: fmn.fused_matmul_nladc(xd, wd, None, thr,
-                                                         y_table)
+    xs = {"dense_gate": xd, "dense_gate_prefill": randn(1, 2048).bfloat16(),
+          "dense_gate_train": randn(1024, 2048).bfloat16()}
+    for name, x in xs.items():
+        cases[name] = (lambda x=x: fmn.fused_matmul_nladc(x, wd, None, thr,
+                                                          y_table))
 
     for name, b, h, bank_cols in (("lstm_ptb_flat", 16, 2016, 0),
                                   ("lstm_ptb_banked", 16, 2016, 512),

@@ -77,12 +77,14 @@ SHAPES_FULL = {
     "lstm_gates": [(32, 128), (128, 512)],
 }
 # the shapes and dtypes the port's main paths launch: qwen2.5-3b's MLP gate
-# (decode and prefill), moonshot's expert gate (per expert, timed as the
-# grouped launch over its 64 experts), the MoE router and the MLP width,
-# the PTB LSTM tail, and the PTB gate crossbar as one tile
+# (decode, prefill and training, M = B x S = 1024: the tensor-core GEMM),
+# moonshot's expert gate (per expert, timed as the grouped launch over its
+# 64 experts), the MoE router and the MLP width, the PTB LSTM tail, and
+# the PTB gate crossbar as one tile
 SHAPES_MAIN = {
     "fused_matmul_nladc": [((4, 2048, 11008), BF16),
                            ((1, 2048, 11008), BF16),
+                           ((1024, 2048, 11008), BF16),
                            ((6, 2048, 1408), BF16, 64)],
     "nladc": [((4, 64), BF16), ((4, 11008), BF16)],
     "lstm_gates": [(16, 2016)],

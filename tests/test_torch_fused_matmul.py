@@ -18,7 +18,13 @@ rounding of a threshold may cross it on one side only.  The contract:
 
 The JAX codes come from the same kernel run with a counting ramp (the
 same thresholds, ``y(n) = n``): the silu ramp's table repeats a value, so
-codes cannot be read back from decoded outputs.
+codes cannot be read back from decoded outputs.  M > 8 (a shape the card
+sends to the tensor-core GEMM) is among the cases.
+
+The GEMM's operands on the card are the exact three-way bfloat16 split of
+float32 w (and of float32 x): its torch mirror, ``ref.split_bf16x3``, is
+held to exactness in float64 here, and every product of parts to float32
+exactness, so the card's sum differs from a float32 sum only in its order.
 """
 
 import dataclasses
@@ -33,7 +39,7 @@ from repro.kernels import ops as JOPS
 from repro_torch.core import backend as TBK
 from repro_torch.core import nladc as TN
 from repro_torch.kernels import fused_matmul_nladc as TFM
-from repro_torch.kernels.ref import thermometer_count
+from repro_torch.kernels.ref import split_bf16x3, thermometer_count
 
 VALUE_RTOL = 2.0 ** -23
 MAX_FLIP_SHARE = 0.01
@@ -75,7 +81,7 @@ def _torch_args(x, w, b, thr_t, ramp, x_dtype):
 
 
 CASES = [(m, k, n, name, dt, bias, tiles)
-         for (m, k, n) in [(33, 40, 24), (4, 64, 160)]
+         for (m, k, n) in [(33, 40, 24), (4, 64, 160), (130, 96, 200)]
          for name in ("sigmoid", "silu")
          for dt in ("float32", "bfloat16")
          for bias, tiles in [(False, 0), (True, 0), (True, 16)]]
@@ -175,6 +181,7 @@ def test_library_declares_pointer_arguments(monkeypatch):
     fake = SimpleNamespace(
         fused_matmul_nladc_launch=SimpleNamespace(argtypes=None,
                                                   restype=None),
+        fused_gemm_nladc_launch=SimpleNamespace(argtypes=None, restype=None),
         moe_fused_matmul_launch=SimpleNamespace(argtypes=None, restype=None),
         cuda_error_string=SimpleNamespace(argtypes=None, restype=None))
     monkeypatch.setattr(TFM._build, "load", lambda name: fake)
@@ -183,9 +190,101 @@ def test_library_declares_pointer_arguments(monkeypatch):
     assert fn.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
+    # the tensor-core path (M > 8): x, its staged parts, w, bias, thr,
+    # y_table, out; 9 ints; the stream
+    fn = lib.fused_gemm_nladc_launch
+    assert fn.argtypes == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
     # the grouped expert gate shares the library
     fn = lib.moe_fused_matmul_launch
     assert fn.argtypes == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
     assert lib.cuda_error_string.restype is ctypes.c_char_p
+
+
+def _f32_bits(bits):
+    return torch.tensor(np.asarray(bits, np.uint32).view(np.int32)).view(
+        torch.float32)
+
+
+def _split_cases():
+    rng = np.random.default_rng(21)
+    normal = rng.normal(0, 1, 4096)
+    exps = np.arange(-110, 128)
+    mant = 1 + rng.random(exps.size)
+    # values halfway between two bfloat16 (round-to-nearest ties) from
+    # 2**-110 up, and the largest float32, whose nearest bfloat16 is
+    # infinity
+    ties = (rng.integers(0x0880, 0x7F00, 512, dtype=np.uint32) << 16) | 0x8000
+    scaled = np.concatenate([normal * 1e-30, normal * 1e30])
+    return {
+        "normal": torch.tensor(normal, dtype=torch.float32),
+        "scaled": torch.tensor(scaled[np.abs(scaled) >= 2.0 ** -110],
+                               dtype=torch.float32),
+        "signed_zeros": torch.tensor([0.0, -0.0]),
+        "powers_of_two": torch.tensor(np.concatenate([2.0 ** exps,
+                                                      -(2.0 ** exps)]),
+                                      dtype=torch.float32),
+        "down_to_2^-110": torch.tensor(np.ldexp(mant, exps) * np.where(
+            exps % 2, 1, -1), dtype=torch.float32),
+        "bf16_ties": torch.cat([_f32_bits(ties), -_f32_bits(ties)]),
+        "float32_max": torch.tensor([3.4028234663852886e38,
+                                     -3.4028234663852886e38, 3.3961e38]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_split_cases()))
+def test_split_bf16x3_sums_to_w_exactly(case):
+    """w == h1 + h2 + h3 exactly in float64, each part a bfloat16 of at most
+    8 significant bits, the parts in decreasing magnitude."""
+    w = _split_cases()[case]
+    h = split_bf16x3(w)
+    assert all(p.dtype == torch.bfloat16 for p in h)
+    total = h[0].double() + h[1].double() + h[2].double()
+    assert torch.equal(total, w.double())
+    assert torch.all(h[1].double().abs() <= h[0].double().abs())
+    assert torch.all(h[2].double().abs() <= h[1].double().abs())
+
+
+def test_split_bf16x3_exactness_ends_below_2_to_the_minus_110():
+    """Under 2**-110 the third part cannot hold the last bits: they are
+    below bfloat16's smallest subnormal, 2**-133, and are lost."""
+    w = torch.tensor([2.0 ** -111 * (1 + 2.0 ** -23)], dtype=torch.float32)
+    h = split_bf16x3(w)
+    err = float((h[0].double() + h[1].double() + h[2].double()
+                 - w.double()).abs())
+    assert 0 < err < 2.0 ** -133
+
+
+def test_split_bf16x3_keeps_inf_and_nan():
+    w = torch.cat([torch.tensor([float("inf"), -float("inf"), float("nan")]),
+                   _f32_bits([0x7F800001, 0xFFC00000])])   # NaN payloads
+    h1, h2, h3 = split_bf16x3(w)
+    assert torch.equal(h1[:2].float(), w[:2])
+    assert torch.isnan(h1[2:]).all()
+    assert torch.equal(h2.float(), torch.zeros(5)) and \
+        torch.equal(h3.float(), torch.zeros(5))
+    total = h1.double() + h2.double() + h3.double()
+    assert torch.equal(total[:2], w[:2].double())
+    assert torch.isnan(total[2:]).all()
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_split_products_are_exact_in_float32(x_dtype):
+    """Every product of a bfloat16 part of x with one of w is exact in
+    float32 (8 x 8 significant bits), and the products sum exactly to
+    x * w: the GEMM's 3 (bfloat16 x) or 9 (float32 x) products a
+    multiply-add lose nothing before the accumulation."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.normal(0, 1, 4096), dtype=torch.float32).to(x_dtype)
+    w = torch.tensor(rng.normal(0, 0.05, 4096), dtype=torch.float32)
+    xs = split_bf16x3(x.float()) if x_dtype == torch.float32 else (x,)
+    total = torch.zeros(4096, dtype=torch.float64)
+    for xp in xs:
+        for wp in split_bf16x3(w):
+            prod32 = xp.float() * wp.float()
+            assert torch.equal(prod32.double(), xp.double() * wp.double())
+            total += prod32.double()
+    assert torch.equal(total, x.double() * w.double())

@@ -9,7 +9,13 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   float64 accumulator lies within the float32 summation bound of a crossed
   threshold (at most 1% of outputs); its outputs are the table at its
   codes.  SMOKE shapes and the serving path's (4 and 1 rows, K 2048,
-  N 11008), flat and banked thresholds, float32 and bfloat16 x.
+  N 11008), flat and banked thresholds, float32 and bfloat16 x; at M > 8
+  (the tensor-core GEMM) the SMOKE (33, 40, 24), and in bfloat16 (64,
+  2048, 11008), a ragged (130, 300, 1000) (x staged: K x 2 bytes is no
+  multiple of 16) and the training shape (1024, 2048, 11008).  Every GEMM
+  config computes the default's bits; at M <= 8 (the GEMV) the outputs
+  are the bits the GEMV computed before the GEMM existed (stored crc32
+  digests).
 * ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
   bfloat16, ragged masks with a row that sees a single slot, at a SMOKE
   shape and the serving path's, S not a multiple of the cluster's split,
@@ -116,6 +122,12 @@ MATMUL_CASES = [(m, k, n, name, dt, bias, tiles)
                 for name in ("sigmoid", "silu")
                 for dt in (torch.float32, torch.bfloat16)
                 for bias, tiles in [(False, 0), (True, 16), (False, 512)]]
+# the tensor-core GEMM (M > 8) at the LM's widths, bfloat16 x
+MATMUL_CASES += [(m, k, n, name, torch.bfloat16, bias, tiles)
+                 for (m, k, n) in [(64, 2048, 11008), (130, 300, 1000),
+                                   (1024, 2048, 11008)]
+                 for name in ("sigmoid", "silu")
+                 for bias, tiles in [(False, 0), (True, 16), (False, 512)]]
 
 
 @pytest.mark.cuda
@@ -151,6 +163,82 @@ def test_fused_matmul_kernel_matches_plain(m, k, n, name, dtype, bias,
     acc, bound = TFM.accumulator_bound(x, w, b)
     flips, unexplained = TFM.code_flips(nk, n_plain, acc, bound, thr)
     assert unexplained == 0 and flips <= MAX_FLIP_SHARE * nk.numel()
+
+
+def _matmul_inputs(m, k, n, name, dtype, bias, tile_cols, seed):
+    """Seeded numpy inputs of one fused-matmul call, on the CPU: x (M, K)
+    in ``dtype``, w (K, N), bias or None, (P,) or banked (N, P)
+    thresholds, the ramp's y table."""
+    rng = np.random.default_rng(seed)
+    ramp = TN.build_ramp(name, 5)
+    x = torch.tensor(rng.normal(0, 1.0, (m, k)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(0, 2.0 / np.sqrt(k), (k, n)),
+                     dtype=torch.float32)
+    b = torch.tensor(rng.normal(0, 0.5, (n,)), dtype=torch.float32) \
+        if bias else None
+    thr = torch.tensor(ramp.thresholds, dtype=torch.float32)
+    if tile_cols and n > tile_cols:
+        bm = TN.bank_map_for(n, tile_cols)
+        banks = thr[None] + torch.tensor(
+            rng.normal(0, 0.03, (bm.n_banks, 1)), dtype=torch.float32)
+        thr = TN.BankedThresholds(banks, bm).per_column.contiguous()
+    y_table = torch.tensor(ramp.y_table, dtype=torch.float32)
+    return x.to(dtype), w, b, thr, y_table
+
+
+# The GEMV's (M <= 8) output digests (kernels/tune.py::digest, crc32 of the
+# float32 bytes) on _matmul_inputs(*case, seed=3), computed by the GEMV as
+# it was before the M > 8 GEMM was added, on an H100: its bits must not move
+GEMV_DIGESTS = {
+    "1-2048-11008-silu-bfloat16-nobias-0": "8d88086a",
+    "2-40-24-sigmoid-bfloat16-nobias-0": "a2894e6a",
+    "3-300-1000-silu-float32-bias-0": "69d779b0",
+    "4-2048-11008-silu-bfloat16-nobias-0": "890cd848",
+    "4-2048-11008-silu-bfloat16-nobias-512": "91925c2f",
+    "8-64-160-sigmoid-float32-bias-16": "946d9d4b",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GEMV_DIGESTS))
+def test_gemv_rows_keep_their_earlier_bits(case):
+    dev = _card()
+    m, k, n, name, dtype, bias, tiles = case.split("-")
+    args = _matmul_inputs(int(m), int(k), int(n), name,
+                          getattr(torch, dtype), bias == "bias", int(tiles),
+                          seed=3)
+    args = [a.to(dev) if a is not None else None for a in args]
+    n0 = TFM.fused_matmul_nladc.launches
+    out = TFM.fused_matmul_nladc(*args)
+    assert TFM.fused_matmul_nladc.launches == n0 + 1
+    assert TT.digest(out) == GEMV_DIGESTS[case]
+
+
+GEMM_CONFIG_CASES = [(1024, 2048, 11008, "silu", torch.bfloat16, False, 512),
+                     (130, 300, 1000, "sigmoid", torch.bfloat16, True, 16),
+                     (130, 300, 1000, "silu", torch.float32, True, 0),
+                     (64, 2048, 11008, "silu", torch.float32, False, 512),
+                     (33, 40, 24, "silu", torch.float32, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,name,dtype,bias,tile_cols",
+                         GEMM_CONFIG_CASES)
+def test_every_gemm_config_computes_the_default_bits(m, k, n, name, dtype,
+                                                     bias, tile_cols):
+    """Every (rows, cols, stages) of the M > 8 GEMM gives the default
+    config's bits: each output sums its K in one order whatever the tile
+    or the ring depth."""
+    dev = _card()
+    args = [a.to(dev) if a is not None else None for a in _matmul_inputs(
+        m, k, n, name, dtype, bias, tile_cols, seed=m + n)]
+    shape = (m, k, n)
+    want = TFM.fused_matmul_nladc(*args, blocks=TT.GEMM_BLOCKS)
+    cands = TT.candidates("fused_matmul_nladc", shape)
+    assert len(cands) > 1 and all(c[0] >= 64 for c in cands)
+    for blocks in cands:
+        got = TFM.fused_matmul_nladc(*args, blocks=blocks)
+        assert torch.equal(got, want), blocks
 
 
 def _bf16_ulp(a):
@@ -725,8 +813,7 @@ def test_every_tune_candidate_computes_the_default_bits(kernel, shape,
     fn = TT.kernel_fn(kernel, experts)
     args = TT.kernel_inputs(kernel, shape, dtype, dev, seed=3,
                             experts=experts)
-    default = TT.EXPERT_GATE_BLOCKS if experts else \
-        TT.default_blocks(kernel)
+    default = TT.default_for(kernel, shape, experts)
     want = TT.as_tuple(fn(*args, blocks=default))
     cands = TT.candidates(kernel, shape, experts)
     assert len(cands) > 1
@@ -778,6 +865,8 @@ def test_cache_miss_launches_the_default_config():
         assert TT.launch_config("fused_matmul_nladc", (6, 64, 160),
                                 torch.float32, dev,
                                 experts=8) == (8, 128, 64)
+        assert TT.launch_config("fused_matmul_nladc", (1024, 2048, 11008),
+                                torch.bfloat16, dev) == TT.GEMM_BLOCKS
         assert TT.platform(dev).startswith("sm_")
     finally:
         TT._reset_for_tests()

@@ -226,10 +226,16 @@ def test_clamp_warns_once_and_notes_the_cache(kernel, requested, applied):
     ("nladc", (4, 64)), ("nladc", (1024, 2048)),
     ("lstm_gates", (16, 2016)), ("lstm_gates", (7, 32))])
 def test_candidates_are_supported_and_hold_the_default(kernel, shape):
+    """Each candidate is one the kernel the shape launches takes, the
+    default among them: the dense gate at M > 8 launches the tensor-core
+    GEMM, whose third extent is a ring depth (2 to 4), not a K tile."""
     cands = TT.candidates(kernel, shape)
-    assert TT.default_blocks(kernel) in cands and cands == sorted(cands)
-    assert all(TT.supported(kernel, c) == c for c in cands)
-    if kernel in ("fused_matmul_nladc", "analog_tile"):
+    assert TT.default_for(kernel, shape) in cands and cands == sorted(cands)
+    assert all(TT.supported(kernel, c, shape=shape) == c for c in cands)
+    if kernel == "fused_matmul_nladc" and shape[0] > TT.GEMV_MAX_ROWS:
+        assert all(c[2] in (2, 3, 4) for c in cands)
+    elif kernel in ("fused_matmul_nladc", "analog_tile"):
+        assert TT.default_for(kernel, shape) == TT.default_blocks(kernel)
         assert all(c[2] >= 16 and c[2] & (c[2] - 1) == 0 for c in cands)
 
 
@@ -297,6 +303,88 @@ def test_expert_gate_candidates_are_its_own(shape, n_cands):
     assert all(TT.supported("fused_matmul_nladc", c, experts=64) == c
                for c in cands)
     assert cands != TT.candidates("fused_matmul_nladc", shape)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 33, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_shape_picks_the_dense_gate_space(m, dtype):
+    """M <= 8 launches the GEMV with its (rows, cols, k_tile) and default;
+    M > 8 the tensor-core GEMM with its (rows, cols, stages) and default,
+    whatever the dtype.  No config picks the kernel."""
+    shape = (m, 2048, 11008)
+    gemm = m > TT.GEMV_MAX_ROWS
+    want = TT.GEMM_BLOCKS if gemm else TT.default_blocks("fused_matmul_nladc")
+    assert TT.default_for("fused_matmul_nladc", shape) == want
+    assert TT.launch_config("fused_matmul_nladc", shape, dtype, CPU) == want
+    cands = TT.candidates("fused_matmul_nladc", shape)
+    assert want in cands
+    if gemm:
+        assert {c[0] for c in cands} == {64, 128}
+        assert {c[2] for c in cands} == {2, 3, 4}
+        # a tuple of the GEMM's space clamps under the GEMM's rules
+        assert TT.supported("fused_matmul_nladc", (256, 96, 9),
+                            shape=shape) == (128, 64, 4)
+    else:
+        assert {c[0] for c in cands} <= {1, 2, 4, 8}
+        assert TT.supported("fused_matmul_nladc", (256, 96, 9),
+                            shape=shape) == (8, 64, 16)
+    # the expert gate keeps its own space at any C
+    assert TT.launch_config("fused_matmul_nladc", shape, dtype, CPU,
+                            experts=64) == TT.EXPERT_GATE_BLOCKS
+
+
+@pytest.mark.parametrize("requested,applied,what", [
+    ((8, 64, 1024), TT.GEMM_BLOCKS, "rejected"),     # a GEMV sweep's entry
+    ((4, 32, 512), TT.GEMM_BLOCKS, "rejected"),      # the GEMV's default
+    ((256, 96, 9), (128, 64, 4), "clamped"),
+    ((64, 128, 2), (64, 128, 2), None)])
+def test_a_gemv_cache_entry_at_m_above_8_is_rejected(requested, applied,
+                                                     what):
+    """A cache from before the GEMM holds GEMV tuples (rows of x 1-8) for
+    M > 8 shapes: such an entry is rejected, with the one-time warning, for
+    the GEMM's default, never launched under the GEMM's meaning; a tuple
+    of the GEMM's meaning is clamped into its space."""
+    shape = (1024, 2048, 11008)
+    cache = _cache_with("fused_matmul_nladc", shape, requested,
+                        dtype=torch.bfloat16)
+    TT.set_active_cache(TT.TuneCache.from_dict(
+        json.loads(json.dumps(cache.to_dict()))))
+
+    def dense():
+        return TT.launch_config("fused_matmul_nladc", shape, torch.bfloat16,
+                                CPU)
+
+    if what is None:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert dense() == applied
+        return
+    with pytest.warns(TT.KernelBlockClampWarning, match=what):
+        assert dense() == applied
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert dense() == applied
+    e = TT.active_cache().entries[TT.cache_key(
+        "fused_matmul_nladc", shape, torch.bfloat16, device=CPU)]
+    assert e["clamped"] == {"requested": list(requested),
+                            "applied": list(applied)}
+
+
+def test_gemm_stages_fit_the_shared_memory():
+    """Every GEMM candidate leaves at least two ring stages at P 32, flat
+    and banked, bfloat16 x (one part) and float32 x (three); the default
+    runs four stages for bfloat16 x, two for float32."""
+    from repro_torch.kernels import fused_matmul_nladc as TFM
+
+    assert TFM.gemm_stages(TT.GEMM_BLOCKS, 32, False, 1) == 4
+    assert TFM.gemm_stages(TT.GEMM_BLOCKS, 32, True, 1) == 4
+    assert TFM.gemm_stages(TT.GEMM_BLOCKS, 32, True, 3) == 2
+    for c in TT.candidates("fused_matmul_nladc", (1024, 2048, 11008)):
+        for banked in (False, True):
+            for parts in (1, 3):
+                assert 2 <= TFM.gemm_stages(c, 32, banked, parts) <= c[2]
+    # a 256-column ramp's strips leave no room for two float32-x stages
+    assert TFM.gemm_stages(TT.GEMM_BLOCKS, 256, True, 3) < 2
 
 
 def test_expert_gate_stages_fit_the_shared_memory():
@@ -385,6 +473,9 @@ def test_kernel_tune_full_grid_holds_the_main_paths_shapes():
     assert ((128, 256, 256), torch.float32, 0) in shapes["analog_tile"]
     assert ((6, 2048, 1408), torch.bfloat16, 64) in \
         shapes["fused_matmul_nladc"]
+    # qwen2.5-3b's MLP gate at the training shape, M = B x S: the GEMM
+    assert ((1024, 2048, 11008), torch.bfloat16, 0) in \
+        shapes["fused_matmul_nladc"]
     assert ((16, 2016), torch.float32, 0) in shapes["lstm_gates"]
     assert "analog_tile" not in kernel_tune.sweep_shapes(False)
 
@@ -445,6 +536,37 @@ def test_device_us_survives_lost_and_broken_profiler_events(monkeypatch):
     us, clock = TT.device_us(lambda: calls.append(1), calls=20)
     assert (us, clock) == (4.0 + 2 * 1.5, "profiler")
     assert len(calls) == 5 + 2 * 20
+
+
+def test_device_us_times_a_reading_under_the_floor_by_events(monkeypatch):
+    """A profiler reading under ``floor_us`` (the launch floor, or the
+    least time the work can take) is a broken one: CUDA events time the
+    call instead, and the clock says what the profiler read."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [SimpleNamespace(name="gemm", device_type=DeviceType.CUDA,
+                                    self_device_time_total=0.59)] * 20
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(TT, "events_us", lambda fn, calls=20: 1.5)
+    assert TT.device_us(lambda: None, floor_us=0.5) == (0.59, "profiler")
+    us, clock = TT.device_us(lambda: None, floor_us=0.93)
+    assert us == 1.5
+    assert clock == "cuda_events: profiler read 0.59 under 0.93"
 
 
 # The LSTM tail's config, in the meaning its kernel gives it: lstm_gates (rows a thread takes, threads a CTA may use) -> a CTA of
