@@ -60,12 +60,39 @@ Phases, one JSON line each:
               the I-V transform in the graph; first-step gradients on
               ``cuda`` and ``ref`` within rtol 2e-4 / atol 2e-5, both tail
               kernels T launches a step.
+4g2. train_ptb_ir — ``train_ptb`` at full width (B 16 x T 128) on
+              ``paper-ir`` (bank_cols 0 and 512) and ``stressed-ir``
+              (bank_cols 0): every weight spans several crossbars, the IR
+              correction recomputed in the backward.  First-step gradients
+              on ``cuda`` and ``ref`` within rtol 2e-4 / atol 2e-5, both
+              tail kernels T launches a step, every loss finite, peak
+              device memory under TRAIN_PEAK_GB (half the card, as in
+              every train phase); ms per step and peak printed.
 4h. fig4d   — ``benchmarks/fig4d_kws.py``'s quick mode on the card
               (``lstm_train.fig4d``): 768 training samples, 4 epochs, float
               vs 5-, 4- and 3-bit NL-ADCs trained with Alg. 1 noise, read
               noise at evaluation over 3 chip seeds; the four accuracies
               and whether float >= 5b >= 4b >= 3b held (printed, not
               gated, as the benchmark prints it).
+4i. fig5c   — ``benchmarks/fig5c_ptb.py``'s quick mode on the card
+              (``lstm_train.fig5c``: hidden 256, projection 64, 80 Adam
+              steps at B 16 x T 64): float vs 5-, 4- and 3-bit NL-ADCs
+              trained with Alg. 1 noise and evaluated with read noise; the
+              four BPCs, the benchmark's check (float <= 5b + 0.05, 5b <=
+              3b + 0.05) and the seconds, printed, not gated.
+4j. ir_oracle — the exact nodal solve (``core/circuit.py``, float64
+              preconditioned CG on the card) of the paper's tile, 256
+              active rows x 512 columns and the full 633 x 512, on both IR
+              presets, ``benchmarks/ir_sweep.py``'s loading (weights
+              uniform in [-1.5, 1.5], numpy seed 0; x 4 uniform vectors
+              through the 5-bit PWM): ``exact_mac_weights`` against the
+              uncorrected weights and ``crossbar.ir_effective_weights``
+              (relative MAC error, as ir_sweep measures it), the KCL
+              residual of each array's solve (within the solver's
+              tolerance and the reference's check), its iterations, the
+              seconds.  The correction must beat the uncorrected weights
+              (ir_sweep's "must win"); whether ``paper-ir`` stays under 1%
+              is printed, not gated.
 5. fused_matmul — the ``fused_matmul_nladc`` kernel against its plain
               version at the serving path's shapes (4 and 1 rows, K 2048,
               N 11008, bfloat16 x, float32 w: the GEMV, M <= 8) with one
@@ -229,6 +256,12 @@ KWS_TRAIN_BATCH = 64
 IR_PRESETS = ("paper-ir", "stressed-ir")
 IR_SHAPES = (("w_gates", (632, 8064)), ("w_proj", (2016, 504)))
 IR_ULPS = 32        # IR correction vs float64, ulps at the float64 value
+# PTB Alg. 1 on the circuit-level presets: (preset, bank_cols) runs
+PTB_IR_TRAINS = (("paper-ir", 0), ("paper-ir", 512), ("stressed-ir", 0))
+TRAIN_PEAK_GB = 40.0       # every train phase's peak, at most half the card
+# the nodal oracle at the paper's tile: (active rows, columns)
+ORACLE_SHAPES = ((256, 512), (633, 512))
+ORACLE_BITS = 5
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
@@ -473,7 +506,8 @@ def phase_train(torch, dev, config: str, bank_cols: int,
                 analog_device: str = "paper") -> dict:
     """Alg. 1 training at full width on the cuda backend: first-step
     gradients against the ref backend, TRAIN_STEPS Adam steps with the
-    tail kernels' launches counted, then an infer-mode evaluation."""
+    tail kernels' launches counted and the peak device memory under
+    TRAIN_PEAK_GB, then an infer-mode evaluation."""
     from repro_torch.core.crossbar import GeneratorNoise
     from repro_torch.kernels import lstm_cell
     from repro_torch.launch import lstm_train
@@ -530,6 +564,9 @@ def phase_train(torch, dev, config: str, bank_cols: int,
           f"{t_steps} each")
     check(all(math.isfinite(x) for x in res["losses"]),
           f"{config}: non-finite losses {res['losses']}")
+    check(peak_gb < TRAIN_PEAK_GB,
+          f"{config}/{analog_device}/bank_cols={bank_cols}: peak "
+          f"{peak_gb:.2f} GB, limit {TRAIN_PEAK_GB} GB")
     ev = lstm_train.evaluate_trained(
         model, config, eval_batches=1, batch=PTB_BATCH if all_steps
         else KWS_BATCH, seq=PTB_SEQ, seed=3)
@@ -547,7 +584,7 @@ def phase_train(torch, dev, config: str, bank_cols: int,
            "step_ms": statistics.median(res["step_ms"]),
            "step_ms_min": min(res["step_ms"]),
            "step_ms_max": max(res["step_ms"]), "peak_memory_gb": peak_gb,
-           "eval_infer": ev}
+           "peak_gb_limit": TRAIN_PEAK_GB, "eval_infer": ev}
     emit(out)
     return out
 
@@ -564,6 +601,77 @@ def phase_fig4d(torch, dev) -> dict:
            "spread": {k: v["spread"] for k, v in res["rows"].items()},
            "ordering_float_5b_4b_3b_held": res["ordering_held"],
            "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def phase_fig5c(torch, dev) -> dict:
+    """fig5c's quick mode on the card: printed, not gated."""
+    from repro_torch.launch import lstm_train
+
+    res = lstm_train.fig5c(dev, backend="cuda", quick=True)
+    out = {"phase": "fig5c", "hidden": res["hidden"], "proj": res["proj"],
+           "steps": res["steps"], "T": res["seq"], "bpc": res["rows"],
+           "ordering_float_5b_3b_held": res["ordering_held"],
+           "train_step_ms": res["step_ms"],
+           "final_loss": {k: v[-1] for k, v in res["losses"].items()},
+           "seconds": res["seconds"]}
+    emit(out)
+    return out
+
+
+def phase_ir_oracle(torch, dev, preset: str, rows: int, cols: int) -> dict:
+    """The exact nodal solve of one differential pair of crossbars on the
+    card against the uncorrected and the IR-corrected weights."""
+    import numpy as np
+
+    from repro_torch.core import circuit, crossbar
+    from repro_torch.core.device import get_device
+    from repro_torch.core.nladc import pwm_quantize
+
+    ln = get_device(preset).line
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.uniform(-1.5, 1.5, (rows, cols))).to(dev)
+    x = pwm_quantize(torch.from_numpy(
+        rng.uniform(-1, 1, (4, rows)).astype(np.float32)).to(dev),
+        ORACLE_BITS, 1.0).double()
+    systems = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = circuit.exact_mac_weights(w, x, ln.r_wl_ohm, ln.r_bl_ohm,
+                                  ln.sourcing, device=dev, systems=systems)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    w_corr = crossbar.ir_effective_weights(
+        w.float(), ln.r_wl_ohm, ln.r_bl_ohm, ln.sourcing, ln.n_iter).double()
+
+    def rel(got):
+        return float(torch.linalg.norm(got - y) / torch.linalg.norm(y))
+
+    uncorrected, corrected = rel(x @ w), rel(x @ w_corr)
+    solves = [{"iterations": sy.iterations, "residual_ua": sy.residual_ua,
+               "tolerance_ua": sy.tolerance(x),
+               "reference_check_ua": 1e-6 * max(
+                   1.0, float(sy.g_us.max()) * float(x.abs().max()))}
+              for sy in systems]
+    case = f"{preset}/{rows}x{cols}"
+    check(bool(torch.isfinite(y).all()), f"ir_oracle {case}: non-finite")
+    for sv in solves:
+        check(sv["residual_ua"] <= min(sv["tolerance_ua"],
+                                       sv["reference_check_ua"]),
+              f"ir_oracle {case}: KCL residual {sv}")
+    check(corrected < uncorrected,
+          f"ir_oracle {case}: the correction ({corrected}) does not beat "
+          f"the uncorrected weights ({uncorrected})")
+    out = {"phase": "ir_oracle", "case": case, "rows": rows, "cols": cols,
+           "r_wl_ohm": ln.r_wl_ohm, "r_bl_ohm": ln.r_bl_ohm,
+           "sourcing": ln.sourcing, "n_iter": ln.n_iter,
+           "unknowns_per_array": systems[0].n_unknowns,
+           "rel_mac_err_uncorrected": uncorrected,
+           "rel_mac_err_corrected": corrected,
+           "solves": solves, "seconds": seconds}
+    if preset == "paper-ir":
+        out["paper_ir_under_1pct"] = corrected < 0.01
     emit(out)
     return out
 
@@ -2035,8 +2143,18 @@ def main(argv=None) -> int:
     trains.append(phase_train(torch, dev, "kws_lstm", 0,
                               analog_device="paper-ir"))
     free_device(torch)
+    for preset, bc in PTB_IR_TRAINS:
+        trains.append(phase_train(torch, dev, "ptb_lstm", bc,
+                                  analog_device=preset))
+        free_device(torch)
     phase_fig4d(torch, dev)
     free_device(torch)
+    phase_fig5c(torch, dev)
+    free_device(torch)
+    for preset in IR_PRESETS:
+        for rows, cols in ORACLE_SHAPES:
+            phase_ir_oracle(torch, dev, preset, rows, cols)
+            free_device(torch)
 
     bf16, f32 = torch.bfloat16, torch.float32
     fm_checked = [

@@ -49,6 +49,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import backend as BK
 from repro_torch.core import crossbar
@@ -320,8 +321,14 @@ def _noisy_weights(w: torch.Tensor, cfg: AnalogConfig,
     first: :func:`crossbar.read_noise_weights_paired`).  Then, in every
     mode but ``exact``, the ``LineResistance`` correction per crossbar
     tile (:func:`crossbar.ir_effective_weights_tiled`), differentiable, so
-    training sees the wires.  All of it precedes the backend seam: ``ref``
-    and ``cuda`` get the same operands.
+    training sees the wires.  The correction runs under
+    ``torch.utils.checkpoint``: where a gradient is asked for, autograd
+    keeps only its input and the backward recomputes it (the same bits;
+    one copy of the weight a call, not the correction's ~30
+    intermediates).  The noise is drawn before it, so the recompute draws
+    nothing, and no RNG state is saved or restored.
+    All of it precedes the backend seam: ``ref`` and ``cuda`` get the same
+    operands.
     """
     w = crossbar.clip_weights(w)
     dev = cfg.device
@@ -334,8 +341,9 @@ def _noisy_weights(w: torch.Tensor, cfg: AnalogConfig,
                                                 sigma_w)
     if dev.line is not None and cfg.mode != "exact":
         ln = dev.line
-        w = crossbar.ir_effective_weights_tiled(
-            w, ln.r_wl_ohm, ln.r_bl_ohm, ln.sourcing, ln.n_iter)
+        w = checkpoint(crossbar.ir_effective_weights_tiled, w, ln.r_wl_ohm,
+                       ln.r_bl_ohm, ln.sourcing, ln.n_iter,
+                       use_reentrant=False, preserve_rng_state=False)
     return w
 
 

@@ -33,12 +33,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.nladc import pwm_quantize
 from repro_torch.kernels.ref import fma_f32
 
 G_MAX_US = 150.0
 W_CLIP = 2.0
 GAMMA_US = G_MAX_US / W_CLIP  # 75 uS per weight unit (Eq. 7)
 
+WRITE_SIGMA_W = 2.67 / GAMMA_US   # write noise in weight units
 READ_SIGMA_W = 3.5 / GAMMA_US     # read noise in weight units
 
 
@@ -69,10 +71,14 @@ def _clip_bounds(dtype, device):
 # ---------------------------------------------------------------------------
 
 class NoiseSource:
-    """Where the per-step standard-normal draws come from."""
+    """Where the per-step draws come from."""
 
     def normal(self, shape: Sequence[int], device) -> torch.Tensor:
         """A float32 tensor of N(0, 1) draws of ``shape`` on ``device``."""
+        raise NotImplementedError
+
+    def uniform(self, shape: Sequence[int], device) -> torch.Tensor:
+        """A float32 tensor of U[0, 1) draws of ``shape`` on ``device``."""
         raise NotImplementedError
 
 
@@ -83,16 +89,24 @@ class GeneratorNoise(NoiseSource):
         self.generator = generator
 
     def normal(self, shape, device) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self._on(device),
+                           device=device, dtype=torch.float32)
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self._on(device),
+                          device=device, dtype=torch.float32)
+
+    def _on(self, device) -> torch.Generator:
         if torch.device(device).type != self.generator.device.type:
             raise ValueError(
                 f"generator on {self.generator.device} cannot draw for "
                 f"{device}")
-        return torch.randn(tuple(shape), generator=self.generator,
-                           device=device, dtype=torch.float32)
+        return self.generator
 
 
 class ReplayNoise(NoiseSource):
-    """Hands back the given draws, one per call, in order."""
+    """Hands back the given draws, one per call, in order (``normal`` and
+    ``uniform`` alike: the caller replays each kind where it is drawn)."""
 
     def __init__(self, draws):
         self._draws = list(draws)
@@ -114,11 +128,32 @@ class ReplayNoise(NoiseSource):
         self._next += 1
         return z.to(device=device, dtype=torch.float32)
 
+    uniform = normal
+
+
+def write_noise_weights(noise: NoiseSource, w: torch.Tensor,
+                        sigma_w: float = WRITE_SIGMA_W) -> torch.Tensor:
+    """Per-chip programming error, one draw per weight (only one device of
+    a pair is non-zero), clipped to the programmable range."""
+    return clip_weights(w + sigma_w * noise.normal(w.shape, w.device))
+
 
 def read_noise_weights(noise: NoiseSource, shape, device,
                        sigma_w: float = READ_SIGMA_W) -> torch.Tensor:
     """Per-read conductance fluctuation in weight units (fresh each call)."""
     return sigma_w * noise.normal(shape, device)
+
+
+def stuck_at_off(noise: NoiseSource, w: torch.Tensor,
+                 prob: float) -> torch.Tensor:
+    """Stuck-at-OFF devices zero their weight (Fig. 3a).  The mask is one
+    uniform draw of ``w``'s shape compared as ``jax.random.bernoulli``
+    compares it, ``u < p`` in float32; ``prob <= 0`` draws nothing."""
+    if prob <= 0.0:
+        return w
+    mask = noise.uniform(w.shape, w.device) < float(np.float32(prob))
+    return torch.where(mask, torch.zeros((), dtype=w.dtype,
+                                         device=w.device), w)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +214,14 @@ def read_noise_weights_paired(noise: NoiseSource, w: torch.Tensor,
     g_pos, g_neg = noise_conductance_pairs(noise, g_pos, g_neg,
                                            sigma_w * GAMMA_US)
     return ((g_pos - g_neg) / GAMMA_US).to(w.dtype)
+
+
+def write_noise_weights_paired(noise: NoiseSource, w: torch.Tensor,
+                               sigma_w: float = WRITE_SIGMA_W
+                               ) -> torch.Tensor:
+    """Per-device programming error: two draws per weight (the positive
+    devices' first), each device clipped to [0, G_max]."""
+    return read_noise_weights_paired(noise, w, sigma_w)
 
 
 # ---------------------------------------------------------------------------
@@ -483,3 +526,54 @@ def plan_tiles(n_in: int, n_out: int,
         n_row_tiles=n_row_tiles, n_col_tiles=n_col_tiles,
         n_phases=n_phases,
     )
+
+
+# ---------------------------------------------------------------------------
+# Noisy VMM and Supp. S10's phased read
+# ---------------------------------------------------------------------------
+
+def noisy_vmm(x: torch.Tensor, w: torch.Tensor, *,
+              noise: Optional[NoiseSource] = None,
+              read_sigma_w: float = 0.0, input_bits: Optional[int] = None,
+              input_clip: float = 1.0) -> torch.Tensor:
+    """Simulated crossbar VMM, ``pwm(x) @ (w + read noise)``: in weight
+    units the differential read is linear in w, so the simulation is a
+    plain matmul with additive noise (one draw of ``w``'s shape)."""
+    if input_bits is not None:
+        x = pwm_quantize(x, input_bits, input_clip)
+    if read_sigma_w > 0.0:
+        if noise is None:
+            raise ValueError("read noise needs a NoiseSource")
+        w = w + read_noise_weights(noise, w.shape, w.device, read_sigma_w)
+    return x @ w
+
+
+def phased_vmm(x: torch.Tensor, w: torch.Tensor, plan: TilePlan, *,
+               noise: Optional[NoiseSource] = None,
+               read_sigma_w: float = 0.0, input_bits: Optional[int] = None,
+               input_clip: float = 1.0) -> torch.Tensor:
+    """Supp. S10: the inputs in chunks of ``plan.max_active_rows`` (the
+    rows enabled at once), each chunk's partial product accumulated in
+    float32 (the integrator capacitor).  Equal to one VMM without noise;
+    with read noise each phase is its own read: one draw per chunk, in
+    chunk order, of the zero-padded chunk's shape."""
+    if input_bits is not None:
+        x = pwm_quantize(x, input_bits, input_clip)
+    n_in = x.shape[-1]
+    chunk = plan.max_active_rows
+    n_chunks = math.ceil(n_in / chunk)
+    pad = n_chunks * chunk - n_in
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    if read_sigma_w > 0.0 and noise is None:
+        raise ValueError("read noise needs a NoiseSource")
+    acc = x.new_zeros(x.shape[:-1] + (w.shape[-1],), dtype=torch.float32)
+    for i in range(n_chunks):
+        xs = x[..., i * chunk:(i + 1) * chunk]
+        ws = w[i * chunk:(i + 1) * chunk]
+        if read_sigma_w > 0.0:
+            ws = ws + read_noise_weights(noise, ws.shape, ws.device,
+                                         read_sigma_w)
+        acc = acc + (xs @ ws).float()
+    return acc.to(x.dtype)

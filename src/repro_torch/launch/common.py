@@ -1,11 +1,14 @@
-"""What the launchers share: the device choice, the float settings and
-the device profile."""
+"""What the launchers share: the device choice, the float settings, the
+kernels' launch-config flags and the device profile."""
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
+
+from repro_torch.kernels import tune
 
 
 def configure_numerics() -> dict:
@@ -20,6 +23,30 @@ def configure_numerics() -> dict:
             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "matmul.allow_bf16_reduced_precision_reduction":
                 m.allow_bf16_reduced_precision_reduction}
+
+
+def add_kernel_flags(ap: argparse.ArgumentParser) -> None:
+    """``--kernel-cache`` and ``--kernel-blocks``: the kernels' launch
+    configs per shape (:mod:`repro_torch.kernels.tune`)."""
+    ap.add_argument("--kernel-cache", default="",
+                    help="path to a kernel tune result JSON "
+                         "(repro_torch.launch.kernel_tune output); launch "
+                         "configs then resolve per shape from it (also: "
+                         "REPRO_TORCH_KERNEL_CACHE env)")
+    ap.add_argument("--kernel-blocks", default="",
+                    help="force per-kernel launch configs, e.g. "
+                         "'fused_matmul_nladc=4x64x512,nladc=8x32'; "
+                         "overrides the tune cache (also: "
+                         "REPRO_TORCH_KERNEL_BLOCKS env)")
+
+
+def configure_kernels(ap: argparse.ArgumentParser, args) -> None:
+    """Install the flags of :func:`add_kernel_flags`; a bad spec or file
+    exits with the parser's error."""
+    try:
+        tune.configure(args.kernel_blocks, args.kernel_cache)
+    except (ValueError, OSError) as e:
+        ap.error(f"--kernel-blocks/--kernel-cache: {e}")
 
 
 def resolve_device(name: str) -> torch.device:

@@ -15,7 +15,8 @@ evaluation; every registered preset evaluates, the circuit-level
     python -m repro_torch.launch.lstm_eval --config ptb_lstm \\
         [--device cuda|cpu] [--backend cuda|ref] \\
         [--analog-device paper-infer] [--age-weights none|tiled] \\
-        [--bank-cols N] [--batches 4] [--batch 16] [--seq 128]
+        [--bank-cols N] [--batches 4] [--batch 16] [--seq 128] \\
+        [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise.  TF32 is switched off for matmuls and cuDNN, so
@@ -39,7 +40,8 @@ from repro_torch.core.analog_layer import AnalogConfig
 from repro_torch.core.crossbar import GeneratorNoise
 from repro_torch.data.pipeline import CharCorpus, SyntheticKWS
 from repro_torch.kernels import lstm_cell
-from repro_torch.launch.common import (configure_numerics, device_profile,
+from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
+                                      configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.nn.lstm import LSTMClassifier, LSTMSpec, classifier_init
 
@@ -173,7 +175,9 @@ def main(argv=None) -> dict:
                     help="PTB sequence length (KWS is 49 frames)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time per kernel (GPU only)")
+    add_kernel_flags(ap)
     args = ap.parse_args(argv)
+    configure_kernels(ap, args)
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":

@@ -10,15 +10,18 @@ weights and on the ramp steps, drawn every step); evaluation runs the
 trained weights in ``mode="infer"`` on the same preset through
 :func:`repro_torch.launch.lstm_eval.evaluate`.  Under ``--analog-device
 paper-ir`` the IR correction of every crossbar and the I-V transform of
-its inputs are in the graph, so the gradient flows through them; that
-runs at KWS width (one crossbar a weight) and raises for PTB, whose
-residuals need a recomputing backward first.
+its inputs are in the graph, so the gradient flows through them, at
+any width: autograd keeps only each correction's input and the backward
+recomputes the correction (``torch.utils.checkpoint`` in
+:func:`repro_torch.core.analog_layer._noisy_weights`).
 
     python -m repro_torch.launch.lstm_train --config ptb_lstm|kws_lstm \\
         [--device cuda|cpu] [--backend cuda|ref] [--analog-device paper] \\
         [--bits 5] [--bank-cols N] [--steps N] [--batch N] [--seq N] \\
         [--lr 2e-3] [--seed 0] [--eval-batches N] [--save PATH.npz] \\
-        [--profile]
+        [--profile] [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC]
+    python -m repro_torch.launch.lstm_train --fig5c quick|full \\
+        [--hidden 256 --proj 64] [--device cuda|cpu] [--backend cuda|ref]
 
 Widths are the config's published ones (PTB 128 -> LSTM 2016, projection
 504 -> 50; KWS 40 -> 32 -> 12).  Defaults follow the benchmarks' quick
@@ -30,7 +33,14 @@ launches of the tail's forward and backward kernels; the end prints BPC
 or accuracy.  ``--save`` writes the trained tree with
 :func:`repro_torch.convert.save_npz` (``lstm_eval --params`` reads it).
 ``--profile`` adds one profiled train step: device busy and idle share
-and the kernels by device time.
+and the kernels by device time.  ``--fig5c`` runs
+``benchmarks/fig5c_ptb.py``'s experiment instead (:func:`fig5c`: float,
+then 5-, 4- and 3-bit NL-ADCs trained with Alg. 1 and evaluated with read
+noise; BPC per row, each row's training losses, the benchmark's ordering
+check printed, not gated), at the benchmark's widths unless ``--hidden``
+and ``--proj`` say otherwise; it refuses the flags of a single run
+(``--config``, ``--steps``, ...), and ``--hidden`` / ``--proj`` need it.  ``--kernel-cache`` and ``--kernel-blocks``
+choose the kernels' launch configs (:mod:`repro_torch.kernels.tune`).
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise; TF32 is off (``launch.common.configure_numerics``).
@@ -39,6 +49,7 @@ without a GPU otherwise; TF32 is off (``launch.common.configure_numerics``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -51,11 +62,12 @@ import torch
 from repro_torch import configs
 from repro_torch.convert import save_npz
 from repro_torch.core.analog_layer import AnalogConfig
-from repro_torch.core.crossbar import GeneratorNoise, NoiseSource, plan_tiles
+from repro_torch.core.crossbar import GeneratorNoise, NoiseSource
 from repro_torch.data.pipeline import CharCorpus, SyntheticKWS
 from repro_torch.kernels import lstm_cell
 from repro_torch.launch import lstm_eval
-from repro_torch.launch.common import (configure_numerics, device_profile,
+from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
+                                      configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.nn.lstm import LSTMClassifier, LSTMSpec
 from repro_torch.train import optim
@@ -64,6 +76,12 @@ CONFIGS = lstm_eval.CONFIGS
 # the benchmarks' quick modes: (batch, steps, lr)
 DEFAULTS = {"ptb_lstm": (16, 80, 2e-3), "kws_lstm": (64, 48, 3e-3)}
 KWS_EVAL_SPLIT = lstm_eval.KWS_SPLITS[1]
+FIG5C_BATCH, FIG5C_EVAL_BATCHES = 16, 4     # benchmarks/fig5c_ptb.py's
+FIG5C_WIDTHS = (256, 64)                    # its (hidden, proj)
+# the flags of one training run, which --fig5c's own runs do not read
+TRAIN_ONLY_FLAGS = ("config", "analog_device", "bits", "bank_cols", "steps",
+                    "batch", "seq", "lr", "seed", "eval_batches", "save",
+                    "profile")
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
 
@@ -83,10 +101,11 @@ def build_model(config: str, analog: AnalogConfig, device: torch.device, *,
     """The config's classifier at its published widths; weights from
     ``params`` or drawn from ``seed``.
 
-    Raises ``NotImplementedError`` for train mode under a line stage where
-    a weight spans more than one crossbar tile (PTB on ``paper-ir``): the
-    IR correction's autograd residuals over a sequence outgrow the card
-    until the backward recomputes them (ROADMAP queue A item 2)."""
+    Every mode builds on every preset.  Trained under a line stage (PTB on
+    ``paper-ir``: 16 crossbar tiles of ``w_gates``, 4 of ``w_proj``), the
+    IR correction is recomputed in the backward, so autograd holds one
+    copy of each noisy weight a time step, not the correction's
+    intermediates (``core/analog_layer.py::_noisy_weights``)."""
     cfg = configs.get(config)
     spec = LSTMSpec(n_in=cfg.n_input_features, n_hidden=cfg.lstm_hidden,
                     n_proj=cfg.lstm_proj, analog=analog)
@@ -98,14 +117,6 @@ def build_model(config: str, analog: AnalogConfig, device: torch.device, *,
         gen.manual_seed(seed)
         model = LSTMClassifier(spec, cfg.n_classes, generator=gen,
                                device=device)
-    if analog.mode == "train" and analog.device.line is not None:
-        for w in optim.tree_leaves(model.params()):
-            if w.ndim >= 2 and plan_tiles(*w.shape[-2:]).n_crossbars > 1:
-                raise NotImplementedError(
-                    f"{config} trains on {analog.device.name!r} only once "
-                    f"the IR correction recomputes its residuals in the "
-                    f"backward (ROADMAP queue A item 2): a {tuple(w.shape)} "
-                    f"weight spans several crossbar tiles")
     return model
 
 
@@ -286,6 +297,79 @@ def fig4d(device: torch.device, *, backend: str = "", quick: bool = True,
             "ordering_held": all(a >= b for a, b in zip(acc, acc[1:]))}
 
 
+def train_eval_bpc(train_cfg: AnalogConfig, eval_cfg: AnalogConfig,
+                   device: torch.device, *, hidden: int, proj: int,
+                   steps: int, seq: int, lr: float = 2e-3, seed: int = 0,
+                   params=None) -> dict:
+    """fig5c's ``train_eval_bpc``: a char-LM (128 -> LSTM ``hidden`` with
+    projection ``proj`` -> 50) trained ``steps`` Adam steps in
+    ``train_cfg`` on ``CharCorpus`` batches 0, 1, ... of 16 sequences,
+    then evaluated in ``eval_cfg`` on batches 10,000 + i (i < 4), batch
+    i's read noise from a generator seeded 500 + i; BPC = mean NLL / ln 2.
+    Weights from a copy of ``params`` (a ``classifier_init`` tree, which
+    training leaves as it was) or drawn from ``seed``.  Returns the BPC
+    and the training losses."""
+    cfg = configs.get("ptb_lstm")
+    spec = LSTMSpec(n_in=cfg.n_input_features, n_hidden=hidden,
+                    n_proj=proj, analog=train_cfg)
+    n_classes = cfg.n_classes
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        model = LSTMClassifier(spec, n_classes, generator=gen, device=device)
+    else:
+        # the model's parameters share their tensors' storage, and Adam
+        # updates them in place
+        model = LSTMClassifier(spec, n_classes, device=device,
+                               params=optim.tree_map(torch.clone, params))
+    res = train(model, ptb_train_batches(FIG5C_BATCH, seq, device), steps,
+                lr=lr, seed=seed, all_steps=True)
+    emodel = LSTMClassifier(dataclasses.replace(spec, analog=eval_cfg),
+                            n_classes, params=model.params(), device=device)
+    data = lstm_eval.ptb_batches(FIG5C_EVAL_BATCHES, FIG5C_BATCH, seq,
+                                 device)
+    with torch.no_grad():
+        nlls = [lstm_eval.evaluate(emodel, [b], all_steps=True,
+                                   seed=500 + i)["nll"]
+                for i, b in enumerate(data)]
+    return {"bpc": float(np.mean(nlls)) / math.log(2.0),
+            "losses": res["losses"], "step_ms": res["step_ms"]}
+
+
+def fig5c(device: torch.device, *, backend: str = "", quick: bool = True,
+          hidden: int = FIG5C_WIDTHS[0], proj: int = FIG5C_WIDTHS[1],
+          params=None, log=None) -> dict:
+    """fig5c's ``run``: the float char-LM, then 5-, 4- and 3-bit NL-ADCs
+    trained with Alg. 1 noise and evaluated with read noise on the
+    ``paper`` preset; 80 steps at T 64 (quick) or 400 at T 128, B 16, lr
+    2e-3, every row from the same starting weights (``params`` or seed
+    0).  Returns the BPCs, each row's training losses, and the
+    benchmark's own check, float <= 5b + 0.05 and 5b <= 3b + 0.05."""
+    steps, seq = (80, 64) if quick else (400, 128)
+    t0 = time.perf_counter()
+    exact = analog_config("exact", enabled=False, backend=backend)
+    cfgs = {"float": (exact, exact)}
+    for bits in (5, 4, 3):
+        cfgs[f"{bits}b"] = (analog_config("train", bits=bits,
+                                          backend=backend),
+                            analog_config("infer", bits=bits,
+                                          backend=backend))
+    rows, curves, step_ms = {}, {}, {}
+    for name, (tcfg, ecfg) in cfgs.items():
+        res = train_eval_bpc(tcfg, ecfg, device, hidden=hidden, proj=proj,
+                             steps=steps, seq=seq, params=params)
+        rows[name], curves[name] = res["bpc"], res["losses"]
+        step_ms[name] = statistics.median(res["step_ms"])
+        if log is not None:
+            log(f"[fig5c] {name} BPC {res['bpc']:.4f} (median "
+                f"{step_ms[name]:.1f} ms a train step)")
+    held = rows["float"] <= rows["5b"] + 0.05 \
+        and rows["5b"] <= rows["3b"] + 0.05
+    return {"rows": rows, "losses": curves, "step_ms": step_ms,
+            "steps": steps, "seq": seq, "hidden": hidden, "proj": proj,
+            "ordering_held": held, "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="ptb_lstm", choices=CONFIGS)
@@ -312,23 +396,53 @@ def main(argv=None) -> dict:
                     help="write the trained tree here (.npz)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one train step (GPU only)")
+    ap.add_argument("--fig5c", choices=("quick", "full"), default=None,
+                    help="run benchmarks/fig5c_ptb.py's experiment instead "
+                         "(float, then 5-, 4- and 3-bit BPC)")
+    ap.add_argument("--hidden", type=int, default=None,
+                    help="--fig5c: LSTM width (default: the benchmark's 256)")
+    ap.add_argument("--proj", type=int, default=None,
+                    help="--fig5c: projection width (default: the "
+                         "benchmark's 64)")
+    add_kernel_flags(ap)
     args = ap.parse_args(argv)
+    configure_kernels(ap, args)
+    if args.fig5c:
+        own = [f"--{k.replace('_', '-')}" for k in TRAIN_ONLY_FLAGS
+               if getattr(args, k) != ap.get_default(k)]
+        if own:
+            ap.error(f"--fig5c fixes its own runs; it takes no "
+                     f"{', '.join(own)}")
+    elif args.hidden is not None or args.proj is not None:
+        ap.error("--hidden and --proj size --fig5c's model; give --fig5c")
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":
         raise ValueError("--profile measures the GPU; it needs --device cuda")
     backend = args.backend or ("cuda" if device.type == "cuda" else "ref")
+    flags = configure_numerics()
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    if args.fig5c:
+        hidden = args.hidden or FIG5C_WIDTHS[0]
+        proj = args.proj or FIG5C_WIDTHS[1]
+        print(f"[fig5c] {args.fig5c} on {name}, backend {backend}, hidden "
+              f"{hidden}, projection {proj}; TF32 off ({flags})",
+              flush=True)
+        out = fig5c(device, backend=backend, quick=args.fig5c == "quick",
+                    hidden=hidden, proj=proj,
+                    log=lambda s: print(s, flush=True))
+        out.update(device=name, backend=backend)
+        print(json.dumps(out), flush=True)
+        return out
     batch0, steps0, lr0 = DEFAULTS[args.config]
     batch = args.batch or batch0
     steps = steps0 if args.steps is None else args.steps
     lr = args.lr or lr0
-    flags = configure_numerics()
     analog = analog_config("train", bits=args.bits,
                            analog_device=args.analog_device,
                            bank_cols=args.bank_cols, backend=backend)
     model = build_model(args.config, analog, device, seed=args.seed)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
-        else "cpu"
     print(f"[lstm_train] {args.config} on {name}, backend {backend}, device "
           f"model {analog.device.name}, {args.bits} bits, bank_cols "
           f"{args.bank_cols}, B {batch}, {steps} steps, lr {lr}; TF32 off "

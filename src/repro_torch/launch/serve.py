@@ -62,8 +62,8 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import nladc as nk
 from repro_torch.kernels import prefill_attention as pa
-from repro_torch.kernels import tune
-from repro_torch.launch.common import (configure_numerics, device_profile,
+from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
+                                      configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.nn.model import build
 from repro_torch.serve.engine import Request, ServingEngine
@@ -162,21 +162,9 @@ def main(argv=None) -> dict:
                     help="seed of the random weights (without --params)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time per kernel (GPU only)")
-    ap.add_argument("--kernel-cache", default="",
-                    help="path to a kernel tune result JSON "
-                         "(repro_torch.launch.kernel_tune output); launch "
-                         "configs then resolve per shape from it (also: "
-                         "REPRO_TORCH_KERNEL_CACHE env)")
-    ap.add_argument("--kernel-blocks", default="",
-                    help="force per-kernel launch configs, e.g. "
-                         "'fused_matmul_nladc=4x64x512,nladc=8x32'; "
-                         "overrides the tune cache (also: "
-                         "REPRO_TORCH_KERNEL_BLOCKS env)")
+    add_kernel_flags(ap)
     args = ap.parse_args(argv)
-    try:
-        tune.configure(args.kernel_blocks, args.kernel_cache)
-    except (ValueError, OSError) as e:
-        ap.error(f"--kernel-blocks/--kernel-cache: {e}")
+    configure_kernels(ap, args)
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":

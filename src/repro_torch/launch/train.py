@@ -42,8 +42,8 @@ from typing import Optional
 import torch
 
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.kernels import tune
-from repro_torch.launch.common import (configure_numerics, device_profile,
+from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
+                                      configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.launch.serve import ARCHS, KERNELS, make_config, \
     parse_overrides
@@ -120,12 +120,7 @@ def main(argv=None) -> dict:
                     help="columns per threshold bank (0 = one shared ramp)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
-    ap.add_argument("--kernel-cache", default="",
-                    help="kernel tune result JSON (also: "
-                         "REPRO_TORCH_KERNEL_CACHE env)")
-    ap.add_argument("--kernel-blocks", default="",
-                    help="force per-kernel launch configs (also: "
-                         "REPRO_TORCH_KERNEL_BLOCKS env)")
+    add_kernel_flags(ap)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--profile", action="store_true",
                     help="also profile one train step (GPU only)")
@@ -142,10 +137,7 @@ def main(argv=None) -> dict:
                                   "psum|hierarchical|int8: distribution is "
                                   "not ported yet; ROADMAP.md queue A item "
                                   "6 brings it")
-    try:
-        tune.configure(args.kernel_blocks, args.kernel_cache)
-    except (ValueError, OSError) as e:
-        ap.error(f"--kernel-blocks/--kernel-cache: {e}")
+    configure_kernels(ap, args)
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":

@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "kernels.analog_tile", "kernels.tune",
                  "launch.kernel_tune", "launch.kernel_bench",
                  "launch.lstm_train", "train.optim", "launch.train",
-                 "launch.steps", "train.loop", "data.pipeline"):
+                 "launch.steps", "train.loop", "data.pipeline",
+                 "core.circuit"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"
