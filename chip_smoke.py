@@ -156,6 +156,40 @@ Phases, one JSON line each:
 13. agreement_moe — a 2-layer, full-width, float32 moonshot with an int8
               cache on the ``cuda`` and ``ref`` backends: max |delta
               logits| < LSB/2.
+13-1. serve_bucketed — qwen2.5-3b as ``serve`` (36 layers, bf16, cuda):
+              the scan run again, then the bucketed prefill (one bucket
+              call a request), the packed one (the wave in one call of
+              P = max_batch rows), packed with the detokenize thread, and
+              chunked (buckets (4, 8): the prefills of 9 and 10 positions
+              take 8 + 4).  Every path gives ``serve``'s streams; kernels 3
+              and 5 launch n_layers x (decode steps + bucket widths
+              called) times, the others never; tokens/s (median of
+              repeats), ms per prefill wave, per prefill position and per
+              decode step, and the largest |delta| of each cache leaf
+              against the scan run; then packed without (A) and with (B)
+              the detokenize thread, run A B B A twice: tokens/s of each
+              run (a reading, not a gate).
+13-2. serve_moe_bucketed — moonshot-v1-16b-a3b, int8 KV cache, its depth
+              cut to 4 of 48 layers (time): its own scan run, then packed
+              and chunked; the scan run's streams, kernels 2, 3, 4 and 6
+              n_layers x (decode steps + bucket widths) launches.
+13-3. serve_aged — qwen2.5-3b at full width, 2 layers, float32, infer
+              mode on ``aged-1day``: the engine's ``device=`` ages the
+              weights per crossbar tile on the host (seconds per layer,
+              printed with the 36-layer time extrapolated); the aged
+              weights differ from the pristine ones; ``cuda`` and ``ref``
+              decode logits on them within LSB/2; 4 requests served.
+13-4. serve_ckpt — qwen2.5-3b at full width, 2 layers: a deployment
+              saved mid-stream, restored into a scan engine and into a
+              packed + detok engine; streams and final cache leaves
+              bitwise the uninterrupted run's; each restored run's peak
+              device memory (a seeded template, overwritten in place) at
+              most the uninterrupted run's; bytes, save and restore s.
+13-5. train_ckpt — qwen2.5-3b at full width, 2 layers, B 8 x S 128, the
+              ``launch.train`` trainer: 3 steps, against 2 steps, a
+              checkpoint and 1 resumed step; params and Adam moments
+              bitwise; the resumed run's peak device memory at most the
+              uninterrupted run's; bytes and seconds.
 13a. train_lm — qwen2.5-3b trained at full width and all 36 layers
               (``repro_torch.launch.train``: B 8 x S 128, train mode on the
               ``paper`` preset, flat thresholds, AdamW with clip 1.0, each
@@ -215,8 +249,10 @@ Phases, one JSON line each:
               same clock for the IR correction (``ir_time``: kernels
               launched per call, device ms).
 17. kernels — one line listing every ported kernel with its launches on
-              the main paths (``lstm_gates_bwd``: on the train paths), its
-              error against the plain version and times.
+              the main paths (the prefill paths of serve_bucketed and
+              serve_moe_bucketed included; ``lstm_gates_bwd``: on the
+              train paths), its error against the plain version and
+              times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
@@ -285,6 +321,16 @@ AGREE_FLIP_GRAD_EXCESS = 2e-3   # gradient excess over TRAIN_RTOL /
 #                            TRAIN_ATOL against ``ref`` itself where codes
 #                            flipped (qwen2.5-3b showed 1.016e-3 on an H100)
 LM_INFER_DEVICE = "paper-infer"   # `paper` has no build stage: infer = exact
+CHUNK_BUCKETS = (4, 8)     # serve_bucketed's chunked run: prefills of 9
+#                            and 10 tokens take two calls (8 + 4)
+SERVE_BUCKETED_REPEATS = 2
+DETOK_AB_ROUNDS = 2        # serve_bucketed's A B B A rounds: packed
+#                            without (A) and with (B) the detok thread
+SERVE_MOE_BUCKETED = dict(SERVE_MOE, n_layers=4, repeats=2)
+SERVE_AGED = dict(preset="aged-1day", n_layers=2)
+CKPT_LAYERS, CKPT_SAVE_AT = 2, 6
+TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
+                  analog_device="paper")
 CARD_GB = 80.0
 
 
@@ -1726,6 +1772,471 @@ def phase_serve_moe(torch, dev) -> dict:
     return out
 
 
+def _cache_leaf_diffs(torch, got, want) -> dict:
+    """Largest |delta| of each cache leaf name over the layers."""
+    out = {}
+    for g, w in zip(got.state["layers"], want.state["layers"]):
+        for name in g:
+            d = float((g[name].double() - w[name].double()).abs().max())
+            out[name] = max(out.get(name, 0.0), d)
+    return out
+
+
+def _serve_mode(torch, engine_cls, model, params, cfg, name: str, mode: str,
+                kw: dict, spec: dict, scan_streams, scan_engine,
+                expected_kernels) -> dict:
+    """One prefill mode: the warm-up wave, the counted run (launches of
+    each kernel ``n_layers x (bucket widths + decode steps)``, every
+    bucket call's width summed into the prefill steps, the streams the
+    scan run's), then ``spec["repeats"]`` timed runs."""
+    from repro_torch.launch import serve
+
+    engine = engine_cls(model, params, max_batch=spec["max_batch"],
+                        max_len=spec["max_len"], **kw)
+    engine.run_offline(serve.make_requests(cfg, 1, 2))          # warm-up
+    reqs = serve.make_requests(cfg, spec["requests"], spec["max_new"])
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = engine.run_offline(reqs)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    steps = stats["prefill_steps"] + stats["decode_steps"]
+    expected = {k: cfg.n_layers * steps if k in expected_kernels else 0
+                for k in wrappers}
+    streams = {r.uid: r.generated for r in reqs}
+    check(launches == expected,
+          f"{name}/{mode}: launches {launches}, expected {expected}")
+    if kw.get("prefill") == "bucketed":
+        check(stats["prefill_steps"] == sum(stats["prefill_buckets_called"]),
+              f"{name}/{mode}: prefill steps {stats['prefill_steps']} are "
+              f"not the bucket widths {stats['prefill_buckets_called']}")
+    check(streams == scan_streams,
+          f"{name}/{mode}: streams {streams} differ from the scan run's "
+          f"{scan_streams}")
+    diffs = None if scan_engine is None else _cache_leaf_diffs(
+        torch, engine, scan_engine)
+    runs = [engine.run_offline(serve.make_requests(
+        cfg, spec["requests"], spec["max_new"]))
+        for _ in range(spec["repeats"])]
+    tps = [r["tokens_per_s"] for r in runs]
+    out = {"mode": mode, **{k: v for k, v in kw.items()},
+           "prefill_buckets": list(engine.prefill_buckets),
+           "prefill_buckets_called": stats["prefill_buckets_called"],
+           "prefill_steps": stats["prefill_steps"],
+           "prefill_waves": stats["prefill_waves"],
+           "decode_steps": stats["decode_steps"], "launches": launches,
+           "expected_launches": expected,
+           "max_abs_cache_diff_vs_scan": diffs,
+           "tokens_per_s": statistics.median(tps),
+           "tokens_per_s_min": min(tps), "tokens_per_s_max": max(tps),
+           "prefill_wave_ms": statistics.median(
+               r["prefill_wave_ms"] for r in runs),
+           "prefill_step_ms": statistics.median(
+               r["prefill_step_ms"] for r in runs),
+           "decode_step_ms": statistics.median(
+               r["decode_step_ms"] for r in runs)}
+    del engine
+    return out
+
+
+SERVE_MODES = (
+    ("bucketed", dict(prefill="bucketed")),
+    ("packed", dict(prefill="bucketed", pack_prefill=True)),
+    ("packed_detok", dict(prefill="bucketed", pack_prefill=True,
+                          detok_thread=True)),
+    ("chunked", dict(prefill="bucketed", pack_prefill=True,
+                     prefill_buckets=CHUNK_BUCKETS)))
+
+
+def _detok_ab(engine_cls, model, params, cfg, spec) -> dict:
+    """The packed prefill without (A) and with (B) the detokenize thread
+    on two warmed engines, run A B B A ``DETOK_AB_ROUNDS`` times: each
+    run's tokens/s (end to end: the thread's backlog is joined) and the
+    ratio of the medians.  A reading, not a gate."""
+    from repro_torch.launch import serve
+
+    engines = {v: engine_cls(model, params, max_batch=spec["max_batch"],
+                             max_len=spec["max_len"], prefill="bucketed",
+                             pack_prefill=True, detok_thread=v == "B")
+               for v in "AB"}
+    for eng in engines.values():
+        eng.run_offline(serve.make_requests(cfg, 1, 2))         # warm-up
+    tps = {"A": [], "B": []}
+    for _ in range(DETOK_AB_ROUNDS):
+        for v in "ABBA":
+            tps[v].append(engines[v].run_offline(serve.make_requests(
+                cfg, spec["requests"], spec["max_new"]))["tokens_per_s"])
+    med = {v: statistics.median(t) for v, t in tps.items()}
+    return {"order": "A B B A", "rounds": DETOK_AB_ROUNDS,
+            "A": "packed", "B": "packed + detok_thread",
+            "tokens_per_s": tps, "median_tokens_per_s": med,
+            "B_over_A": med["B"] / med["A"]}
+
+
+def phase_serve_bucketed(torch, dev, served: dict) -> dict:
+    """qwen2.5-3b at full width and depth, bf16, cuda: the scan run again
+    (its cache leaves the yardstick), then the bucketed, packed, packed +
+    detok and chunked prefills: the ``serve`` phase's streams on every
+    path, kernels 3 and 5 ``n_layers x (decode steps + bucket widths)``
+    launches and no other kernel."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = serve.make_config(SERVE["arch"], backend="cuda")
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    spec = dict(SERVE, repeats=SERVE_BUCKETED_REPEATS)
+    kernels = ("fused_matmul_nladc", "prefill_attention")
+    scan = ServingEngine(model, params, max_batch=spec["max_batch"],
+                         max_len=spec["max_len"])
+    scan.run_offline(serve.make_requests(cfg, 1, 2))
+    reqs = serve.make_requests(cfg, spec["requests"], spec["max_new"])
+    scan.run_offline(reqs)
+    scan_streams = {r.uid: r.generated for r in reqs}
+    check(scan_streams == served["streams"],
+          "serve_bucketed: the scan run's streams differ from serve's")
+    modes = [_serve_mode(torch, ServingEngine, model, params, cfg,
+                         "serve_bucketed", mode, kw, spec, scan_streams,
+                         scan, kernels) for mode, kw in SERVE_MODES]
+    chunked = modes[-1]
+    check(any(b == CHUNK_BUCKETS[-1] for b in
+              chunked["prefill_buckets_called"][:-1])
+          and chunked["prefill_waves"] < len(
+              chunked["prefill_buckets_called"]),
+          f"serve_bucketed: no prefill ran chunked "
+          f"({chunked['prefill_buckets_called']})")
+    out = {"phase": "serve_bucketed", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "dtype": cfg.dtype, "backend": "cuda",
+           **{k: spec[k] for k in ("requests", "max_batch", "max_len",
+                                   "max_new", "repeats")},
+           "gate_route": "GEMV (M <= 8): P = max_batch = "
+                         f"{spec['max_batch']} rows packed, 1 unpacked",
+           "modes": modes,
+           "detok_ab": _detok_ab(ServingEngine, model, params, cfg, spec),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del model, params, scan
+    return out
+
+
+def phase_serve_moe_bucketed(torch, dev) -> dict:
+    """moonshot-v1-16b-a3b at full width, its depth cut, int8 KV cache:
+    its own scan run, then the packed and chunked prefills: the scan
+    run's streams, kernels 2, 3, 4 and 6 ``n_layers x (decode steps +
+    bucket widths)`` launches, kernel 5 none."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    spec = SERVE_MOE_BUCKETED
+    cfg = serve.make_config(spec["arch"], backend="cuda", overrides={
+        "n_layers": spec["n_layers"],
+        "kv_cache_dtype": spec["kv_cache_dtype"]})
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    kernels = ("nladc", "moe_fused_matmul", "flash_decode_int8",
+               "fused_matmul_nladc")
+    scan = ServingEngine(model, params, max_batch=spec["max_batch"],
+                         max_len=spec["max_len"])
+    scan.run_offline(serve.make_requests(cfg, 1, 2))
+    reqs = serve.make_requests(cfg, spec["requests"], spec["max_new"])
+    scan.run_offline(reqs)
+    scan_streams = {r.uid: r.generated for r in reqs}
+    modes = [_serve_mode(torch, ServingEngine, model, params, cfg,
+                         "serve_moe_bucketed", mode, kw, spec, scan_streams,
+                         scan, kernels)
+             for mode, kw in SERVE_MODES if mode in ("packed", "chunked")]
+    check(all(t["k"].dtype == torch.int8 for t in scan.state["layers"]),
+          "serve_moe_bucketed: the KV cache is not int8")
+    out = {"phase": "serve_moe_bucketed", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "n_layers_published": 48,
+           "cut": f"{cfg.n_layers} of 48 layers (time)",
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+           "top_k": cfg.top_k, "kv_cache_dtype": cfg.kv_cache_dtype,
+           "dtype": cfg.dtype, "backend": "cuda",
+           **{k: spec[k] for k in ("requests", "max_batch", "max_len",
+                                   "max_new", "repeats")},
+           "modes": modes, "seconds": time.perf_counter() - t0}
+    emit(out)
+    del model, params, scan
+    return out
+
+
+def phase_serve_aged(torch, dev) -> dict:
+    """qwen2.5-3b at full width, 2 layers, infer mode on ``aged-1day``:
+    the engine ages the served weights per crossbar tile on the host
+    (seconds a layer, timed and extrapolated to 36 layers); the aged
+    weights differ from the pristine ones; ``cuda`` and ``ref`` decode
+    logits on the card within LSB/2 on those weights; then 4 requests
+    served on them."""
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    chip = device_model(SERVE_AGED["preset"])
+    models = {}
+    for bk in ("cuda", "ref"):
+        cfg = serve.make_config(
+            SERVE["arch"], backend=bk, analog_mode="infer",
+            analog_device=SERVE_AGED["preset"]).replace(
+                n_layers=SERVE_AGED["n_layers"], dtype="float32")
+        models[bk] = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = models["cuda"].init(gen)
+    # host seconds of the engine's one aging pass, split by leaf: the
+    # layers' (per layer, extrapolated to 36) and the rest's (embedding)
+    host_s = {"layers": 0.0, "rest": 0.0}
+    tiled = type(chip).age_weights_tiled
+
+    def timed(self, w, key, *args, **kw):
+        ta = time.perf_counter()
+        out = tiled(self, w, key, *args, **kw)
+        part = "layers" if key.startswith("['layers']") else "rest"
+        host_s[part] += time.perf_counter() - ta
+        return out
+
+    type(chip).age_weights_tiled = timed
+    ta = time.perf_counter()
+    try:
+        engine = ServingEngine(models["cuda"], params,
+                               max_batch=SERVE["max_batch"],
+                               max_len=SERVE["max_len"], device=chip)
+        torch.cuda.synchronize()
+    finally:
+        type(chip).age_weights_tiled = tiled
+    aging_s = time.perf_counter() - ta
+    layer_s = host_s["layers"] / SERVE_AGED["n_layers"]
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(_leaves(engine.params), _leaves(params)))
+    check(moved > 0 and not torch.equal(
+        engine.params["layers"][0]["mlp"]["wi_gate"]["w"],
+        params["layers"][0]["mlp"]["wi_gate"]["w"]),
+        "serve_aged: the aged weights equal the pristine ones")
+    aged = engine.params
+    del params
+    b = SERVE["max_batch"]
+    tokens = torch.randint(0, cfg.vocab, (AGREE_STEPS, b, 1), generator=gen,
+                           device=dev)
+    states = {bk: m.init_decode_state(b, SERVE["max_len"])
+              for bk, m in models.items()}
+    worst = 0.0
+    for t in range(AGREE_STEPS):
+        logits = {}
+        for bk, m in models.items():
+            logits[bk], states[bk] = m.decode_step(aged, states[bk],
+                                                   tokens[t])
+        check(bool(torch.isfinite(logits["cuda"]).all()),
+              "serve_aged: non-finite logits")
+        worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
+                                 .max()))
+    lsb = models["cuda"].act.ramp.lsb
+    check(worst < lsb / 2, f"serve_aged: logits differ by {worst} >= "
+          f"LSB/2 = {lsb / 2}")
+    reqs = serve.make_requests(cfg, SERVE["requests"], 4)
+    stats = engine.run_offline(reqs)
+    check(all(len(r.generated) == 4 for r in reqs),
+          "serve_aged: token counts")
+    n_layers = SERVE_AGED["n_layers"]
+    out = {"phase": "serve_aged", "arch": cfg.name, "n_layers": n_layers,
+           "cut": f"{n_layers} of 36 layers (host aging time)",
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "dtype": "float32",
+           "analog_mode": "infer", "analog_device": chip.name,
+           "aged_leaves": moved, "leaves": len(list(_leaves(aged))),
+           "aging_host_s": aging_s, "aging_host_s_per_layer": layer_s,
+           "aging_host_s_embedding_and_rest": host_s["rest"],
+           "aging_host_s_full_depth_extrapolated":
+               aging_s + (36 - n_layers) * layer_s,
+           "steps": AGREE_STEPS, "max_abs_logit_diff": worst,
+           "lsb_half": lsb / 2, "tokens": stats["tokens"],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del engine, aged, models, states
+    return out
+
+
+def _peak_reset(torch) -> int:
+    """Start a peak reading: the bytes allocated now, peak reset."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_since(torch, base: int) -> int:
+    """The peak bytes allocated above ``base`` since :func:`_peak_reset`."""
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_serve_ckpt(torch, dev) -> dict:
+    """qwen2.5-3b at full width, 2 layers, bf16, cuda: a deployment saved
+    mid-stream (every request decoding) and restored into a scan engine
+    and into a packed + detok engine; each finishes with the streams and
+    the final cache leaves of the uninterrupted run, bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = serve.make_config(SERVE["arch"], backend="cuda").replace(
+        n_layers=CKPT_LAYERS)
+    base = _peak_reset(torch)
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    kw = dict(max_batch=SERVE["max_batch"], max_len=SERVE["max_len"])
+
+    def fresh():
+        eng = ServingEngine(model, params, **kw)
+        reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+        for r in reqs:
+            eng.submit(r)
+        return eng, reqs
+
+    full, reqs = fresh()
+    full.run_to_completion()
+    peak_full = _peak_since(torch, base)
+    want = {r.uid: r.generated for r in reqs}
+    eng, _ = fresh()
+    for _ in range(CKPT_SAVE_AT):
+        eng.step()
+    check(not eng.queue and not all(eng.slot_free),
+          "serve_ckpt: the save is not mid-stream")
+    root = tempfile.mkdtemp(prefix="serve_ckpt_")
+    try:
+        ts = time.perf_counter()
+        path = eng.save(root, CKPT_SAVE_AT)
+        save_s = time.perf_counter() - ts
+        n_bytes = _dir_bytes(path)
+        del eng
+        restores = {}
+        for mode, rkw in (("scan", {}), ("packed_detok", dict(
+                prefill="bucketed", pack_prefill=True, detok_thread=True))):
+            # a new process's resume: a seeded template the checkpoint
+            # overwrites in place
+            base = _peak_reset(torch)
+            ts = time.perf_counter()
+            res = ServingEngine.restore(model, root, **rkw)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - ts
+            live = {r.uid: r for r in res.slot_req if r is not None}
+            res.run_to_completion()
+            peak = _peak_since(torch, base)
+            check(peak <= peak_full,
+                  f"serve_ckpt/{mode}: the restored run's peak {peak} B "
+                  f"exceeds the uninterrupted run's {peak_full} B")
+            got = {uid: r.generated for uid, r in live.items()}
+            check(got == {u: want[u] for u in live},
+                  f"serve_ckpt/{mode}: streams {got} differ from the "
+                  f"uninterrupted run's")
+            diffs = _cache_leaf_diffs(torch, res, full)
+            check(all(d == 0.0 for d in diffs.values())
+                  and res.state["index"] == full.state["index"],
+                  f"serve_ckpt/{mode}: cache leaves differ {diffs}")
+            restores[mode] = {"restore_s": restore_s,
+                              "max_abs_cache_diff": diffs,
+                              "requests_resumed": len(live),
+                              "peak_bytes": peak}
+            del res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "serve_ckpt", "arch": cfg.name, "n_layers": CKPT_LAYERS,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "backend": "cuda",
+           "saved_at_step": CKPT_SAVE_AT, "bytes": n_bytes,
+           "save_s": save_s, "peak_bytes_uninterrupted": peak_full,
+           "restores": restores, "bitwise": True,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del model, params, full
+    return out
+
+
+def phase_train_ckpt(torch, dev) -> dict:
+    """qwen2.5-3b at full width, 2 layers, trained through
+    ``repro_torch.launch.train``'s trainer (train mode, ``paper``): 3
+    steps uninterrupted, then 2 steps, a checkpoint, and 1 step resumed
+    by a new trainer from it; params and Adam moments bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve, train
+
+    t0 = time.perf_counter()
+    spec = TRAIN_CKPT
+    cfg = serve.make_config(spec["arch"], backend="cuda", analog_mode="train",
+                            analog_device=spec["analog_device"],
+                            overrides={"n_layers": spec["n_layers"]})
+
+    def trainer(ckpt_dir=None):
+        return train.build_trainer(cfg, dev, steps=spec["steps"],
+                                   batch=spec["batch"], seq=spec["seq"],
+                                   log=None, ckpt_dir=ckpt_dir)
+
+    base = _peak_reset(torch)
+    _, full, state = trainer()
+    full_state = train.train(full, state, spec["steps"], dev)["state"]
+    peak_full = _peak_since(torch, base)
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        _, part, state = trainer(root)
+        ts = time.perf_counter()
+        train.train(part, state, spec["steps"] - 1, dev)
+        part_s = time.perf_counter() - ts
+        n_bytes = _dir_bytes(Path(root) / f"step_{spec['steps'] - 1:08d}")
+        del part, state
+        free_device(torch)
+        base = _peak_reset(torch)
+        _, resumed, state = trainer(root)
+        ts = time.perf_counter()
+        res = train.train(resumed, state, spec["steps"], dev)
+        resume_s = time.perf_counter() - ts
+        peak_res = _peak_since(torch, base)
+        res_state = res["state"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check([h["step"] for h in resumed.history] == [spec["steps"]],
+          f"train_ckpt: the resumed run took steps "
+          f"{[h['step'] for h in resumed.history]}")
+    worst = {}
+    for name, a, b in (("params", full_state.params, res_state.params),
+                       ("mu", full_state.opt_state.mu,
+                        res_state.opt_state.mu),
+                       ("nu", full_state.opt_state.nu,
+                        res_state.opt_state.nu)):
+        worst[name] = max(float((x.detach().double()
+                                 - y.detach().double()).abs().max())
+                          for x, y in zip(_leaves(a), _leaves(b)))
+    check(all(v == 0.0 for v in worst.values())
+          and int(full_state.opt_state.count)
+          == int(res_state.opt_state.count),
+          f"train_ckpt: resumed state differs {worst}")
+    check(peak_res <= peak_full,
+          f"train_ckpt: the resumed run's peak {peak_res} B exceeds the "
+          f"uninterrupted run's {peak_full} B")
+    out = {"phase": "train_ckpt", "arch": cfg.name,
+           "n_layers": spec["n_layers"], "d_model": cfg.d_model,
+           "B": spec["batch"], "S": spec["seq"], "steps": spec["steps"],
+           "analog_mode": "train", "analog_device": spec["analog_device"],
+           "loss_uninterrupted": full.history[-1]["loss"],
+           "loss_resumed": resumed.history[-1]["loss"],
+           "ckpt_bytes": n_bytes, "two_steps_and_save_s": part_s,
+           "restore_step_and_save_s": resume_s,
+           "peak_bytes_uninterrupted": peak_full,
+           "peak_bytes_resumed": peak_res,
+           "max_abs_diff": worst, "bitwise": True,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del full, resumed, full_state, res_state
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2226,6 +2737,16 @@ def main(argv=None) -> int:
     free_device(torch)
     phase_agreement_moe(torch, dev)
     free_device(torch)
+    served_b = phase_serve_bucketed(torch, dev, served)
+    free_device(torch)
+    served_moe_b = phase_serve_moe_bucketed(torch, dev)
+    free_device(torch)
+    phase_serve_aged(torch, dev)
+    free_device(torch)
+    phase_serve_ckpt(torch, dev)
+    free_device(torch)
+    phase_train_ckpt(torch, dev)
+    free_device(torch)
     layers = TRAIN_MOE["n_layers"]
     trained = [phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
         "fused_matmul_nladc": 2 * 36})]
@@ -2285,9 +2806,15 @@ def main(argv=None) -> int:
                     for c in cases),
         shape={"B": main_case["B"], "H": main_case["H"],
                "P": main_case["P"], "layout": main_case["layout"]})
+    def mode_launches(phase, kernel):
+        return {f"{phase['phase']}/{m['mode']}": m["launches"][kernel]
+                for m in phase["modes"]}
+
     fm_main = fm_cases[0]
     fm_paths = {"serve": served["launches"]["fused_matmul_nladc"],
                 "serve_moe": served_moe["launches"]["fused_matmul_nladc"],
+                **mode_launches(served_b, "fused_matmul_nladc"),
+                **mode_launches(served_moe_b, "fused_matmul_nladc"),
                 "lm_infer": infer["launches"]["fused_matmul_nladc"],
                 **{t["phase"]: t["launches"]["fused_matmul_nladc"]
                    for t in trained}}
@@ -2304,15 +2831,15 @@ def main(argv=None) -> int:
             "M", "layout", "route", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_f32_ms", "code_flips")} for c in fm_cases})
     at_main = attn_cases[0]
+    at_paths = {"serve": served["launches"]["prefill_attention"],
+                **mode_launches(served_b, "prefill_attention"),
+                "lm_infer": infer["launches"]["prefill_attention"]}
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
         "src/repro/kernels/prefill_attention.py:51",
-        served["launches"]["prefill_attention"]
-        + infer["launches"]["prefill_attention"], attn_cases, at_main,
-        launches_per_path={
-            "serve": served["launches"]["prefill_attention"],
-            "lm_infer": infer["launches"]["prefill_attention"]},
+        sum(at_paths.values()), attn_cases, at_main,
+        launches_per_path=at_paths,
         shape={k: at_main[k] for k in ("B", "H", "Hkv", "D", "S", "dtype",
                                        "cluster")},
         per_case={c["case"]: {k: c[k] for k in (
@@ -2320,12 +2847,14 @@ def main(argv=None) -> int:
             "max_abs_err", "max_bf16_ulps")} for c in attn_cases})
     nl_main = nladc_cases[0]
     moe_train = trained[-1]["launches"]
+    nl_paths = {"serve_moe": served_moe["launches"]["nladc"],
+                **mode_launches(served_moe_b, "nladc"),
+                "train_moe": moe_train["nladc"]}
     nl = kernel_entry(
         "nladc", "src/repro_torch/kernels/csrc/nladc.cu",
         "src/repro/kernels/nladc_kernel.py:56",
-        served_moe["launches"]["nladc"] + moe_train["nladc"], nladc_cases,
-        nl_main, launches_per_path={"serve_moe": served_moe["launches"][
-            "nladc"], "train_moe": moe_train["nladc"]},
+        sum(nl_paths.values()), nladc_cases, nl_main,
+        launches_per_path=nl_paths,
         bitwise=all(c["max_abs_err"] == 0 and c["code_mismatches"] == 0
                     for c in nladc_cases),
         shape={k: nl_main[k] for k in ("shape", "P", "x_dtype", "layout")},
@@ -2333,15 +2862,15 @@ def main(argv=None) -> int:
             "shape", "layout", "ms", "plain_ms", "bound_ms")}
             for c in nladc_cases})
     moe_main = moe_cases[0]
+    moe_paths = {"serve_moe": served_moe["launches"]["moe_fused_matmul"],
+                 **mode_launches(served_moe_b, "moe_fused_matmul"),
+                 "train_moe": moe_train["moe_fused_matmul"]}
     moe = kernel_entry(
         "moe_fused_matmul",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
         "src/repro/kernels/ops.py:238",
-        served_moe["launches"]["moe_fused_matmul"]
-        + moe_train["moe_fused_matmul"], moe_cases, moe_main,
-        launches_per_path={
-            "serve_moe": served_moe["launches"]["moe_fused_matmul"],
-            "train_moe": moe_train["moe_fused_matmul"]},
+        sum(moe_paths.values()), moe_cases, moe_main,
+        launches_per_path=moe_paths,
         code_flips=sum(c["code_flips"] for c in moe_cases),
         shape={k: moe_main[k] for k in ("E", "C", "K", "N", "P", "x_dtype",
                                         "layout", "blocks")},
@@ -2349,11 +2878,14 @@ def main(argv=None) -> int:
             "fill", "live_experts", "ms", "plain_ms", "library_ms",
             "bound_ms", "code_flips")} for c in moe_cases})
     fl_main = flash_cases[0]
+    fl_paths = {"serve_moe": served_moe["launches"]["flash_decode_int8"],
+                **mode_launches(served_moe_b, "flash_decode_int8")}
     flash = kernel_entry(
         "flash_decode_int8",
         "src/repro_torch/kernels/csrc/flash_decode_int8.cu",
         "src/repro/kernels/flash_decode.py:76",
-        served_moe["launches"]["flash_decode_int8"], flash_cases, fl_main,
+        sum(fl_paths.values()), flash_cases, fl_main,
+        launches_per_path=fl_paths,
         shape={k: fl_main[k] for k in ("B", "H", "Hkv", "D", "S",
                                        "q_dtype", "splits")},
         per_case={c["case"]: {k: c[k] for k in (

@@ -134,12 +134,21 @@ class DeployedBank:
     """One activation's ``(n_col_tiles, P)`` threshold bank at one width.
 
     Holds the per-col-tile programmed ramps, their float64 stack (the
-    ground truth) and the float32 operand the backends consume.
+    ground truth, which a deployment checkpoint records) and the float32
+    operand the backends consume.
     """
 
-    def __init__(self, ramps, width: int, bank_cols: int, device=None):
+    def __init__(self, ideal: Ramp, ramps, width: int, bank_cols: int,
+                 device=None):
+        self.ideal = ideal
         self.width = width
+        self.device = device
         self.bank_map = bank_map_for(width, bank_cols)
+        self.redeploy(ramps)
+
+    def redeploy(self, ramps) -> None:
+        """Swap in newly realized per-bank ramps (a chip re-program)."""
+        device = self.device
         ramps = tuple(ramps)
         if len(ramps) != self.bank_map.n_banks:
             raise ValueError(f"expected {self.bank_map.n_banks} bank ramps, "
@@ -206,6 +215,20 @@ class AnalogActivation:
     def ramp(self) -> Optional[Ramp]:
         return self._adc.ramp if self._adc is not None else None
 
+    @property
+    def ideal_ramp(self) -> Optional[Ramp]:
+        """The as-designed ramp, before any build-stage programming."""
+        return self._ideal_ramp
+
+    def redeploy(self, ramp: Ramp) -> None:
+        """Swap in newly realized comparator thresholds (a chip re-program
+        or a deployment restore); the next call reads them."""
+        if self._adc is None:
+            raise ValueError(f"activation {self.name!r} has no NL-ADC")
+        self._adc = NLADC(ramp, self.device)
+        self._steps = torch.from_numpy(
+            np.asarray(ramp.steps, np.float32)).to(self.device)
+
     def n_banks(self, width: int) -> int:
         """Col-tiles an application of this activation at ``width`` spans."""
         if self.cfg.bank_cols <= 0 or width <= 0:
@@ -230,8 +253,22 @@ class AnalogActivation:
             else:
                 ramps = (self._ideal_ramp,) * n
             bank = self._banks[width] = DeployedBank(
-                ramps, width, self.cfg.bank_cols, self.device)
+                self._ideal_ramp, ramps, width, self.cfg.bank_cols,
+                self.device)
         return bank
+
+    def banks(self) -> dict:
+        """Realized banks, width -> :class:`DeployedBank` (a copy)."""
+        return dict(self._banks)
+
+    def redeploy_bank(self, width: int, ramps) -> None:
+        """Re-program one width's bank (a deployment restore)."""
+        bank = self.bank_for(width)
+        if bank is None:
+            raise ValueError(
+                f"activation {self.name!r} has no bank at width {width} "
+                f"(bank_cols={self.cfg.bank_cols})")
+        bank.redeploy(ramps)
 
     def ramp_sigma_us(self) -> float:
         """The per-call ramp-step noise (µS): the device model's

@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -418,17 +419,20 @@ class DeviceModel:
     def age_weights_tiled(self, w: np.ndarray, key: str,
                           plan: Optional[CB.TilePlan] = None,
                           generation: int = 0,
-                          col_overrides: Optional[Dict[int, tuple]] = None
-                          ) -> np.ndarray:
+                          col_overrides: Optional[Dict[int, tuple]] = None,
+                          first_index: int = 0) -> np.ndarray:
         """:meth:`age_weights`, drawn independently per physical crossbar.
 
         The last two dims are partitioned by ``plan`` (default: the paper's
         633x512 tiling); tile (i, j) of leading matrix ``mi`` draws from
-        :meth:`tile_rng` keyed on ``(key, mi, i, j)``, so tiles carry
-        independent device populations and the result does not depend on
-        visit order.  A nonzero ``generation`` salts every tile (a field
-        re-program: fresh write noise); generation 0 is the pre-refresh
-        stream.  ``col_overrides`` maps a col-tile ``j`` to ``(generation,
+        :meth:`tile_rng` keyed on ``(key, first_index + mi, i, j)``, so
+        tiles carry independent device populations and the result does not
+        depend on visit order.  ``first_index`` places the matrices inside
+        a larger stack: layer ``l`` of a stack whose layers hold ``m``
+        matrices each starts at ``l * m``, so one layer aged alone gets its
+        draws from the stacked leaf's.  A nonzero ``generation`` salts
+        every tile (a field re-program: fresh write noise); generation 0
+        is the pre-refresh stream.  ``col_overrides`` maps a col-tile ``j`` to ``(generation,
         t_eff_s)``: those crossbars were re-programmed on their own, with
         their own salt and drift clock.
         """
@@ -442,23 +446,34 @@ class DeviceModel:
                 f"{mats.shape[1:]}; derive the plan from the leaf shape")
         gen_salt = (generation,) if generation else ()
         out = np.empty_like(mats)
-        for mi in range(mats.shape[0]):
-            for (ti, tj), rs, cs in p.blocks():
-                ov = col_overrides.get(tj) if col_overrides else None
-                if ov is None:
-                    out[mi, rs, cs] = self.age_weights(
-                        mats[mi, rs, cs],
-                        self.tile_rng(key, mi, ti, tj, *gen_salt))
-                else:
-                    gen_j, t_j = int(ov[0]), float(ov[1])
-                    dev_j = self.with_drift(t_j)
-                    salt_j = (gen_j,) if gen_j else ()
-                    out[mi, rs, cs] = dev_j.age_weights(
-                        mats[mi, rs, cs],
-                        dev_j.tile_rng(key, mi, ti, tj, *salt_j))
+
+        def tile(job):
+            mi, (ti, tj), rs, cs = job
+            ov = col_overrides.get(tj) if col_overrides else None
+            dev, salt = self, gen_salt
+            if ov is not None:
+                dev = self.with_drift(float(ov[1]))
+                salt = (int(ov[0]),) if int(ov[0]) else ()
+            out[mi, rs, cs] = dev.age_weights(
+                mats[mi, rs, cs],
+                dev.tile_rng(key, first_index + mi, ti, tj, *salt))
+
+        jobs = [(mi, *blk) for mi in range(mats.shape[0])
+                for blk in p.blocks()]
+        # each tile owns its generator and its slice of `out`, so the
+        # tiles of a large matrix run on threads (numpy releases the GIL)
+        # and give the same bits in any order
+        workers = min(len(jobs), os.cpu_count() or 1, _AGING_THREADS)
+        if workers > 1 and mats.size >= _AGING_THREAD_MIN:
+            with ThreadPoolExecutor(workers) as pool:
+                list(pool.map(tile, jobs))
+        else:
+            for job in jobs:
+                tile(job)
         return out.reshape(w.shape)
 
-    def age_params(self, params, rng: Optional[np.random.Generator] = None):
+    def age_params(self, params, rng: Optional[np.random.Generator] = None,
+                   *, stacked: str = ""):
         """Build-stage aging of every matrix leaf of a params tree (nested
         dicts, lists and tuples of tensors).
 
@@ -471,6 +486,17 @@ class DeviceModel:
         (``"['lstm']['w_gates']"``), so the chip is the JAX package's for
         the same tree.  An explicit ``rng`` is threaded through the leaves
         in the JAX flattening order (dict keys sorted).
+
+        ``stacked`` names a top-level key whose list holds one params tree
+        per layer where the JAX package stacks the layers on a leading
+        axis (the LM's ``"layers"``).  Layer ``i``'s leaf at
+        ``['layers'][i]<rest>`` then gets the draws of the stacked leaf
+        ``['layers']<rest>`` at leading index ``i``, per layer, without
+        stacking the matrices on the host.  A 1-D leaf of a layer (a norm
+        scale, a bias) is a 2-D stacked leaf there, and the reference ages
+        it as one ``(n_layers, N)`` matrix: those few small leaves are
+        stacked and aged together.  The embedding and the other top-level
+        leaves of 2 or more dims are aged as in any tree.
         """
         if not self.has_build_stage:
             return params
@@ -481,9 +507,43 @@ class DeviceModel:
             w64 = w.detach().to("cpu", torch.float64).numpy()
             aged = (self.age_weights_tiled(w64, path) if rng is None
                     else self.age_weights(w64, rng))
-            return torch.from_numpy(aged).to(device=w.device, dtype=w.dtype)
+            return _like(aged, w)
 
-        return _map_with_path(params, one)
+        if not stacked:
+            return _map_with_path(params, one)
+        if rng is not None:
+            raise ValueError("stacked= ages per crossbar tile; it takes no "
+                             "rng")
+        out = {k: _map_with_path(v, one, f"[{k!r}]")
+               for k, v in params.items() if k != stacked}
+        layers = params[stacked]
+        base = f"[{stacked!r}]"
+        # the 1-D leaves of every layer, by path, stacked as the reference's
+        rows: Dict[str, list] = {}
+        for p in layers:
+            _map_with_path(p, lambda path, w: rows.setdefault(
+                path, []).append(w) if getattr(w, "ndim", 0) == 1 else w)
+        aged_rows = {
+            path: self.age_weights_tiled(
+                torch.stack(ws).detach().to("cpu", torch.float64).numpy(),
+                base + path)
+            for path, ws in rows.items()}
+
+        def layer_leaf(i):
+            def fn(path, w):
+                if getattr(w, "ndim", 0) == 1:
+                    return _like(aged_rows[path][i], w)
+                if getattr(w, "ndim", 0) < 1:
+                    return w
+                w64 = w.detach().to("cpu", torch.float64).numpy()
+                per_layer = int(np.prod(w.shape[:-2], dtype=np.int64))
+                return _like(self.age_weights_tiled(
+                    w64, base + path, first_index=i * per_layer), w)
+            return fn
+
+        out[stacked] = [_map_with_path(p, layer_leaf(i))
+                        for i, p in enumerate(layers)]
+        return {k: out[k] for k in params}
 
     # -- serialization -----------------------------------------------------
 
@@ -495,6 +555,17 @@ class DeviceModel:
             stage = getattr(self, field)
             out[field] = None if stage is None else dataclasses.asdict(stage)
         return out
+
+
+# host aging: threads for matrices of at least this many elements
+_AGING_THREADS = 8
+_AGING_THREAD_MIN = 1 << 20
+
+
+def _like(aged: np.ndarray, w: torch.Tensor) -> torch.Tensor:
+    """A host float64 result in ``w``'s dtype on ``w``'s device."""
+    return torch.from_numpy(np.ascontiguousarray(aged)).to(
+        device=w.device, dtype=w.dtype)
 
 
 def _map_with_path(tree, fn, path: str = ""):

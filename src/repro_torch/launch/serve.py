@@ -4,8 +4,8 @@ qwen2.5-3b``, or a MoE LM with an int8 KV cache::
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --override n_layers=24 --override kv_cache_dtype=int8
 
-The torch twin of the JAX package's ``repro.launch.serve`` on its scan
-prefill: builds the model at the config's published widths (or its SMOKE
+The torch twin of the JAX package's ``repro.launch.serve`` for one chip:
+builds the model at the config's published widths (or its SMOKE
 variant with ``--smoke``; ``--override key=value`` replaces config
 fields, as the JAX ``repro.launch.dryrun --override`` does), submits a
 wave of synthetic requests made as the JAX launcher makes them
@@ -21,6 +21,8 @@ summary line.  Weights come from ``--params`` (an LM tree saved by
         [--backend cuda|ref] [--bank-cols N] \\
         [--analog-mode exact|infer|train] [--analog-device PRESET] \\
         [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile] \\
+        [--prefill-buckets auto|N,N,...] [--pack-prefill] [--detok-thread] \\
+        [--offline] [--ckpt-dir DIR] [--resume] \\
         [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
@@ -33,11 +35,22 @@ one-request warm-up wave builds the kernels and initialises cuBLAS before
 the measured run.  ``--profile`` serves the
 wave once more under ``torch.profiler`` and prints the device time per
 kernel name and the device's idle share.  ``--analog-mode infer`` serves
-on ramps programmed once at build time by the ``--analog-device`` preset
-(the LM spec carries no weight noise, so a step draws nothing; the
-reference's engine hands its steps keys that nothing reads); in train mode
-the ramps are the ideal ones, as the reference's engine passes no key
-there.  ``--kernel-cache`` (a
+the chip the ``--analog-device`` preset programs: ramps programmed once at
+build time, and weights aged per crossbar tile by the preset's build stage
+(the engine's ``device=``, as the reference's launcher passes it; the LM
+spec carries no weight noise, so a step draws nothing).  Outside infer
+mode the preset is inert, and the launcher says so, as the reference's
+does; in train mode the ramps are the ideal ones, as the reference's
+engine passes no key there.
+
+``--prefill-buckets`` serves the bucketed prefill (``auto``: powers of two
+up to ``max_len - 1``), ``--pack-prefill`` packs each admission wave into
+one call (it needs buckets), ``--detok-thread`` lands each step's tokens
+on a background thread.  ``--offline`` runs the engine's ``warmup()``
+(every bucket and one decode step on throwaway states) in place of the
+warm-up wave.  ``--ckpt-dir`` checkpoints the deployment there at the end
+(the step numbers grow across resumed runs); with ``--resume`` the engine
+is restored from it instead of programming a fresh chip.  ``--kernel-cache`` (a
 ``repro_torch.launch.kernel_tune`` result) and ``--kernel-blocks``
 (``fused_matmul_nladc=4x64x512,nladc=8x32``) choose the kernels' launch
 configs per shape (:mod:`repro_torch.kernels.tune`); a bad spec or file is
@@ -57,7 +70,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.ckpt.checkpoint import list_checkpoints
 from repro_torch.convert import load_npz
+from repro_torch.core.device import resolve_device as resolve_device_model
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import fused_matmul_nladc as fmn
 from repro_torch.kernels import nladc as nk
@@ -162,9 +177,42 @@ def main(argv=None) -> dict:
                     help="seed of the random weights (without --params)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time per kernel (GPU only)")
+    ap.add_argument("--prefill-buckets", default="",
+                    help="the bucketed prefill: comma-separated bucket "
+                         "lengths (e.g. '8,16,32') or 'auto' for powers "
+                         "of two up to max_len-1; empty = the scan prefill")
+    ap.add_argument("--pack-prefill", action="store_true",
+                    help="pack each admission wave into one bucket call "
+                         "(requires --prefill-buckets)")
+    ap.add_argument("--detok-thread", action="store_true",
+                    help="land each step's tokens on a background thread")
+    ap.add_argument("--offline", action="store_true",
+                    help="warmup() every bucket and the decode step, then "
+                         "the measured run")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint the deployment here at the end of the "
+                         "run")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the deployment from --ckpt-dir instead "
+                         "of programming a fresh chip")
     add_kernel_flags(ap)
     args = ap.parse_args(argv)
     configure_kernels(ap, args)
+    if args.pack_prefill and not args.prefill_buckets:
+        ap.error("--pack-prefill requires --prefill-buckets")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
+    prefill_kw = {"detok_thread": args.detok_thread}
+    if args.prefill_buckets:
+        prefill_kw["prefill"] = "bucketed"
+        prefill_kw["pack_prefill"] = args.pack_prefill
+        if args.prefill_buckets != "auto":
+            try:
+                prefill_kw["prefill_buckets"] = tuple(
+                    int(b) for b in args.prefill_buckets.split(","))
+            except ValueError:
+                ap.error("--prefill-buckets must be 'auto' or a "
+                         "comma-separated list of ints")
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":
@@ -184,17 +232,56 @@ def main(argv=None) -> dict:
           f"analog mode {cfg.analog.mode}, bank_cols "
           f"{cfg.analog.bank_cols}; TF32 and reduced-precision "
           f"bf16 sums off ({flags})", flush=True)
-    engine = ServingEngine(model, params, max_batch=args.max_batch,
-                           max_len=args.max_len)
-    engine.run_offline(make_requests(cfg, 1, 2))              # warm-up
+    # build-stage aging composes with infer mode only: exact mode would
+    # pair aged weights with a pristine NL-ADC, a chip that cannot exist
+    chip = None
+    if cfg.analog.mode == "infer":
+        chip = resolve_device_model(cfg.analog.device)
+        if chip.has_build_stage and not args.resume:
+            print(f"[serve] applying device model {chip.name!r} build "
+                  "stage to params (write noise / faults / drift; "
+                  "per-tile TilePlan-keyed draws)", flush=True)
+    elif args.analog_device:
+        print(f"[serve] note: --analog-device {args.analog_device} is inert "
+              f"in analog mode {cfg.analog.mode!r}; pass --analog-mode infer "
+              "for the deployment simulation", flush=True)
+    if args.resume:
+        engine = ServingEngine.restore(model, args.ckpt_dir,
+                                       params_like=params, **prefill_kw)
+        print(f"[serve] resumed deployment from {args.ckpt_dir}",
+              flush=True)
+    else:
+        engine = ServingEngine(model, params, max_batch=args.max_batch,
+                               max_len=args.max_len, device=chip,
+                               **prefill_kw)
+    del params
+    if args.offline:
+        w = engine.warmup()
+        print(f"[serve] warmup: prefill buckets "
+              f"{tuple(w['prefill_buckets'])} + decode step", flush=True)
+    else:
+        engine.run_offline(make_requests(cfg, 1, 2))          # warm-up
     launches0 = {k: fn.launches for k, fn in KERNELS.items()}
     stats = engine.run_offline(make_requests(cfg, args.requests,
                                              args.max_new))
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "kv_cache_dtype": cfg.kv_cache_dtype, "device": name,
-           "backend": backend, "requests": args.requests, **stats,
+           "backend": backend, "requests": args.requests,
+           "analog_mode": cfg.analog.mode,
+           "aged": engine.device.name if engine.device is not None
+           and engine.device.has_build_stage else None,
+           "prefill": engine.prefill_mode, "pack_prefill":
+           engine.pack_prefill, "detok_thread": args.detok_thread,
+           "prefill_buckets": list(engine.prefill_buckets), **stats,
            "launches": {k: fn.launches - launches0[k]
-                        for k, fn in KERNELS.items()}}
+                        for k, fn in KERNELS.items()}, "ckpt": None}
+    if args.ckpt_dir:
+        # steps grow across resumed runs, so the latest checkpoint is
+        # always the newest deployment
+        prev = list_checkpoints(args.ckpt_dir)
+        out["ckpt"] = engine.save(args.ckpt_dir,
+                                  step=(prev[-1] if prev else 0)
+                                  + stats["tokens"])
     print(json.dumps(out), flush=True)
     if args.profile:
         res, prof = device_profile(lambda: engine.run_offline(

@@ -12,7 +12,7 @@ a cosine schedule; each layer recomputed in the backward) and the
         [--seq 128] [--backend cuda|ref] [--analog-device PRESET] \\
         [--analog-mode exact|train|infer] [--bank-cols N] [--seed 0] \\
         [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC] \\
-        [--device cuda|cpu] [--profile]
+        [--device cuda|cpu] [--profile] [--ckpt-dir DIR]
 
 ``--analog-mode train`` on the ``paper`` preset is Alg. 1's hardware-aware
 training: fresh ramp-step noise on every call of the MLP's (and the
@@ -22,14 +22,17 @@ milliseconds (host clock, ending when the metrics reach the host) and the
 launches of each kernel; the end prints one JSON summary (tokens/s over
 the steps after the first, the peak device memory).  ``--profile`` adds
 one profiled train step: device busy and idle share and the kernels by
-device time.
+device time.  ``--ckpt-dir`` checkpoints the params and the optimizer
+state there (every 200 steps and at the end, keep 3, the reference's
+defaults) and resumes from the latest checkpoint it holds, in the JAX
+package's layout.
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise; on the GPU the backend defaults to ``cuda``, on
 the CPU to ``ref``; TF32 is off (``launch.common.configure_numerics``).
-Not ported, each raising with its ``ROADMAP.md`` item: ``--ckpt-dir``
-(queue A item 4), ``--production-mesh`` and ``--grad-comm`` other than
-``gspmd`` (queue A item 6).
+Not ported, each raising with its ``ROADMAP.md`` item:
+``--production-mesh`` and ``--grad-comm`` other than ``gspmd`` (queue A
+item 6).
 """
 
 from __future__ import annotations
@@ -55,9 +58,11 @@ GRAD_COMM_MODES = ("gspmd", "psum", "hierarchical", "int8")
 
 
 def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
-                  seq: int, seed: int = 0, log=print):
+                  seq: int, seed: int = 0, log=print,
+                  ckpt_dir: Optional[str] = None, ckpt_every: int = 200):
     """(model, trainer, state): seeded weights on ``device``, the
-    reference's optimizer scheduled over ``steps``, and the pipeline."""
+    reference's optimizer scheduled over ``steps``, and the pipeline;
+    checkpoints under ``ckpt_dir`` when given."""
     model = build(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -66,7 +71,7 @@ def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
     trainer = Trainer(model, opt, make_train_step(model, opt),
                       SyntheticLM(cfg.vocab, seq, batch),
                       put_batch=lambda b: to_device_batch(b, device),
-                      log=log)
+                      log=log, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
     return model, trainer, TrainState(params, opt.init(params))
 
 
@@ -124,14 +129,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--profile", action="store_true",
                     help="also profile one train step (GPU only)")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint here, and resume from the latest "
+                         "checkpoint found there")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--grad-comm", choices=GRAD_COMM_MODES, default="gspmd")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt-dir: checkpoints are not ported "
-                                  "yet; ROADMAP.md queue A item 4 brings "
-                                  "them")
     if args.production_mesh or args.grad_comm != "gspmd":
         raise NotImplementedError("--production-mesh and --grad-comm "
                                   "psum|hierarchical|int8: distribution is "
@@ -159,7 +162,8 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     model, trainer, state = build_trainer(
         cfg, device, steps=args.steps, batch=args.batch, seq=args.seq,
-        seed=args.seed, log=lambda s: print(s, flush=True))
+        seed=args.seed, log=lambda s: print(s, flush=True),
+        ckpt_dir=args.ckpt_dir)
     res = train(trainer, state, args.steps, device)
     hist = trainer.history
     later = trainer.step_ms[1:] or trainer.step_ms
@@ -174,7 +178,7 @@ def main(argv=None) -> dict:
            "step_ms_all": trainer.step_ms, "step_ms": step_ms,
            "tokens_per_s": (args.batch * args.seq * 1e3 / step_ms
                             if step_ms else None),
-           "launches": res["launches"]}
+           "launches": res["launches"], "ckpt_dir": args.ckpt_dir}
     if device.type == "cuda":
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     print(json.dumps(out), flush=True)

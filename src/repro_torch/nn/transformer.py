@@ -4,9 +4,9 @@ The JAX package's ``repro/nn/transformer.py`` for its ``attn`` and
 ``moe_attn`` blocks: ``init``, ``embed``, ``logits``, ``layer_kinds``,
 the full-sequence ``forward`` / ``loss`` / ``prefill``, and the decode
 path (``init_decode_state`` with a bf16/f32 or int8 KV cache,
-``decode_step``).  Where the reference scans over stacked layer params,
-the port keeps one param dict and one cache dict per layer and loops over
-them.  One NL-ADC activation (the hidden ``silu`` ramp, thresholds on the
+``decode_step``, ``prefill_cache``).  Where the reference scans over
+stacked layer params, the port keeps one param dict and one cache dict
+per layer and loops over them.  One NL-ADC activation (the hidden ``silu`` ramp, thresholds on the
 model's device) is shared by every layer, and one sigmoid NL-ADC by every
 MoE router.
 
@@ -231,8 +231,16 @@ class LM:
                 noise: Optional[NoiseSource] = None) -> torch.Tensor:
         """Forward a prompt, returning the last position's logits (B, 1,
         V); no cache is written (the cache-writing prefill is
-        ``prefill_cache``, ROADMAP.md queue A item 3)."""
+        :meth:`prefill_cache`)."""
         return self.forward(params, tokens, noise=noise)[:, -1:]
+
+    def prefill_cache(self, params, state, tokens, valid_len):
+        """Cache-writing chunked and batched prefill (see
+        :func:`repro_torch.nn.model.prefill_cache`: the decode path with
+        per-row length masking and the shared global index)."""
+        from repro_torch.nn import model as M
+
+        return M.prefill_cache(self, params, state, tokens, valid_len)
 
     # -- decode path -------------------------------------------------------
 

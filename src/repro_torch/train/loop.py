@@ -3,12 +3,16 @@
 The torch twin of the JAX package's ``repro/train/loop.py`` (``TrainState``
 and ``Trainer``): each step takes ``pipeline.batch_at(step)``, runs the
 train step with ``seed = step`` and appends every step's metrics to
-``history`` (the reference's ``log_every=1``).  Left out, each with its
-queue item in ``ROADMAP.md``: checkpoints and resuming from a step
-(``ckpt_dir=`` raises; queue A item 4), the retrying executor and
-straggler policy (queue A item 6), the ``Obs`` counters and spans (queue
-A item 4) and a logging interval; the loop also keeps each step's host
-milliseconds in ``step_ms``, where the reference records a histogram.
+``history`` (the reference's ``log_every=1``).  With ``ckpt_dir`` a
+:class:`~repro_torch.ckpt.CheckpointManager` (async, keep ``keep``)
+saves ``{"params", "opt"}`` every ``ckpt_every`` steps and once more,
+blocking, at the end; :meth:`Trainer.fit` resumes from the latest
+checkpoint there (the reference's layout: either package resumes the
+other's).  Left out, each with its queue item in ``ROADMAP.md``: the
+retrying executor, its ``restore_fn`` and the straggler policy (queue A
+item 6), the ``Obs`` counters and spans (queue A item 4) and a logging
+interval; the loop also keeps each step's host milliseconds in
+``step_ms``, where the reference records a histogram.
 ``grad_accum_step`` is not ported (queue A item 3).
 """
 
@@ -19,6 +23,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch.ckpt import CheckpointManager
 
 
 @dataclasses.dataclass
@@ -32,12 +38,12 @@ class Trainer:
     turns a numpy batch into the step's tensors (on the model's device)."""
 
     def __init__(self, model, optimizer, train_step: Callable, pipeline,
-                 *, ckpt_dir: Optional[str] = None,
-                 put_batch: Optional[Callable] = None, log=print):
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpoints are not ported yet; ROADMAP.md queue A item 4 "
-                "(ckpt/checkpoint.py) brings them")
+                 *, ckpt_dir: Optional[str] = None, ckpt_every: int = 200,
+                 keep: int = 3, put_batch: Optional[Callable] = None,
+                 log=print):
+        self.ckpt = (CheckpointManager(ckpt_dir, keep=keep,
+                                       save_interval=ckpt_every)
+                     if ckpt_dir else None)
         self.model = model
         self.optimizer = optimizer
         self.train_step = train_step
@@ -47,9 +53,21 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.step_ms: List[float] = []
 
+    def _ckpt_tree(self, state: TrainState) -> Dict[str, Any]:
+        return {"params": state.params, "opt": state.opt_state}
+
     def fit(self, state: TrainState, n_steps: int) -> TrainState:
+        """Steps 0 (or the latest checkpoint's) to ``n_steps``.  A resume
+        loads the checkpoint into ``state``'s tensors in place, so the
+        card holds one copy of the params and moments."""
+        step = 0
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            restored, step, _ = self.ckpt.restore(self._ckpt_tree(state))
+            state = TrainState(restored["params"], restored["opt"])
+            if self.log is not None:
+                self.log(f"[trainer] resumed from step {step}")
         t0 = time.time()
-        for step in range(n_steps):
+        for step in range(step, n_steps):
             ts = time.perf_counter()
             batch = self.put_batch(self.pipeline.batch_at(step))
             params, opt_state, metrics = self.train_step(
@@ -65,6 +83,10 @@ class Trainer:
                 self.log(f"[trainer] step {step + 1:5d} loss "
                          f"{m.get('loss', float('nan')):.4f} "
                          f"({m['wall_s']}s)")
+            if self.ckpt is not None and self.ckpt.should_save(step + 1):
+                self.ckpt.save(step + 1, self._ckpt_tree(state))
+        if self.ckpt is not None:
+            self.ckpt.save(n_steps, self._ckpt_tree(state), blocking=True)
         return state
 
 

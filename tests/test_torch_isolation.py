@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.kernel_tune", "launch.kernel_bench",
                  "launch.lstm_train", "train.optim", "launch.train",
                  "launch.steps", "train.loop", "data.pipeline",
-                 "core.circuit"):
+                 "core.circuit", "ckpt.checkpoint", "serve.lifecycle",
+                 "serve.engine", "nn.model"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"
@@ -41,7 +42,8 @@ def test_every_module_imports_without_jax_or_repro():
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(k for k in sys.modules\n"
         "    if k == 'jax' or k.startswith('jax.') or k == 'repro'\n"
-        "    or k.startswith('repro.'))))\n")
+        "    or k.startswith('repro.') or k == 'ml_dtypes'\n"
+        "    or k.startswith('ml_dtypes.'))))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

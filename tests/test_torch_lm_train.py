@@ -366,9 +366,25 @@ def test_three_trainer_steps_match_the_reference(arch):
     assert ttr.history[0]["tokens"] == seq * bsz
 
 
-def test_trainer_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLOOP.Trainer(None, None, None, None, ckpt_dir="ckpt")
+def test_trainer_refuses_checkpoints(tmp_path):
+    """The trainer saves ``{"params", "opt"}`` under ``ckpt_dir``, and
+    refuses to resume from a checkpoint of another tree."""
+    from repro_torch.ckpt import checkpoint as CK
+
+    ck = str(tmp_path / "ck")
+    tr = TLOOP.Trainer(None, None, lambda p, o, b, s: (p, o, {"loss": 0.0}),
+                       SyntheticLM(16, 4, 2), ckpt_dir=ck, ckpt_every=2,
+                       log=None)
+    state = TLOOP.TrainState({"w": torch.ones(3)}, {"m": torch.zeros(3)})
+    tr.fit(state, 3)
+    assert CK.list_checkpoints(ck) == [2, 3]
+    tree, step, _ = CK.load_checkpoint(ck, {"params": state.params,
+                                            "opt": state.opt_state})
+    assert step == 3 and torch.equal(tree["params"]["w"], torch.ones(3))
+    other = TLOOP.Trainer(None, None, None, SyntheticLM(16, 4, 2),
+                          ckpt_dir=ck, log=None)
+    with pytest.raises(ValueError, match="tree mismatch"):
+        other.fit(TLOOP.TrainState({"v": torch.ones(3)}, None), 4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -385,7 +401,8 @@ def test_launcher_trains_smoke_on_cpu(arch, capsys):
     assert (out["aux_losses"][0] > 0) == (arch != "qwen2.5-3b")
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--production-mesh"],
+@pytest.mark.parametrize("flag", [["--grad-comm", "psum"],
+                                  ["--production-mesh"],
                                   ["--grad-comm", "int8"]])
 def test_launcher_refuses_unported_options(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -191,13 +191,16 @@ def test_requests_are_the_jax_launchers():
         assert 4 <= len(r.prompt) <= 11 and r.max_new_tokens == 16
 
 
-@pytest.mark.parametrize("kw", [dict(prefill="bucketed"),
-                                dict(detok_thread=True),
-                                dict(pack_prefill=True)])
+@pytest.mark.parametrize("kw", [dict(recal=object()),
+                                dict(drain_before_rejit=True),
+                                dict(external_maintenance=True),
+                                dict(obs=object())])
 def test_engine_outside_the_slice_raises(kw):
+    """The lifecycle's scheduler, the fleet and observability stay
+    unported; each refusal names its ROADMAP item."""
     cfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref")
     model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
         TEngine(model, params, max_batch=1, max_len=8, **kw)
     with pytest.raises(TypeError):
         TEngine(model, params, max_batch=1, max_len=8, no_such_knob=1)
@@ -254,7 +257,7 @@ def test_launcher_serves_every_analog_mode():
 
 
 def test_launcher_refuses_unported_modes():
-    """Expert parallelism and the engine's lifecycle (``device=``) stay
+    """Expert parallelism and the engine's re-calibration scheduler stay
     unported, and each refusal names its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSERVE.main(["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device",
@@ -264,7 +267,33 @@ def test_launcher_refuses_unported_modes():
                              analog_mode="infer", analog_device="paper-infer")
     model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(model, params, max_batch=1, max_len=8, device="paper")
+        TEngine(model, params, max_batch=1, max_len=8, recal=object())
+
+
+def test_launcher_serves_aged_weights_in_infer_mode(capsys):
+    """``--analog-mode infer`` hands the preset to the engine, whose build
+    stage ages the served weights; outside infer mode the preset is inert
+    and the launcher says so."""
+    kw = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+          "--requests", "2", "--max-new", "4", "--analog-device",
+          "aged-1day"]
+    aged = TSERVE.main(kw + ["--analog-mode", "infer"])
+    exact = TSERVE.main(kw + ["--analog-mode", "exact"])
+    out = capsys.readouterr().out
+    assert "applying device model 'aged-1day' build stage" in out
+    assert "--analog-device aged-1day is inert in analog mode 'exact'" \
+        in out
+    assert aged["aged"] == "aged-1day" and exact["aged"] is None
+    assert aged["tokens"] == exact["tokens"] == 8
+    cfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref",
+                             analog_mode="infer", analog_device="aged-1day")
+    model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
+    from repro_torch.core.device import get_device
+
+    engine = TEngine(model, params, max_batch=1, max_len=8,
+                     device=get_device("aged-1day"))
+    assert not torch.equal(engine.params["layers"][0]["mlp"]["wi_gate"]["w"],
+                           params["layers"][0]["mlp"]["wi_gate"]["w"])
 
 
 def test_launcher_reads_params_npz(tmp_path, capsys):
