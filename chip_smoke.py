@@ -190,6 +190,56 @@ Phases, one JSON line each:
               checkpoint and 1 resumed step; params and Adam moments
               bitwise; the resumed run's peak device memory at most the
               uninterrupted run's; bytes and seconds.
+13-6. serve_recal — qwen2.5-3b at full width, 4 of 36 layers (host
+              aging time), float32, infer mode on ``aged-1day`` with
+              512-column banks, 4 requests x 16 tokens, a threshold-only
+              re-calibration scheduler (``RecalPolicy(age_per_step_s=0,
+              check_every=4)``, the threshold between the ramps' median
+              INLs): the cuda engine against its deployment restored into
+              a ``ref`` model: every call of kernel 3 against ref's gate
+              on the same operands (code flips at most 1e-4 of outputs,
+              one level each); the ref run, given the cuda run's gate
+              outputs, within LSB/2 of its logits with equal streams (or
+              streams that part where the two best logits lie within
+              twice the step's difference: a near tie); equal events;
+              some
+              ramps re-calibrated and not all, the banks
+              kernel 3's GEMV reads moved; INL before and after, host ms
+              per probe, tokens/s with and without the scheduler (A B B
+              A).
+13-7. serve_refresh — 2 layers, a policy aging 1e5 s a step with a
+              weight refresh after one stall: a refresh scoped to one
+              stalled bank (only the gate and up matrices' col-tile under
+              it changes, ``weight_gen`` 0, ``tile_gens`` that bank), then
+              a chip-wide one (every crossbar, ``weight_gen`` 2), each
+              written into the engine's own tensors (its peak above the
+              engine at most a serve's); host s per re-program.
+13-8. serve_drain — 2 layers, the deployment aged once and restored per
+              run: ``drain_before_rejit`` off (a re-program lands mid-wave)
+              and on (only with every slot free), and fleet mode
+              (``external_maintenance``, requests admitted through the
+              window, then ``begin_drain``), cuda and ref each: inside a
+              window the batched decode step serves the snapshot's
+              thresholds while the host's moved; logits and streams
+              against ref as in serve_recal.
+13-9. serve_lifecycle_ckpt — the same deployment, saved inside a drain
+              window and restored: streams, params, thresholds, the
+              scheduler's state, metrics and the joined trace (wall
+              fields stripped) bitwise the uninterrupted run's; the
+              resumed peak at most the uninterrupted one.
+13-10. fleet — 4 chips of 2 layers (3 on ``aged-1day``, a ``stressed``
+              canary), capacity floor 0.75, least-loaded, 16 requests, a
+              threshold-only recal storm: at most one chip drains at once,
+              every request finishes, the canary's warning tightens its
+              siblings; saved mid-storm and restored into a new
+              ``FleetEngine``: the rest bitwise the uninterrupted fleet;
+              tokens/s against one chip's, admission steps, the energy
+              report (``core/hwcost.py``'s model of the analog chip).
+13-11. serve_obs — ``serve``'s 36 layers with the trace on: two seeded
+              runs write the same JSONL bytes, the Prometheus text
+              parses; tokens/s with the trace off and on (A B B A);
+              ``ChipEnergyModel.price`` at full depth (hwcost's model, not
+              the GPU's energy).
 13a. train_lm — qwen2.5-3b trained at full width and all 36 layers
               (``repro_torch.launch.train``: B 8 x S 128, train mode on the
               ``paper`` preset, flat thresholds, AdamW with clip 1.0, each
@@ -250,14 +300,15 @@ Phases, one JSON line each:
               launched per call, device ms).
 17. kernels — one line listing every ported kernel with its launches on
               the main paths (the prefill paths of serve_bucketed and
-              serve_moe_bucketed included; ``lstm_gates_bwd``: on the
-              train paths), its error against the plain version and
-              times.
+              serve_moe_bucketed and the lifecycle paths included;
+              ``lstm_gates_bwd``: on the train paths), its error against
+              the plain version and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 ``train_agreement``, for both families at each seed, and prints no
-``ok`` line.  Without a GPU, or without the repository's ``src/repro_torch``
+``ok`` line; ``--lifecycle`` runs only the device phase and 13-6 to
+13-11, and prints no ``ok`` line either.  Without a GPU, or without the repository's ``src/repro_torch``
 beside this script, it exits non-zero and prints no result.
 """
 
@@ -332,6 +383,12 @@ CKPT_LAYERS, CKPT_SAVE_AT = 2, 6
 TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
                   analog_device="paper")
 CARD_GB = 80.0
+# the lifecycle phases: qwen2.5-3b at full width on aged-1day, 512-column
+# banks; depth cut for the host's aging of every crossbar (2.71 s a layer
+# and 8 s for the embedding on an H100 host, PR 23)
+LC = dict(preset="aged-1day", bank_cols=512, recal_layers=4, layers=2)
+FLEET = dict(chips=4, layers=2, floor=0.75, requests=16, save_at=4,
+             max_steps=200)
 
 
 def emit(obj) -> None:
@@ -2237,6 +2294,921 @@ def phase_train_ckpt(torch, dev) -> dict:
     return out
 
 
+def _lc_models(torch, dev, n_layers: int, backends=("cuda", "ref"),
+               dtype: str = "float32"):
+    """qwen2.5-3b at full width, ``n_layers`` layers, infer mode on
+    ``LC["preset"]`` with ``LC["bank_cols"]``-column banks, one model per
+    backend, and seeded params on the card."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+
+    models = {}
+    for bk in backends:
+        cfg = serve.make_config(
+            SERVE["arch"], backend=bk, analog_mode="infer",
+            analog_device=LC["preset"], bank_cols=LC["bank_cols"]).replace(
+                n_layers=n_layers, dtype=dtype)
+        models[bk] = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    return cfg, models, models[backends[0]].init(gen)
+
+
+def _split_threshold(chip, model) -> float:
+    """An INL threshold (LSB) between the deployed ramps' median INLs: at
+    the preset's age about half the ramps (the flat ones and the banks)
+    lie above it."""
+    from repro_torch.serve.lifecycle import (RecalPolicy, RecalScheduler,
+                                             analog_activations)
+
+    inls = sorted(RecalScheduler(chip, analog_activations(model),
+                                 RecalPolicy()).probe_inl_per_ramp()
+                  .values())
+    mid = len(inls) // 2
+    return (inls[mid - 1] + inls[mid]) / 2
+
+
+def _recorded(torch, model, sink: list):
+    """Wrap ``model.decode_step`` to keep every step's logits in ``sink``
+    (float64, on the card); returns the unwrap."""
+    step = model.decode_step
+
+    def recording(p, state, tokens):
+        logits, state = step(p, state, tokens)
+        sink.append(logits.detach().double())
+        return logits, state
+
+    model.decode_step = recording
+    return lambda: delattr(model, "decode_step")
+
+
+def _audit_gates(torch, model, steps: list, sink: list):
+    """Hold every call of ``model``'s backend's fused gate (kernel 3) to
+    the ``ref`` backend's on the same operands (the served thresholds of
+    that call): per call the decode step (``len(steps)``), the outputs
+    (kept for :func:`_replay_gates`), the ones that differ (code flips,
+    allowed within float32 rounding of a threshold) and their largest
+    distance in decode levels.  Returns the undo."""
+    from repro_torch.core import backend as BK
+
+    cuda_bk = BK.get_backend(model.cfg.analog.backend)
+    ref_bk = BK.get_backend("ref")
+    kernel = cuda_bk.matmul_nladc
+
+    def audited(*args, **kw):
+        y = kernel(*args, **kw)
+        want = ref_bk.matmul_nladc(*args, **kw)
+        adc = next(a for a in (*args, *kw.values()) if hasattr(a, "y_table"))
+        levels = _level_steps(torch, adc, y, want)
+        sink.append({"step": len(steps), "outputs": y.numel(),
+                     "flips": int(len(levels)),
+                     "max_level": int(levels.max()) if len(levels) else 0,
+                     "y": y.detach().clone()})
+        return y
+
+    cuda_bk.matmul_nladc = audited
+    return lambda: delattr(cuda_bk, "matmul_nladc")
+
+
+def _replay_gates(torch, model, sink: list, free: list):
+    """Give ``model``'s (ref) run of the same schedule the cuda run's gate
+    outputs, call for call (as ``train_agreement`` holds gradients given
+    the cuda run's codes): the runs then differ only where the rest of
+    the model does.  The outputs its own gate would have given that
+    differ (free-run flips: its operands differ from the cuda run's by
+    rounding) are counted into ``free``.  Returns the undo."""
+    from repro_torch.core import backend as BK
+
+    bk = BK.get_backend(model.cfg.analog.backend)
+    own = bk.matmul_nladc
+    calls = iter(sink)
+
+    def replayed(*args, **kw):
+        y = own(*args, **kw)
+        rec = next(calls)["y"]
+        check(rec.shape == y.shape, f"replay: a gate call of shape "
+              f"{tuple(y.shape)} met the cuda run's {tuple(rec.shape)}")
+        free.append(int((y != rec).sum()))
+        return rec.to(y.dtype)
+
+    bk.matmul_nladc = replayed
+    return lambda: delattr(bk, "matmul_nladc")
+
+
+def _flip_summary(name: str, audit: list) -> dict:
+    """Kernel 3's code flips against ref over a run: at most
+    AGREE_FLIP_SHARE of the outputs, each one decode level."""
+    outputs = sum(a["outputs"] for a in audit)
+    flips = sum(a["flips"] for a in audit)
+    level = max((a["max_level"] for a in audit), default=0)
+    check(outputs > 0 and flips <= AGREE_FLIP_SHARE * outputs
+          and level <= 1, f"{name}: {flips} code flips in {outputs} gate "
+          f"outputs, up to {level} levels")
+    return {"gate_outputs": outputs, "code_flips": flips,
+            "max_flip_levels": level}
+
+
+def _agree(name: str, got: list, want: list, lsb: float) -> dict:
+    """The cuda run and the ref run of one schedule (given the cuda run's
+    gate outputs, :func:`_replay_gates`), step by step (the recorded
+    logits of each ``decode_step``): the logits agree within LSB/2; where
+    an argmax first differs, the cuda run's two best logits of that row
+    lie within twice the step's difference (a near tie; the inputs differ
+    after it).  The streams are then equal, or part there."""
+    check(len(got) == len(want), f"{name}: step counts differ")
+    worst, parted = 0.0, None
+    end = len(got)
+    for k, (a, b) in enumerate(zip(got, want)):
+        diff = (a - b).abs().amax(dim=(-2, -1))
+        worst = max(worst, float(diff.max()))
+        check(worst < lsb / 2, f"{name}: logits differ by {worst} >= "
+              f"LSB/2 = {lsb / 2} at step {k}")
+        rows = (a[:, -1].argmax(-1) != b[:, -1].argmax(-1)).nonzero()
+        if len(rows):
+            r = int(rows[0])
+            top = a[r, -1].topk(2).values
+            gap = float(top[0] - top[1])
+            check(gap <= 2 * float(diff[r]),
+                  f"{name}: argmax parts at step {k} row {r} with a gap "
+                  f"of {gap} against a difference of {float(diff[r])}")
+            parted = {"step": k, "row": r, "top2_gap": gap,
+                      "logit_diff": float(diff[r])}
+            break
+    return {"max_abs_logit_diff": worst, "lsb_half": lsb / 2,
+            "steps_compared": k + 1 if end else 0, "parted": parted}
+
+
+def _same_chip(torch, name: str, a, b) -> None:
+    """Two models' activations deploy the same thresholds (every ramp and
+    every realized bank)."""
+    for attr, act in sorted(vars(a).items()):
+        if not hasattr(act, "deployed") or act.adc is None:
+            continue
+        other = getattr(b, attr)
+        check(torch.equal(act.adc.thresholds, other.adc.thresholds)
+              and sorted(act.banks()) == sorted(other.banks())
+              and all(torch.equal(bank.thresholds.thr,
+                                  other.banks()[w].thresholds.thr)
+                      for w, bank in act.banks().items()),
+              f"{name}: the two engines deploy other thresholds ({attr})")
+
+
+def _counted(fn):
+    """``fn()`` with every kernel wrapper's count set to 0 before it:
+    (result, launches of each wrapper in the call)."""
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def _path_launches(name: str, cfg, stats: dict, launches: dict) -> dict:
+    """Check a serving run's launches: kernels 3 and 5 once a layer per
+    prefill position and decode step, the others never."""
+    steps = stats["prefill_steps"] + stats["decode_steps"]
+    expected = {k: cfg.n_layers * steps
+                if k in ("fused_matmul_nladc", "prefill_attention") else 0
+                for k in launches}
+    check(launches == expected,
+          f"{name}: launches {launches}, expected {expected}")
+    return launches
+
+
+def phase_serve_recal(torch, dev) -> dict:
+    """qwen2.5-3b at full width, 4 layers, float32, ``aged-1day`` with
+    512-column banks, the serve phase's requests: a threshold-only
+    re-calibration scheduler (no aging per step, a probe every 4 steps,
+    the threshold between the ramps' median INLs).  The cuda engine and
+    the same deployment restored into a ``ref`` model: kernel 3 against
+    ref's gate on each call's operands (:func:`_audit_gates`); the ref
+    run given the cuda run's gate outputs (:func:`_replay_gates`): logits
+    within LSB/2 and equal streams (or streams that part at a near-tie
+    argmax, :func:`_agree`); equal scheduler events; at least one ramp and
+    not every ramp re-calibrated, the banks kernel 3 reads moved.  INL
+    before and after, recal count, host ms per probe, and tokens/s with
+    and without the scheduler (A B B A)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.lifecycle import RecalPolicy
+
+    t0 = time.perf_counter()
+    cfg, models, params = _lc_models(torch, dev, LC["recal_layers"])
+    chip = device_model(LC["preset"])
+    thr = _split_threshold(chip, models["cuda"])
+    policy = RecalPolicy(age_per_step_s=0.0, check_every=4,
+                         inl_threshold_lsb=thr)
+    kw = dict(max_batch=SERVE["max_batch"], max_len=SERVE["max_len"])
+    ta = time.perf_counter()
+    eng = ServingEngine(models["cuda"], params, device=chip, recal=policy,
+                        **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - ta
+    del params
+    root = tempfile.mkdtemp(prefix="serve_recal_")
+    try:
+        eng.save(root, 0)
+        ref = ServingEngine.restore(models["ref"], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _same_chip(torch, "serve_recal", models["cuda"], models["ref"])
+    sched = eng.scheduler
+    ramps = sorted(sched.ramps)
+    inl_before = sched.probe_inl()
+    bank = models["cuda"].act.bank_for(cfg.d_ff)
+    bank_before = bank.thresholds.thr.clone()
+    probe_ms = []
+    check_fn = sched.check
+
+    def timed_check():
+        ts = time.perf_counter()
+        out = check_fn()
+        probe_ms.append(1e3 * (time.perf_counter() - ts))
+        return out
+
+    sched.check = timed_check
+    logits = {"cuda": [], "ref": []}
+    streams, launches = {}, {}
+    audit, free = [], []
+    for bk, e in (("cuda", eng), ("ref", ref)):
+        unwrap = _recorded(torch, models[bk], logits[bk])
+        undo = _audit_gates(torch, models[bk], logits[bk], audit) \
+            if bk == "cuda" else _replay_gates(torch, models[bk], audit,
+                                               free)
+        reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+        stats, counts = _counted(lambda: e.run_offline(reqs))
+        undo()
+        unwrap()
+        streams[bk] = {r.uid: r.generated for r in reqs}
+        if bk == "cuda":
+            launches = _path_launches("serve_recal", cfg, stats, counts)
+            recal_stats = stats
+    del sched.check
+    events = sched.events
+    flips = dict(_flip_summary("serve_recal", audit),
+                 free_run_flips=sum(free))
+    agreement = _agree("serve_recal", logits["cuda"], logits["ref"],
+                       models["cuda"].act.ramp.lsb)
+    check(agreement["parted"] is not None
+          or streams["cuda"] == streams["ref"],
+          f"serve_recal: cuda streams {streams['cuda']} differ from ref's "
+          f"{streams['ref']}")
+    check(events == ref.scheduler.events,
+          "serve_recal: the schedulers' events differ")
+    _same_chip(torch, "serve_recal", models["cuda"], models["ref"])
+    recal = sorted({k for ev in events for k in ev.get("recal_ramps", [])})
+    check(sched.n_recals >= 1 and recal and len(recal) < len(ramps),
+          f"serve_recal: {sched.n_recals} recals over {recal} of {ramps}")
+    moved = int((bank.thresholds.thr != bank_before).any(dim=1).sum())
+    check(moved > 0, "serve_recal: no bank kernel 3 reads moved")
+    inl_after = sched.probe_inl()
+    # the scheduler's cost: the same engine against one without it on the
+    # same aged weights, A B B A
+    plain = ServingEngine(models["cuda"], eng.params, **kw)
+    plain.run_offline(serve.make_requests(cfg, 1, 2))            # warm-up
+    ab = {"without": [], "with": []}
+    for side in ("without", "with", "with", "without"):
+        e = plain if side == "without" else eng
+        ab[side].append(e.run_offline(serve.make_requests(
+            cfg, SERVE["requests"], SERVE["max_new"]))["tokens_per_s"])
+    out = {"phase": "serve_recal", "arch": cfg.name,
+           "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of 36 layers (host aging time)",
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+           "analog_device": LC["preset"], "bank_cols": LC["bank_cols"],
+           "policy": policy.to_dict(), "ramps": len(ramps),
+           "ramps_recalibrated": recal, "recals": sched.n_recals,
+           "probes": len(events), "inl_before_lsb": inl_before,
+           "inl_after_lsb": inl_after, "banks_moved": moved,
+           "probe_host_ms": probe_ms, "build_and_aging_s": build_s,
+           "streams_equal": streams["cuda"] == streams["ref"],
+           "agreement": agreement, "kernel3_vs_ref": flips,
+           "tokens": recal_stats["tokens"], "launches": launches,
+           "tokens_per_s_with_scheduler": ab["with"],
+           "tokens_per_s_without": ab["without"],
+           "with_over_without": statistics.median(ab["with"])
+           / statistics.median(ab["without"]),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del eng, ref, plain, models
+    return out
+
+
+def _lc_base(torch, dev, root: str):
+    """The 2-layer lifecycle deployment the drain and checkpoint phases
+    start from: a cuda engine programmed and aged once (float32, the
+    threshold between the median INLs, no aging per step, a probe every
+    2 steps), saved at step 0 under ``root``; a restore from there is the
+    same fresh chip without aging again.  Returns (cfg, models, engine,
+    host s of its construction)."""
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.lifecycle import RecalPolicy
+
+    cfg, models, params = _lc_models(torch, dev, LC["layers"])
+    chip = device_model(LC["preset"])
+    policy = RecalPolicy(age_per_step_s=0.0, check_every=2,
+                         inl_threshold_lsb=_split_threshold(chip,
+                                                            models["cuda"]))
+    ta = time.perf_counter()
+    eng = ServingEngine(models["cuda"], params, max_batch=SERVE["max_batch"],
+                        max_len=SERVE["max_len"], device=chip, recal=policy)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - ta
+    eng.save(root, 0)
+    return cfg, models, eng, build_s
+
+
+def phase_serve_drain(torch, dev, root: str, base) -> dict:
+    """The 2-layer deployment with ``drain_before_rejit`` off and on, and
+    in fleet mode (``external_maintenance``: admitting through the window
+    until ``begin_drain``), each on cuda and on ref (the deployment
+    restored into each): with drain on every re-program lands when every
+    slot is free, off at least one lands mid-wave; at every batched decode
+    step inside a window the activations serve the snapshot's ramp and
+    d_ff bank while the host's thresholds have moved ahead (a prefill in
+    the window serves what its path was programmed with); logits and
+    streams against ref as ``serve_recal`` holds them."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg, models, base_eng, _ = base
+    modes = {"drain_off": {}, "drain_on": dict(drain_before_rejit=True),
+             "maintenance": dict(external_maintenance=True)}
+    out_modes, launches = {}, {}
+    for mode, kw in modes.items():
+        streams, logits = {}, {"cuda": [], "ref": []}
+        audit, free = [], []
+        for bk in ("cuda", "ref"):
+            eng = base_eng if (bk, mode) == ("cuda", "drain_off") \
+                else ServingEngine.restore(models[bk], root, **kw)
+            at_reprogram, window = [], []
+            orig = eng._on_chip_reprogram
+
+            def spy(eng=eng, orig=orig, at=at_reprogram):
+                at.append(all(eng.slot_free))
+                orig()
+
+            eng._on_chip_reprogram = spy
+            model = models[bk]
+            step = eng._decode_all             # the batched decode step
+            flags = {"window": False, "host_ahead": False}
+
+            def watch(p, state, tokens, eng=eng, model=model, step=step,
+                      flags=flags, window=window):
+                if flags["window"]:
+                    snap = eng._served["act"]
+                    bank = model.act.bank_for(model.cfg.d_ff)
+                    window.append({
+                        "serves_snapshot": model.act.adc is snap[0]
+                        and bank.thresholds is snap[2][model.cfg.d_ff][2],
+                        "host_ahead": flags["host_ahead"]})
+                return step(p, state, tokens)
+
+            eng._decode_all = watch
+            unwrap = _recorded(torch, model, logits[bk])
+            undo = _audit_gates(torch, model, logits[bk], audit) \
+                if bk == "cuda" else _replay_gates(torch, model, audit, free)
+            reqs = serve.make_requests(cfg, 2 * SERVE["requests"],
+                                       SERVE["max_new"])
+            first = reqs[:SERVE["requests"]] if mode != "maintenance" \
+                else reqs[:2]
+
+            def one_step(eng=eng, flags=flags):
+                flags["window"] = eng._rejit_pending or eng._maint_pending
+                flags["host_ahead"] = \
+                    eng._threshold_fp() != eng._served_fp()
+                return len(eng.step())
+
+            def run(eng=eng, first=first, reqs=reqs):
+                for r in first:
+                    eng.submit(r)
+                n = 0
+                if mode == "maintenance":
+                    while not eng.maintenance_pending:
+                        n += one_step()
+                    for r in reqs[2:]:               # admitted in the window
+                        eng.submit(r)
+                        n += one_step()
+                    eng.begin_drain()
+                while eng.queue or not all(eng.slot_free):
+                    n += one_step()
+                return n
+
+            n, counts = _counted(run)
+            del eng._decode_all, eng._on_chip_reprogram
+            undo()
+            unwrap()
+            served = reqs if mode == "maintenance" else first
+            streams[bk] = {r.uid: r.generated for r in served}
+            check(all(len(r.generated) == r.max_new_tokens for r in served),
+                  f"serve_drain/{mode}/{bk}: token counts")
+            check(at_reprogram, f"serve_drain/{mode}/{bk}: no re-program")
+            if mode == "drain_on":
+                check(all(at_reprogram), f"serve_drain/drain_on/{bk}: a "
+                      "re-program landed mid-wave")
+            elif mode == "drain_off":
+                check(not all(at_reprogram), f"serve_drain/drain_off/{bk}:"
+                      " no re-program landed mid-wave")
+            if mode != "drain_off":
+                check(window and all(w["serves_snapshot"] for w in window)
+                      and any(w["host_ahead"] for w in window),
+                      f"serve_drain/{mode}/{bk}: the window {window}")
+            if bk == "cuda":
+                launches[mode] = counts
+                out_modes[mode] = {
+                    "reprograms": len(at_reprogram),
+                    "reprograms_with_every_slot_free": sum(at_reprogram),
+                    "window_decode_steps": len(window),
+                    "window_steps_host_ahead":
+                        sum(w["host_ahead"] for w in window),
+                    "tokens": n, "recals": eng.scheduler.n_recals}
+            del eng
+        flips = dict(_flip_summary(f"serve_drain/{mode}", audit),
+                     free_run_flips=sum(free))
+        agreement = _agree(f"serve_drain/{mode}", logits["cuda"],
+                           logits["ref"], models["cuda"].act.ramp.lsb)
+        check(agreement["parted"] is not None
+              or streams["cuda"] == streams["ref"],
+              f"serve_drain/{mode}: cuda streams differ from ref's")
+        out_modes[mode].update(
+            streams_equal=streams["cuda"] == streams["ref"],
+            agreement=agreement, kernel3_vs_ref=flips)
+    out = {"phase": "serve_drain", "arch": cfg.name,
+           "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of 36 layers (host aging time)",
+           "dtype": cfg.dtype, "analog_device": LC["preset"],
+           "bank_cols": LC["bank_cols"], "modes": out_modes,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def phase_serve_refresh(torch, dev) -> dict:
+    """qwen2.5-3b at full width, 2 layers, ``aged-1day`` with 512-column
+    banks, a policy that ages 1e5 s a step and asks for a weight refresh
+    after one stalled recal (probes every 64 steps, so the refreshes are
+    driven as the reference's own tests drive them): a refresh scoped to
+    one stalled bank of the hidden activation (only the gate and up
+    matrices' col-tile behind it change, the chip-wide generation stays
+    0), then one an unbanked ramp stalls (every crossbar rewritten,
+    generation 2), then a serve on the refreshed chip.  Each re-program
+    writes into the engine's own tensors: its peak device memory above
+    what the engine holds is at most the serve's.  Host s per
+    re-program."""
+    from repro_torch.core import crossbar as CB
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.lifecycle import RecalPolicy
+
+    t0 = time.perf_counter()
+    cfg, models, params = _lc_models(torch, dev, LC["layers"],
+                                     backends=("cuda",))
+    chip = device_model(LC["preset"])
+    policy = RecalPolicy(age_per_step_s=1e5, check_every=64,
+                         inl_threshold_lsb=0.05,
+                         weight_refresh_after_stalls=1)
+    eng = ServingEngine(models["cuda"], params, max_batch=SERVE["max_batch"],
+                        max_len=SERVE["max_len"], device=chip, recal=policy)
+    del params
+    sched = eng.scheduler
+    # a bank of the hidden activation and the col-tiles under its columns
+    bank_j = min(3, models["cuda"].act.bank_for(cfg.d_ff).n_banks - 1)
+    key = f"act@{cfg.d_ff}:{bank_j}"
+    cols = CB.plan_tiles(cfg.d_model, cfg.d_ff).tile_cols
+    lo = bank_j * LC["bank_cols"]
+    hi = min(lo + LC["bank_cols"], cfg.d_ff)
+    tiles = list(range(lo // cols, (hi - 1) // cols + 1))
+    names = [p for p, _ in _named_leaves(eng.params)]
+    results = {}
+    for scope, stalled in (("per_tile", [key]), ("chip", ["sigmoid_act"])):
+        before = [t.detach().cpu().clone() for t in _leaves(eng.params)]
+        ids = [id(t) for t in _leaves(eng.params)]
+        sched.weight_refresh_pending = True
+        sched.weight_refresh_ramps = list(stalled)
+        base = _peak_reset(torch)
+        ts = time.perf_counter()
+        eng._on_chip_reprogram()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - ts
+        peak = _peak_since(torch, base)
+        check([id(t) for t in _leaves(eng.params)] == ids,
+              f"serve_refresh/{scope}: the re-program replaced tensors")
+        changed = {}
+        for name, a, b in zip(names, before, _leaves(eng.params)):
+            diff = a != b.detach().cpu()
+            if diff.any():
+                hit = diff.reshape(-1, diff.shape[-1]).any(dim=0)
+                changed[name] = sorted({int(c) // cols
+                                        for c in hit.nonzero().flatten()})
+        del before
+        results[scope] = {"host_s": host_s, "peak_bytes": peak,
+                          "weight_gen": eng._weight_gen,
+                          "tile_gens": dict(eng._tile_gens),
+                          "leaves_changed": len(changed)}
+        if scope == "per_tile":
+            check(eng._weight_gen == 0 and set(eng._tile_gens) == {key},
+                  f"serve_refresh/per_tile: {eng._weight_gen}, "
+                  f"{eng._tile_gens}")
+            mapped = [n for n in names
+                      if "['wi_gate']" in n or "['wi_up']" in n]
+            check(sorted(changed) == sorted(mapped)
+                  and all(changed[n] == tiles for n in mapped),
+                  f"serve_refresh/per_tile: changed {changed}")
+            results[scope]["col_tiles_changed"] = changed
+        else:
+            check(eng._weight_gen == 2 and not eng._tile_gens,
+                  f"serve_refresh/chip: {eng._weight_gen}, "
+                  f"{eng._tile_gens}")
+            # every crossbar leaf (the final norm is no crossbar)
+            check(len(changed) == len(names) - 1,
+                  f"serve_refresh/chip: {len(changed)} of {len(names)} "
+                  f"leaves changed")
+    reqs = serve.make_requests(cfg, SERVE["requests"], 4)
+    base = _peak_reset(torch)
+    stats, launches = _counted(lambda: eng.run_offline(reqs))
+    peak_serve = _peak_since(torch, base)
+    _path_launches("serve_refresh", cfg, stats, launches)
+    check(all(len(r.generated) == 4 for r in reqs),
+          "serve_refresh: token counts after the refreshes")
+    for scope, r in results.items():
+        check(r["peak_bytes"] <= peak_serve,
+              f"serve_refresh/{scope}: peak {r['peak_bytes']} B above the "
+              f"engine's exceeds the serve's {peak_serve} B")
+    out = {"phase": "serve_refresh", "arch": cfg.name,
+           "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of 36 layers (host aging time)",
+           "dtype": cfg.dtype, "analog_device": LC["preset"],
+           "bank_cols": LC["bank_cols"], "policy": policy.to_dict(),
+           "peak_bytes_serve": peak_serve, "refreshes": results,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(out)
+    del eng, models
+    return out
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _named_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def phase_serve_lifecycle_ckpt(torch, dev, root: str, base) -> dict:
+    """The 2-layer deployment with ``drain_before_rejit``, tracing on:
+    served uninterrupted, against saved inside a drain window and
+    restored; the resumed run's streams, params, thresholds (the ramps
+    and banks of every activation), scheduler state, metrics (the
+    host-clock histograms aside) and trace (wall fields stripped, both
+    parts joined) bitwise the uninterrupted run's; its peak device memory
+    at most the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import Obs, strip_wall
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg, models, _, _ = base
+    model = models["cuda"]
+
+    def fresh():
+        eng = ServingEngine.restore(model, root, drain_before_rejit=True,
+                                    obs=Obs(trace=True))
+        reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+        for r in reqs:
+            eng.submit(r)
+        return eng, reqs
+
+    def thresholds():
+        return {name: (act.adc.thresholds.clone(),
+                       {w: b.thresholds.thr.clone()
+                        for w, b in act.banks().items()})
+                for name, act in sorted(vars(model).items())
+                if hasattr(act, "deployed") and act.adc is not None}
+
+    def no_ms(eng):
+        return [m for m in eng.obs.metrics.snapshot()["metrics"]
+                if not m["name"].endswith("_ms")]
+
+    peak_base = _peak_reset(torch)
+    full, reqs = fresh()
+    full.run_to_completion()
+    peak_full = _peak_since(torch, peak_base)
+    want = {r.uid: r.generated for r in reqs}
+    want_thr = thresholds()
+    want_sched = json.dumps(full.scheduler.to_dict())
+    part, part_reqs = fresh()
+    steps = 0
+    while not part._rejit_pending:
+        part.step()
+        steps += 1
+        check(steps < 64, "serve_lifecycle_ckpt: no drain window opened")
+    mid = tempfile.mkdtemp(prefix="serve_lc_ckpt_")
+    try:
+        ts = time.perf_counter()
+        part.save(mid, steps)
+        save_s = time.perf_counter() - ts
+        n_bytes = _dir_bytes(Path(mid) / f"step_{steps:08d}")
+        trace = list(part.obs.tracer.entries)
+        got = {r.uid: r.generated for r in part_reqs}
+        del part, part_reqs
+        free_device(torch)
+        peak_base = _peak_reset(torch)
+        ts = time.perf_counter()
+        res = ServingEngine.restore(model, mid, drain_before_rejit=True,
+                                    obs=Obs(trace=True))
+        restore_s = time.perf_counter() - ts
+        check(res._rejit_pending, "serve_lifecycle_ckpt: the window did "
+              "not survive the restore")
+        live = {r.uid: r for r in list(res.slot_req) + res.queue
+                if r is not None}
+        res.run_to_completion()
+        peak_res = _peak_since(torch, peak_base)
+    finally:
+        shutil.rmtree(mid, ignore_errors=True)
+    got.update({uid: r.generated for uid, r in live.items()})
+    check(got == want, f"serve_lifecycle_ckpt: streams {got} differ from "
+          f"{want}")
+    for name, a, b in _zip_named(full.params, res.params):
+        check(torch.equal(a, b), f"serve_lifecycle_ckpt: params {name}")
+    have_thr = thresholds()
+    for name, (ramp, banks) in want_thr.items():
+        check(torch.equal(ramp, have_thr[name][0])
+              and all(torch.equal(banks[w], have_thr[name][1][w])
+                      for w in banks),
+              f"serve_lifecycle_ckpt: thresholds of {name}")
+    check(json.dumps(res.scheduler.to_dict()) == want_sched,
+          "serve_lifecycle_ckpt: the scheduler's state differs")
+    check(no_ms(res) == no_ms(full), "serve_lifecycle_ckpt: metrics differ")
+    check(strip_wall(trace + res.obs.tracer.entries)
+          == strip_wall(full.obs.tracer.entries),
+          "serve_lifecycle_ckpt: the joined trace differs")
+    check(peak_res <= peak_full,
+          f"serve_lifecycle_ckpt: the resumed run's peak {peak_res} B "
+          f"exceeds the uninterrupted run's {peak_full} B")
+    out = {"phase": "serve_lifecycle_ckpt", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "saved_at_step": steps, "bytes": n_bytes, "save_s": save_s,
+           "restore_s": restore_s, "requests_resumed": len(live),
+           "recals": res.scheduler.n_recals,
+           "trace_entries": len(full.obs.tracer.entries),
+           "peak_bytes_uninterrupted": peak_full,
+           "peak_bytes_resumed": peak_res, "bitwise": True,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del full, res
+    return out
+
+
+def _zip_named(a, b):
+    for (name, x), (_, y) in zip(_named_leaves(a), _named_leaves(b)):
+        yield name, x, y
+
+
+def phase_fleet(torch, dev) -> dict:
+    """4 chips of qwen2.5-3b at full width, 2 layers each: 3 serving on
+    ``aged-1day`` and a canary on ``stressed``, each its own device draws
+    (per-chip seed), capacity floor 0.75, least-loaded router, 16
+    requests; a threshold-only recal storm (the threshold between the
+    canary's median INLs, which a day of drift puts every serving chip's
+    above, a probe every 2 steps).  Never more
+    than ceil(4 x 0.25) = 1 chip drains at once, every request finishes,
+    the canary's first recal tightens its siblings' cadence; saved mid-run
+    and restored into a fresh ``FleetEngine``, the rest of the run is the
+    uninterrupted fleet's (streams, events, every chip's scheduler).
+    Aggregate tokens/s against one chip's, admission latency in steps,
+    the energy report (``core/hwcost.py``'s model of the analog chip)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.fleet import FleetEngine, FleetPolicy, chip_device
+    from repro_torch.serve.lifecycle import RecalPolicy
+
+    t0 = time.perf_counter()
+    cfg, models, params = _lc_models(torch, dev, FLEET["layers"],
+                                     backends=("cuda",), dtype="bfloat16")
+    canary = f"chip{FLEET['chips'] - 1:02d}"
+    thr = _split_threshold(chip_device(device_model("stressed"), canary),
+                           models["cuda"])
+    del models
+    policy = FleetPolicy(capacity_floor=FLEET["floor"], router="least-loaded")
+    recal = RecalPolicy(age_per_step_s=0.0, check_every=2,
+                        inl_threshold_lsb=thr)
+    ta = time.perf_counter()
+    fleet = FleetEngine.build(cfg, FLEET["chips"], policy=policy,
+                              recal=recal, max_batch=SERVE["max_batch"],
+                              max_len=SERVE["max_len"],
+                              canary_presets=("stressed",), params=params,
+                              torch_device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - ta
+    del params
+    check(fleet.planner.max_drain == 1, "fleet: max_drain")
+    reqs = serve.make_requests(cfg, FLEET["requests"], SERVE["max_new"])
+    stream, draining = {}, []
+
+    def run(fl, n=None):
+        """Serve until the traffic is done and every maintenance window
+        has closed (idle steps let the storm's last windows land), or
+        for ``n`` steps."""
+        steps = 0
+        while any(c.engine.queue or not all(c.engine.slot_free)
+                  or c.engine.maintenance_pending
+                  for c in fl.chips.values()):
+            if n is not None and steps == n:
+                return
+            check(steps < FLEET["max_steps"], "fleet: the storm did not "
+                  f"settle in {FLEET['max_steps']} steps")
+            for uid, tok in sorted(fl.step().items()):
+                stream.setdefault(uid, []).append(int(tok))
+            draining.append(sum(c.engine.draining
+                                for c in fl.chips.values()))
+            steps += 1
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    for r in reqs:
+        fleet.submit(r)
+    root = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        tr = time.perf_counter()
+        run(fleet, FLEET["save_at"])
+        fleet_s = time.perf_counter() - tr
+        check(any(c.engine.maintenance_pending for c in
+                  fleet.chips.values()), "fleet: the save is not mid-storm")
+        ts = time.perf_counter()
+        fleet.save(root, fleet.step_count)
+        save_s = time.perf_counter() - ts
+        saved = {u: list(t) for u, t in stream.items()}
+        tr = time.perf_counter()
+        run(fleet)
+        fleet_s += time.perf_counter() - tr
+        launches = {k: w.launches for k, w in wrappers.items()}
+        _path_launches("fleet", cfg, {
+            k: sum(getattr(c.engine, k) for c in fleet.chips.values())
+            for k in ("prefill_steps", "decode_steps")}, launches)
+        tokens = sum(len(t) for t in stream.values())
+        check(all(len(r.generated) == SERVE["max_new"] for r in reqs),
+              "fleet: a request did not finish")
+        check(max(draining) <= 1, f"fleet: {max(draining)} chips drained "
+              "at once")
+        open_w = 0
+        for ev in fleet.events:
+            open_w += {"drain_start": 1,
+                       "reprogram_done": -1}.get(ev["type"], 0)
+            check(0 <= open_w <= 1, f"fleet: {open_w} windows open")
+        warns = [e for e in fleet.events if e["type"] == "canary_warning"]
+        check(len(warns) == 1 and warns[0]["chip"] == canary
+              and set(warns[0]["tightened"]) == set(sorted(fleet.chips)[:-1]),
+              f"fleet: the canary's warnings {warns}")
+        full_stream = {u: list(t) for u, t in stream.items()}
+        full_events = list(fleet.bus.events)
+        full_sched = {c: ch.engine.scheduler.events
+                      for c, ch in fleet.chips.items()}
+        energy = fleet.energy_report()
+        lat = fleet.admission_latency_steps()
+        # one chip alone on chip00's aged weights, no scheduler
+        one = ServingEngine(fleet.chips["chip00"].model,
+                            fleet.chips["chip00"].engine.params,
+                            max_batch=SERVE["max_batch"],
+                            max_len=SERVE["max_len"])
+        one.run_offline(serve.make_requests(cfg, 1, 2))          # warm-up
+        one_tps = one.run_offline(serve.make_requests(
+            cfg, SERVE["requests"], SERVE["max_new"]))["tokens_per_s"]
+        del fleet, one
+        free_device(torch)
+        tr = time.perf_counter()
+        res = FleetEngine.restore(cfg, root, torch_device=dev)
+        restore_s = time.perf_counter() - tr
+        stream = saved
+        run(res)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(stream == full_stream, "fleet: the restored fleet's streams "
+          "differ from the uninterrupted fleet's")
+    check(res.bus.events == full_events, "fleet: events differ")
+    check({c: ch.engine.scheduler.events for c, ch in res.chips.items()}
+          == full_sched, "fleet: the chips' scheduler events differ")
+    out = {"phase": "fleet", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of 36 layers a chip (host aging time, "
+                  f"4 chips on one card)",
+           "dtype": cfg.dtype, "chips": FLEET["chips"],
+           "canary": "stressed", "capacity_floor": FLEET["floor"],
+           "router": "least-loaded", "requests": FLEET["requests"],
+           "inl_threshold_lsb": thr, "build_and_aging_s": build_s,
+           "events": {t: sum(e["type"] == t for e in full_events)
+                      for t in sorted({e["type"] for e in full_events})},
+           "max_draining": max(draining), "tokens": tokens,
+           "seconds_serving": fleet_s, "tokens_per_s": tokens / fleet_s,
+           "one_chip_tokens_per_s": one_tps,
+           "admission_steps": lat, "launches": launches,
+           "save_s": save_s, "restore_s": restore_s,
+           "energy_report_hwcost_model": energy, "bitwise_restore": True,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del res
+    return out
+
+
+def phase_serve_obs(torch, dev) -> dict:
+    """The serve phase's qwen2.5-3b (36 layers, bf16, cuda) with the span
+    and event trace on: two seeded runs write the same JSONL bytes (wall
+    fields off); the Prometheus text parses; tokens/s with tracing off
+    (A) and on (B), A B B A on two warmed engines; and
+    ``ChipEnergyModel.price`` at full depth (pJ a token, TOPS/W, NL-ADC
+    against the digital LUT): ``core/hwcost.py``'s model of the analog
+    chip, not the GPU's energy."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import ChipEnergyModel, Obs
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = serve.make_config(SERVE["arch"], backend="cuda")
+    model, params = serve.build_lm(cfg, dev, seed=0)
+
+    def engine(trace):
+        return ServingEngine(model, params, max_batch=SERVE["max_batch"],
+                             max_len=SERVE["max_len"],
+                             obs=Obs(trace=trace))
+
+    def burst():
+        return serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+
+    traced = []
+    for i in range(2):
+        eng = engine(True)
+        eng.warmup()
+        if i == 0:
+            stats, launches = _counted(lambda: eng.run_offline(burst()))
+            _path_launches("serve_obs", cfg, stats, launches)
+            prom = eng.obs.metrics.to_prometheus()
+            energy = stats["energy"]
+        else:
+            eng.run_offline(burst())
+        traced.append(eng.obs.tracer.to_jsonl())
+    check(traced[0] and traced[0] == traced[1],
+          "serve_obs: two seeded runs wrote different traces")
+    check("wall_s" not in traced[0], "serve_obs: wall fields in the trace")
+    samples = 0
+    for line in prom.splitlines():
+        if line.startswith("# TYPE "):
+            check(line.split()[3] in ("counter", "gauge", "summary"),
+                  f"serve_obs: {line}")
+            continue
+        name, value = line.rsplit(" ", 1)
+        float(value)
+        check(name.split("{")[0].replace("_", "").isalnum(),
+              f"serve_obs: metric name {name}")
+        samples += 1
+    engines = {"off": engine(False), "on": engine(True)}
+    for e in engines.values():
+        e.run_offline(serve.make_requests(cfg, 1, 2))           # warm-up
+    ab = {"off": [], "on": []}
+    for side in ("off", "on", "on", "off"):
+        ab[side].append(engines[side].run_offline(burst())["tokens_per_s"])
+    priced = ChipEnergyModel.price(params, bits=cfg.analog.adc_bits,
+                                   bank_cols=cfg.analog.bank_cols)
+    out = {"phase": "serve_obs", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "trace_bytes": len(traced[0]),
+           "trace_entries": traced[0].count("\n"),
+           "prometheus_samples": samples, "launches": launches,
+           "tokens_per_s_trace_off": ab["off"],
+           "tokens_per_s_trace_on": ab["on"],
+           "on_over_off": statistics.median(ab["on"])
+           / statistics.median(ab["off"]),
+           "hwcost_model": {
+               "label": "core/hwcost.py's model of the analog chip, not a "
+                        "measurement of the GPU",
+               "n_macros": priced.n_macros,
+               "e_per_token_pj": {k: v["e_per_token_pj"]
+                                  for k, v in priced.variants.items()},
+               "tops_per_w": {k: v["tops_per_w"]
+                              for k, v in priced.variants.items()},
+               "nladc_vs_digital_energy":
+                   energy.get("nladc_vs_digital_energy"),
+               "run_energy": energy},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del engines, eng, model, params
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2552,6 +3524,35 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
             "timed_by": main_case["timed_by"], **extra}
 
 
+def _lifecycle_phases(torch, dev) -> dict:
+    """The lifecycle and observability phases, in order; their kernel
+    launches by path (every path's kernels 3 and 5)."""
+    import shutil
+    import tempfile
+
+    out = {"serve_recal": phase_serve_recal(torch, dev)["launches"]}
+    free_device(torch)
+    out["serve_refresh"] = phase_serve_refresh(torch, dev)["launches"]
+    free_device(torch)
+    root = tempfile.mkdtemp(prefix="lc_base_")
+    try:
+        base = _lc_base(torch, dev, root)
+        drained = phase_serve_drain(torch, dev, root, base)
+        out.update({f"serve_drain/{m}": v
+                    for m, v in drained["launches"].items()})
+        free_device(torch)
+        phase_serve_lifecycle_ckpt(torch, dev, root, base)
+        del base
+        free_device(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["fleet"] = phase_fleet(torch, dev)["launches"]
+    free_device(torch)
+    out["serve_obs"] = phase_serve_obs(torch, dev)["launches"]
+    free_device(torch)
+    return out
+
+
 def agreement_seeds(torch, dev, seeds) -> int:
     """``--agreement-seeds``: only ``train_agreement``, both families, at
     each of ``seeds`` (the model's weights, tokens and ramp draws; the
@@ -2572,6 +3573,9 @@ def main(argv=None) -> int:
     ap.add_argument("--agreement-seeds", type=int, nargs="+", metavar="SEED",
                     help="run only train_agreement, at these seeds (one-off "
                          "readings of the gradient agreement)")
+    ap.add_argument("--lifecycle", action="store_true",
+                    help="run only the device phase (the kernels' build) "
+                         "and the lifecycle and observability phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2620,6 +3624,9 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numerics": flags,
           "kernel_build_s": build_s, "ptxas": ptxas})
+    if args.lifecycle:
+        emit({"lifecycle_launches": _lifecycle_phases(torch, dev)})
+        return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
                phase_kernel(torch, dev, "ptb_banked", 16, 2016, 512),
@@ -2747,6 +3754,7 @@ def main(argv=None) -> int:
     free_device(torch)
     phase_train_ckpt(torch, dev)
     free_device(torch)
+    lifecycle = _lifecycle_phases(torch, dev)
     layers = TRAIN_MOE["n_layers"]
     trained = [phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
         "fused_matmul_nladc": 2 * 36})]
@@ -2817,7 +3825,8 @@ def main(argv=None) -> int:
                 **mode_launches(served_moe_b, "fused_matmul_nladc"),
                 "lm_infer": infer["launches"]["fused_matmul_nladc"],
                 **{t["phase"]: t["launches"]["fused_matmul_nladc"]
-                   for t in trained}}
+                   for t in trained},
+                **{k: v["fused_matmul_nladc"] for k, v in lifecycle.items()}}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -2833,7 +3842,8 @@ def main(argv=None) -> int:
     at_main = attn_cases[0]
     at_paths = {"serve": served["launches"]["prefill_attention"],
                 **mode_launches(served_b, "prefill_attention"),
-                "lm_infer": infer["launches"]["prefill_attention"]}
+                "lm_infer": infer["launches"]["prefill_attention"],
+                **{k: v["prefill_attention"] for k, v in lifecycle.items()}}
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",

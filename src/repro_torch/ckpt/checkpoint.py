@@ -21,6 +21,12 @@ own tensor where that has the saved shape and dtype (so a restore holds
 no second copy of the tree on the card), and otherwise comes back as a
 new tensor on the device of the template's leaf.
 
+A :class:`Stacked` leaf is a list of same-shaped tensors (the port's
+per-layer list) stored as one array with a leading axis, which is how the
+reference stores its stacked layers: an engine checkpoint of either
+package is a tree of the same structure, and a :class:`Stacked` template
+leaf is filled slice by slice, in place.
+
 Incomplete ``.tmp`` directories are ignored and garbage-collected, so a
 crash mid-save never corrupts the latest valid checkpoint.  The
 reference's ``shardings=`` (restore onto another mesh) has no meaning on
@@ -46,6 +52,45 @@ _EXOTIC = {
     "float8_e5m2": (torch.float8_e5m2, torch.int8, np.int8, np.uint8),
 }
 _BY_TORCH = {v[0]: k for k, v in _EXOTIC.items()}
+
+
+class Stacked:
+    """One checkpoint leaf made of ``items``, a list of same-shaped
+    tensors: saved as ``torch.stack(items)`` (built on the host, one leaf
+    at a time), loaded by copying slice ``i`` into ``items[i]`` where that
+    is a tensor of its shape and dtype, else into a new CPU tensor."""
+
+    def __init__(self, items):
+        self.items = list(items)
+
+    def host_array(self) -> torch.Tensor:
+        return torch.stack([t.detach().cpu() for t in self.items])
+
+    def load(self, saved: torch.Tensor) -> "Stacked":
+        if len(saved) != len(self.items):
+            raise ValueError(f"stacked leaf of {len(saved)} items loaded "
+                             f"into {len(self.items)}")
+        return Stacked([_load_into(saved[i], like)
+                        for i, like in enumerate(self.items)])
+
+
+def stack_layers(layers: list):
+    """A list of per-layer trees (nested dicts of leaves) as one tree of
+    :class:`Stacked` leaves: the reference's stacked layout."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([layer[k] for layer in layers])
+                for k in first}
+    return Stacked(layers)
+
+
+def unstack_layers(tree) -> list:
+    """The inverse of :func:`stack_layers`: the per-layer trees."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.items)
 
 
 def _is_namedtuple(x) -> bool:
@@ -87,6 +132,8 @@ def _unflatten(tree, leaves):
 def _to_savable(leaf):
     """A host numpy array and its dtype name; the exotic float types as
     their same-width unsigned view."""
+    if isinstance(leaf, Stacked):
+        leaf = leaf.host_array()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         name = _BY_TORCH.get(t.dtype)
@@ -111,7 +158,10 @@ def _from_saved(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 def _load_into(saved: torch.Tensor, like):
     """``saved`` copied into ``like`` in place where ``like`` is a tensor
     of its shape and dtype (one leaf at a time crosses to the device),
-    else a new tensor, on ``like``'s device where that is a tensor."""
+    else a new tensor, on ``like``'s device where that is a tensor; a
+    :class:`Stacked` ``like`` takes the slices."""
+    if isinstance(like, Stacked):
+        return like.load(saved)
     if not isinstance(like, torch.Tensor):
         return saved
     if like.shape == saved.shape and like.dtype == saved.dtype:

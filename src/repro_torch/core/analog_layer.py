@@ -146,6 +146,10 @@ class DeployedBank:
         self.bank_map = bank_map_for(width, bank_cols)
         self.redeploy(ramps)
 
+    @property
+    def n_banks(self) -> int:
+        return self.bank_map.n_banks
+
     def redeploy(self, ramps) -> None:
         """Swap in newly realized per-bank ramps (a chip re-program)."""
         device = self.device
@@ -169,6 +173,17 @@ class DeployedBank:
             [r.v_init for r in ramps], np.float32)[:, None]).to(device)
         self._g_scale = torch.from_numpy(np.asarray(
             [r.g_scale for r in ramps], np.float32)[:, None]).to(device)
+
+    def deployed(self) -> tuple:
+        """What this bank serves now (its ramps and their tensors), for
+        :meth:`serve` to put back."""
+        return (self.ramps, self.thresholds_f64, self.thresholds,
+                self._steps, self._v_init, self._g_scale)
+
+    def serve(self, deployed: tuple) -> None:
+        """Serve a state taken by :meth:`deployed` (no copy, no upload)."""
+        (self.ramps, self.thresholds_f64, self.thresholds, self._steps,
+         self._v_init, self._g_scale) = deployed
 
     def thresholds_for(self, z: Optional[torch.Tensor] = None,
                        sigma_us: float = 0.0) -> BankedThresholds:
@@ -228,6 +243,20 @@ class AnalogActivation:
         self._adc = NLADC(ramp, self.device)
         self._steps = torch.from_numpy(
             np.asarray(ramp.steps, np.float32)).to(self.device)
+
+    def deployed(self) -> tuple:
+        """What the activation serves now: its NL-ADC and every realized
+        bank's state, for :meth:`serve` to put back (the serving engine
+        keeps the chip each of its paths was programmed with)."""
+        return (self._adc, self._steps,
+                {w: b.deployed() for w, b in self._banks.items()})
+
+    def serve(self, deployed: tuple) -> None:
+        """Serve a state taken by :meth:`deployed`: no copy and no upload.
+        A bank realized since keeps its own state."""
+        self._adc, self._steps, banks = deployed
+        for width, state in banks.items():
+            self._banks[width].serve(state)
 
     def n_banks(self, width: int) -> int:
         """Col-tiles an application of this activation at ``width`` spans."""

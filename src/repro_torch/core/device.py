@@ -45,7 +45,7 @@ import dataclasses
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -473,7 +473,8 @@ class DeviceModel:
         return out.reshape(w.shape)
 
     def age_params(self, params, rng: Optional[np.random.Generator] = None,
-                   *, stacked: str = ""):
+                   *, stacked: str = "", generation: int = 0,
+                   leaf_overrides: Optional[Callable] = None, out=None):
         """Build-stage aging of every matrix leaf of a params tree (nested
         dicts, lists and tuples of tensors).
 
@@ -481,8 +482,8 @@ class DeviceModel:
         digital registers, not crossbar cells); the others come back aged,
         in their own dtype on their own device.  With ``rng=None`` (the
         deployment path) each leaf is aged per crossbar tile
-        (:meth:`age_weights_tiled`, the default tile plan, generation 0)
-        keyed by its tree path in ``jax.tree_util.keystr``'s spelling
+        (:meth:`age_weights_tiled`, the default tile plan) keyed by its
+        tree path in ``jax.tree_util.keystr``'s spelling
         (``"['lstm']['w_gates']"``), so the chip is the JAX package's for
         the same tree.  An explicit ``rng`` is threaded through the leaves
         in the JAX flattening order (dict keys sorted).
@@ -497,53 +498,80 @@ class DeviceModel:
         it as one ``(n_layers, N)`` matrix: those few small leaves are
         stacked and aged together.  The embedding and the other top-level
         leaves of 2 or more dims are aged as in any tree.
+
+        Tile path only: ``generation`` salts every tile (a field
+        re-program of the crossbars, see :meth:`age_weights_tiled`), and
+        ``leaf_overrides(path, shape)`` may return a leaf's
+        ``col_overrides`` (the per-tile weight refresh).  It sees the
+        reference's leaf: under ``stacked`` the stacked path
+        (``['layers']['mlp']['wi_gate']['w']``) and shape
+        (``(n_layers, K, N)``), which choose the col-tiles.
+
+        ``out``: a tree of ``params``'s structure whose tensors take the
+        aged values in place (one leaf at a time crosses from the host),
+        so a re-program holds no second copy of the weights on the card;
+        it is returned.  Its leaves of fewer than 2 dims (of 1 dim under
+        ``stacked``) are left as they are.
         """
         if not self.has_build_stage:
             return params
+        if rng is not None and (stacked or generation or out is not None
+                                or leaf_overrides is not None):
+            raise ValueError("an explicit rng ages the legacy sequential "
+                             "stream: it takes no stacked=, generation=, "
+                             "leaf_overrides= or out=")
 
-        def one(path, w):
+        def tiled(w64, path, shape, first_index=0):
+            cov = None if leaf_overrides is None \
+                else leaf_overrides(path, shape)
+            return self.age_weights_tiled(
+                w64, path, generation=generation, col_overrides=cov,
+                first_index=first_index)
+
+        def one(path, w, target):
             if getattr(w, "ndim", 0) < 2:
-                return w
+                return w if target is None else target
             w64 = w.detach().to("cpu", torch.float64).numpy()
-            aged = (self.age_weights_tiled(w64, path) if rng is None
+            aged = (tiled(w64, path, tuple(w.shape)) if rng is None
                     else self.age_weights(w64, rng))
-            return _like(aged, w)
+            return _put(aged, w, target)
 
         if not stacked:
-            return _map_with_path(params, one)
-        if rng is not None:
-            raise ValueError("stacked= ages per crossbar tile; it takes no "
-                             "rng")
-        out = {k: _map_with_path(v, one, f"[{k!r}]")
+            return _map2(params, out, one)
+        base = f"[{stacked!r}]"
+        res = {k: _map2(v, None if out is None else out[k], one,
+                        f"[{k!r}]")
                for k, v in params.items() if k != stacked}
         layers = params[stacked]
-        base = f"[{stacked!r}]"
+        n_layers = len(layers)
         # the 1-D leaves of every layer, by path, stacked as the reference's
         rows: Dict[str, list] = {}
         for p in layers:
-            _map_with_path(p, lambda path, w: rows.setdefault(
+            _map2(p, None, lambda path, w, _: rows.setdefault(
                 path, []).append(w) if getattr(w, "ndim", 0) == 1 else w)
-        aged_rows = {
-            path: self.age_weights_tiled(
-                torch.stack(ws).detach().to("cpu", torch.float64).numpy(),
-                base + path)
-            for path, ws in rows.items()}
+        aged_rows = {}
+        for path, ws in rows.items():
+            w64 = torch.stack(ws).detach().to("cpu", torch.float64).numpy()
+            aged_rows[path] = tiled(w64, base + path, w64.shape)
 
         def layer_leaf(i):
-            def fn(path, w):
-                if getattr(w, "ndim", 0) == 1:
-                    return _like(aged_rows[path][i], w)
-                if getattr(w, "ndim", 0) < 1:
-                    return w
+            def fn(path, w, target):
+                ndim = getattr(w, "ndim", 0)
+                if ndim == 1:
+                    return _put(aged_rows[path][i], w, target)
+                if ndim < 1:
+                    return w if target is None else target
                 w64 = w.detach().to("cpu", torch.float64).numpy()
                 per_layer = int(np.prod(w.shape[:-2], dtype=np.int64))
-                return _like(self.age_weights_tiled(
-                    w64, base + path, first_index=i * per_layer), w)
+                return _put(tiled(w64, base + path,
+                                  (n_layers,) + tuple(w.shape),
+                                  first_index=i * per_layer), w, target)
             return fn
 
-        out[stacked] = [_map_with_path(p, layer_leaf(i))
-                        for i, p in enumerate(layers)]
-        return {k: out[k] for k in params}
+        res[stacked] = [
+            _map2(p, None if out is None else out[stacked][i], layer_leaf(i))
+            for i, p in enumerate(layers)]
+        return {k: res[k] for k in params}
 
     # -- serialization -----------------------------------------------------
 
@@ -568,18 +596,32 @@ def _like(aged: np.ndarray, w: torch.Tensor) -> torch.Tensor:
         device=w.device, dtype=w.dtype)
 
 
-def _map_with_path(tree, fn, path: str = ""):
-    """``fn(path, leaf)`` over a tree of dicts, lists and tuples, visiting
-    dict keys in sorted order (JAX's flattening order) and spelling each
-    path as ``jax.tree_util.keystr`` does: ``['key']`` for a dict entry,
-    ``[i]`` for a sequence item."""
+def _put(aged: np.ndarray, w: torch.Tensor, target) -> torch.Tensor:
+    """``aged`` as :func:`_like` makes it, or, given a ``target`` tensor,
+    cast on the host and copied into it in place."""
+    if target is None:
+        return _like(aged, w)
+    host = torch.from_numpy(np.ascontiguousarray(aged)).to(target.dtype)
+    with torch.no_grad():
+        target.copy_(host)
+    return target
+
+
+def _map2(tree, other, fn, path: str = ""):
+    """``fn(path, leaf, other_leaf)`` over a tree of dicts, lists and
+    tuples and, leaf for leaf, ``other`` (a tree of its structure, or
+    None), visiting dict keys in sorted order (JAX's flattening order)
+    and spelling each path as ``jax.tree_util.keystr`` does: ``['key']``
+    for a dict entry, ``[i]`` for a sequence item."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(tree[k], fn, f"{path}[{k!r}]")
+        return {k: _map2(tree[k], None if other is None else other[k], fn,
+                         f"{path}[{k!r}]")
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(v, fn, f"{path}[{i}]")
+        return type(tree)(_map2(v, None if other is None else other[i], fn,
+                                f"{path}[{i}]")
                           for i, v in enumerate(tree))
-    return fn(path, tree)
+    return fn(path, tree, other)
 
 
 def device_from_dict(d: Dict[str, Any]) -> DeviceModel:

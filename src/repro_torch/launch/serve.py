@@ -23,6 +23,11 @@ summary line.  Weights come from ``--params`` (an LM tree saved by
         [--device cuda|cpu] [--params lm.npz] [--seed 0] [--profile] \\
         [--prefill-buckets auto|N,N,...] [--pack-prefill] [--detok-thread] \\
         [--offline] [--ckpt-dir DIR] [--resume] \\
+        [--age-per-step-s S --recal-every N --recal-inl-lsb X] \\
+        [--drain-before-rejit] [--fleet N --capacity-floor F \\
+        --router least-loaded --canary PRESET --force-drain-step N \\
+        --shelf-age-per-step-s S] [--metrics-dir DIR] [--trace t.jsonl \\
+        [--trace-wall-clock]] [--prom] \\
         [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC]
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
@@ -50,7 +55,25 @@ on a background thread.  ``--offline`` runs the engine's ``warmup()``
 (every bucket and one decode step on throwaway states) in place of the
 warm-up wave.  ``--ckpt-dir`` checkpoints the deployment there at the end
 (the step numbers grow across resumed runs); with ``--resume`` the engine
-is restored from it instead of programming a fresh chip.  ``--kernel-cache`` (a
+is restored from it instead of programming a fresh chip.
+
+The lifecycle (infer mode): ``--age-per-step-s`` > 0 attaches a
+:class:`~repro_torch.serve.lifecycle.RecalScheduler` (device seconds per
+step, an INL probe every ``--recal-every`` steps, one-point
+re-calibration past ``--recal-inl-lsb``); ``--drain-before-rejit`` defers
+a re-program until the wave drained.  With a scheduler, or any of the
+observability flags, the throwaway-state ``warmup()`` takes the warm-up
+wave's place, so the measured run's lifecycle and metrics are its own.
+``--fleet N`` serves N chips behind the
+:class:`~repro_torch.serve.fleet.FleetEngine` router and planner
+(``--capacity-floor``, ``--router``, ``--canary PRESET`` repeatable,
+``--force-drain-step``, ``--shelf-age-per-step-s``).  Observability:
+``--trace`` writes the span/event trace as JSONL (read it back with
+``python -m repro_torch.obs.replay``), ``--trace-wall-clock`` adds host
+times to it, ``--metrics-dir`` writes ``metrics.json`` and
+``metrics.prom``, ``--prom`` prints the Prometheus text.  The summary's
+``energy`` is ``core/hwcost.py``'s model of the analog chip, not a
+measurement of the GPU.  ``--kernel-cache`` (a
 ``repro_torch.launch.kernel_tune`` result) and ``--kernel-blocks``
 (``fused_matmul_nladc=4x64x512,nladc=8x32``) choose the kernels' launch
 configs per shape (:mod:`repro_torch.kernels.tune`); a bad spec or file is
@@ -63,6 +86,8 @@ import argparse
 import ast
 import dataclasses
 import json
+import os
+import time
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -81,7 +106,10 @@ from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
                                       configure_numerics, device_profile,
                                       resolve_device)
 from repro_torch.nn.model import build
+from repro_torch.obs import Obs
 from repro_torch.serve.engine import Request, ServingEngine
+from repro_torch.serve.fleet import ROUTERS, FleetEngine, FleetPolicy
+from repro_torch.serve.lifecycle import RecalPolicy
 
 ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b", "deepseek-moe-16b")
 
@@ -195,6 +223,46 @@ def main(argv=None) -> dict:
     ap.add_argument("--resume", action="store_true",
                     help="restore the deployment from --ckpt-dir instead "
                          "of programming a fresh chip")
+    ap.add_argument("--age-per-step-s", type=float, default=0.0,
+                    help="device seconds added per engine step; > 0 "
+                         "attaches the re-calibration scheduler (infer "
+                         "mode only)")
+    ap.add_argument("--recal-every", type=int, default=64,
+                    help="engine steps between INL probes")
+    ap.add_argument("--recal-inl-lsb", type=float, default=1.0,
+                    help="a ramp's deployed INL (LSB) above which it is "
+                         "re-calibrated")
+    ap.add_argument("--drain-before-rejit", action="store_true",
+                    help="drain the in-flight wave before a chip "
+                         "re-program instead of re-programming mid-wave")
+    ap.add_argument("--shelf-age-per-step-s", type=float, default=0.0,
+                    help="fleet: device seconds added per fleet step to "
+                         "chips serving no traffic (0 disables)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="serve a fleet of N chips behind the router and "
+                         "the maintenance planner; 0 = one chip")
+    ap.add_argument("--capacity-floor", type=float, default=0.75,
+                    help="fleet: share of chips that keep accepting "
+                         "traffic; bounds concurrent drains")
+    ap.add_argument("--router", default="least-loaded", choices=ROUTERS,
+                    help="fleet admission policy")
+    ap.add_argument("--canary", action="append", default=[],
+                    help="fleet: pin one chip to this device preset as a "
+                         "canary (repeatable)")
+    ap.add_argument("--force-drain-step", type=int, default=0,
+                    help="fleet: force a maintenance request on the first "
+                         "chip at this step")
+    ap.add_argument("--metrics-dir", default="",
+                    help="write the metrics registry here at exit "
+                         "(metrics.json + metrics.prom)")
+    ap.add_argument("--trace", default="",
+                    help="record the span/event trace and write it to "
+                         "this JSONL path at exit (step clock: seeded runs "
+                         "write the same bytes)")
+    ap.add_argument("--trace-wall-clock", action="store_true",
+                    help="add wall_s / wall_dur_s to the trace entries")
+    ap.add_argument("--prom", action="store_true",
+                    help="print the Prometheus text exposition at exit")
     add_kernel_flags(ap)
     args = ap.parse_args(argv)
     configure_kernels(ap, args)
@@ -223,6 +291,23 @@ def main(argv=None) -> dict:
                       bank_cols=args.bank_cols, analog_mode=args.analog_mode,
                       analog_device=args.analog_device,
                       overrides=parse_overrides(args.override))
+    if args.age_per_step_s > 0 and cfg.analog.mode != "infer":
+        ap.error("--age-per-step-s requires --analog-mode infer (the "
+                 "lifecycle acts on a deployed device model)")
+    if args.canary and cfg.analog.mode != "infer":
+        ap.error("--canary requires --analog-mode infer (canaries are "
+                 "pinned to deployed device presets)")
+    recal = None
+    if args.age_per_step_s > 0:
+        recal = RecalPolicy(age_per_step_s=args.age_per_step_s,
+                            check_every=args.recal_every,
+                            inl_threshold_lsb=args.recal_inl_lsb)
+    obs = Obs(trace=bool(args.trace), wall_clock=args.trace_wall_clock)
+    obs_on = bool(args.trace or args.metrics_dir or args.prom)
+    if args.fleet:
+        out = _serve_fleet(ap, args, cfg, device, recal, prefill_kw, obs)
+        _export_obs(args, obs)
+        return out
     model, params = build_lm(cfg, device, params_path=args.params,
                              seed=args.seed)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
@@ -246,16 +331,30 @@ def main(argv=None) -> dict:
               f"in analog mode {cfg.analog.mode!r}; pass --analog-mode infer "
               "for the deployment simulation", flush=True)
     if args.resume:
-        engine = ServingEngine.restore(model, args.ckpt_dir,
-                                       params_like=params, **prefill_kw)
-        print(f"[serve] resumed deployment from {args.ckpt_dir}",
-              flush=True)
+        engine = ServingEngine.restore(
+            model, args.ckpt_dir, params_like=params,
+            drain_before_rejit=args.drain_before_rejit, obs=obs,
+            **prefill_kw)
+        sched = engine.scheduler
+        if recal is not None:
+            if sched is None:
+                ap.error("--age-per-step-s with --resume needs a checkpoint "
+                         "that was serving with a scheduler (this one has "
+                         "none, and re-programming its ramps would discard "
+                         "the restored chip state)")
+            # knob changes are safe on resume; the chip is not touched
+            sched.policy = recal
+        print(f"[serve] resumed deployment from {args.ckpt_dir}"
+              + (f" (age {sched.age_s:.0f}s, {sched.n_recals} recals)"
+                 if sched is not None else ""), flush=True)
     else:
         engine = ServingEngine(model, params, max_batch=args.max_batch,
                                max_len=args.max_len, device=chip,
-                               **prefill_kw)
+                               recal=recal,
+                               drain_before_rejit=args.drain_before_rejit,
+                               obs=obs, **prefill_kw)
     del params
-    if args.offline:
+    if args.offline or engine.scheduler is not None or obs_on:
         w = engine.warmup()
         print(f"[serve] warmup: prefill buckets "
               f"{tuple(w['prefill_buckets'])} + decode step", flush=True)
@@ -274,7 +373,19 @@ def main(argv=None) -> dict:
            engine.pack_prefill, "detok_thread": args.detok_thread,
            "prefill_buckets": list(engine.prefill_buckets), **stats,
            "launches": {k: fn.launches - launches0[k]
-                        for k, fn in KERNELS.items()}, "ckpt": None}
+                        for k, fn in KERNELS.items()}, "ckpt": None,
+           "lifecycle": None}
+    if engine.scheduler is not None:
+        s = engine.scheduler
+        out["lifecycle"] = {"age_s": s.age_s, "probes": len(s.events),
+                            "recals": s.n_recals,
+                            "weight_gen": engine._weight_gen}
+        for ev in s.events:
+            line = (f"  step {ev['step']:>5}  age {ev['age_s']:.0f}s  "
+                    f"INL {ev['inl_lsb']:.3f} LSB")
+            if ev["recalibrated"]:
+                line += f" -> recal -> {ev['inl_after_lsb']:.3f} LSB"
+            print(line, flush=True)
     if args.ckpt_dir:
         # steps grow across resumed runs, so the latest checkpoint is
         # always the newest deployment
@@ -283,12 +394,94 @@ def main(argv=None) -> dict:
                                   step=(prev[-1] if prev else 0)
                                   + stats["tokens"])
     print(json.dumps(out), flush=True)
+    _export_obs(args, obs)
     if args.profile:
         res, prof = device_profile(lambda: engine.run_offline(
             make_requests(cfg, args.requests, args.max_new)), top=16)
         out["profile"] = {"decode_steps": res["decode_steps"],
                           "prefill_steps": res["prefill_steps"], **prof}
         print(json.dumps({"profile": out["profile"]}), flush=True)
+    return out
+
+
+def _export_obs(args, obs) -> None:
+    """Write the run's trace, metrics and Prometheus text per the flags."""
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        obs.tracer.write_jsonl(args.trace)
+        print(f"[serve] trace: {len(obs.tracer.entries)} entries -> "
+              f"{args.trace}", flush=True)
+    if args.metrics_dir:
+        os.makedirs(args.metrics_dir, exist_ok=True)
+        jpath = os.path.join(args.metrics_dir, "metrics.json")
+        with open(jpath, "w") as f:
+            f.write(obs.metrics.dump_json())
+        ppath = os.path.join(args.metrics_dir, "metrics.prom")
+        with open(ppath, "w") as f:
+            f.write(obs.metrics.to_prometheus())
+        print(f"[serve] metrics -> {jpath} + {ppath}", flush=True)
+    if args.prom:
+        print(obs.metrics.to_prometheus(), end="", flush=True)
+
+
+def _serve_fleet(ap, args, cfg, device, recal, prefill_kw, obs) -> dict:
+    """``--fleet N``: N chips, the router, the planner, canaries, the
+    fleet manifest.  Prints the events, each chip's health and energy
+    (hwcost's model), and one JSON summary line."""
+    policy = FleetPolicy(capacity_floor=args.capacity_floor,
+                         router=args.router,
+                         shelf_age_per_step_s=args.shelf_age_per_step_s)
+    if args.resume:
+        fleet = FleetEngine.restore(cfg, args.ckpt_dir, obs=obs,
+                                    torch_device=device)
+        print(f"[serve] resumed fleet of {len(fleet.chips)} chips from "
+              f"{args.ckpt_dir} (step {fleet.step_count}, "
+              f"{len(fleet.events)} events)", flush=True)
+    else:
+        fleet = FleetEngine.build(
+            cfg, args.fleet, policy=policy, recal=recal,
+            max_batch=args.max_batch, max_len=args.max_len,
+            canary_presets=tuple(args.canary), obs=obs,
+            torch_device=device, **prefill_kw)
+        roles = ", ".join(
+            f"{cid}{' (canary: ' + c.device.name + ')' if c.spec.canary else ''}"
+            for cid, c in fleet.chips.items())
+        print(f"[serve] fleet up: {roles}; router={policy.router} "
+              f"capacity_floor={policy.capacity_floor} (max "
+              f"{fleet.planner.max_drain} draining)", flush=True)
+    fleet.warmup()
+    for req in make_requests(cfg, args.requests, args.max_new):
+        fleet.submit(req)
+    t0 = time.perf_counter()
+    n_tokens = 0
+    min_accepting = len(fleet.chips)
+    while any(c.engine.queue or not all(c.engine.slot_free)
+              for c in fleet.chips.values()):
+        if args.force_drain_step \
+                and fleet.step_count + 1 == args.force_drain_step:
+            fleet.force_maintenance(sorted(fleet.chips)[0])
+        n_tokens += len(fleet.step())
+        min_accepting = min(min_accepting, len(fleet.accepting()))
+    n_tokens += sum(len(b) for c in fleet.chips.values()
+                    for b in c.engine.detok_flush())
+    dt = time.perf_counter() - t0
+    lat = fleet.admission_latency_steps()
+    for ev in fleet.events:
+        extra = {k: v for k, v in ev.items() if k not in ("step", "type")}
+        print(f"  step {ev['step']:>5}  {ev['type']}"
+              + (f"  {extra}" if extra else ""), flush=True)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "chips":
+           len(fleet.chips), "requests": args.requests,
+           "tokens": int(n_tokens), "seconds": float(dt),
+           "tokens_per_s": float(n_tokens / dt) if dt > 0 else 0.0,
+           "admission_steps_p95": float(np.percentile(lat, 95))
+           if lat else 0.0, "min_accepting": min_accepting,
+           "events": len(fleet.events), "health": fleet.health(),
+           "energy": fleet.energy_report(), "ckpt": None}
+    if args.ckpt_dir:
+        out["ckpt"] = fleet.save(args.ckpt_dir, fleet.step_count)
+    print(json.dumps(out), flush=True)
     return out
 
 

@@ -27,7 +27,7 @@ them.  The model lives on the GPU unless the caller asks for the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -75,13 +75,37 @@ class LM:
             else torch.float32
         self.mlp_kind = mlp_type_for(cfg)
         self.act = make_activation(cfg, self.device)     # hidden NL-ADC
-        # the MoE router's NL-ADC, one chip's ramp shared by every layer
-        self.sigmoid_act = AnalogActivation(
-            "sigmoid", AnalogConfig.from_spec(cfg.analog), self.device)
+        # the auxiliary NL-ADCs, one chip's ramps shared by every layer:
+        # the MoE router's sigmoid, and the softplus and silu that ride in
+        # the other families' recurrent cells (programmed, and so aged and
+        # re-calibrated by a deployment's lifecycle, as the reference's)
+        acfg = AnalogConfig.from_spec(cfg.analog)
+        self.sigmoid_act = AnalogActivation("sigmoid", acfg, self.device)
+        self.softplus_act = AnalogActivation("softplus", acfg, self.device)
+        self.silu_act = AnalogActivation("silu", acfg, self.device)
         # realize the d_ff-wide threshold bank (the MLP gate's output)
         # once, here, rather than inside the first step
         self.act.bank_for(cfg.d_ff)
         self.kv_chunk = 1024       # flash-style attention's KV chunk
+
+    def act_param_leaves(self) -> Dict[str, Tuple[str, ...]]:
+        """NL-ADC activation -> keystr fragments of the param leaves whose
+        crossbar columns feed it (the reference's spelling, which matches
+        both its stacked paths and the port's per-layer ones).
+
+        Only the hidden activation (``act``) maps: it digitizes the MLP
+        gate projection's output (width d_ff), so the gate/up matrices of
+        every family's MLP and the MoE expert and shared-expert ones are
+        the crossbars behind its threshold banks.  A weight refresh that
+        another activation triggers re-programs the whole chip.  The
+        serving engine reads it for the per-tile weight refresh.
+        """
+        return {"act": ("['mlp']['wi_gate']['w']", "['mlp']['wi']['w']",
+                        "['moe']['w_gate']", "['moe']['w_up']",
+                        "['mlp']['wi_up']['w']",
+                        "['moe']['shared']['wi_gate']['w']",
+                        "['moe']['shared']['wi_up']['w']",
+                        "['moe']['shared']['wi']['w']")}
 
     # -- init -----------------------------------------------------------
 

@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.lstm_train", "train.optim", "launch.train",
                  "launch.steps", "train.loop", "data.pipeline",
                  "core.circuit", "ckpt.checkpoint", "serve.lifecycle",
-                 "serve.engine", "nn.model"):
+                 "serve.engine", "nn.model", "core.hwcost", "obs",
+                 "obs.metrics", "obs.trace", "obs.energy", "obs.replay",
+                 "serve.fleet", "ft.elastic"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"
@@ -74,6 +76,30 @@ def test_import_scan_pattern(line, bad):
     assert bool(_FORBIDDEN.search(line)) == bad
 
 
+def test_replay_cli_runs_without_jax(tmp_path):
+    """``python -m repro_torch.obs.replay`` with ``jax`` and ``repro``
+    made unimportable renders a trace the port's tracer wrote."""
+    from repro_torch.obs import Obs
+
+    obs = Obs(trace=True)
+    obs.child("chip00").trace_event("first_token", uid=1, ttft_steps=2)
+    with obs.span("decode", active=1):
+        pass
+    path = str(tmp_path / "t.jsonl")
+    obs.tracer.write_jsonl(path)
+    code = ("import runpy, sys\n"
+            "for name in ('jax', 'repro', 'ml_dtypes'):\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['replay', {path!r}]\n"
+            "runpy.run_module('repro_torch.obs.replay', "
+            "run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[first_token]" in out.stdout and "latency summary" in out.stdout
+
+
 def test_lstm_eval_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
@@ -90,6 +116,11 @@ def test_serve_needs_a_gpu_unless_asked_for_cpu(monkeypatch):
     out = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
                       "--requests", "1", "--max-new", "1"])
     assert out["device"] == "cpu" and out["backend"] == "ref"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--arch", "qwen2.5-3b", "--smoke", "--fleet", "2"])
+    out = serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+                      "--fleet", "2", "--requests", "2", "--max-new", "1"])
+    assert out["chips"] == 2 and out["tokens"] == 2
 
 
 def test_lm_train_needs_a_gpu_unless_asked_for_cpu(monkeypatch):

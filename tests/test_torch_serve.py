@@ -30,7 +30,9 @@ from repro.serve.engine import ServingEngine as JEngine
 from repro_torch import convert
 from repro_torch.launch import serve as TSERVE
 from repro_torch.nn.model import build as tbuild
+from repro_torch.obs import Obs
 from repro_torch.serve.engine import ServingEngine as TEngine
+from repro_torch.serve.lifecycle import RecalPolicy
 
 ROOT = Path(__file__).resolve().parents[1]
 N_REQ, MAX_BATCH, MAX_NEW, MAX_LEN = 6, 4, 8, 64
@@ -191,17 +193,24 @@ def test_requests_are_the_jax_launchers():
         assert 4 <= len(r.prompt) <= 11 and r.max_new_tokens == 16
 
 
-@pytest.mark.parametrize("kw", [dict(recal=object()),
+@pytest.mark.parametrize("kw", [dict(recal=RecalPolicy()),
                                 dict(drain_before_rejit=True),
                                 dict(external_maintenance=True),
-                                dict(obs=object())])
+                                dict(obs=Obs(trace=False))])
 def test_engine_outside_the_slice_raises(kw):
-    """The lifecycle's scheduler, the fleet and observability stay
-    unported; each refusal names its ROADMAP item."""
+    """The lifecycle's knobs, fleet mode and observability, once refused,
+    are taken: a scheduler without a device model raises, the others set
+    the engine up; an unknown knob still raises."""
     cfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref")
     model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        TEngine(model, params, max_batch=1, max_len=8, **kw)
+    if "recal" in kw:
+        with pytest.raises(ValueError, match="requires a device model"):
+            TEngine(model, params, max_batch=1, max_len=8, **kw)
+    else:
+        eng = TEngine(model, params, max_batch=1, max_len=8, **kw)
+        (name, value), = kw.items()
+        assert getattr(eng, name) is value
+        assert not eng.maintenance_pending and not eng.draining
     with pytest.raises(TypeError):
         TEngine(model, params, max_batch=1, max_len=8, no_such_knob=1)
 
@@ -256,18 +265,20 @@ def test_launcher_serves_every_analog_mode():
         TSERVE.resolve_device("cpu"))[0].act.adc.thresholds)
 
 
-def test_launcher_refuses_unported_modes():
-    """Expert parallelism and the engine's re-calibration scheduler stay
-    unported, and each refusal names its ROADMAP item."""
+def test_launcher_refuses_unported_modes(capsys):
+    """Expert parallelism stays unported, and its refusal names its
+    ROADMAP item; the lifecycle's flags outside infer mode are usage
+    errors, as the reference's launcher makes them."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSERVE.main(["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device",
                      "cpu", "--override", "moe_impl=ep_shardmap",
                      "--requests", "1", "--max-new", "1"])
-    cfg = TSERVE.make_config("qwen2.5-3b", smoke=True, backend="ref",
-                             analog_mode="infer", analog_device="paper-infer")
-    model, params = TSERVE.build_lm(cfg, TSERVE.resolve_device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(model, params, max_batch=1, max_len=8, recal=object())
+    for flags in (["--age-per-step-s", "60"], ["--fleet", "2", "--canary",
+                                                "stressed"]):
+        with pytest.raises(SystemExit):
+            TSERVE.main(["--arch", "qwen2.5-3b", "--smoke", "--device",
+                         "cpu", "--analog-mode", "exact"] + flags)
+        assert "requires --analog-mode infer" in capsys.readouterr().err
 
 
 def test_launcher_serves_aged_weights_in_infer_mode(capsys):
