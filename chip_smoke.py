@@ -95,8 +95,10 @@ Phases, one JSON line each:
               is printed, not gated.
 5. fused_matmul — the ``fused_matmul_nladc`` kernel against its plain
               version at the serving path's shapes (4 and 1 rows, K 2048,
-              N 11008, bfloat16 x, float32 w: the GEMV, M <= 8) with one
-              (P,) ramp and with 512-column threshold banks, a ragged
+              N 11008, bfloat16 x, float32 w: the GEMV, M <= 8; and
+              recurrentgemma's GeGLU gate, K 4096, N 12288, gelu ramp:
+              ``geglu_*``) with one (P,) ramp and with 512-column
+              threshold banks, a ragged
               float32 case (M 33: the tensor-core GEMM, x split in three
               bfloat16 parts), and the training shape (M = B x S = 1024,
               flat and banked-512: the GEMM).  Codes equal except where the
@@ -108,9 +110,11 @@ Phases, one JSON line each:
 6. attention — the ``prefill_attention`` kernel (one thread-block cluster
               per KV head and batch row) against its plain version at
               (B 4, H 16, Hkv 2, D 128, S 128), bfloat16 and float32, and
-              at S 2048 in bfloat16, ragged masks (one row sees a single
-              slot): max abs diff 1e-6 in float32, one bfloat16 ulp; the
-              cluster size of each case.
+              at S 2048 in bfloat16; at recurrentgemma's local attention
+              (H 16, Hkv 1, D 256, S 128), bfloat16 and float32, and its
+              rolling buffer cut to S 16; ragged masks (one row sees a
+              single slot): max abs diff 1e-6 in float32, one bfloat16
+              ulp; the cluster size of each case.
 7. serve    — qwen2.5-3b at full width and all 36 layers, bfloat16
               compute, ``cuda`` backend, seeded weights: 4 requests,
               max_batch 4, max_len 128, max_new 16.  Every request gets its
@@ -123,8 +127,11 @@ Phases, one JSON line each:
 9. nladc    — the elementwise ``nladc`` kernel against its plain version
               at the router's (4, 64) bfloat16 with one (P,) ramp (and
               (1024, 64), the router at the training shape), at
-              (4, 11008) bfloat16 with 512-column banks, and a ragged
-              float32 (33, 1000): codes bitwise, values equal.
+              (4, 11008) bfloat16 with 512-column banks, a ragged
+              float32 (33, 1000), and the recurrent families' calls: SSD's
+              dt softplus (4, 32) and z-gate silu (4, 2048), RG-LRU's
+              gate sigmoid (4, 4096) and W_g gelu (4, 4096) with
+              512-column banks: codes bitwise, values equal.
 10. moe_matmul — the ``moe_fused_matmul`` kernel (persistent CTAs, a TMA
               weight stream that skips empty experts) against its plain
               version at the expert gate's shape (64 experts, C 6, d 2048,
@@ -156,6 +163,34 @@ Phases, one JSON line each:
 13. agreement_moe — a 2-layer, full-width, float32 moonshot with an int8
               cache on the ``cuda`` and ``ref`` backends: max |delta
               logits| < LSB/2.
+13a1. serve_ssm — mamba2-370m (SSD, 48 layers, d 1024, state 128) at full
+              width and depth, bfloat16, ``cuda``, seeded weights,
+              ``serve``'s workload: every request its 16 tokens, every
+              step's logits finite, ``nladc`` (dt softplus, z-gate silu)
+              48 x 2 x (prefill + decode steps) launches and no other
+              kernel; then the bucketed, packed and chunked prefills: the
+              scan run's streams, the same launches per bucket width, the
+              decode-state leaves' max |delta| against the scan run;
+              tokens/s and ms per decode step (median, spread), peak.
+13a2. agreement_ssm — 2 layers, full width, float32, exact and infer
+              (``paper-infer``): cuda against ref as ``serve_recal``
+              judges (kernel 3 audited on the same operands, the ref run
+              given the cuda run's gate outputs; logits < LSB/2, streams
+              equal or parted at a near tie); ``LM.prefill`` against the
+              last decode step with the NL-ADC off (relative < 1e-3).
+13a3. serve_hybrid — recurrentgemma-9b (38 layers: (rec, rec, attn) x 12
+              + (rec, rec), d 4096, 16 heads over 1 KV head of 256, d_ff
+              12288, vocab 256000; 38.5 GB of f32 weights drawn on the
+              card) as ``serve_ssm``: a step launches ``nladc`` 78 (26
+              RG-LRU blocks x r, i and W_g), ``fused_matmul_nladc`` 38
+              and ``prefill_attention`` 12; max_len 128 < window 2048, so
+              its 128-slot cache never rolls.
+13a4. agreement_hybrid — one group of 3 layers at full width, float32,
+              the window cut to 16 and max_len 64: 64 steps roll the
+              buffer 3 times; exact, infer, and again with an int8 cache
+              (the dequantize-all fallback into kernel 5); judged as
+              ``agreement_ssm`` (int8: LM.prefill within 5e-2, the
+              reference's int8-against-float bound).
 13-1. serve_bucketed — qwen2.5-3b as ``serve`` (36 layers, bf16, cuda):
               the scan run again, then the bucketed prefill (one bucket
               call a request), the packed one (the wave in one call of
@@ -308,12 +343,15 @@ The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 ``train_agreement``, for both families at each seed, and prints no
 ``ok`` line; ``--lifecycle`` runs only the device phase and 13-6 to
-13-11, and prints no ``ok`` line either.  Without a GPU, or without the repository's ``src/repro_torch``
+13-11, and ``--recurrent`` only the device phase, the recurrent
+families' kernel cases and 13a1 to 13a4; neither prints the ``ok``
+line.  Without a GPU, or without the repository's ``src/repro_torch``
 beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -383,6 +421,20 @@ CKPT_LAYERS, CKPT_SAVE_AT = 2, 6
 TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
                   analog_device="paper")
 CARD_GB = 80.0
+# the recurrent LM families served at full width and depth (serve's
+# workload); their decode states are not KV caches
+SERVE_SSM = dict(SERVE, arch="mamba2-370m", repeats=3, mode_repeats=1)
+SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=2,
+                    mode_repeats=1)
+# cuda against ref at full width, cut depth, float32; the hybrid's local
+# attention window cut to 16 with max_len 64, so 64 decode steps roll its
+# 16-slot buffer 3 times
+AGREE_SSM = dict(arch="mamba2-370m", n_layers=2, max_len=128, steps=16)
+AGREE_HYBRID = dict(arch="recurrentgemma-9b", n_layers=3, window=16,
+                    max_len=64, steps=64)
+PREFILL_REL = 1e-3         # LM.prefill against the last decode step
+PREFILL_INT8_REL = 5e-2    # the same with an int8 KV cache: the reference's
+#                            int8-against-float decode bound
 # the lifecycle phases: qwen2.5-3b at full width on aged-1day, 512-column
 # banks; depth cut for the host's aging of every crossbar (2.71 s a layer
 # and 8 s for the embedding on an H100 host, PR 23)
@@ -1024,10 +1076,12 @@ def matmul_bound(m: int, k: int, n: int, p: int, banked: bool,
 
 def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
                        x_dtype, bank_cols: int, bias: bool = False,
-                       reps: int = 20, inner: int = 50):
-    """The fused matmul kernel against its plain version; the kernel's
-    codes come from a second launch with the counting table y(n) = n.
-    ``reps`` x ``inner`` calls time it (CUDA events)."""
+                       reps: int = 20, inner: int = 50,
+                       act_name: str = "silu"):
+    """The fused matmul kernel against its plain version, ``act_name``'s
+    ramp in the epilogue; the kernel's codes come from a second launch
+    with the counting table y(n) = n.  ``reps`` x ``inner`` calls time it
+    (CUDA events)."""
     from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
     from repro_torch.kernels import fused_matmul_nladc as fmn
     from repro_torch.kernels import tune
@@ -1036,7 +1090,7 @@ def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
     cfg = AnalogConfig(enabled=True, adc_bits=5, input_bits=None,
                        mode="infer", device="paper-infer",
                        bank_cols=bank_cols)
-    act = AnalogActivation("silu", cfg, dev)
+    act = AnalogActivation(act_name, cfg, dev)
     thr = act.thresholds_for(n)
     banked = not isinstance(thr, torch.Tensor)
     thr = thr.per_column if banked else thr
@@ -1079,7 +1133,8 @@ def phase_fused_matmul(torch, dev, name: str, m: int, k: int, n: int,
         return torch.matmul(xf, w)
 
     out = {"phase": "fused_matmul", "case": name, "M": m, "K": k, "N": n,
-           "P": p, "x_dtype": str(x_dtype).replace("torch.", ""),
+           "P": p, "ramp": act_name,
+           "x_dtype": str(x_dtype).replace("torch.", ""),
            "bias": bias, "layout": "(N,P)" if banked else "(P,)",
            "code_flips": flips, "unexplained_flips": unexplained,
            "elements": nk.numel(), "max_abs_err": err,
@@ -1112,14 +1167,16 @@ def attention_bound(b: int, h: int, hkv: int, d: int, s_len: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def phase_attention(torch, dev, name: str, dtype, s_len: int):
-    """The cached-attention kernel against its plain version at the serving
-    path's heads, ragged masks (one row sees a single slot)."""
+def phase_attention(torch, dev, name: str, dtype, s_len: int,
+                    heads=(16, 2, 128)):
+    """The cached-attention kernel against its plain version at a serving
+    path's heads ``(H, Hkv, D)`` (qwen2.5-3b's by default), ragged masks
+    (one row sees a single slot)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention as pa
 
-    b, h, hkv, d = SERVE["max_batch"], 16, 2, 128
+    b, (h, hkv, d) = SERVE["max_batch"], heads
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
@@ -1351,6 +1408,7 @@ def phase_nladc(torch, dev, name: str, shape, act_name: str, x_dtype,
         return nk.nladc_plain(x, thr, y_table)
 
     out = {"phase": "nladc", "case": name, "shape": list(shape), "P": p,
+           "ramp": act_name,
            "x_dtype": str(x_dtype).replace("torch.", ""),
            "layout": "(N,P)" if banked else "(P,)",
            "code_mismatches": mismatches, "max_abs_err": err,
@@ -1830,22 +1888,26 @@ def phase_serve_moe(torch, dev) -> dict:
 
 
 def _cache_leaf_diffs(torch, got, want) -> dict:
-    """Largest |delta| of each cache leaf name over the layers."""
+    """Largest |delta| of each decode-state leaf name over the blocks: the
+    KV caches' by name (``k``, ``v``, ...), a recurrent block's as
+    ``kind/name`` (``ssd/ssm``, ``rec/h``, ``rec/conv``)."""
     out = {}
-    for g, w in zip(got.state["layers"], want.state["layers"]):
+    blocks = got.model.blocks
+    for (kind, g), (_, w) in zip(blocks(got.state), blocks(want.state)):
         for name in g:
             d = float((g[name].double() - w[name].double()).abs().max())
-            out[name] = max(out.get(name, 0.0), d)
+            key = name if kind in ("attn", "moe_attn") else f"{kind}/{name}"
+            out[key] = max(out.get(key, 0.0), d)
     return out
 
 
 def _serve_mode(torch, engine_cls, model, params, cfg, name: str, mode: str,
                 kw: dict, spec: dict, scan_streams, scan_engine,
-                expected_kernels) -> dict:
+                per_step: dict) -> dict:
     """One prefill mode: the warm-up wave, the counted run (launches of
-    each kernel ``n_layers x (bucket widths + decode steps)``, every
-    bucket call's width summed into the prefill steps, the streams the
-    scan run's), then ``spec["repeats"]`` timed runs."""
+    each kernel ``per_step[kernel] x (bucket widths + decode steps)``,
+    every bucket call's width summed into the prefill steps, the streams
+    the scan run's), then ``spec["repeats"]`` timed runs."""
     from repro_torch.launch import serve
 
     engine = engine_cls(model, params, max_batch=spec["max_batch"],
@@ -1858,8 +1920,7 @@ def _serve_mode(torch, engine_cls, model, params, cfg, name: str, mode: str,
     stats = engine.run_offline(reqs)
     launches = {k: fn.launches for k, fn in wrappers.items()}
     steps = stats["prefill_steps"] + stats["decode_steps"]
-    expected = {k: cfg.n_layers * steps if k in expected_kernels else 0
-                for k in wrappers}
+    expected = {k: per_step.get(k, 0) * steps for k in wrappers}
     streams = {r.uid: r.generated for r in reqs}
     check(launches == expected,
           f"{name}/{mode}: launches {launches}, expected {expected}")
@@ -1954,7 +2015,8 @@ def phase_serve_bucketed(torch, dev, served: dict) -> dict:
           "serve_bucketed: the scan run's streams differ from serve's")
     modes = [_serve_mode(torch, ServingEngine, model, params, cfg,
                          "serve_bucketed", mode, kw, spec, scan_streams,
-                         scan, kernels) for mode, kw in SERVE_MODES]
+                         scan, {k: cfg.n_layers for k in kernels})
+             for mode, kw in SERVE_MODES]
     chunked = modes[-1]
     check(any(b == CHUNK_BUCKETS[-1] for b in
               chunked["prefill_buckets_called"][:-1])
@@ -2001,7 +2063,7 @@ def phase_serve_moe_bucketed(torch, dev) -> dict:
     scan_streams = {r.uid: r.generated for r in reqs}
     modes = [_serve_mode(torch, ServingEngine, model, params, cfg,
                          "serve_moe_bucketed", mode, kw, spec, scan_streams,
-                         scan, kernels)
+                         scan, {k: cfg.n_layers for k in kernels})
              for mode, kw in SERVE_MODES if mode in ("packed", "chunked")]
     check(all(t["k"].dtype == torch.int8 for t in scan.state["layers"]),
           "serve_moe_bucketed: the KV cache is not int8")
@@ -2016,6 +2078,212 @@ def phase_serve_moe_bucketed(torch, dev) -> dict:
            "modes": modes, "seconds": time.perf_counter() - t0}
     emit(out)
     del model, params, scan
+    return out
+
+
+RECURRENT_MODES = tuple((m, kw) for m, kw in SERVE_MODES
+                        if m in ("bucketed", "packed", "chunked"))
+
+
+def recurrent_launches(model) -> dict:
+    """Each kernel's launches in one decode step of a recurrent LM: an SSD
+    block's dt softplus and z-gate silu (2 ``nladc``); an RG-LRU block's
+    r and i sigmoid gates (``nladc`` after the block-diagonal matmul) and
+    its ``W_g`` branch's hidden activation (``nladc``), and its MLP gate
+    (``fused_matmul_nladc``); a local-attention block's MLP gate and its
+    cached attention (``prefill_attention``)."""
+    kinds = model.layer_kinds()
+    n_ssd, n_rec, n_attn = (kinds.count(k) for k in ("ssd", "rec", "attn"))
+    return {"nladc": 2 * n_ssd + 3 * n_rec,
+            "fused_matmul_nladc": n_rec + n_attn,
+            "prefill_attention": n_attn}
+
+
+def phase_serve_recurrent(torch, dev, name: str, spec: dict) -> dict:
+    """A recurrent LM (mamba2-370m's SSD, recurrentgemma-9b's RG-LRU and
+    local attention) at full width and depth, bfloat16, cuda backend,
+    seeded weights, serve's workload: every request gets its tokens,
+    every step's logits are finite, each kernel launches
+    ``recurrent_launches x (prefill steps + decode steps)`` times;
+    tokens/s and ms per decode step (median of repeats, spread), peak
+    memory.  Then the bucketed, packed and chunked prefills: the scan
+    run's streams, the same launches per bucket width, the decode-state
+    leaves' max |delta| against the scan run."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve.make_config(spec["arch"], backend="cuda")
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    engine = ServingEngine(model, params, max_batch=spec["max_batch"],
+                           max_len=spec["max_len"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    engine.run_offline(serve.make_requests(cfg, 1, 2))          # warm-up
+    per_step = recurrent_launches(model)
+    finite = []
+    decode_step = model.decode_step
+
+    def checked(p, state, tokens):
+        logits, state = decode_step(p, state, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, state
+
+    model.decode_step = checked
+    reqs = serve.make_requests(cfg, spec["requests"], spec["max_new"])
+    stats, launches = _counted(lambda: engine.run_offline(reqs))
+    del model.decode_step
+    steps = stats["prefill_steps"] + stats["decode_steps"]
+    expected = {k: per_step.get(k, 0) * steps for k in launches}
+    check(launches == expected,
+          f"{name}: launches {launches}, expected {expected}")
+    check(len(finite) == steps and all(bool(f) for f in finite),
+          f"{name}: non-finite logits")
+    check(all(len(r.generated) == spec["max_new"] for r in reqs),
+          f"{name}: token counts {[len(r.generated) for r in reqs]}")
+    streams = {r.uid: r.generated for r in reqs}
+    attn = [blk for kind, blk in model.blocks(engine.state)
+            if kind == "attn"]
+    # each mode's engine runs the warm-up and the counted wave, as the
+    # scan engine has so far: the shared index (it only grows) and so
+    # every state leaf are comparable
+    mode_spec = dict(spec, repeats=spec["mode_repeats"])
+    modes = [_serve_mode(torch, ServingEngine, model, params, cfg, name,
+                         mode, kw, mode_spec, streams, engine, per_step)
+             for mode, kw in RECURRENT_MODES]
+    runs = [engine.run_offline(serve.make_requests(
+        cfg, spec["requests"], spec["max_new"]))
+        for _ in range(spec["repeats"])]
+    tps = [r["tokens_per_s"] for r in runs]
+    dms = [r["decode_step_ms"] for r in runs]
+    pms = [r["prefill_step_ms"] for r in runs]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    out = {"phase": name, "arch": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "backend": "cuda",
+           "analog_mode": cfg.analog.mode,
+           **{k: spec[k] for k in ("requests", "max_batch", "max_len",
+                                   "max_new", "repeats")},
+           "kv_slots": attn[0]["k"].shape[1] if attn else None,
+           "window": cfg.window or None,
+           "cache_rolls": bool(attn) and steps > attn[0]["k"].shape[1],
+           "setup_s": setup_s, "tokens": stats["tokens"],
+           "prefill_steps": stats["prefill_steps"],
+           "decode_steps": stats["decode_steps"],
+           "launches_per_step": per_step, "launches": launches,
+           "expected_launches": expected, "streams": streams,
+           "tokens_per_s": statistics.median(tps),
+           "tokens_per_s_min": min(tps), "tokens_per_s_max": max(tps),
+           "decode_step_ms": statistics.median(dms),
+           "decode_step_ms_min": min(dms), "decode_step_ms_max": max(dms),
+           "prefill_step_ms": statistics.median(pms),
+           "prefill_step_ms_min": min(pms), "prefill_step_ms_max": max(pms),
+           "max_memory_gb": peak_gb, "modes": modes,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del model, params, engine
+    return out
+
+
+def _greedy_logits(torch, model, params, first, steps: int, max_len: int,
+                   sink: list, tokens=None) -> list:
+    """``steps`` decode steps from ``first`` (B, 1): greedy on the model's
+    own argmax, or fed ``tokens`` (the inputs of another run); each step's
+    logits go to ``sink``; returns the inputs fed."""
+    state = model.init_decode_state(first.shape[0], max_len)
+    tok, fed = first, []
+    for t in range(steps):
+        if tokens is not None:
+            tok = tokens[t]
+        fed.append(tok)
+        logits, state = model.decode_step(params, state, tok)
+        sink.append(logits.detach().double())
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    return fed
+
+
+def phase_agreement_recurrent(torch, dev, name: str, spec: dict,
+                              analog_mode: str = "",
+                              analog_device: str = "",
+                              kv_cache_dtype: str = "") -> dict:
+    """A recurrent LM at full width, its depth cut, float32, on the cuda
+    and ref backends on the card, the same weights, judged as
+    ``serve_recal`` judges: the cuda run decodes greedily with every call
+    of kernel 3 held to ref's gate on the same operands (code flips at
+    most AGREE_FLIP_SHARE of its outputs, one level each); the ref run is
+    fed the same tokens and the cuda run's gate outputs (a flip carried
+    forward by a recurrent state would otherwise move every later step);
+    the logits agree within LSB/2 and the streams are equal or part at a
+    near tie (``_agree``).  Then, on the cuda backend with the NL-ADC off
+    (as the reference's ``test_decode_consistency``), the full-sequence
+    ``LM.prefill`` over the fed tokens against the last decode step
+    (relative error)."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+
+    overrides = {"n_layers": spec["n_layers"]}
+    if spec.get("window"):
+        overrides["window"] = spec["window"]
+    if kv_cache_dtype:
+        overrides["kv_cache_dtype"] = kv_cache_dtype
+    models = {bk: build(serve.make_config(
+        spec["arch"], backend=bk, analog_mode=analog_mode,
+        analog_device=analog_device, overrides=overrides).replace(
+            dtype="float32"), dev) for bk in ("cuda", "ref")}
+    cfg = models["cuda"].cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = models["cuda"].init(gen)
+    b = SERVE["max_batch"]
+    first = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev)
+    got, want, audit, free = [], [], [], []
+    undo = _audit_gates(torch, models["cuda"], got, audit)
+    try:
+        fed = _greedy_logits(torch, models["cuda"], params, first,
+                             spec["steps"], spec["max_len"], got)
+    finally:
+        undo()
+    undo = _replay_gates(torch, models["ref"], audit, free)
+    try:
+        _greedy_logits(torch, models["ref"], params, first, spec["steps"],
+                       spec["max_len"], want, tokens=fed)
+    finally:
+        undo()
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{name}: non-finite logits")
+    flips = _flip_summary(name, audit) if audit else {
+        "gate_outputs": 0, "code_flips": 0, "max_flip_levels": 0}
+    agree = _agree(name, got, want, models["cuda"].act.ramp.lsb)
+    # decode against the full sequence, as the reference's
+    # test_decode_consistency holds them: the NL-ADC off (a code that
+    # flips between the two summation orders would move the logits by an
+    # LSB), the cuda backend's attention
+    plain_cfg = cfg.replace(analog=dataclasses.replace(cfg.analog,
+                                                       enabled=False))
+    plain = build(plain_cfg, dev)
+    last = []
+    _greedy_logits(torch, plain, params, first, spec["steps"],
+                   spec["max_len"], last, tokens=fed)
+    full = plain.prefill(params, torch.cat(fed, dim=1)).double()
+    rel = float((full - last[-1]).abs().max() / last[-1].abs().max())
+    tol = PREFILL_INT8_REL if cfg.kv_cache_dtype == "int8" else PREFILL_REL
+    check(rel < tol, f"{name}: LM.prefill against the last decode step: "
+          f"relative error {rel} >= {tol}")
+    slots = [blk["k"].shape[1] for kind, blk in models["cuda"].blocks(
+        models["cuda"].init_decode_state(1, spec["max_len"]))
+        if kind == "attn"]
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "analog_mode": cfg.analog.mode,
+           "analog_device": cfg.analog.device,
+           "kv_cache_dtype": cfg.kv_cache_dtype, "dtype": "float32",
+           "window": cfg.window or None, "kv_slots": slots[0] if slots
+           else None, "B": b, "steps": spec["steps"],
+           "buffer_rolls": (spec["steps"] - 1) // slots[0] if slots else 0,
+           **flips, "ref_free_run_flips": sum(free), **agree,
+           "prefill_rel_err": rel, "prefill_rel_tol": tol}
+    emit(out)
+    del models, params
     return out
 
 
@@ -3503,6 +3771,60 @@ def phase_train_agreement(torch, dev, arch: str,
     return out
 
 
+def recurrent_kernel_cases(torch, dev) -> list:
+    """The recurrent families' kernel cases, each checked against its
+    plain version: ``nladc`` at SSD's dt softplus (4, 32) and z-gate silu
+    (4, 2048), RG-LRU's gate sigmoid (4, 4096) and its ``W_g`` branch's
+    gelu with 512-column banks (4, 4096); ``fused_matmul_nladc`` at
+    recurrentgemma's GeGLU gate (4 and 1 rows, 4096 x 12288, gelu,
+    bfloat16 x, flat and banked-512: the GEMV); ``prefill_attention`` at
+    its local attention (H 16 over Hkv 1, D 256, S 128, bfloat16 and
+    float32), and its rolling buffer cut to 16 slots."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    heads = (16, 1, 256)
+    return [
+        phase_nladc(torch, dev, "ssd_dt_bf16", (4, 32), "softplus", bf16,
+                    0),
+        phase_nladc(torch, dev, "ssd_gate_bf16", (4, 2048), "silu", bf16,
+                    0),
+        phase_nladc(torch, dev, "rglru_gate_bf16", (4, 4096), "sigmoid",
+                    bf16, 0),
+        phase_nladc(torch, dev, "rglru_wg_banked_bf16", (4, 4096), "gelu",
+                    bf16, 512),
+        *(phase_fused_matmul(torch, dev, f"geglu_{tag}_{lay}", m, 4096,
+                             12288, bf16, bc, act_name="gelu")
+          for tag, m in (("decode", 4), ("prefill", 1))
+          for lay, bc in (("flat", 0), ("banked", 512))),
+        phase_attention(torch, dev, "local_bf16", bf16, 128, heads),
+        phase_attention(torch, dev, "local_f32", f32, 128, heads),
+        phase_attention(torch, dev, "local_window16_bf16", bf16,
+                        AGREE_HYBRID["window"], heads)]
+
+
+def _recurrent_phases(torch, dev) -> dict:
+    """The recurrent families' serve and agreement phases, in order; the
+    serve phases' results by name."""
+    out = {"serve_ssm": phase_serve_recurrent(torch, dev, "serve_ssm",
+                                              SERVE_SSM)}
+    free_device(torch)
+    phase_agreement_recurrent(torch, dev, "agreement_ssm", AGREE_SSM)
+    phase_agreement_recurrent(torch, dev, "agreement_ssm_infer", AGREE_SSM,
+                              analog_mode="infer",
+                              analog_device=LM_INFER_DEVICE)
+    free_device(torch)
+    out["serve_hybrid"] = phase_serve_recurrent(torch, dev, "serve_hybrid",
+                                                SERVE_HYBRID)
+    free_device(torch)
+    phase_agreement_recurrent(torch, dev, "agreement_hybrid", AGREE_HYBRID)
+    phase_agreement_recurrent(torch, dev, "agreement_hybrid_infer",
+                              AGREE_HYBRID, analog_mode="infer",
+                              analog_device=LM_INFER_DEVICE)
+    phase_agreement_recurrent(torch, dev, "agreement_hybrid_int8",
+                              AGREE_HYBRID, kv_cache_dtype="int8")
+    free_device(torch)
+    return out
+
+
 def free_device(torch) -> None:
     """Return the memory of a finished phase to the card."""
     import gc
@@ -3576,6 +3898,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lifecycle", action="store_true",
                     help="run only the device phase (the kernels' build) "
                          "and the lifecycle and observability phases")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="run only the device phase, the recurrent "
+                         "families' kernel cases and their serve and "
+                         "agreement phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3627,6 +3953,16 @@ def main(argv=None) -> int:
     if args.lifecycle:
         emit({"lifecycle_launches": _lifecycle_phases(torch, dev)})
         return 0
+    bf16, f32 = torch.bfloat16, torch.float32
+    if args.recurrent:
+        floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+        for case in recurrent_kernel_cases(torch, dev):
+            phase_kernel_time(*case, floor_ms=floor_ms)
+        free_device(torch)
+        emit({"recurrent_launches": {
+            k: v["launches"] for k, v in _recurrent_phases(torch,
+                                                           dev).items()}})
+        return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
                phase_kernel(torch, dev, "ptb_banked", 16, 2016, 512),
@@ -3674,7 +4010,7 @@ def main(argv=None) -> int:
             phase_ir_oracle(torch, dev, preset, rows, cols)
             free_device(torch)
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    recurrent_cases = recurrent_kernel_cases(torch, dev)
     fm_checked = [
         phase_fused_matmul(torch, dev, "decode_flat", 4, 2048, 11008, bf16, 0),
         phase_fused_matmul(torch, dev, "decode_banked", 4, 2048, 11008, bf16,
@@ -3744,6 +4080,7 @@ def main(argv=None) -> int:
     free_device(torch)
     phase_agreement_moe(torch, dev)
     free_device(torch)
+    recurrent = _recurrent_phases(torch, dev)
     served_b = phase_serve_bucketed(torch, dev, served)
     free_device(torch)
     served_moe_b = phase_serve_moe_bucketed(torch, dev)
@@ -3785,6 +4122,9 @@ def main(argv=None) -> int:
                 for c in checked_cases]
 
     cases = timed(checked)
+    rec_cases = {}
+    for case in timed(recurrent_cases):
+        rec_cases.setdefault(case["phase"], []).append(case)
     bwd_cases = timed(bwd_checked)
     fm_cases = timed(fm_checked)
     attn_cases = timed(attn_checked)
@@ -3793,9 +4133,10 @@ def main(argv=None) -> int:
     flash_cases = timed(flash_checked)
     tile_cases = timed(tile_checked)
     train_cases = timed(train_checked)
-    fm_cases += train_cases[:2]
+    fm_cases += train_cases[:2] + rec_cases["fused_matmul"]
     moe_cases.append(train_cases[2])
-    nladc_cases.append(train_cases[3])
+    nladc_cases += train_cases[3:] + rec_cases["nladc"]
+    attn_cases += rec_cases["attention"]
     for case, call in irs:
         phase_ir_time(torch, case, call)
 
@@ -3819,6 +4160,14 @@ def main(argv=None) -> int:
                 for m in phase["modes"]}
 
     fm_main = fm_cases[0]
+    def recurrent_launches_of(kernel):
+        out = {}
+        for phase in recurrent.values():
+            if phase["launches"][kernel]:
+                out[phase["phase"]] = phase["launches"][kernel]
+                out.update(mode_launches(phase, kernel))
+        return out
+
     fm_paths = {"serve": served["launches"]["fused_matmul_nladc"],
                 "serve_moe": served_moe["launches"]["fused_matmul_nladc"],
                 **mode_launches(served_b, "fused_matmul_nladc"),
@@ -3826,7 +4175,8 @@ def main(argv=None) -> int:
                 "lm_infer": infer["launches"]["fused_matmul_nladc"],
                 **{t["phase"]: t["launches"]["fused_matmul_nladc"]
                    for t in trained},
-                **{k: v["fused_matmul_nladc"] for k, v in lifecycle.items()}}
+                **{k: v["fused_matmul_nladc"] for k, v in lifecycle.items()},
+                **recurrent_launches_of("fused_matmul_nladc")}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -3837,13 +4187,15 @@ def main(argv=None) -> int:
         shape={k: fm_main[k] for k in ("M", "K", "N", "P", "x_dtype",
                                        "layout")},
         per_case={c["case"]: {k: c[k] for k in (
-            "M", "layout", "route", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_f32_ms", "code_flips")} for c in fm_cases})
+            "M", "K", "N", "ramp", "layout", "route", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_f32_ms", "code_flips")}
+            for c in fm_cases})
     at_main = attn_cases[0]
     at_paths = {"serve": served["launches"]["prefill_attention"],
                 **mode_launches(served_b, "prefill_attention"),
                 "lm_infer": infer["launches"]["prefill_attention"],
-                **{k: v["prefill_attention"] for k, v in lifecycle.items()}}
+                **{k: v["prefill_attention"] for k, v in lifecycle.items()},
+                **recurrent_launches_of("prefill_attention")}
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -3853,13 +4205,15 @@ def main(argv=None) -> int:
         shape={k: at_main[k] for k in ("B", "H", "Hkv", "D", "S", "dtype",
                                        "cluster")},
         per_case={c["case"]: {k: c[k] for k in (
-            "S", "cluster", "ms", "plain_ms", "library_ms", "bound_ms",
-            "max_abs_err", "max_bf16_ulps")} for c in attn_cases})
+            "H", "Hkv", "D", "S", "dtype", "cluster", "ms", "plain_ms",
+            "library_ms", "bound_ms", "max_abs_err", "max_bf16_ulps")}
+            for c in attn_cases})
     nl_main = nladc_cases[0]
     moe_train = trained[-1]["launches"]
     nl_paths = {"serve_moe": served_moe["launches"]["nladc"],
                 **mode_launches(served_moe_b, "nladc"),
-                "train_moe": moe_train["nladc"]}
+                "train_moe": moe_train["nladc"],
+                **recurrent_launches_of("nladc")}
     nl = kernel_entry(
         "nladc", "src/repro_torch/kernels/csrc/nladc.cu",
         "src/repro/kernels/nladc_kernel.py:56",
@@ -3869,7 +4223,7 @@ def main(argv=None) -> int:
                     for c in nladc_cases),
         shape={k: nl_main[k] for k in ("shape", "P", "x_dtype", "layout")},
         per_case={c["case"]: {k: c[k] for k in (
-            "shape", "layout", "ms", "plain_ms", "bound_ms")}
+            "shape", "ramp", "layout", "ms", "plain_ms", "bound_ms")}
             for c in nladc_cases})
     moe_main = moe_cases[0]
     moe_paths = {"serve_moe": served_moe["launches"]["moe_fused_matmul"],

@@ -6,13 +6,16 @@
 * The LM: the JAX ``LM.init`` tree holds ``embed``, ``final_norm``,
   ``lm_head`` (untied only) and ``layers``, whose leaves carry a leading
   ``n_layers`` axis (the reference scans over them); the port keeps one
-  dict per layer in a list (:func:`lm_params_from_jax`).
+  dict per layer in a list (:func:`lm_params_from_jax`).  The hybrid
+  family's ``groups`` carry a leading ``n_groups`` axis the same way and
+  become a list of per-group dicts; its ``tail`` is already a list.
 
 Leaves may be numpy arrays or anything numpy can convert; they become
 float32 tensors.  On disk a tree is one ``.npz`` whose keys are the leaf
 paths of the JAX layout joined by ``/`` (``lstm/w_gates``,
-``layers/attn/wq/w``): :func:`save_npz` writes a JAX tree, and
-:func:`load_npz` reads either kind back into the port's params.
+``layers/attn/wq/w``, a list's index as a key: ``tail/0/rec/wx/w``):
+:func:`save_npz` writes a JAX tree, and :func:`load_npz` reads either
+kind back into the port's params.
 """
 
 from __future__ import annotations
@@ -39,22 +42,37 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree, device):
+    """A dict of stacked leaves into a list of per-index dicts."""
+    stacked = _map(tree, np.asarray)
+    n = len(next(iter(_flatten(stacked).values())))
+    return [_map(stacked, lambda a, i=i: _leaf(a[i], device))
+            for i in range(n)]
+
+
 def lm_params_from_jax(tree, device=None):
     """The port's LM params from the JAX ``LM.init`` tree: the stacked
-    ``layers`` leaves are split into a list of per-layer dicts."""
-    stacked = _map(tree["layers"], np.asarray)
-    n_layers = len(next(iter(_flatten(stacked).values())))
+    ``layers`` (or the hybrid's ``groups``) leaves are split into a list
+    of per-layer (per-group) dicts; the hybrid's ``tail`` stays a list."""
     out = {k: _map(v, lambda a: _leaf(a, device))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(stacked, lambda a, i=i: _leaf(a[i], device))
-                     for i in range(n_layers)]
+           for k, v in tree.items() if k not in ("layers", "groups", "tail")}
+    for key in ("layers", "groups"):
+        if key in tree:
+            out[key] = _unstack(tree[key], device)
+    if "groups" in tree:
+        tail = tree.get("tail", [])
+        if isinstance(tail, dict):          # read back from an .npz
+            tail = [tail[k] for k in sorted(tail, key=int)]
+        out["tail"] = [_map(blk, lambda a: _leaf(a, device)) for blk in tail]
     return out
 
 
 def _flatten(tree, prefix=""):
     flat = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
+        else tree.items()
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             flat.update(_flatten(v, f"{prefix}{k}/"))
         else:
             flat[prefix + k] = np.asarray(v)

@@ -13,6 +13,8 @@
 //   p[t]   = float(round_to_q_type(p[t]))
 //   out[d] = round_to_q_type(sum_t p[t] * float(v[t, d]))  float32 sum
 //
+// (for float32 inputs the two sums run in float64 and round once: Acc)
+//
 // q is (B, H, D), k and v (B, S, Hkv, D), mask (B, S) int32, all of one
 // type (float32 or bfloat16); the G = H / Hkv query heads of KV head h are
 // heads h*G .. h*G+G-1, as in the reference's grouped layout.
@@ -47,8 +49,9 @@
 //     butterfly), and each output sums over the slots 0 .. S-1 in order.
 //     exp is expf (no fast-math), and products and sums are written as
 //     __fmaf_rn / __fadd_rn / __fdiv_rn so nvcc's --fmad choice cannot
-//     change the rounding.  The bits are those of the earlier one-block
-//     kernel.
+//     change the rounding.  For bfloat16 inputs the bits are those of the
+//     earlier one-block kernel; for float32 ones the score and output
+//     sums are float64 (Acc below).
 //   * A second cluster barrier, split into arrive and wait, keeps a CTA's
 //     shared memory alive until every peer has read its scores.
 //
@@ -93,6 +96,21 @@ __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+// The accumulator of a score's sum over D and an output's sum over the
+// slots: float32 for bfloat16 inputs (the reference's rounding, in order);
+// float64 for float32 inputs, where every product is exact and the sum is
+// rounded once, to float32, at its end.  A float32 chain of D 256 products
+// left a score 1.8e-6 from the plain version's (recurrentgemma's local
+// attention), over the 1e-6 contract: its error grows with the chain.
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<float> { using type = double; };
+__device__ __forceinline__ float fma_acc(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_acc(float a, float b, double c) {
+  return __fma_rn(static_cast<double>(a), static_cast<double>(b), c);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -199,9 +217,9 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
     const int t = i / group, g = i - t * group;
     const float* qg = s_q + g * (d_dim + 1);
     const T* kt = reinterpret_cast<const T*>(s_k + (size_t)t * plan.k_pitch);
-    float s = 0.f;
-    for (int d = 0; d < d_dim; ++d) s = __fmaf_rn(qg[d], to_float(kt[d]), s);
-    s_own[g * n_per + t] = mb[t0 + t] != 0 ? s : kNegInf;
+    typename Acc<T>::type s = 0;
+    for (int d = 0; d < d_dim; ++d) s = fma_acc(qg[d], to_float(kt[d]), s);
+    s_own[g * n_per + t] = mb[t0 + t] != 0 ? static_cast<float>(s) : kNegInf;
   }
   cluster.sync();  // every CTA's scores are written; its K rows consumed
 
@@ -244,11 +262,11 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
     const int g = i / dc, dl = i - g * dc;
     const float* pg = s_p + g * pitch;
     const T* vd = s_v + dl;
-    float a = 0.f;
+    typename Acc<T>::type a = 0;
 #pragma unroll 8
     for (int t = 0; t < s_len; ++t)
-      a = __fmaf_rn(pg[t], to_float(vd[(size_t)t * dc]), a);
-    store(ob + (size_t)g * d_dim + dl, a);
+      a = fma_acc(pg[t], to_float(vd[(size_t)t * dc]), a);
+    store(ob + (size_t)g * d_dim + dl, static_cast<float>(a));
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }

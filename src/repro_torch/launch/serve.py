@@ -1,8 +1,11 @@
 """Serve an LM on the GPU: ``python -m repro_torch.launch.serve --arch
-qwen2.5-3b``, or a MoE LM with an int8 KV cache::
+qwen2.5-3b``, a MoE LM with an int8 KV cache, or a recurrent LM (the SSD
+of mamba2-370m, the RG-LRU and local attention of recurrentgemma-9b)::
 
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --override n_layers=24 --override kv_cache_dtype=int8
+    python -m repro_torch.launch.serve --arch mamba2-370m
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b
 
 The torch twin of the JAX package's ``repro.launch.serve`` for one chip:
 builds the model at the config's published widths (or its SMOKE
@@ -111,7 +114,8 @@ from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.fleet import ROUTERS, FleetEngine, FleetPolicy
 from repro_torch.serve.lifecycle import RecalPolicy
 
-ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b", "deepseek-moe-16b")
+ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
+         "mamba2-370m", "recurrentgemma-9b")
 
 # the kernel wrappers whose launches the summary counts
 KERNELS = {"fused_matmul_nladc": fmn.fused_matmul_nladc,

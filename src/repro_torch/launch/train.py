@@ -32,7 +32,11 @@ without a GPU otherwise; on the GPU the backend defaults to ``cuda``, on
 the CPU to ``ref``; TF32 is off (``launch.common.configure_numerics``).
 Not ported, each raising with its ``ROADMAP.md`` item:
 ``--production-mesh`` and ``--grad-comm`` other than ``gspmd`` (queue A
-item 6).
+item 6), and training the recurrent families, ``mamba2-370m`` and
+``recurrentgemma-9b`` (queue A item 5: the reference hands one train-mode
+key to each hybrid group's three blocks and the outer key to its tail,
+which needs its own replay).  They serve
+(``repro_torch.launch.serve``).
 """
 
 from __future__ import annotations
@@ -63,6 +67,11 @@ def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
     """(model, trainer, state): seeded weights on ``device``, the
     reference's optimizer scheduled over ``steps``, and the pipeline;
     checkpoints under ``ckpt_dir`` when given."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family} family) is not ported yet; "
+            f"ROADMAP.md queue A item 5 (training of the recurrent "
+            f"families) brings it")
     model = build(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -6,14 +6,16 @@ online softmax over KV chunks) and the causal, optionally windowed
 ``self_attention`` over a full sequence, ``attend_full`` (unchunked
 attention, the reference for the cached-attention kernel), the bf16/f32
 and int8 decode caches, and the global-attention branches of
-``decode_self_attention``.  A bf16/f32 cache attends through the analog
-backend's ``prefill_attention`` primitive (``ref``: ``attend_full``;
-``cuda``: the hand-written kernel), an int8 cache through
-``decode_attention_int8`` (``ref``: the dequantize-all oracle; ``cuda``:
-the flash-decode kernel, which dequantizes per tile inside the kernel).
-The full-sequence path is plain torch, as the reference's is plain jnp.
-The rolling-window cache (and its int8 dequantize-all fallback) belongs to
-the hybrid family; cross-attention to the encoder-decoder one.
+``decode_self_attention``, with the hybrid family's rolling-window cache.
+A bf16/f32 cache attends through the analog backend's
+``prefill_attention`` primitive (``ref``: ``attend_full``; ``cuda``: the
+hand-written kernel), a global int8 cache through ``decode_attention_int8``
+(``ref``: the dequantize-all oracle; ``cuda``: the flash-decode kernel,
+which dequantizes per tile inside the kernel), and a rolling int8 cache
+through the reference's dequantize-all fallback into
+``prefill_attention``.  The full-sequence path is plain torch, as the
+reference's is plain jnp.  Cross-attention belongs to the
+encoder-decoder family, not ported yet.
 
 GQA is computed in the grouped layout ``(B, S, H_kv, G, D)`` so KV heads
 are never repeated.  RoPE is applied before caching.
@@ -151,13 +153,15 @@ def self_attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
 
 
 def init_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
-               *, dtype=torch.bfloat16, quantized: bool = False,
-               device=None):
-    """Decode cache for one layer: ``max_len`` slots of K and V.
+               *, window: int = 0, dtype=torch.bfloat16,
+               quantized: bool = False, device=None):
+    """Decode cache for one layer: ``max_len`` slots of K and V, or a
+    rolling buffer of ``min(max_len, window)`` slots when ``window`` > 0.
 
     ``quantized``: int8 codes with one bfloat16 scale per (slot, KV head)
     (per-token-per-head symmetric quantization, as the reference)."""
-    shape = (batch, max_len, n_kv_heads, head_dim)
+    slots = min(max_len, window) if window > 0 else max_len
+    shape = (batch, slots, n_kv_heads, head_dim)
     if quantized:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -203,20 +207,19 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
     token.  x: (B, 1, d_model).  Returns (y, cache).
 
     The new K/V (or their int8 codes and scales) land in ``cache`` in
-    place, at slot ``index``, for every batch row: the reference returns
-    an updated copy, and the engine only ever keeps the new state.  Past
-    the cache's last slot the write lands on that slot, as the reference's
-    ``dynamic_update_slice`` clamps its start (the serving engine's shared
-    index only grows); RoPE keeps the true ``index``.  An int8 cache
+    place, for every batch row: the reference returns an updated copy, and
+    the engine only ever keeps the new state.  A global cache writes slot
+    ``index``; past its last slot the write lands on that slot, as the
+    reference's ``dynamic_update_slice`` clamps its start (the serving
+    engine's shared index only grows), and RoPE keeps the true ``index``.
+    A rolling cache (``window`` > 0) writes slot ``index % slots`` and
+    attends to the slots ``< min(index + 1, slots)``.  A global int8 cache
     attends through the backend's ``decode_attention_int8`` over the first
     ``index + 1`` slots, at most all of them (the reference's mask then
-    hides none).
+    hides none); a rolling int8 cache dequantizes every slot into the
+    compute dtype and attends through ``prefill_attention``, the
+    reference's fallback.
     """
-    if window > 0:
-        raise NotImplementedError(
-            "the rolling-window cache (and its int8 dequantize-all "
-            "fallback) belongs to the hybrid family; ROADMAP.md queue A "
-            "item 5 (LM families) brings it")
     b = x.shape[0]
     q = _split_heads(L.dense_apply(p["wq"], x), n_heads, head_dim)
     k = _split_heads(L.dense_apply(p["wk"], x), n_kv_heads, head_dim)
@@ -226,7 +229,8 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
     k = L.apply_rope(k, pos, rope_theta)
 
     slots = cache["k"].shape[1]
-    slot = min(index, slots - 1)
+    slot = cache_slot(index, slots, window)
+    bk = BK.get_backend(analog_backend)
     if "k_scale" in cache:
         kq, ks = _quant_kv(k)
         vq, vs = _quant_kv(v)
@@ -234,18 +238,30 @@ def decode_self_attention(p, x, cache, index: int, *, n_heads: int,
         cache["v"][:, slot] = vq[:, 0]
         cache["k_scale"][:, slot] = ks[:, 0]
         cache["v_scale"][:, slot] = vs[:, 0]
-        length = torch.full((b,), min(index + 1, slots), dtype=torch.int32,
-                            device=x.device)
-        out = BK.get_backend(analog_backend).decode_attention_int8(
-            q[:, 0], cache["k"], cache["k_scale"], cache["v"],
-            cache["v_scale"], length)
-        out = out[:, None].to(x.dtype)                  # (B, 1, H, D)
-        y = L.dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))
-        return y, cache
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    valid = torch.arange(slots, device=x.device) <= index
-    out = BK.get_backend(analog_backend).prefill_attention(
-        q, cache["k"], cache["v"], valid[None, None, :])
+        if window <= 0:
+            length = torch.full((b,), min(index + 1, slots),
+                                dtype=torch.int32, device=x.device)
+            out = bk.decode_attention_int8(
+                q[:, 0], cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], length)
+            out = out[:, None].to(x.dtype)              # (B, 1, H, D)
+            y = L.dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))
+            return y, cache
+        k_att = _dequant(cache["k"], cache["k_scale"], x.dtype)
+        v_att = _dequant(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        k_att, v_att = cache["k"], cache["v"]
+    slot_ids = torch.arange(slots, device=x.device)
+    valid = slot_ids < min(index + 1, slots) if window > 0 \
+        else slot_ids <= index
+    out = bk.prefill_attention(q, k_att, v_att, valid[None, None, :])
     y = L.dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim))
     return y, cache
+
+
+def cache_slot(index: int, slots: int, window: int = 0) -> int:
+    """The slot a decode step at ``index`` writes: ``index % slots`` in a
+    rolling cache, else ``index`` clamped to the last slot."""
+    return index % slots if window > 0 else min(index, slots - 1)

@@ -48,8 +48,10 @@ def decode_state_batch_axes(model):
     Found structurally, as the reference does: build the state for two
     batch sizes (9 cache slots, a few KB) and see which dimension moved.
     Leaves without a batch dimension (the shared ``index``) map to -1.
-    Every cache leaf of the port's LM has batch axis 0 and slot axis 1,
-    the layout :func:`prefill_cache` and the engine's slot copies use.
+    Every state leaf of the port's LM has its batch on axis 0, the layout
+    :func:`prefill_cache` and the engine's slot copies use; what follows
+    differs by block: a KV cache's slots, an SSD state's heads, a conv
+    history's last inputs, an RG-LRU state's width.
     """
     s1 = model.init_decode_state(1, 9)
     s2 = model.init_decode_state(2, 9)
@@ -82,13 +84,16 @@ def prefill_cache(model, params, state, tokens, valid_len):
     path; chunking falls out of the shared ``index`` (call again with the
     next ``B`` columns).
 
-    ``decode_step`` writes the caches in place, at slot
-    ``min(index, slots - 1)`` of every row.  The reference computes a
-    masked row's step and discards it, keeping the old value there (zero
-    in a fresh pack state); later steps read up to the shared ``index``,
-    so the port copies the masked rows' touched slot before the step and
-    writes it back after (every leaf of ``state["layers"]`` is ``(B,
-    slots, ...)``).  A step in which every row commits copies nothing.
+    The reference computes a masked row's step and discards it, keeping
+    the row's old value (``where(take, fresh, old)``).  ``decode_step``
+    writes a KV cache in place, at the one slot
+    :meth:`~repro_torch.nn.transformer.LM.written_slot` names (``index``
+    clamped to the last slot, or ``index % slots`` in a rolling cache), so
+    the port copies the masked rows' slot before the step and writes it
+    back after: later steps read up to the shared ``index``.  A recurrent
+    block's state (``ssm``, ``conv``, ``h``) is replaced whole by the
+    step, so its masked rows are selected back from the old tensors.  A
+    step in which every row commits copies and selects nothing.
 
     The reference also takes a noise key, folded per global position.
     Nothing in the LM's decode step reads one (infer mode reads the ramps
@@ -96,18 +101,26 @@ def prefill_cache(model, params, state, tokens, valid_len):
     """
     valid = np.asarray(valid_len.cpu() if isinstance(valid_len, torch.Tensor)
                        else valid_len).astype(np.int64)
-    cache = [leaf for layer in state["layers"] for leaf in layer.values()]
     i0 = int(state["index"])
     for t in range(tokens.shape[1]):
         pos = i0 + t
         masked = np.flatnonzero(pos >= valid)
-        held = []
-        if masked.size:
-            rows = torch.as_tensor(masked, device=tokens.device)
-            for leaf in cache:
-                slot = min(pos, leaf.shape[1] - 1)
-                held.append((leaf, slot, leaf[rows, slot].clone()))
+        if not masked.size:
+            _, state = model.decode_step(params, state, tokens[:, t:t + 1])
+            continue
+        rows = torch.as_tensor(masked, device=tokens.device)
+        old = model.blocks(state)
+        held = [(leaf, slot, leaf[rows, slot].clone())
+                for kind, cache in old for leaf in cache.values()
+                for slot in [model.written_slot(kind, pos, leaf.shape[1])]
+                if slot is not None]
         _, state = model.decode_step(params, state, tokens[:, t:t + 1])
-        for leaf, slot, old in held:
-            leaf[rows, slot] = old
+        for leaf, slot, kept in held:
+            leaf[rows, slot] = kept
+        take = torch.as_tensor(pos < valid, device=tokens.device)
+        for (kind, before), (_, after) in zip(old, model.blocks(state)):
+            if model.written_slot(kind, pos, 1) is None:    # replaced
+                for name, fresh in after.items():
+                    keep = take.view((-1,) + (1,) * (fresh.dim() - 1))
+                    after[name] = torch.where(keep, fresh, before[name])
     return state

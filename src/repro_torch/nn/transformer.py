@@ -1,14 +1,22 @@
-"""Decoder-only LM: the dense and MoE families.
+"""Decoder-only LM: the dense, MoE, SSM and hybrid families.
 
-The JAX package's ``repro/nn/transformer.py`` for its ``attn`` and
-``moe_attn`` blocks: ``init``, ``embed``, ``logits``, ``layer_kinds``,
-the full-sequence ``forward`` / ``loss`` / ``prefill``, and the decode
-path (``init_decode_state`` with a bf16/f32 or int8 KV cache,
-``decode_step``, ``prefill_cache``).  Where the reference scans over
-stacked layer params, the port keeps one param dict and one cache dict
-per layer and loops over them.  One NL-ADC activation (the hidden ``silu`` ramp, thresholds on the
-model's device) is shared by every layer, and one sigmoid NL-ADC by every
-MoE router.
+The JAX package's ``repro/nn/transformer.py`` for its ``attn``,
+``moe_attn``, ``ssd`` and ``rec`` blocks: ``init``, ``embed``, ``logits``,
+``layer_kinds``, the full-sequence ``forward`` / ``loss`` / ``prefill``,
+and the decode path (``init_decode_state`` with a bf16/f32 or int8 KV
+cache, a rolling-window cache for the hybrid's local attention and the
+recurrent states ``ssm``, ``conv`` and ``h``; ``decode_step``,
+``prefill_cache``).  Where the reference scans over stacked layer params,
+the port keeps one param dict and one cache dict per block and loops over
+them.  The dense, MoE and SSM families hold them in the list ``layers``;
+the hybrid keeps the reference's own structure: ``groups``, one dict per
+``block_pattern`` repeat keyed ``b{i}_{kind}`` (``b0_rec``, ``b1_rec``,
+``b2_attn``), and ``tail``, the list of the blocks left over.  One NL-ADC
+activation (the hidden ramp, thresholds on the model's device) is shared
+by every layer, and one each of the auxiliary sigmoid, softplus and silu
+NL-ADCs: the MoE router's sigmoid, SSD's dt softplus and z-gate silu, and
+RG-LRU's two sigmoid gates, wired as the reference wires them (the hidden
+activation also digitizes RG-LRU's ``W_g`` branch).
 
 Analog modes: ``exact``; ``infer`` (the ramps and banks programmed once at
 build time by the device model: the LM spec carries no weight noise, so a
@@ -18,7 +26,10 @@ key per layer inside its scan and hands it to every gate of the layer; the
 port draws a layer's ramp noise from the caller's :class:`NoiseSource`
 before the layer (:meth:`AnalogActivation.ramp_draws`), so a recompute
 under ``remat`` sees the same thresholds.  The router's sigmoid NL-ADC
-takes no key: its thresholds are noiseless.
+takes no key: its thresholds are noiseless.  Training the SSM and hybrid
+families (the reference hands one key per hybrid group to its three
+blocks, and the tail the outer key) is not ported: a ramp draw for them
+raises.
 
 The other families, ``moe_impl="ep_shardmap"`` and ``remat_policy="dots"``
 raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
@@ -38,10 +49,14 @@ from repro_torch.core.crossbar import NoiseSource
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as MOE
+from repro_torch.nn import rglru as RG
+from repro_torch.nn import ssd as SSD
 from repro_torch.nn.mlp import make_activation, mlp_apply, mlp_init, \
     mlp_type_for
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT = ("ssm", "hybrid")
+ATTENTION_KINDS = ("attn", "moe_attn")
 
 
 def _model_device(device=None) -> torch.device:
@@ -55,7 +70,7 @@ def _model_device(device=None) -> torch.device:
 
 
 class LM:
-    """A decoder-only language model for one dense or MoE
+    """A decoder-only language model for one dense, MoE, SSM or hybrid
     :class:`ModelConfig`, its activation ramps on ``device`` (default
     ``cuda``)."""
 
@@ -76,15 +91,17 @@ class LM:
         self.mlp_kind = mlp_type_for(cfg)
         self.act = make_activation(cfg, self.device)     # hidden NL-ADC
         # the auxiliary NL-ADCs, one chip's ramps shared by every layer:
-        # the MoE router's sigmoid, and the softplus and silu that ride in
-        # the other families' recurrent cells (programmed, and so aged and
-        # re-calibrated by a deployment's lifecycle, as the reference's)
+        # the MoE router's and RG-LRU's gates' sigmoid, and SSD's softplus
+        # and silu (programmed, and so aged and re-calibrated by a
+        # deployment's lifecycle, as the reference's)
         acfg = AnalogConfig.from_spec(cfg.analog)
         self.sigmoid_act = AnalogActivation("sigmoid", acfg, self.device)
         self.softplus_act = AnalogActivation("softplus", acfg, self.device)
         self.silu_act = AnalogActivation("silu", acfg, self.device)
         # realize the d_ff-wide threshold bank (the MLP gate's output)
-        # once, here, rather than inside the first step
+        # once, here, rather than inside the first step; other widths (the
+        # hybrid's W_g branch) realize at first use from the same keyed
+        # draws
         self.act.bank_for(cfg.d_ff)
         self.kv_chunk = 1024       # flash-style attention's KV chunk
 
@@ -109,18 +126,70 @@ class LM:
 
     # -- init -----------------------------------------------------------
 
-    def layer_kinds(self):
-        kind = "moe_attn" if self.cfg.family == "moe" else "attn"
-        return (kind,) * self.cfg.n_layers
+    def layer_kinds(self) -> Tuple[str, ...]:
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return ("ssd",) * cfg.n_layers
+        if cfg.family == "hybrid":
+            return cfg._pattern()
+        kind = "moe_attn" if cfg.family == "moe" else "attn"
+        return (kind,) * cfg.n_layers
+
+    def _window(self, kind: str) -> int:
+        """The local-attention window of a block (the hybrid's attention
+        blocks), else 0 (global)."""
+        return self.cfg.window if (self.cfg.family == "hybrid"
+                                   and kind == "attn") else 0
+
+    def _n_groups(self) -> int:
+        return self.cfg.n_layers // len(self.cfg.block_pattern)
+
+    def blocks(self, tree) -> List[Tuple[str, Any]]:
+        """``(kind, subtree)`` of every block of a params or decode-state
+        tree, in layer order: ``layers``, or the hybrid's ``groups`` (each
+        group's ``b{i}_{kind}`` in pattern order) then its ``tail``."""
+        if self.cfg.family != "hybrid":
+            return list(zip(self.layer_kinds(), tree["layers"]))
+        pat = self.cfg.block_pattern
+        out = [(kind, g[f"b{i}_{kind}"]) for g in tree["groups"]
+               for i, kind in enumerate(pat)]
+        tail_kinds = self.layer_kinds()[self._n_groups() * len(pat):]
+        return out + list(zip(tail_kinds, tree["tail"]))
+
+    def assemble(self, subtrees: List[Any]) -> Dict[str, Any]:
+        """The inverse of :meth:`blocks`: per-block subtrees in layer order
+        into ``{"layers": [...]}`` or ``{"groups": [...], "tail": [...]}``."""
+        if self.cfg.family != "hybrid":
+            return {"layers": list(subtrees)}
+        pat = self.cfg.block_pattern
+        n = self._n_groups() * len(pat)
+        groups = [{f"b{i}_{kind}": subtrees[g * len(pat) + i]
+                   for i, kind in enumerate(pat)}
+                  for g in range(self._n_groups())]
+        return {"groups": groups, "tail": list(subtrees[n:])}
 
     def _block_init(self, generator: torch.Generator, kind: str):
         cfg = self.cfg
         d = cfg.d_model
+        dev = generator.device
+        if kind == "ssd":
+            return {"norm": L.rmsnorm_init(d, dev),
+                    "ssd": SSD.ssd_init(generator, d, expand=cfg.ssm_expand,
+                                        headdim=cfg.ssm_headdim,
+                                        d_state=cfg.ssm_state,
+                                        conv_width=cfg.conv_width)}
+        if kind == "rec":
+            return {"norm1": L.rmsnorm_init(d, dev),
+                    "rec": RG.rglru_init(generator, d, cfg.lru_width or d,
+                                         cfg.conv_width,
+                                         gate_blocks=cfg.lru_gate_blocks),
+                    "norm2": L.rmsnorm_init(d, dev),
+                    "mlp": mlp_init(generator, d, cfg.d_ff, self.mlp_kind)}
         blk = {
-            "norm1": L.rmsnorm_init(d, generator.device),
+            "norm1": L.rmsnorm_init(d, dev),
             "attn": A.attn_init(generator, d, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.head_dim, qkv_bias=cfg.qkv_bias),
-            "norm2": L.rmsnorm_init(d, generator.device),
+            "norm2": L.rmsnorm_init(d, dev),
         }
         if kind == "moe_attn":
             blk["moe"] = MOE.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
@@ -131,8 +200,9 @@ class LM:
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Seeded float32 params on the generator's device: ``embed``,
-        ``final_norm``, ``lm_head`` (untied only) and ``layers``, a list of
-        per-layer dicts."""
+        ``final_norm``, ``lm_head`` (untied only), and the blocks as
+        ``layers``, a list of per-layer dicts, or the hybrid's ``groups``
+        and ``tail`` (:meth:`blocks`)."""
         cfg = self.cfg
         params: Dict[str, Any] = {
             "embed": L.embedding_init(generator, cfg.padded_vocab,
@@ -142,8 +212,8 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                              cfg.padded_vocab)
-        params["layers"] = [self._block_init(generator, kind)
-                            for kind in self.layer_kinds()]
+        params.update(self.assemble([self._block_init(generator, kind)
+                                     for kind in self.layer_kinds()]))
         return params
 
     # -- embedding and readout --------------------------------------------
@@ -174,13 +244,29 @@ class LM:
     def _apply_block(self, p, x, kind: str, positions, draws,
                      collect_aux: bool):
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if kind == "ssd":
+            h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+            return x + SSD.ssd_apply(
+                p["ssd"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+                dt_act=self.softplus_act, gate_act=self.silu_act), aux
+        if kind == "rec":
+            h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+            x = x + RG.rglru_apply(
+                p["rec"], h, self.sigmoid_act, self.act,
+                scan_dtype=(torch.bfloat16 if cfg.lru_scan_dtype
+                            == "bfloat16" else torch.float32),
+                chunk=cfg.lru_chunk)
+            h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+            return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act), aux
         h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         x = x + A.self_attention(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            positions=positions, kv_chunk=self.kv_chunk)
+            window=self._window(kind), positions=positions,
+            kv_chunk=self.kv_chunk)
         h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if kind == "moe_attn":
             out = MOE.moe_apply(
                 p["moe"], h, top_k=cfg.top_k,
@@ -192,6 +278,17 @@ class LM:
             return x + out, aux
         return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act,
                              draws=draws), aux
+
+    def _no_training(self, noise: Optional[NoiseSource]) -> None:
+        """Train-mode ramp draws are not replayed for the recurrent
+        families: raise rather than draw in another order."""
+        if self.cfg.family in RECURRENT and noise is not None \
+                and self.act.ramp_sigma_us() > 0:
+            raise NotImplementedError(
+                f"training the {self.cfg.family} family (train-mode ramp "
+                f"draws per hybrid group and tail) is not ported yet; "
+                f"ROADMAP.md queue A item 5 (training of the recurrent "
+                f"families) brings it")
 
     def forward(self, params, tokens: torch.Tensor, *,
                 noise: Optional[NoiseSource] = None,
@@ -209,11 +306,13 @@ class LM:
                 f"remat_policy={cfg.remat_policy!r} is not ported yet; "
                 f"ROADMAP.md queue A item 3 (what is left of the LM "
                 f"forward) brings it")
+        self._no_training(noise)
         x = self.embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, kind in zip(params["layers"], self.layer_kinds()):
-            draws = self.act.ramp_draws(noise, self._gate_widths(kind))
+        for kind, p in self.blocks(params):
+            draws = None if kind not in ATTENTION_KINDS else \
+                self.act.ramp_draws(noise, self._gate_widths(kind))
             if remat and cfg.remat_policy == "full":
                 x, aux = checkpoint(self._apply_block, p, x, kind, positions,
                                     draws, collect_aux, use_reentrant=False)
@@ -268,26 +367,68 @@ class LM:
 
     # -- decode path -------------------------------------------------------
 
+    def _block_cache(self, kind: str, batch: int, max_len: int):
+        cfg = self.cfg
+        if kind == "ssd":
+            return SSD.ssd_init_state(
+                batch, cfg.d_model, expand=cfg.ssm_expand,
+                headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                conv_width=cfg.conv_width, dtype=self.compute_dtype,
+                device=self.device)
+        if kind == "rec":
+            return RG.rglru_init_state(batch, cfg.lru_width or cfg.d_model,
+                                       cfg.conv_width,
+                                       dtype=self.compute_dtype,
+                                       device=self.device)
+        return A.init_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                            window=self._window(kind),
+                            dtype=self.compute_dtype,
+                            quantized=cfg.kv_cache_dtype == "int8",
+                            device=self.device)
+
     def init_decode_state(self, batch: int, max_len: int) -> Dict:
         """``index`` (the shared position, a Python int) and one cache per
-        layer on the model's device: int8 codes with bfloat16 scales when
-        ``kv_cache_dtype == "int8"``, else the compute dtype."""
-        cfg = self.cfg
-        layers: List[Dict] = [
-            A.init_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                         dtype=self.compute_dtype,
-                         quantized=cfg.kv_cache_dtype == "int8",
-                         device=self.device)
-            for _ in range(cfg.n_layers)]
-        return {"index": 0, "layers": layers}
+        block on the model's device, laid out as the params
+        (:meth:`blocks`): K/V for an attention block (int8 codes with
+        bfloat16 scales when ``kv_cache_dtype == "int8"``, else the
+        compute dtype; a rolling buffer of ``min(max_len, window)`` slots
+        for the hybrid's local attention), ``ssm`` and ``conv`` for an SSD
+        block, ``h`` and ``conv`` for an RG-LRU block."""
+        state = {"index": 0}
+        state.update(self.assemble([self._block_cache(kind, batch, max_len)
+                                    for kind in self.layer_kinds()]))
+        return state
+
+    def written_slot(self, kind: str, index: int, slots: int):
+        """The cache slot a decode step at ``index`` writes in place in a
+        block of ``kind``, or None where the step replaces the block's
+        state whole (the recurrent blocks)."""
+        if kind not in ATTENTION_KINDS:
+            return None
+        return A.cache_slot(index, slots, self._window(kind))
 
     def _decode_block(self, p, cache_l, x, kind: str, index: int):
         cfg = self.cfg
+        if kind == "ssd":
+            h = L.rmsnorm_apply(p["norm"], x, cfg.norm_eps)
+            y, new = SSD.ssd_decode(
+                p["ssd"], h, cache_l, expand=cfg.ssm_expand,
+                headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                dt_act=self.softplus_act, gate_act=self.silu_act)
+            return x + y, new
+        if kind == "rec":
+            h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+            y, new = RG.rglru_decode(p["rec"], h, cache_l, self.sigmoid_act,
+                                     self.act)
+            x = x + y
+            h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+            return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act), new
         h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         y, new = A.decode_self_attention(
             p["attn"], h, cache_l, index, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, analog_backend=cfg.analog.backend)
+            rope_theta=cfg.rope_theta, window=self._window(kind),
+            analog_backend=cfg.analog.backend)
         x = x + y
         h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if kind == "moe_attn":
@@ -300,14 +441,16 @@ class LM:
 
     def decode_step(self, params, state: Dict, tokens: torch.Tensor):
         """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), new
-        state).  The caches are updated in place (see
-        :func:`repro_torch.nn.attention.decode_self_attention`)."""
+        state).  The KV caches are updated in place (see
+        :func:`repro_torch.nn.attention.decode_self_attention`); the
+        recurrent blocks' states are replaced by new tensors."""
         index = state["index"]
         x = self.embed(params, tokens)
-        layers = []
-        for p, cache_l, kind in zip(params["layers"], state["layers"],
-                                    self.layer_kinds()):
-            x, new = self._decode_block(p, cache_l, x, kind, index)
-            layers.append(new)
-        return self.logits(params, x), {"index": index + 1,
-                                        "layers": layers}
+        new = []
+        for (kind, p), (_, cache_l) in zip(self.blocks(params),
+                                           self.blocks(state)):
+            x, c = self._decode_block(p, cache_l, x, kind, index)
+            new.append(c)
+        out = {"index": index + 1}
+        out.update(self.assemble(new))
+        return self.logits(params, x), out

@@ -47,7 +47,10 @@ does; :meth:`ServingEngine.detok_flush` joins the backlog.
 ``device=``: a :class:`~repro_torch.core.device.DeviceModel` whose build
 stage ages the served weights at construction, per crossbar tile, as the
 reference ages its stacked params (bitwise the reference engine's
-``params`` after ``convert.lm_params_from_jax``).
+``params`` after ``convert.lm_params_from_jax``; the hybrid's ``groups``
+stand where the other families' ``layers`` do).  The lifecycle and the
+checkpoint of the hybrid family are not ported: ``recal=``, :meth:`save`
+and :meth:`restore` raise for it.
 
 The lifecycle (``recal=``, ``drain_before_rejit=``,
 ``external_maintenance=``): a :class:`~repro_torch.serve.lifecycle.
@@ -242,6 +245,8 @@ class ServingEngine:
                                       or prefill_buckets is not None):
             raise ValueError(
                 "pack_prefill / prefill_buckets require prefill='bucketed'")
+        if recal is not None:
+            _stacked_layers_only(model, "recal= (the lifecycle)")
         self.device = device
         self._acts = analog_activations(model)
         self.scheduler = None
@@ -266,7 +271,7 @@ class ServingEngine:
             # what a re-program ages from, kept on the host
             self._pristine_params = _host_copy(params)
         if device is not None and device.has_build_stage:
-            params = device.age_params(params, stacked="layers")
+            params = device.age_params(params, stacked=_stacked_key(model))
         elif recal is not None:
             # a re-program writes into the served tensors: not the caller's
             params = _clone(params)
@@ -732,18 +737,27 @@ class ServingEngine:
         bit."""
         rows = torch.as_tensor([r for r, _ in assign], device=self.dev)
         slots = torch.as_tensor([s for _, s in assign], device=self.dev)
-        for big, small in zip(self.state["layers"], mini["layers"]):
+        for big, small in self._batched_leaves(mini):
+            big[slots] = small[rows]
+
+    def _batched_leaves(self, other):
+        """``(engine leaf, other leaf)`` for every batched tensor of the
+        decode state, whatever the family's layout (the model's
+        :meth:`~repro_torch.nn.transformer.LM.blocks`): KV caches,
+        recurrent states and conv histories, each with its batch on axis
+        0."""
+        for (_, big), (_, small) in zip(self.model.blocks(self.state),
+                                        self.model.blocks(other)):
             for name, t in big.items():
-                t[slots] = small[name][rows]
+                yield t, small[name]
 
     def _merge_slot(self, mini_state, slot: int):
         """Copy the single-request cache into batch slot ``slot``, every
         tensor of it (K and V, and for an int8 cache their scales); the
         shared index becomes the maximum slot position (the reference's
         documented simplification of per-slot indices)."""
-        for big, small in zip(self.state["layers"], mini_state["layers"]):
-            for name, t in big.items():
-                t[slot:slot + 1].copy_(small[name])
+        for big, small in self._batched_leaves(mini_state):
+            big[slot:slot + 1].copy_(small)
         self.state["index"] = max(self.state["index"],
                                   int(self.slot_pos[slot]))
 
@@ -1114,6 +1128,7 @@ class ServingEngine:
         """Atomic full-deployment checkpoint; returns the directory.  The
         tree and the metadata (schema 2, with the scheduler, the lifecycle
         counters and the ``obs`` block) are the reference's."""
+        _stacked_layers_only(self.model, "save (the deployment checkpoint)")
         # land the detokenize backlog first: `generated` and the host
         # last-token mirror must be caught up before they are written
         self.detok_flush()
@@ -1236,6 +1251,7 @@ class ServingEngine:
         lifecycle counters and the ``obs`` block all come from the
         checkpoint; the pristine params (with a scheduler) land on the
         host."""
+        _stacked_layers_only(model, "restore (the deployment checkpoint)")
         step, meta = read_metadata(root, step=step)
         if "engine" not in meta:
             hint = ("this is a fleet manifest — restore via "
@@ -1376,6 +1392,26 @@ class ServingEngine:
         if meta.get("paths"):
             eng._restore_paths(meta["paths"])
         return eng
+
+
+def _stacked_key(model) -> str:
+    """The params key whose list the reference stacks on a leading axis:
+    the hybrid's ``groups`` (its ``tail`` is a list there too), else
+    ``layers``."""
+    family = getattr(getattr(model, "cfg", None), "family", "")
+    return "groups" if family == "hybrid" else "layers"
+
+
+def _stacked_layers_only(model, what: str) -> None:
+    """Raise for a model whose params are not one ``layers`` list (the
+    hybrid's ``groups`` and ``tail``): the aging, the checkpoint and the
+    lifecycle map the reference's stacked ``layers`` one to one."""
+    family = getattr(getattr(model, "cfg", None), "family", "")
+    if family == "hybrid":
+        raise NotImplementedError(
+            f"{what} of the hybrid family (params in groups and tail) is "
+            f"not ported yet; ROADMAP.md queue A item 5 (the hybrid's "
+            f"deployment features) brings it")
 
 
 def _map(tree, fn):

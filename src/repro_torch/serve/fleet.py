@@ -277,6 +277,11 @@ class FleetEngine:
                 chip_id=f"chip{i:02d}",
                 device=canary_presets[i - n_serve] if canary else "",
                 canary=canary))
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                "a fleet of the hybrid family is not ported yet; "
+                "ROADMAP.md queue A item 5 (the hybrid's deployment "
+                "features) brings it")
         obs = obs if obs is not None else Obs()
         chips = {}
         for spec in specs:

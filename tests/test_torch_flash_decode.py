@@ -161,10 +161,33 @@ def test_decode_self_attention_int8_matches_jax(dtype):
 
 
 def test_windowed_cache_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.decode_self_attention({}, torch.zeros(1, 1, 8), {}, 0, n_heads=1,
-                                 n_kv_heads=1, head_dim=8, rope_theta=1e4,
-                                 window=4)
+    """The rolling-window int8 cache, which raised until the hybrid family
+    was ported (the name is kept): 3x its window of 4 slots decoded
+    against the JAX ``ref`` path under ``jax.jit``, the dequantize-all
+    fallback into ``prefill_attention``: the codes and scales bitwise at
+    every step (slot ``index % 4`` written), the outputs within 1e-6."""
+    b, d_model, h, hkv, hd, window, steps = 2, 32, 4, 2, 8, 4, 12
+    p = JA.attn_init(jax.random.PRNGKey(1), d_model, h, hkv, hd)
+    tp = jax.tree_util.tree_map(lambda a: torch.tensor(np.asarray(a)), p)
+    kw = dict(n_heads=h, n_kv_heads=hkv, head_dim=hd, rope_theta=1e4,
+              window=window)
+    jstep = jax.jit(lambda c, x, i: JA.decode_self_attention(
+        p, x, c, i, analog_backend="ref", **kw))
+    jc = JA.init_cache(b, steps, hkv, hd, window=window, quantized=True)
+    tc = TA.init_cache(b, steps, hkv, hd, window=window, quantized=True,
+                       device="cpu")
+    assert tc["k"].shape[1] == window == jc["k"].shape[1]
+    xs = np.random.default_rng(6).normal(0, 1, (steps, b, 1, d_model))
+    for i in range(steps):
+        x = xs[i].astype(np.float32)
+        jy, jc = jstep(jc, jnp.asarray(x), i)
+        ty, tc = TA.decode_self_attention(tp, torch.tensor(x), tc, i,
+                                          analog_backend="ref", **kw)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            np.testing.assert_array_equal(
+                tc[name].float().numpy(),
+                np.asarray(jc[name].astype(jnp.float32)))
+        assert np.abs(ty.numpy() - np.asarray(jy)).max() <= ATOL
 
 
 def test_library_declares_pointer_arguments(monkeypatch):

@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "core.circuit", "ckpt.checkpoint", "serve.lifecycle",
                  "serve.engine", "nn.model", "core.hwcost", "obs",
                  "obs.metrics", "obs.trace", "obs.energy", "obs.replay",
-                 "serve.fleet", "ft.elastic"):
+                 "serve.fleet", "ft.elastic", "nn.ssd", "nn.rglru",
+                 "configs.mamba2_370m", "configs.recurrentgemma_9b"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"

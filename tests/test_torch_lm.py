@@ -44,8 +44,9 @@ from repro_torch.core import backend as TBK
 from repro_torch.core.nladc import BankedThresholds
 from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels import prefill_attention as TPA
-from repro_torch.nn import attention as A
+from repro_torch.launch import train as TTRAIN
 from repro_torch.nn.model import build as tbuild
+from repro_torch.serve.engine import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, BATCH, MAX_LEN = 8, 2, 16
@@ -176,29 +177,35 @@ def test_init_layout_matches_jax():
     assert "lm_head" not in tp                   # tied embeddings
 
 
-@pytest.mark.parametrize("what", ["family", "ep_shardmap", "int8"])
-def test_outside_the_slice_raises(what):
-    """Families other than dense and moe, expert parallelism
-    (``moe_impl="ep_shardmap"``) and the int8 cache's windowed
-    (rolling-buffer) fallback are not ported; the dense and MoE int8
-    caches are (tests/test_torch_moe.py, tests/test_torch_flash_decode.py),
-    and so are the infer and train modes (tests/test_torch_lm_forward.py)."""
-    cfg = TC.get_smoke("qwen2.5-3b")
-    if what == "int8":
-        model = tbuild(cfg.replace(kv_cache_dtype="int8"), device="cpu")
-        state = model.init_decode_state(1, 4)
-        assert state["layers"][0]["k"].dtype == torch.int8
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.decode_self_attention(
-                {}, torch.zeros(1, 1, cfg.d_model), state["layers"][0], 0,
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, window=2)
-        return
-    cfg = {"family": cfg.replace(family="hybrid"),
-           "ep_shardmap": TC.get_smoke("moonshot-v1-16b-a3b").replace(
-               moe_impl="ep_shardmap")}[what]
+@pytest.mark.parametrize("what", ["family", "ep_shardmap", "train",
+                                  "hybrid_save"])
+def test_outside_the_slice_raises(what, tmp_path):
+    """What is not ported raises, naming its ``ROADMAP.md`` item: the
+    encoder-decoder family, expert parallelism
+    (``moe_impl="ep_shardmap"``), training the recurrent families
+    (``launch.train --arch mamba2-370m``) and the hybrid's deployment
+    checkpoint.  The SSM and hybrid families serve, the rolling-window
+    cache and its int8 fallback with them
+    (tests/test_torch_lm_recurrent.py); the dense and MoE int8 caches
+    (tests/test_torch_moe.py, tests/test_torch_flash_decode.py), and the
+    infer and train modes (tests/test_torch_lm_forward.py) are ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(cfg, device="cpu").init_decode_state(1, 4)
+        if what == "train":
+            TTRAIN.main(["--arch", "mamba2-370m", "--smoke", "--device",
+                         "cpu", "--steps", "1"])
+        elif what == "hybrid_save":
+            cfg = TC.get_smoke("recurrentgemma-9b")
+            model = tbuild(cfg, device="cpu")
+            gen = torch.Generator()
+            gen.manual_seed(0)
+            ServingEngine(model, model.init(gen), max_batch=1,
+                          max_len=4).save(str(tmp_path), 0)
+        else:
+            cfg = {"family": TC.get_smoke("qwen2.5-3b").replace(
+                       family="encdec"),
+                   "ep_shardmap": TC.get_smoke("moonshot-v1-16b-a3b")
+                   .replace(moe_impl="ep_shardmap")}[what]
+            tbuild(cfg, device="cpu").init_decode_state(1, 4)
 
 
 def test_build_defaults_to_the_gpu(monkeypatch):
