@@ -300,6 +300,33 @@ Phases, one JSON line each:
               ``ref`` itself where no code flipped, within that plus
               2e-3 where codes flipped (a flip moves the gradients
               downstream of it).
+13e. train_ssm — mamba2-370m trained at full width and all 48 layers
+              (0.355 B parameters) as ``train_lm`` (B 8 x S 128, 3
+              steps, ``paper``, flat thresholds): ``nladc`` (dt softplus,
+              z-gate silu) 48 x 2 x 2 = 192 launches a step (each layer
+              recomputed in the backward) and no other kernel.
+13f. train_hybrid — recurrentgemma-9b at full width, 5 of its 38 layers
+              (one (rec, rec, attn) group and the model's own (rec, rec)
+              tail: 3.16 B parameters; 16 B a parameter would need
+              ≈ 160 GB at 38), 512-column banks, as ``train_ssm``: the
+              group recomputed in the backward, the tail not, as the
+              reference remats, so ``nladc`` (r, i, W_g) 3 x 2 x 2 + 3 x 2
+              = 18 and ``fused_matmul_nladc`` (the GeGLU gate at M 1024)
+              3 x 2 + 2 = 8 launches a step.
+13g. train_agreement_ssm, train_agreement_hybrid — ``train_agreement``'s
+              judgement for the recurrent families at full width, float32,
+              seed 4: mamba2 at 2 layers, B 2 x S 160 (the backward
+              crosses two 128-step chunks, the second padded);
+              recurrentgemma at 4 layers (a group and a one-block tail),
+              B 2 x S 32, the window cut to 16 so the local attention's
+              mask binds.  mamba2 runs no kernel 3 and is judged as
+              ``train_agreement`` is, free runs too.  The hybrid's
+              recurrent state carries a kernel-3 flip into every later
+              position, so its free runs' flip share and gradient excess
+              against ``ref`` itself are printed, not gated; the losses of
+              all three runs, the flips on the same inputs (at most 1e-4,
+              one level) and the gradients on the cuda run's gate outputs
+              are.
 13d. lm_infer — ``serve`` in infer mode on ``paper-infer`` (the ramps
               programmed once at build time; ``paper`` has no build stage,
               so infer mode on it is exact mode), 4 requests x 16 tokens;
@@ -344,7 +371,8 @@ raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 ``train_agreement``, for both families at each seed, and prints no
 ``ok`` line; ``--lifecycle`` runs only the device phase and 13-6 to
 13-11, and ``--recurrent`` only the device phase, the recurrent
-families' kernel cases and 13a1 to 13a4; neither prints the ``ok``
+families' kernel cases (their training shapes too), 13a1 to 13a4 and
+13e to 13g; neither prints the ``ok``
 line.  Without a GPU, or without the repository's ``src/repro_torch``
 beside this script, it exits non-zero and prints no result.
 """
@@ -432,6 +460,14 @@ SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=2,
 AGREE_SSM = dict(arch="mamba2-370m", n_layers=2, max_len=128, steps=16)
 AGREE_HYBRID = dict(arch="recurrentgemma-9b", n_layers=3, window=16,
                     max_len=64, steps=64)
+# the recurrent families trained at full width (launch.train's B 8 x S
+# 128); recurrentgemma cut to one group and its 2-block tail
+TRAIN_SSM = dict(TRAIN_LM, arch="mamba2-370m")
+TRAIN_HYBRID = dict(TRAIN_LM, arch="recurrentgemma-9b", n_layers=5)
+# their cuda-against-ref gradients: mamba2's S 160 crosses two 128-step
+# chunks, the second padded; recurrentgemma's window 16 < S 32
+TRAIN_AGREE_SSM = dict(TRAIN_AGREE, seq=160)
+TRAIN_AGREE_HYBRID = dict(TRAIN_AGREE, n_layers=4, window=16)
 PREFILL_REL = 1e-3         # LM.prefill against the last decode step
 PREFILL_INT8_REL = 5e-2    # the same with an int8 KV cache: the reference's
 #                            int8-against-float decode bound
@@ -3648,12 +3684,15 @@ def _level_steps(torch, adc, got, want):
 
 
 def phase_train_agreement(torch, dev, arch: str,
-                          seed: int = TRAIN_AGREE["seed"]) -> dict:
-    """A 2-layer, full-width, float32 variant in train mode on the cuda
-    and ref backends, the same weights and ramp draws (one generator
-    state), three runs: cuda, ref, and ref given the cuda run's gate
-    outputs (its own straight-through backward on its own accumulator,
-    the forward values replaced).
+                          seed: int = TRAIN_AGREE["seed"], *,
+                          spec: dict = TRAIN_AGREE,
+                          name: str = "train_agreement",
+                          free_gated: bool = True) -> dict:
+    """A full-width, float32 variant cut to ``spec``'s depth (and window)
+    in train mode on the cuda and ref backends, the same weights and ramp
+    draws (one generator state), three runs: cuda, ref, and ref given the
+    cuda run's gate outputs (its own straight-through backward on its own
+    accumulator, the forward values replaced).
 
     Forward: in the third run each gate sees the very inputs cuda's did,
     so its own outputs against cuda's are the code flips of the fused
@@ -3667,20 +3706,27 @@ def phase_train_agreement(torch, dev, arch: str,
     whatever flipped; against ``ref`` itself within TRAIN_RTOL /
     TRAIN_ATOL where nothing flipped, and within that plus
     AGREE_FLIP_GRAD_EXCESS where codes flipped (a flip moves one output
-    by an LSB, its straight-through mask and every gradient downstream)."""
+    by an LSB, its straight-through mask and every gradient downstream).
+
+    ``free_gated`` False (the hybrid): a recurrent state carries a
+    kernel-3 flip into every later position, so the free runs' flip share
+    and gradient excess are printed, not gated; the losses of all three
+    runs, the same-input flips and the gradients on the cuda run's gate
+    outputs stay gated."""
     from repro_torch.core import backend as BK
     from repro_torch.core.crossbar import GeneratorNoise
     from repro_torch.launch import serve
     from repro_torch.nn.model import build
     from repro_torch.train import optim
 
-    b, s = TRAIN_AGREE["batch"], TRAIN_AGREE["seq"]
+    b, s = spec["batch"], spec["seq"]
+    overrides = {"n_layers": spec["n_layers"], "dtype": "float32"}
+    if "window" in spec:
+        overrides["window"] = spec["window"]
     models = {}
     for bk in ("cuda", "ref"):
         cfg = serve.make_config(arch, backend=bk, analog_mode="train",
-                                analog_device="paper", overrides={
-                                    "n_layers": TRAIN_AGREE["n_layers"],
-                                    "dtype": "float32"})
+                                analog_device="paper", overrides=overrides)
         models[bk] = build(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -3727,8 +3773,10 @@ def phase_train_agreement(torch, dev, arch: str,
                                                     gates["ref"]))
     steps = torch.cat(same_inputs["steps"])
     max_step = int(steps.max()) if steps.numel() else 0
-    out = {"phase": "train_agreement", "arch": arch, "seed": seed,
-           "n_layers": TRAIN_AGREE["n_layers"], "dtype": "float32",
+    out = {"phase": name, "arch": arch, "seed": seed,
+           "free_runs_gated": free_gated,
+           "n_layers": spec["n_layers"], "window": spec.get("window"),
+           "dtype": "float32",
            "B": b, "S": s, "loss_cuda": loss_c, "loss_ref": loss_r,
            "loss_ref_on_cuda_codes": loss_rc, "leaves": len(leaves),
            "gate_calls": len(gates["cuda"]), "gate_outputs": n_gate,
@@ -3746,27 +3794,28 @@ def phase_train_agreement(torch, dev, arch: str,
                                                             grad_rc)}
     emit(out)
     check(len(gates["cuda"]) == len(gates["ref"]) == replay.i > 0,
-          f"train_agreement/{arch}: gate calls {len(gates['cuda'])}, "
+          f"{name}/{arch}: gate calls {len(gates['cuda'])}, "
           f"{len(gates['ref'])}, {replay.i}")
     limit = AGREE_FLIP_SHARE * n_gate
-    check(flips <= limit and same_inputs["flips"] <= limit,
-          f"train_agreement/{arch}: {flips} gate outputs of {n_gate} differ "
+    check((flips <= limit or not free_gated)
+          and same_inputs["flips"] <= limit,
+          f"{name}/{arch}: {flips} gate outputs of {n_gate} differ "
           f"({same_inputs['flips']} on the same inputs)")
-    check(max_step <= 1, f"train_agreement/{arch}: a gate output is "
+    check(max_step <= 1, f"{name}/{arch}: a gate output is "
           f"{max_step} levels from ref's on the same inputs")
     check(all(bool(torch.isfinite(g).all()) for g in grad_c),
-          f"train_agreement/{arch}: non-finite gradient")
+          f"{name}/{arch}: non-finite gradient")
     check(out["grad_excess_vs_ref_on_cuda_codes"] <= 0.0,
-          f"train_agreement/{arch}: gradients differ from ref on cuda's "
+          f"{name}/{arch}: gradients differ from ref on cuda's "
           f"codes beyond rtol {TRAIN_RTOL}, atol {TRAIN_ATOL}")
-    check(out["grad_excess_vs_ref"]
+    check(not free_gated or out["grad_excess_vs_ref"]
           <= (AGREE_FLIP_GRAD_EXCESS if flips else 0.0),
-          f"train_agreement/{arch}: gradients differ from ref by "
+          f"{name}/{arch}: gradients differ from ref by "
           f"{out['grad_excess_vs_ref']} beyond rtol {TRAIN_RTOL}, atol "
           f"{TRAIN_ATOL} with {flips} flips")
     for other in (loss_r, loss_rc):
         check(abs(loss_c - other) <= TRAIN_ATOL + TRAIN_RTOL * abs(other),
-              f"train_agreement/{arch}: losses {loss_c}, {loss_r}, "
+              f"{name}/{arch}: losses {loss_c}, {loss_r}, "
               f"{loss_rc}")
     return out
 
@@ -3799,6 +3848,60 @@ def recurrent_kernel_cases(torch, dev) -> list:
         phase_attention(torch, dev, "local_f32", f32, 128, heads),
         phase_attention(torch, dev, "local_window16_bf16", bf16,
                         AGREE_HYBRID["window"], heads)]
+
+
+def recurrent_train_cases(torch, dev) -> list:
+    """The recurrent families' training shapes (B 8 x S 128 = M 1024),
+    each checked against its plain version, every (function, shape) the
+    two train steps run: ``fused_matmul_nladc`` at recurrentgemma's GeGLU
+    gate (1024 x 4096 x 12288, gelu, bfloat16 x, 512-column banks: the
+    tensor-core GEMM); ``nladc`` at its r / i gates (sigmoid, (1024,
+    4096), banks of 512) and its ``W_g`` branch (gelu, the same), and at
+    mamba2's z gate (silu, (1024, 2048), flat) and dt (softplus, (1024,
+    32), flat)."""
+    bf16 = torch.bfloat16
+    return [
+        phase_fused_matmul(torch, dev, "geglu_train_banked", 1024, 4096,
+                           12288, bf16, 512, reps=5, inner=3,
+                           act_name="gelu"),
+        phase_nladc(torch, dev, "rglru_gate_train_banked_bf16", (1024, 4096),
+                    "sigmoid", bf16, 512),
+        phase_nladc(torch, dev, "rglru_wg_train_banked_bf16", (1024, 4096),
+                    "gelu", bf16, 512),
+        phase_nladc(torch, dev, "ssd_gate_train_bf16", (1024, 2048), "silu",
+                    bf16, 0),
+        phase_nladc(torch, dev, "ssd_dt_train_bf16", (1024, 32), "softplus",
+                    bf16, 0)]
+
+
+def _recurrent_train_phases(torch, dev) -> list:
+    """The recurrent families' train and train-agreement phases, in order,
+    each one's seconds emitted; the train phases' results.  Launches a
+    step: mamba2's 48 layers run ``nladc`` twice each, forward and
+    recompute; recurrentgemma's group (rec, rec, attn) is recomputed and
+    its (rec, rec) tail not, as the reference remats: ``nladc`` 3 a rec
+    block and ``fused_matmul_nladc`` 1 a block, each once more in the
+    group's recompute."""
+    seconds, out = {}, []
+    runs = (("train_ssm", lambda: out.append(phase_train_lm(
+                torch, dev, "train_ssm", TRAIN_SSM, {"nladc": 48 * 2 * 2}))),
+            ("train_hybrid", lambda: out.append(phase_train_lm(
+                torch, dev, "train_hybrid", TRAIN_HYBRID,
+                {"nladc": 3 * 2 * 2 + 3 * 2,
+                 "fused_matmul_nladc": 3 * 2 + 2}, bank_cols=512))),
+            ("train_agreement_ssm", lambda: phase_train_agreement(
+                torch, dev, TRAIN_SSM["arch"], spec=TRAIN_AGREE_SSM,
+                name="train_agreement_ssm")),
+            ("train_agreement_hybrid", lambda: phase_train_agreement(
+                torch, dev, TRAIN_HYBRID["arch"], spec=TRAIN_AGREE_HYBRID,
+                name="train_agreement_hybrid", free_gated=False)))
+    for name, run in runs:
+        t0 = time.perf_counter()
+        run()
+        free_device(torch)
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "recurrent_train_seconds", **seconds})
+    return out
 
 
 def _recurrent_phases(torch, dev) -> dict:
@@ -3956,12 +4059,15 @@ def main(argv=None) -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     if args.recurrent:
         floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
-        for case in recurrent_kernel_cases(torch, dev):
+        for case in recurrent_kernel_cases(torch, dev) \
+                + recurrent_train_cases(torch, dev):
             phase_kernel_time(*case, floor_ms=floor_ms)
         free_device(torch)
-        emit({"recurrent_launches": {
-            k: v["launches"] for k, v in _recurrent_phases(torch,
-                                                           dev).items()}})
+        launches = {k: v["launches"] for k, v in _recurrent_phases(
+            torch, dev).items()}
+        launches.update({t["phase"]: t["launches"]
+                         for t in _recurrent_train_phases(torch, dev)})
+        emit({"recurrent_launches": launches})
         return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
@@ -4032,7 +4138,7 @@ def main(argv=None) -> int:
         phase_moe_matmul(torch, dev, "train_fill", 64, 96, 2048, 1408, bf16,
                          0),
         phase_nladc(torch, dev, "router_train_bf16", (1024, 64), "sigmoid",
-                    bf16, 0)]
+                    bf16, 0), *recurrent_train_cases(torch, dev)]
     attn_checked = [
         phase_attention(torch, dev, "serve_bf16", bf16, SERVE["max_len"]),
         phase_attention(torch, dev, "serve_f32", f32, SERVE["max_len"]),
@@ -4106,6 +4212,7 @@ def main(argv=None) -> int:
     for arch in (TRAIN_LM["arch"], TRAIN_MOE["arch"]):
         phase_train_agreement(torch, dev, arch)
         free_device(torch)
+    rec_trained = _recurrent_train_phases(torch, dev)
     infer = phase_serve(torch, dev, "lm_infer", analog_mode="infer",
                         analog_device=LM_INFER_DEVICE, repeats=1)
     free_device(torch)
@@ -4133,9 +4240,12 @@ def main(argv=None) -> int:
     flash_cases = timed(flash_checked)
     tile_cases = timed(tile_checked)
     train_cases = timed(train_checked)
-    fm_cases += train_cases[:2] + rec_cases["fused_matmul"]
+    # train_cases: kernel 3 flat and banked, kernel 4, the router, then
+    # recurrent_train_cases (kernel 3, four of kernel 2)
+    fm_cases += train_cases[:2] + rec_cases["fused_matmul"] \
+        + train_cases[4:5]
     moe_cases.append(train_cases[2])
-    nladc_cases += train_cases[3:] + rec_cases["nladc"]
+    nladc_cases += train_cases[3:4] + rec_cases["nladc"] + train_cases[5:]
     attn_cases += rec_cases["attention"]
     for case, call in irs:
         phase_ir_time(torch, case, call)
@@ -4174,7 +4284,7 @@ def main(argv=None) -> int:
                 **mode_launches(served_moe_b, "fused_matmul_nladc"),
                 "lm_infer": infer["launches"]["fused_matmul_nladc"],
                 **{t["phase"]: t["launches"]["fused_matmul_nladc"]
-                   for t in trained},
+                   for t in trained + rec_trained},
                 **{k: v["fused_matmul_nladc"] for k, v in lifecycle.items()},
                 **recurrent_launches_of("fused_matmul_nladc")}
     fused = kernel_entry(
@@ -4213,7 +4323,8 @@ def main(argv=None) -> int:
     nl_paths = {"serve_moe": served_moe["launches"]["nladc"],
                 **mode_launches(served_moe_b, "nladc"),
                 "train_moe": moe_train["nladc"],
-                **recurrent_launches_of("nladc")}
+                **recurrent_launches_of("nladc"),
+                **{t["phase"]: t["launches"]["nladc"] for t in rec_trained}}
     nl = kernel_entry(
         "nladc", "src/repro_torch/kernels/csrc/nladc.cu",
         "src/repro/kernels/nladc_kernel.py:56",

@@ -321,25 +321,14 @@ class AnalogActivation:
         return noise.normal(self._ramp_shape(width),
                             self._adc.thresholds.device)
 
-    def ramp_draws(self, noise: Optional[NoiseSource],
-                   widths) -> Optional[Dict[int, torch.Tensor]]:
-        """The ramp draws of applications at ``widths`` that share one
-        key in the reference: ``{width: z}``, one draw per distinct
-        threshold shape in the order of first use, so widths of one shape
-        see the same thresholds (``normal(key, shape)`` twice).  The LM
-        draws a layer's before its (checkpointed) body.  ``None`` when
-        :meth:`ramp_noise` would draw nothing."""
-        if noise is None or self.ramp_sigma_us() <= 0:
+    def ramp_z(self, draws: Optional["RampDraws"],
+               width: int) -> Optional[torch.Tensor]:
+        """This activation's draw at ``width`` from the key's ``draws``
+        (:class:`RampDraws`; None: no draws, or no ramp noise in this
+        mode)."""
+        if draws is None or self.ramp_sigma_us() <= 0:
             return None
-        by_shape: Dict[tuple, torch.Tensor] = {}
-        draws = {}
-        for width in widths:
-            shape = self._ramp_shape(width)
-            if shape not in by_shape:
-                by_shape[shape] = noise.normal(shape,
-                                               self._adc.thresholds.device)
-            draws[width] = by_shape[shape]
-        return draws
+        return draws.z(self._ramp_shape(width), self._adc.thresholds.device)
 
     def thresholds_for(self, width: int = 0,
                        noise: Optional[NoiseSource] = None, *,
@@ -365,12 +354,36 @@ class AnalogActivation:
         return _noisy_ramp(ramp.v_init, self._steps, ramp.g_scale, z,
                            sigma_us)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, *,
+                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The NL-ADC of ``x`` (width ``x.shape[-1]``); ``z``: the call's
+        train-mode ramp draw (:meth:`ramp_z`), None for the deployed
+        thresholds."""
         if not self.cfg.enabled or self._adc is None:
             return activations.exact(self.name)(x)
         bk = BK.get_backend(self.cfg.backend)
         return bk.nladc(x, self._adc,
-                        thresholds=self.thresholds_for(x.shape[-1]))
+                        thresholds=self.thresholds_for(x.shape[-1], z=z))
+
+
+class RampDraws:
+    """The train-mode ramp draws of the NL-ADC calls that share one key in
+    the reference.  A reference draw is ``normal(key, shape)`` of the
+    thresholds' shape, whichever activation draws it, so every call of one
+    shape sees the same draw: one draw from ``noise`` per distinct shape,
+    made at the shape's first lookup (:meth:`AnalogActivation.ramp_z`), so
+    in the order of first use, across activations.  The LM hands one to
+    every NL-ADC of a layer, of a hybrid group, or of the hybrid's tail; a
+    recompute under ``remat`` finds the draws its forward made."""
+
+    def __init__(self, noise: NoiseSource):
+        self.noise = noise
+        self.by_shape: Dict[tuple, torch.Tensor] = {}
+
+    def z(self, shape: tuple, device) -> torch.Tensor:
+        if shape not in self.by_shape:
+            self.by_shape[shape] = self.noise.normal(shape, device)
+        return self.by_shape[shape]
 
 
 def _noisy_weights(w: torch.Tensor, cfg: AnalogConfig,
@@ -443,7 +456,7 @@ def dense_nladc(p, x: torch.Tensor, act: Optional[AnalogActivation], *,
     NL-ADC, one kernel on the ``cuda`` backend.  Matches
     ``act(layers.dense_apply(p, x))`` on the ``ref`` backend (matmul in
     x's compute dtype).  ``z``: the call's train-mode ramp draw
-    (:meth:`AnalogActivation.ramp_draws`); infer mode reads the ramps
+    (:meth:`AnalogActivation.ramp_z`); infer mode reads the ramps
     programmed at build time.
     """
     w, b = p["w"], p.get("b")

@@ -14,10 +14,17 @@ a cosine schedule; each layer recomputed in the backward) and the
         [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC] \\
         [--device cuda|cpu] [--profile] [--ckpt-dir DIR]
 
-``--analog-mode train`` on the ``paper`` preset is Alg. 1's hardware-aware
-training: fresh ramp-step noise on every call of the MLP's (and the
-experts') hidden NL-ADC, straight-through gradients through the gate
-kernels.  Every step prints its loss, the gradient's global norm, its
+Every LM family of ``ARCHS`` trains: the dense and MoE ones, mamba2-370m
+(SSD) and recurrentgemma-9b (RG-LRU and local attention; its params are
+the reference's ``groups`` of (rec, rec, attn) and a ``tail``, and
+``--override n_layers=5`` cuts it to one group and a 2-block tail, as the
+reference's config cuts it).  ``--analog-mode train`` on the ``paper``
+preset is Alg. 1's hardware-aware training: fresh ramp-step noise on
+every call of the MLP's (and the experts') hidden NL-ADC and of the
+recurrent cells' NL-ADCs (SSD's dt softplus and z-gate silu, RG-LRU's
+sigmoid gates and ``W_g`` gelu), one draw per threshold shape for all the
+NL-ADCs of a layer, a hybrid group or the tail, as the reference's key
+tree gives them; straight-through gradients through the gate kernels.  Every step prints its loss, the gradient's global norm, its
 milliseconds (host clock, ending when the metrics reach the host) and the
 launches of each kernel; the end prints one JSON summary (tokens/s over
 the steps after the first, the peak device memory).  ``--profile`` adds
@@ -30,13 +37,8 @@ package's layout.
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise; on the GPU the backend defaults to ``cuda``, on
 the CPU to ``ref``; TF32 is off (``launch.common.configure_numerics``).
-Not ported, each raising with its ``ROADMAP.md`` item:
-``--production-mesh`` and ``--grad-comm`` other than ``gspmd`` (queue A
-item 6), and training the recurrent families, ``mamba2-370m`` and
-``recurrentgemma-9b`` (queue A item 5: the reference hands one train-mode
-key to each hybrid group's three blocks and the outer key to its tail,
-which needs its own replay).  They serve
-(``repro_torch.launch.serve``).
+Not ported, raising with its ``ROADMAP.md`` item: ``--production-mesh``
+and ``--grad-comm`` other than ``gspmd`` (queue A item 6).
 """
 
 from __future__ import annotations
@@ -67,11 +69,6 @@ def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
     """(model, trainer, state): seeded weights on ``device``, the
     reference's optimizer scheduled over ``steps``, and the pipeline;
     checkpoints under ``ckpt_dir`` when given."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family} family) is not ported yet; "
-            f"ROADMAP.md queue A item 5 (training of the recurrent "
-            f"families) brings it")
     model = build(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

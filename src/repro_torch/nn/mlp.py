@@ -15,12 +15,12 @@ hand-written kernel on the ``cuda`` backend.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch.core.analog_layer import (AnalogActivation, AnalogConfig,
-                                           dense_nladc)
+                                           RampDraws, dense_nladc)
 from repro_torch.nn import layers as L
 
 
@@ -56,14 +56,15 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_apply(p, x: torch.Tensor, kind: str, act: AnalogActivation, *,
-              draws: Optional[Dict[int, torch.Tensor]] = None
+              draws: Optional[RampDraws] = None
               ) -> torch.Tensor:
-    """The MLP; ``draws``: the call's train-mode ramp draws by gate width
-    (:meth:`AnalogActivation.ramp_draws`), None for none."""
+    """The MLP; ``draws``: the train-mode ramp draws of the key the call
+    shares (:class:`~repro_torch.core.analog_layer.RampDraws`), None for
+    none."""
     gated = kind in ("swiglu", "geglu")
     gate_p = p["wi_gate"] if gated else p["wi"]
     h = dense_nladc(gate_p, x, act,
-                    z=draws[gate_p["w"].shape[-1]] if draws else None)
+                    z=act.ramp_z(draws, gate_p["w"].shape[-1]))
     if gated:
         h = h * L.dense_apply(p["wi_up"], x)
     return L.dense_apply(p["wo"], h)

@@ -39,11 +39,12 @@ reference, and what this module does:
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-from repro_torch.core.analog_layer import AnalogActivation, moe_gate_nladc
+from repro_torch.core.analog_layer import AnalogActivation, RampDraws, \
+    moe_gate_nladc
 from repro_torch.nn import layers as L
 from repro_torch.nn.mlp import mlp_apply, mlp_init
 
@@ -198,13 +199,14 @@ def expert_capacity(n_tokens: int, top_k: int, n_experts: int,
 def moe_apply(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
               act: AnalogActivation, router_score: str = "softmax",
               router_act: Optional[AnalogActivation] = None,
-              draws: Optional[Dict[int, torch.Tensor]] = None,
+              draws: Optional[RampDraws] = None,
               return_aux: bool = False):
     """x: (..., d) -> (..., d), and with ``return_aux`` the load-balance
     loss beside it.  Flattens leading dims for routing.  ``draws``: the
-    call's train-mode ramp draws by gate width
-    (:meth:`AnalogActivation.ramp_draws`): the routed experts' gate and
-    the shared experts' take them from one key in the reference."""
+    layer's train-mode ramp draws
+    (:class:`~repro_torch.core.analog_layer.RampDraws`): the routed
+    experts' gate and the shared experts' take them from one key in the
+    reference."""
     orig_shape = x.shape
     d = x.shape[-1]
     xf = x.reshape(-1, d)
@@ -224,8 +226,8 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int, capacity_factor: float,
 
     # expert FFN: the gate einsum + NL-ADC pair is one grouped kernel on
     # the cuda backend
-    z = draws[p["w_gate"].shape[-1]] if draws else None
-    gate_h = moe_gate_nladc(x_buf, p["w_gate"], act, z=z)
+    gate_h = moe_gate_nladc(x_buf, p["w_gate"], act,
+                            z=act.ramp_z(draws, p["w_gate"].shape[-1]))
     up_h = torch.einsum("ecd,edf->ecf", x_buf, p["w_up"].to(x_buf.dtype))
     h = torch.einsum("ecf,efd->ecd", gate_h * up_h,
                      p["w_down"].to(x_buf.dtype))

@@ -15,8 +15,10 @@ the backend's ``matmul_nladc`` (kernel 3 on ``cuda``); Griffin's
 block-diagonal gates keep a batched matmul and quantize its output
 elementwise (``nladc``, kernel 2).  Torch has no associative scan: the
 full sequence runs the recurrence as a sequential scan in the scan dtype
-(held to a tolerance against the reference's tree-ordered scan); decode is
-the O(1) update of a carried ``(B, W)`` state.
+(held to a tolerance against the reference's tree-ordered scan, and so is
+its backward, torch autograd through the loop and the causal conv against
+the reference's autodiff of the scan); decode is the O(1) update of a
+carried ``(B, W)`` state.
 """
 
 from __future__ import annotations
@@ -67,13 +69,16 @@ def _gate_matmul(w, u: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead + (nb * bw,))
 
 
-def _gated(w, u: torch.Tensor, gate_act: AnalogActivation) -> torch.Tensor:
+def _gated(w, u: torch.Tensor, gate_act: AnalogActivation,
+           draws=None) -> torch.Tensor:
     """Gate projection and its sigmoid NL-ADC through the analog backend:
     one fused ``matmul_nladc`` for dense gates, the batched matmul then
-    the elementwise NL-ADC for block-diagonal ones."""
+    the elementwise NL-ADC for block-diagonal ones; ``draws`` as in
+    :func:`rglru_apply`."""
+    z = gate_act.ramp_z(draws, u.shape[-1])
     if isinstance(w, dict):
-        return dense_nladc(w, u, gate_act)
-    return gate_act(_gate_matmul(w, u))
+        return dense_nladc(w, u, gate_act, z=z)
+    return gate_act(_gate_matmul(w, u), z=z)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -120,19 +125,24 @@ def _linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def rglru_apply(p, x: torch.Tensor, gate_act: AnalogActivation,
-                hidden_act: AnalogActivation, *,
+                hidden_act: AnalogActivation, *, draws=None,
                 scan_dtype=torch.float32, chunk: int = 0) -> torch.Tensor:
-    """Full-sequence forward.  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence forward.  x: (B, S, d) -> (B, S, d).  ``draws``: the
+    train-mode ramp draws of the block's key
+    (:class:`~repro_torch.core.analog_layer.RampDraws`), which both
+    sigmoid gates and the ``W_g`` branch's hidden NL-ADC take (all at the
+    recurrence's width), as the reference hands all three its key."""
     u = _causal_conv(L.dense_apply(p["wx"], x), p["conv"])
-    r = _gated(p["wa"], u, gate_act)
-    i = _gated(p["wi"], u, gate_act)
+    r = _gated(p["wa"], u, gate_act, draws)
+    i = _gated(p["wi"], u, gate_act, draws)
     log_a = _log_decay(p, r)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9)) \
         * (i.float() * u.float())
     h = _linear_recurrence(a.to(scan_dtype), b.to(scan_dtype),
                            chunk=chunk).float()
-    g = hidden_act(L.dense_apply(p["wg"], x))
+    wg = L.dense_apply(p["wg"], x)
+    g = hidden_act(wg, z=hidden_act.ramp_z(draws, wg.shape[-1]))
     return L.dense_apply(p["wo"], (g.float() * h).to(x.dtype))
 
 

@@ -12,7 +12,10 @@ use the quadratic (attention-like) form inside, and a short scan carries
 the state from chunk to chunk.  The reference's ``associative_scan`` over
 chunks is a plain loop here (a handful of chunks); it sums in another
 order, so the port holds the full-sequence path to a tolerance, not
-bitwise.  Decode is the O(1) update of a carried ``(B, H, P, N)`` state.
+bitwise; so is its backward, torch autograd through the loop against the
+reference's autodiff of the scan (the masked pairs' ``exp(-inf) = 0``
+pass a zero gradient, and padded ``dt = 0`` steps none).  Decode is the
+O(1) update of a carried ``(B, H, P, N)`` state.
 
 NL-ADC insertion points, as in the reference: ``dt = softplus(.)`` is the
 softplus ramp and the ``z`` gate's silu the swish ramp, both through
@@ -152,8 +155,12 @@ def ssd_chunked(x, dt, a_log, b, c, *, chunk: int):
 
 def ssd_apply(p, x, *, expand: int, headdim: int, d_state: int, chunk: int,
               dt_act: AnalogActivation, gate_act: AnalogActivation,
-              return_state: bool = False):
-    """Full-sequence SSD block.  x: (B, S, d) -> (B, S, d)."""
+              draws=None, return_state: bool = False):
+    """Full-sequence SSD block.  x: (B, S, d) -> (B, S, d).  ``draws``:
+    the train-mode ramp draws of the block's key
+    (:class:`~repro_torch.core.analog_layer.RampDraws`), which the dt
+    softplus (width H) and the z gate's silu (width d_inner) both take,
+    as the reference hands both its layer key."""
     bsz, s, d = x.shape
     d_inner = expand * d
     n_heads = d_inner // headdim
@@ -163,7 +170,8 @@ def ssd_apply(p, x, *, expand: int, headdim: int, d_state: int, chunk: int,
     xin = xbc[..., :d_inner]
     b = xbc[..., d_inner:d_inner + d_state]
     c = xbc[..., d_inner + d_state:]
-    dt = dt_act(dt_raw + p["dt_bias"].to(dt_raw.dtype))
+    dt = dt_act(dt_raw + p["dt_bias"].to(dt_raw.dtype),
+                z=dt_act.ramp_z(draws, n_heads))
     xh = xin.reshape(bsz, s, n_heads, headdim)
     # pad to a chunk multiple with dt = 0 steps: decay exp(0) = 1 and
     # xw = 0, so padded steps are exact no-ops for the outputs and state
@@ -179,7 +187,8 @@ def ssd_apply(p, x, *, expand: int, headdim: int, d_state: int, chunk: int,
     y = y[:, :s] + p["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = L.rmsnorm_apply(p["norm"], y * gate_act(z))
+    y = L.rmsnorm_apply(p["norm"], y * gate_act(
+        z, z=gate_act.ramp_z(draws, d_inner)))
     out = L.dense_apply(p["out_proj"], y)
     if return_state:
         return out, state

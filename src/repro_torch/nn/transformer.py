@@ -21,15 +21,17 @@ activation also digitizes RG-LRU's ``W_g`` branch).
 Analog modes: ``exact``; ``infer`` (the ramps and banks programmed once at
 build time by the device model: the LM spec carries no weight noise, so a
 step draws nothing); ``train`` (fresh ramp-step noise on every call of the
-hidden activation, straight-through gradients).  The reference splits one
-key per layer inside its scan and hands it to every gate of the layer; the
-port draws a layer's ramp noise from the caller's :class:`NoiseSource`
-before the layer (:meth:`AnalogActivation.ramp_draws`), so a recompute
-under ``remat`` sees the same thresholds.  The router's sigmoid NL-ADC
-takes no key: its thresholds are noiseless.  Training the SSM and hybrid
-families (the reference hands one key per hybrid group to its three
-blocks, and the tail the outer key) is not ported: a ramp draw for them
-raises.
+hidden activation and of the recurrent cells' NL-ADCs, straight-through
+gradients).  The reference splits one key per layer inside its scan (per
+group for the hybrid, whose three blocks share it; the tail takes the
+forward's own key, unsplit) and hands it to every NL-ADC there.  A draw is
+``normal(key, shape)``, so calls of one threshold shape see one draw,
+whichever activation makes them.  The port draws a unit's ramp noise from
+the caller's :class:`NoiseSource` through one
+:class:`~repro_torch.core.analog_layer.RampDraws` a unit (one draw per
+distinct shape at its first use, across activations), which a recompute
+under ``remat`` reads again, so it sees the same thresholds.  The router's sigmoid NL-ADC takes no key: its thresholds are
+noiseless.
 
 The other families, ``moe_impl="ep_shardmap"`` and ``remat_policy="dots"``
 raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
@@ -44,7 +46,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
+from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig, \
+    RampDraws
 from repro_torch.core.crossbar import NoiseSource
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
@@ -55,7 +58,6 @@ from repro_torch.nn.mlp import make_activation, mlp_apply, mlp_init, \
     mlp_type_for
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
-RECURRENT = ("ssm", "hybrid")
 ATTENTION_KINDS = ("attn", "moe_attn")
 
 
@@ -232,15 +234,6 @@ class LM:
 
     # -- full sequence -----------------------------------------------------
 
-    def _gate_widths(self, kind: str):
-        """The output widths of the hidden activation's calls in a block:
-        the MLP gate, or the routed experts' gate and the shared experts'
-        (one key for both in the reference)."""
-        cfg = self.cfg
-        if kind == "moe_attn" and cfg.n_shared_experts > 0:
-            return (cfg.d_ff, cfg.n_shared_experts * cfg.d_ff)
-        return (cfg.d_ff,)
-
     def _apply_block(self, p, x, kind: str, positions, draws,
                      collect_aux: bool):
         cfg = self.cfg
@@ -250,16 +243,18 @@ class LM:
             return x + SSD.ssd_apply(
                 p["ssd"], h, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
                 d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
-                dt_act=self.softplus_act, gate_act=self.silu_act), aux
+                dt_act=self.softplus_act, gate_act=self.silu_act,
+                draws=draws), aux
         if kind == "rec":
             h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
             x = x + RG.rglru_apply(
-                p["rec"], h, self.sigmoid_act, self.act,
+                p["rec"], h, self.sigmoid_act, self.act, draws=draws,
                 scan_dtype=(torch.bfloat16 if cfg.lru_scan_dtype
                             == "bfloat16" else torch.float32),
                 chunk=cfg.lru_chunk)
             h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-            return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act), aux
+            return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act,
+                                 draws=draws), aux
         h = L.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         x = x + A.self_attention(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -279,46 +274,66 @@ class LM:
         return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act,
                              draws=draws), aux
 
-    def _no_training(self, noise: Optional[NoiseSource]) -> None:
-        """Train-mode ramp draws are not replayed for the recurrent
-        families: raise rather than draw in another order."""
-        if self.cfg.family in RECURRENT and noise is not None \
-                and self.act.ramp_sigma_us() > 0:
-            raise NotImplementedError(
-                f"training the {self.cfg.family} family (train-mode ramp "
-                f"draws per hybrid group and tail) is not ported yet; "
-                f"ROADMAP.md queue A item 5 (training of the recurrent "
-                f"families) brings it")
+    def _keyed_units(self, params) -> List[Tuple[list, bool]]:
+        """The blocks grouped by the train-mode key they share, in layer
+        order, each with whether ``remat`` recomputes it: one layer
+        (recomputed), or the hybrid's group (one key for its three
+        blocks, recomputed as one) and then its tail (the forward's own
+        key for every tail block, never recomputed), as the reference's
+        scan and tail loop hand out keys and remat."""
+        blocks = self.blocks(params)
+        if self.cfg.family != "hybrid":
+            return [([blk], True) for blk in blocks]
+        n = len(self.cfg.block_pattern)
+        n_scanned = self._n_groups() * n
+        units = [(blocks[i:i + n], True) for i in range(0, n_scanned, n)]
+        if blocks[n_scanned:]:
+            units.append((blocks[n_scanned:], False))
+        return units
+
+    def _apply_unit(self, ps, x, kinds, positions, draws, collect_aux: bool):
+        """The blocks of one keyed unit, one after another, with its
+        draws; returns x and the units' aux loss."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, kind in zip(ps, kinds):
+            x, a = self._apply_block(p, x, kind, positions, draws,
+                                     collect_aux)
+            aux = aux + a
+        return x, aux
 
     def forward(self, params, tokens: torch.Tensor, *,
                 noise: Optional[NoiseSource] = None,
                 collect_aux: bool = False, remat: bool = False):
         """Full-sequence logits.  tokens: (B, S) -> (B, S, padded_vocab)
         float32, and with ``collect_aux`` the MoE load-balance loss summed
-        over layers.  ``noise``: the train-mode ramp draws, one layer
-        after another (None: the programmed ramps).  ``remat`` recomputes
-        each layer's body in the backward (``remat_policy="full"``, the
-        reference's ``nothing_saveable``; ``"none"`` keeps everything);
-        the result is the same bits either way."""
+        over layers.  ``noise``: the train-mode ramp draws, one keyed unit
+        after another (:meth:`_keyed_units`; None: the programmed ramps).
+        ``remat`` recomputes each layer's body, or each hybrid group's, in
+        the backward (``remat_policy="full"``, the reference's
+        ``nothing_saveable``; ``"none"`` keeps everything); the result is
+        the same bits either way."""
         cfg = self.cfg
         if remat and cfg.remat_policy not in ("full", "none"):
             raise NotImplementedError(
                 f"remat_policy={cfg.remat_policy!r} is not ported yet; "
                 f"ROADMAP.md queue A item 3 (what is left of the LM "
                 f"forward) brings it")
-        self._no_training(noise)
         x = self.embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in self.blocks(params):
-            draws = None if kind not in ATTENTION_KINDS else \
-                self.act.ramp_draws(noise, self._gate_widths(kind))
-            if remat and cfg.remat_policy == "full":
-                x, aux = checkpoint(self._apply_block, p, x, kind, positions,
-                                    draws, collect_aux, use_reentrant=False)
+        for unit, recompute in self._keyed_units(params):
+            kinds = tuple(kind for kind, _ in unit)
+            ps = [p for _, p in unit]
+            # every block of the unit shares the draws; the recompute
+            # under remat finds those its forward made
+            draws = None if noise is None else RampDraws(noise)
+            if remat and recompute and cfg.remat_policy == "full":
+                x, aux = checkpoint(self._apply_unit, ps, x, kinds,
+                                    positions, draws, collect_aux,
+                                    use_reentrant=False)
             else:
-                x, aux = self._apply_block(p, x, kind, positions, draws,
-                                           collect_aux)
+                x, aux = self._apply_unit(ps, x, kinds, positions, draws,
+                                          collect_aux)
             total_aux = total_aux + aux
         logits = self.logits(params, x)
         if collect_aux:

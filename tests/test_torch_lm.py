@@ -182,17 +182,21 @@ def test_init_layout_matches_jax():
 def test_outside_the_slice_raises(what, tmp_path):
     """What is not ported raises, naming its ``ROADMAP.md`` item: the
     encoder-decoder family, expert parallelism
-    (``moe_impl="ep_shardmap"``), training the recurrent families
-    (``launch.train --arch mamba2-370m``) and the hybrid's deployment
-    checkpoint.  The SSM and hybrid families serve, the rolling-window
-    cache and its int8 fallback with them
-    (tests/test_torch_lm_recurrent.py); the dense and MoE int8 caches
-    (tests/test_torch_moe.py, tests/test_torch_flash_decode.py), and the
-    infer and train modes (tests/test_torch_lm_forward.py) are ported."""
+    (``moe_impl="ep_shardmap"``), the hybrid's training under
+    ``remat_policy="dots"`` (``launch.train --arch recurrentgemma-9b
+    --override remat_policy=dots``: its groups are recomputed whole) and
+    the hybrid's deployment checkpoint.  The SSM
+    and hybrid families serve, the rolling-window cache and its int8
+    fallback with them (tests/test_torch_lm_recurrent.py), and train
+    (tests/test_torch_lm_recurrent_train.py); the dense and MoE int8
+    caches (tests/test_torch_moe.py, tests/test_torch_flash_decode.py),
+    and the infer and train modes (tests/test_torch_lm_forward.py) are
+    ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "train":
-            TTRAIN.main(["--arch", "mamba2-370m", "--smoke", "--device",
-                         "cpu", "--steps", "1"])
+            TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
+                         "--device", "cpu", "--steps", "1", "--override",
+                         "remat_policy=dots"])
         elif what == "hybrid_save":
             cfg = TC.get_smoke("recurrentgemma-9b")
             model = tbuild(cfg, device="cpu")

@@ -10,7 +10,7 @@ labels masked with -1).
   and ``train`` (the ``paper`` preset's ramp-step noise): in train mode
   the port replays the reference's draws, ``normal(k_layer, shape)`` with
   ``k, k_layer = split(k)`` per layer, one draw per distinct threshold
-  shape of the layer (:func:`ramp_draws`).  Flat thresholds and banks
+  shape of the layer (:class:`RampDraws`).  Flat thresholds and banks
   (64 columns for qwen's d_ff 160: 3 banks; 16 for the MoE's 32: 2).
 * ``decode_step`` in infer and train mode, 8 steps of a batch of 2, as
   ``tests/test_torch_lm.py`` runs exact mode.
@@ -82,7 +82,11 @@ def draws(tm, key):
     for kind in tm.layer_kinds():
         k, k_layer = jax.random.split(k)
         shapes = []
-        for width in tm._gate_widths(kind):
+        cfg = tm.cfg
+        widths = (cfg.d_ff, cfg.n_shared_experts * cfg.d_ff) \
+            if kind == "moe_attn" and cfg.n_shared_experts > 0 \
+            else (cfg.d_ff,)
+        for width in widths:
             shape = tm.act._ramp_shape(width)
             if shape not in shapes:
                 shapes.append(shape)
