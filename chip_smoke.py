@@ -49,7 +49,8 @@ Phases, one JSON line each:
               ulps of the same function in float64 on the host (ulps at the
               float64 value); ms per call (CUDA events) beside the byte
               bound; launches and device ms per call under ``kernel_time``.
-4e. ptb_ir  — ptb_lstm as in ``ptb`` on ``paper-ir`` and ``stressed-ir``,
+4e. ptb_ir  — ptb_lstm as in ``ptb`` on ``paper-ir`` and ``stressed-ir``
+              (one batch, one timing repeat: the script's time),
               bank_cols 0 and 512, the weights aged per crossbar tile
               (``lstm_eval --age-weights tiled``): ``lstm_gates`` launches
               batches x T times, ``cuda`` and ``ref`` logits within
@@ -67,7 +68,8 @@ Phases, one JSON line each:
               on ``cuda`` and ``ref`` within rtol 2e-4 / atol 2e-5, both
               tail kernels T launches a step, every loss finite, peak
               device memory under TRAIN_PEAK_GB (half the card, as in
-              every train phase); ms per step and peak printed.
+              every train phase); ms per step and peak printed; 2 Adam
+              steps (the script's time).
 4h. fig4d   — ``benchmarks/fig4d_kws.py``'s quick mode on the card
               (``lstm_train.fig4d``): 768 training samples, 4 epochs, float
               vs 5-, 4- and 3-bit NL-ADCs trained with Alg. 1 noise, read
@@ -111,8 +113,10 @@ Phases, one JSON line each:
               per KV head and batch row) against its plain version at
               (B 4, H 16, Hkv 2, D 128, S 128), bfloat16 and float32, and
               at S 2048 in bfloat16; at recurrentgemma's local attention
-              (H 16, Hkv 1, D 256, S 128), bfloat16 and float32, and its
-              rolling buffer cut to S 16; ragged masks (one row sees a
+              (H 16, Hkv 1, D 256, S 128), bfloat16 and float32, its
+              rolling buffer cut to S 16, and its full window S 2048,
+              bfloat16 and float32 (V streamed through the kernel's ring
+              of boxes); ragged masks (one row sees a
               single slot): max abs diff 1e-6 in float32, one bfloat16
               ulp; the cluster size of each case.
 7. serve    — qwen2.5-3b at full width and all 36 layers, bfloat16
@@ -191,6 +195,13 @@ Phases, one JSON line each:
               (the dequantize-all fallback into kernel 5); judged as
               ``agreement_ssm`` (int8: LM.prefill within 5e-2, the
               reference's int8-against-float bound).
+13a5. serve_window_hybrid — one group at full width, exact mode,
+              float32, the published window 2048 (max_len 2304): B 2
+              prompts of 2176 and 2112 tokens through the packed chunked
+              prefill, 32 decode steps (the cache rolls, kernel 5 at
+              S 2048); cuda against ref as ``agreement_hybrid``; the
+              longer row against ``LM.prefill`` with the NL-ADC off
+              (relative < 1e-3).
 13-1. serve_bucketed — qwen2.5-3b as ``serve`` (36 layers, bf16, cuda):
               the scan run again, then the bucketed prefill (one bucket
               call a request), the packed one (the wave in one call of
@@ -202,7 +213,7 @@ Phases, one JSON line each:
               repeats), ms per prefill wave, per prefill position and per
               decode step, and the largest |delta| of each cache leaf
               against the scan run; then packed without (A) and with (B)
-              the detokenize thread, run A B B A twice: tokens/s of each
+              the detokenize thread, run A B B A once: tokens/s of each
               run (a reading, not a gate).
 13-2. serve_moe_bucketed — moonshot-v1-16b-a3b, int8 KV cache, its depth
               cut to 4 of 48 layers (time): its own scan run, then packed
@@ -262,7 +273,7 @@ Phases, one JSON line each:
               scheduler's state, metrics and the joined trace (wall
               fields stripped) bitwise the uninterrupted run's; the
               resumed peak at most the uninterrupted one.
-13-10. fleet — 4 chips of 2 layers (3 on ``aged-1day``, a ``stressed``
+13-10. fleet — 4 chips of 1 layer (3 on ``aged-1day``, a ``stressed``
               canary), capacity floor 0.75, least-loaded, 16 requests, a
               threshold-only recal storm: at most one chip drains at once,
               every request finishes, the canary's warning tightens its
@@ -275,6 +286,23 @@ Phases, one JSON line each:
               parses; tokens/s with the trace off and on (A B B A);
               ``ChipEnergyModel.price`` at full depth (hwcost's model, not
               the GPU's energy).
+13-12. serve_lifecycle_hybrid — recurrentgemma-9b at full width, 5
+              layers (a group and the 2-block tail), float32, ``aged-1day``
+              with 512-column banks, ``serve_recal``'s threshold-only
+              scheduler and requests: saved mid-run; the rest of the run
+              resumed by a fresh cuda engine bitwise the uninterrupted
+              run's (streams, decode state, params, thresholds,
+              scheduler); the checkpoint restored into a ``ref`` model and
+              judged as ``serve_recal`` (kernel 3 audited, ref given its
+              gate outputs, logits < LSB/2 = 0.068, events equal); then a
+              forced per-tile weight refresh (only the gate and up
+              matrices' col-tile under the stalled bank changes, in the
+              group and the tail; peak above the engine at most a
+              serve's); host s of the aging, ms per probe, s per
+              re-program; ``ChipEnergyModel.price`` at 38 layers (meta
+              tensors).
+13-13. fleet_ssm — ``fleet`` for mamba2-370m at full depth (48 layers a
+              chip): ``nladc`` 96 launches a step, the rest as ``fleet``.
 13a. train_lm — qwen2.5-3b trained at full width and all 36 layers
               (``repro_torch.launch.train``: B 8 x S 128, train mode on the
               ``paper`` preset, flat thresholds, AdamW with clip 1.0, each
@@ -370,8 +398,8 @@ The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 ``train_agreement``, for both families at each seed, and prints no
 ``ok`` line; ``--lifecycle`` runs only the device phase and 13-6 to
-13-11, and ``--recurrent`` only the device phase, the recurrent
-families' kernel cases (their training shapes too), 13a1 to 13a4 and
+13-13, and ``--recurrent`` only the device phase, the recurrent
+families' kernel cases (their training shapes too), 13a1 to 13a5 and
 13e to 13g; neither prints the ``ok``
 line.  Without a GPU, or without the repository's ``src/repro_torch``
 beside this script, it exits non-zero and prints no result.
@@ -379,6 +407,7 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -411,12 +440,18 @@ IR_SHAPES = (("w_gates", (632, 8064)), ("w_proj", (2016, 504)))
 IR_ULPS = 32        # IR correction vs float64, ulps at the float64 value
 # PTB Alg. 1 on the circuit-level presets: (preset, bank_cols) runs
 PTB_IR_TRAINS = (("paper-ir", 0), ("paper-ir", 512), ("stressed-ir", 0))
+# the circuit-level runs cut to one batch, one timing repeat and two Adam
+# steps (the script's time: an IR step is ~10x a paper-infer step)
+IR_BATCHES, IR_TIMING_REPEATS, IR_TRAIN_STEPS = 1, 1, 2
 TRAIN_PEAK_GB = 40.0       # every train phase's peak, at most half the card
 # the nodal oracle at the paper's tile: (active rows, columns)
 ORACLE_SHAPES = ((256, 512), (633, 512))
 ORACLE_BITS = 5
 MAX_FLIP_SHARE = 0.01      # fused matmul: explained code flips, at most
 ATTN_F32_ATOL = 1e-6
+ATTN_BF16_LONG_ATOL = 1e-5   # bfloat16 at the full local window (S 2048,
+#                            G 16, D 256): outputs near 0 move a few of
+#                            their ulps with the 2048-slot sum's order
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
              max_new=16, repeats=5)
 AGREE_LAYERS, AGREE_STEPS = 2, 8
@@ -440,8 +475,8 @@ AGREE_FLIP_GRAD_EXCESS = 2e-3   # gradient excess over TRAIN_RTOL /
 LM_INFER_DEVICE = "paper-infer"   # `paper` has no build stage: infer = exact
 CHUNK_BUCKETS = (4, 8)     # serve_bucketed's chunked run: prefills of 9
 #                            and 10 tokens take two calls (8 + 4)
-SERVE_BUCKETED_REPEATS = 2
-DETOK_AB_ROUNDS = 2        # serve_bucketed's A B B A rounds: packed
+SERVE_BUCKETED_REPEATS = 1
+DETOK_AB_ROUNDS = 1        # serve_bucketed's A B B A rounds: packed
 #                            without (A) and with (B) the detok thread
 SERVE_MOE_BUCKETED = dict(SERVE_MOE, n_layers=4, repeats=2)
 SERVE_AGED = dict(preset="aged-1day", n_layers=2)
@@ -451,7 +486,7 @@ TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
 CARD_GB = 80.0
 # the recurrent LM families served at full width and depth (serve's
 # workload); their decode states are not KV caches
-SERVE_SSM = dict(SERVE, arch="mamba2-370m", repeats=3, mode_repeats=1)
+SERVE_SSM = dict(SERVE, arch="mamba2-370m", repeats=2, mode_repeats=1)
 SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=2,
                     mode_repeats=1)
 # cuda against ref at full width, cut depth, float32; the hybrid's local
@@ -460,6 +495,11 @@ SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=2,
 AGREE_SSM = dict(arch="mamba2-370m", n_layers=2, max_len=128, steps=16)
 AGREE_HYBRID = dict(arch="recurrentgemma-9b", n_layers=3, window=16,
                     max_len=64, steps=64)
+# recurrentgemma's cache at its published window (2048): one group, max_len
+# 2304, prompts past the window through the chunked packed prefill
+# (buckets 512 and 128: 4 x 512 + 128 positions), then 32 decode steps
+WINDOW_HYBRID = dict(arch="recurrentgemma-9b", n_layers=3, max_len=2304,
+                     prompts=(2176, 2112), max_new=32, buckets=(128, 512))
 # the recurrent families trained at full width (launch.train's B 8 x S
 # 128); recurrentgemma cut to one group and its 2-block tail
 TRAIN_SSM = dict(TRAIN_LM, arch="mamba2-370m")
@@ -475,11 +515,23 @@ PREFILL_INT8_REL = 5e-2    # the same with an int8 KV cache: the reference's
 # banks; depth cut for the host's aging of every crossbar (2.71 s a layer
 # and 8 s for the embedding on an H100 host, PR 23)
 LC = dict(preset="aged-1day", bank_cols=512, recal_layers=4, layers=2)
-FLEET = dict(chips=4, layers=2, floor=0.75, requests=16, save_at=4,
+FLEET = dict(chips=4, layers=1, floor=0.75, requests=16, save_at=4,
              max_steps=200)
+# the recurrent families' deployment: recurrentgemma-9b's lifecycle at
+# one group and its tail (host aging: ~2.1 B elements of embedding and
+# head, ~0.2 B a layer), mamba2-370m's fleet at full depth
+LC_HYBRID = dict(arch="recurrentgemma-9b", n_layers=5, save_at=8)
+FLEET_SSM = dict(FLEET, arch="mamba2-370m", layers=48)
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``), the timeline of the run."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -694,9 +746,10 @@ def phase_kernel_bwd(torch, dev, name: str, b: int, h: int, bank_cols: int):
 
 
 def phase_train(torch, dev, config: str, bank_cols: int,
-                analog_device: str = "paper") -> dict:
+                analog_device: str = "paper",
+                steps: int = TRAIN_STEPS) -> dict:
     """Alg. 1 training at full width on the cuda backend: first-step
-    gradients against the ref backend, TRAIN_STEPS Adam steps with the
+    gradients against the ref backend, ``steps`` Adam steps with the
     tail kernels' launches counted and the peak device memory under
     TRAIN_PEAK_GB, then an infer-mode evaluation."""
     from repro_torch.core.crossbar import GeneratorNoise
@@ -744,12 +797,12 @@ def phase_train(torch, dev, config: str, bank_cols: int,
     torch.cuda.reset_peak_memory_stats(dev)
     lstm_cell.lstm_gates.launches = 0
     lstm_cell.lstm_gates_bwd.launches = 0
-    res = lstm_train.train(model, batches, TRAIN_STEPS, lr=lr, seed=0,
+    res = lstm_train.train(model, batches, steps, lr=lr, seed=0,
                            all_steps=all_steps)
     fwd, bwd = lstm_cell.lstm_gates.launches, lstm_cell.lstm_gates_bwd.launches
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    check(res["fwd_launches"] == [t_steps] * TRAIN_STEPS
-          and res["bwd_launches"] == [t_steps] * TRAIN_STEPS,
+    check(res["fwd_launches"] == [t_steps] * steps
+          and res["bwd_launches"] == [t_steps] * steps,
           f"{config}/bank_cols={bank_cols}: per-step launches fwd "
           f"{res['fwd_launches']} bwd {res['bwd_launches']}, expected "
           f"{t_steps} each")
@@ -766,12 +819,12 @@ def phase_train(torch, dev, config: str, bank_cols: int,
     out = {"phase": "train_" + config.split("_")[0] + suffix,
            "config": config, "bank_cols": bank_cols,
            "analog_device": analog_device, "B": batch,
-           "T": t_steps, "steps": TRAIN_STEPS, "losses": res["losses"],
+           "T": t_steps, "steps": steps, "losses": res["losses"],
            "grad_norms": res["grad_norms"], "first_loss_cuda": float(loss_c), "first_loss_ref": float(loss_r),
            "grad_max_abs": grad_max,
            "grad_max_abs_diff_vs_ref": grad_diff, "grad_rtol": TRAIN_RTOL,
            "grad_atol": TRAIN_ATOL, "launches_fwd": fwd, "launches_bwd": bwd,
-           "expected_launches_each": TRAIN_STEPS * t_steps,
+           "expected_launches_each": steps * t_steps,
            "step_ms": statistics.median(res["step_ms"]),
            "step_ms_min": min(res["step_ms"]),
            "step_ms_max": max(res["step_ms"]), "peak_memory_gb": peak_gb,
@@ -909,7 +962,7 @@ def phase_launch_floor(torch, dev, module) -> dict:
 def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
                 batch: int, seq: int = 0, *,
                 analog_device: str = "paper-infer", age_weights: str = "none",
-                baseline: dict = None):
+                baseline: dict = None, repeats: int = TIMING_REPEATS):
     """One main-path run on the cuda backend, checked against ref;
     ``baseline`` (the ``paper-infer`` run of the same cell) is printed
     beside it."""
@@ -948,7 +1001,7 @@ def phase_model(torch, dev, config: str, bank_cols: int, n_batches: int,
     # the host clock spreads: repeat the timed run, report the median
     step_ms = [res["step_ms"]] + [
         lstm_eval.evaluate(model, data, all_steps=all_steps,
-                           seed=1)["step_ms"] for _ in range(TIMING_REPEATS)]
+                           seed=1)["step_ms"] for _ in range(repeats)]
 
     n_classes = model.fc_w.shape[1]
     diff = 0.0
@@ -1204,10 +1257,13 @@ def attention_bound(b: int, h: int, hkv: int, d: int, s_len: int,
 
 
 def phase_attention(torch, dev, name: str, dtype, s_len: int,
-                    heads=(16, 2, 128)):
+                    heads=(16, 2, 128), bf16_atol: float = 0.0):
     """The cached-attention kernel against its plain version at a serving
     path's heads ``(H, Hkv, D)`` (qwen2.5-3b's by default), ragged masks
-    (one row sees a single slot)."""
+    (one row sees a single slot): float32 within ATTN_F32_ATOL, bfloat16
+    within one ulp, or within ``bf16_atol`` where that is larger (an
+    output near 0, whose float32 sum over a long cache runs in another
+    order than the plain version's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention as pa
@@ -1236,7 +1292,9 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int,
         ulp = bf16_ulp(torch, torch.maximum(ok.float().abs(),
                                             op.float().abs()))
         ulps = float((diff / ulp).max())
-        check(ulps <= 1.0, f"{name}: {ulps} bfloat16 ulps apart")
+        check(bool((diff <= torch.clamp_min(ulp, bf16_atol)).all()),
+              f"{name}: {ulps} bfloat16 ulps apart, {err} at most (one "
+              f"ulp or {bf16_atol})")
 
     # the yardstick: one PyTorch call for the same attention, in its layout
     qs = q[:, :, None].contiguous()
@@ -1259,6 +1317,7 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int,
            "D": d, "S": s_len, "dtype": str(dtype).replace("torch.", ""),
            "cluster": pa.cluster_size(h, hkv, d, s_len, dtype),
            "max_abs_err": err, "max_bf16_ulps": ulps,
+           "bf16_atol": bf16_atol if dtype == torch.bfloat16 else None,
            "library_max_abs_diff": lib_diff,
            "call_ms": cuda_ms(kernel),
            "plain_call_ms": cuda_ms(plain, inner=5),
@@ -2323,6 +2382,154 @@ def phase_agreement_recurrent(torch, dev, name: str, spec: dict,
     return out
 
 
+def phase_serve_window_hybrid(torch, dev) -> dict:
+    """recurrentgemma-9b at full width, one (rec, rec, attn) group, exact
+    mode, float32, its local attention at the published window: max_len
+    2304 (2048 cache slots), B 2, prompts of 2176 and 2112 tokens through
+    the packed chunked prefill, then 32 decode steps, so the cache rolls
+    (the index passes 2048) and kernel 5 attends over 2048 slots every
+    step.  The cuda engine against a ref engine on the same weights,
+    judged as ``agreement_hybrid`` (kernel 3 audited on each call's
+    operands, the ref run given the cuda run's gate outputs: the decode
+    steps' logits within LSB/2, the streams equal or parted at a near
+    tie); each kernel's launches; then, with the NL-ADC off, the longer
+    row's whole sequence decoded step by step against ``LM.prefill`` of
+    it (relative error, the reference's ``test_decode_consistency``).  A
+    long-context chat user's traffic: a prompt past Griffin's 2K local
+    window."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    name = "serve_window_hybrid"
+    t0 = time.perf_counter()
+    spec = WINDOW_HYBRID
+    models = {bk: build(serve.make_config(
+        spec["arch"], backend=bk, analog_mode="exact",
+        overrides={"n_layers": spec["n_layers"]}).replace(dtype="float32"),
+        dev) for bk in ("cuda", "ref")}
+    cfg = models["cuda"].cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = models["cuda"].init(gen)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in spec["prompts"]]
+    logits = {"cuda": [], "ref": []}
+    audit, free, streams, runs = [], [], {}, {}
+    for bk, model in models.items():
+        eng = ServingEngine(model, params, max_batch=len(prompts),
+                            max_len=spec["max_len"], prefill="bucketed",
+                            pack_prefill=True,
+                            prefill_buckets=spec["buckets"])
+        # keep the logits of the batched decode steps (not the prefill's)
+        decoding = {"on": False}
+        step, batched = model.decode_step, eng._decode_all
+
+        def recording(p, state, tokens, step=step, sink=logits[bk],
+                      decoding=decoding):
+            out, state = step(p, state, tokens)
+            if decoding["on"]:
+                sink.append(out.detach().double())
+            return out, state
+
+        def decode_all(*args, batched=batched, decoding=decoding):
+            decoding["on"] = True
+            try:
+                return batched(*args)
+            finally:
+                decoding["on"] = False
+
+        model.decode_step, eng._decode_all = recording, decode_all
+        undo = _audit_gates(torch, model, logits[bk], audit) \
+            if bk == "cuda" else _replay_gates(torch, model, audit, free)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=spec["max_new"])
+                for i, p in enumerate(prompts)]
+        stats, counts = _counted(lambda: eng.run_offline(reqs))
+        undo()
+        del model.decode_step, eng._decode_all
+        streams[bk] = {r.uid: r.generated for r in reqs}
+        check(all(len(r.generated) == spec["max_new"] for r in reqs),
+              f"{name}/{bk}: token counts")
+        runs[bk] = {k: stats[k] for k in (
+            "seconds", "prefill_steps", "decode_steps", "prefill_waves",
+            "prefill_buckets_called", "prefill_step_ms", "decode_step_ms")}
+        if bk == "cuda":
+            launches = _path_launches(name, cfg, stats, counts,
+                                      recurrent_launches(model))
+            slots = [blk["k"].shape[1] for kind, blk in
+                     model.blocks(eng.state) if kind == "attn"][0]
+            index = int(eng.state["index"])
+        del eng
+    check(slots == cfg.window == 2048 and index > slots,
+          f"{name}: {slots} cache slots at index {index}: no roll at the "
+          f"published window")
+    flips = dict(_flip_summary(name, audit), free_run_flips=sum(free))
+    del audit
+    agreement = _agree(name, logits["cuda"], logits["ref"],
+                       models["cuda"].act.ramp.lsb)
+    check(agreement["parted"] is not None
+          or streams["cuda"] == streams["ref"],
+          f"{name}: cuda streams differ from ref's")
+    del logits
+    # decode against the whole sequence with the NL-ADC off
+    plain = build(cfg.replace(analog=dataclasses.replace(cfg.analog,
+                                                         enabled=False)),
+                  dev)
+    seq = torch.as_tensor(np.concatenate(
+        [prompts[0], np.asarray(streams["cuda"][0], np.int32)]),
+        dtype=torch.int64, device=dev)[None]
+    ts = time.perf_counter()
+    state = plain.init_decode_state(1, spec["max_len"])
+    for t in range(seq.shape[1]):
+        last, state = plain.decode_step(params, state, seq[:, t:t + 1])
+    full = plain.prefill(params, seq).double()
+    last = last.double()
+    rel = float((full - last).abs().max() / last.abs().max())
+    check(rel < PREFILL_REL, f"{name}: LM.prefill against the last decode "
+          f"step: relative error {rel} >= {PREFILL_REL}")
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "cut": "one (rec, rec, attn) group of 38 layers (time)",
+           "d_model": cfg.d_model, "dtype": "float32",
+           "analog_mode": cfg.analog.mode, "window": cfg.window,
+           "kv_slots": slots, "max_len": spec["max_len"],
+           "prompts": list(spec["prompts"]), "max_new": spec["max_new"],
+           "final_index": index, "buffer_rolls": index // slots,
+           "runs": runs, "launches": launches, **flips, **agreement,
+           "streams_equal": streams["cuda"] == streams["ref"],
+           "prefill_rel_err": rel, "prefill_rel_tol": PREFILL_REL,
+           "decode_vs_prefill_s": time.perf_counter() - ts,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del models, plain, params, state, full
+    return out
+
+
+@contextlib.contextmanager
+def _aging_timer(chip):
+    """Host seconds of the weight aging inside the block, by leaf: the
+    blocks' (``layers``, or the hybrid's ``groups`` and ``tail``) and the
+    rest's (the embedding and the head), in the yielded dict."""
+    host_s = {"layers": 0.0, "rest": 0.0}
+    tiled = type(chip).age_weights_tiled
+
+    def timed(self, w, key, *args, **kw):
+        ta = time.perf_counter()
+        out = tiled(self, w, key, *args, **kw)
+        part = "layers" if key.startswith(("['layers']", "['groups']",
+                                           "['tail']")) else "rest"
+        host_s[part] += time.perf_counter() - ta
+        return out
+
+    type(chip).age_weights_tiled = timed
+    try:
+        yield host_s
+    finally:
+        type(chip).age_weights_tiled = tiled
+
+
 def phase_serve_aged(torch, dev) -> dict:
     """qwen2.5-3b at full width, 2 layers, infer mode on ``aged-1day``:
     the engine ages the served weights per crossbar tile on the host
@@ -2349,25 +2556,12 @@ def phase_serve_aged(torch, dev) -> dict:
     params = models["cuda"].init(gen)
     # host seconds of the engine's one aging pass, split by leaf: the
     # layers' (per layer, extrapolated to 36) and the rest's (embedding)
-    host_s = {"layers": 0.0, "rest": 0.0}
-    tiled = type(chip).age_weights_tiled
-
-    def timed(self, w, key, *args, **kw):
-        ta = time.perf_counter()
-        out = tiled(self, w, key, *args, **kw)
-        part = "layers" if key.startswith("['layers']") else "rest"
-        host_s[part] += time.perf_counter() - ta
-        return out
-
-    type(chip).age_weights_tiled = timed
     ta = time.perf_counter()
-    try:
+    with _aging_timer(chip) as host_s:
         engine = ServingEngine(models["cuda"], params,
                                max_batch=SERVE["max_batch"],
                                max_len=SERVE["max_len"], device=chip)
         torch.cuda.synchronize()
-    finally:
-        type(chip).age_weights_tiled = tiled
     aging_s = time.perf_counter() - ta
     layer_s = host_s["layers"] / SERVE_AGED["n_layers"]
     moved = sum(not torch.equal(a, b) for a, b in
@@ -2599,17 +2793,17 @@ def phase_train_ckpt(torch, dev) -> dict:
 
 
 def _lc_models(torch, dev, n_layers: int, backends=("cuda", "ref"),
-               dtype: str = "float32"):
-    """qwen2.5-3b at full width, ``n_layers`` layers, infer mode on
-    ``LC["preset"]`` with ``LC["bank_cols"]``-column banks, one model per
-    backend, and seeded params on the card."""
+               dtype: str = "float32", arch: str = SERVE["arch"]):
+    """``arch`` (qwen2.5-3b) at full width, ``n_layers`` layers, infer mode
+    on ``LC["preset"]`` with ``LC["bank_cols"]``-column banks, one model
+    per backend, and seeded params on the card."""
     from repro_torch.launch import serve
     from repro_torch.nn.model import build
 
     models = {}
     for bk in backends:
         cfg = serve.make_config(
-            SERVE["arch"], backend=bk, analog_mode="infer",
+            arch, backend=bk, analog_mode="infer",
             analog_device=LC["preset"], bank_cols=LC["bank_cols"]).replace(
                 n_layers=n_layers, dtype=dtype)
         models[bk] = build(cfg, dev)
@@ -2767,13 +2961,16 @@ def _counted(fn):
     return out, {k: w.launches for k, w in wrappers.items()}
 
 
-def _path_launches(name: str, cfg, stats: dict, launches: dict) -> dict:
-    """Check a serving run's launches: kernels 3 and 5 once a layer per
-    prefill position and decode step, the others never."""
+def _path_launches(name: str, cfg, stats: dict, launches: dict,
+                   per_step=None) -> dict:
+    """Check a serving run's launches: each kernel ``per_step`` times per
+    prefill position and decode step (default: kernels 3 and 5 once a
+    layer), the others never."""
     steps = stats["prefill_steps"] + stats["decode_steps"]
-    expected = {k: cfg.n_layers * steps
-                if k in ("fused_matmul_nladc", "prefill_attention") else 0
-                for k in launches}
+    if per_step is None:
+        per_step = {"fused_matmul_nladc": cfg.n_layers,
+                    "prefill_attention": cfg.n_layers}
+    expected = {k: per_step.get(k, 0) * steps for k in launches}
     check(launches == expected,
           f"{name}: launches {launches}, expected {expected}")
     return launches
@@ -3195,13 +3392,6 @@ def phase_serve_lifecycle_ckpt(torch, dev, root: str, base) -> dict:
             eng.submit(r)
         return eng, reqs
 
-    def thresholds():
-        return {name: (act.adc.thresholds.clone(),
-                       {w: b.thresholds.thr.clone()
-                        for w, b in act.banks().items()})
-                for name, act in sorted(vars(model).items())
-                if hasattr(act, "deployed") and act.adc is not None}
-
     def no_ms(eng):
         return [m for m in eng.obs.metrics.snapshot()["metrics"]
                 if not m["name"].endswith("_ms")]
@@ -3211,7 +3401,7 @@ def phase_serve_lifecycle_ckpt(torch, dev, root: str, base) -> dict:
     full.run_to_completion()
     peak_full = _peak_since(torch, peak_base)
     want = {r.uid: r.generated for r in reqs}
-    want_thr = thresholds()
+    want_thr = _thresholds_of(model)
     want_sched = json.dumps(full.scheduler.to_dict())
     part, part_reqs = fresh()
     steps = 0
@@ -3247,7 +3437,7 @@ def phase_serve_lifecycle_ckpt(torch, dev, root: str, base) -> dict:
           f"{want}")
     for name, a, b in _zip_named(full.params, res.params):
         check(torch.equal(a, b), f"serve_lifecycle_ckpt: params {name}")
-    have_thr = thresholds()
+    have_thr = _thresholds_of(model)
     for name, (ramp, banks) in want_thr.items():
         check(torch.equal(ramp, have_thr[name][0])
               and all(torch.equal(banks[w], have_thr[name][1][w])
@@ -3281,8 +3471,9 @@ def _zip_named(a, b):
         yield name, x, y
 
 
-def phase_fleet(torch, dev) -> dict:
-    """4 chips of qwen2.5-3b at full width, 2 layers each: 3 serving on
+def phase_fleet(torch, dev, spec: dict = FLEET, name: str = "fleet") -> dict:
+    """4 chips of ``spec``'s arch at full width (qwen2.5-3b at 2 layers
+    each; ``fleet_ssm``: mamba2-370m at its 48): 3 serving on
     ``aged-1day`` and a canary on ``stressed``, each its own device draws
     (per-chip seed), capacity floor 0.75, least-loaded router, 16
     requests; a threshold-only recal storm (the threshold between the
@@ -3304,17 +3495,22 @@ def phase_fleet(torch, dev) -> dict:
     from repro_torch.serve.lifecycle import RecalPolicy
 
     t0 = time.perf_counter()
-    cfg, models, params = _lc_models(torch, dev, FLEET["layers"],
-                                     backends=("cuda",), dtype="bfloat16")
-    canary = f"chip{FLEET['chips'] - 1:02d}"
+    arch = spec.get("arch", SERVE["arch"])
+    cfg, models, params = _lc_models(torch, dev, spec["layers"],
+                                     backends=("cuda",), dtype="bfloat16",
+                                     arch=arch)
+    canary = f"chip{spec['chips'] - 1:02d}"
     thr = _split_threshold(chip_device(device_model("stressed"), canary),
                            models["cuda"])
+    # kernels 3 and 5 once a layer a step; a recurrent family's own mix
+    per_step = recurrent_launches(models["cuda"]) \
+        if cfg.family in ("ssm", "hybrid") else None
     del models
-    policy = FleetPolicy(capacity_floor=FLEET["floor"], router="least-loaded")
+    policy = FleetPolicy(capacity_floor=spec["floor"], router="least-loaded")
     recal = RecalPolicy(age_per_step_s=0.0, check_every=2,
                         inl_threshold_lsb=thr)
     ta = time.perf_counter()
-    fleet = FleetEngine.build(cfg, FLEET["chips"], policy=policy,
+    fleet = FleetEngine.build(cfg, spec["chips"], policy=policy,
                               recal=recal, max_batch=SERVE["max_batch"],
                               max_len=SERVE["max_len"],
                               canary_presets=("stressed",), params=params,
@@ -3322,8 +3518,8 @@ def phase_fleet(torch, dev) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - ta
     del params
-    check(fleet.planner.max_drain == 1, "fleet: max_drain")
-    reqs = serve.make_requests(cfg, FLEET["requests"], SERVE["max_new"])
+    check(fleet.planner.max_drain == 1, f"{name}: max_drain")
+    reqs = serve.make_requests(cfg, spec["requests"], SERVE["max_new"])
     stream, draining = {}, []
 
     def run(fl, n=None):
@@ -3336,8 +3532,8 @@ def phase_fleet(torch, dev) -> dict:
                   for c in fl.chips.values()):
             if n is not None and steps == n:
                 return
-            check(steps < FLEET["max_steps"], "fleet: the storm did not "
-                  f"settle in {FLEET['max_steps']} steps")
+            check(steps < spec["max_steps"], f"{name}: the storm did not "
+                  f"settle in {spec['max_steps']} steps")
             for uid, tok in sorted(fl.step().items()):
                 stream.setdefault(uid, []).append(int(tok))
             draining.append(sum(c.engine.draining
@@ -3349,13 +3545,14 @@ def phase_fleet(torch, dev) -> dict:
         w.launches = 0
     for r in reqs:
         fleet.submit(r)
-    root = tempfile.mkdtemp(prefix="fleet_")
+    root = tempfile.mkdtemp(prefix=f"{name}_")
     try:
         tr = time.perf_counter()
-        run(fleet, FLEET["save_at"])
+        run(fleet, spec["save_at"])
         fleet_s = time.perf_counter() - tr
         check(any(c.engine.maintenance_pending for c in
-                  fleet.chips.values()), "fleet: the save is not mid-storm")
+                  fleet.chips.values()),
+              f"{name}: the save is not mid-storm")
         ts = time.perf_counter()
         fleet.save(root, fleet.step_count)
         save_s = time.perf_counter() - ts
@@ -3364,23 +3561,24 @@ def phase_fleet(torch, dev) -> dict:
         run(fleet)
         fleet_s += time.perf_counter() - tr
         launches = {k: w.launches for k, w in wrappers.items()}
-        _path_launches("fleet", cfg, {
+        _path_launches(name, cfg, {
             k: sum(getattr(c.engine, k) for c in fleet.chips.values())
-            for k in ("prefill_steps", "decode_steps")}, launches)
+            for k in ("prefill_steps", "decode_steps")}, launches, per_step)
         tokens = sum(len(t) for t in stream.values())
         check(all(len(r.generated) == SERVE["max_new"] for r in reqs),
-              "fleet: a request did not finish")
-        check(max(draining) <= 1, f"fleet: {max(draining)} chips drained "
+              f"{name}: a request did not finish")
+        check(max(draining) <= 1, f"{name}: {max(draining)} chips drained "
               "at once")
         open_w = 0
         for ev in fleet.events:
             open_w += {"drain_start": 1,
                        "reprogram_done": -1}.get(ev["type"], 0)
-            check(0 <= open_w <= 1, f"fleet: {open_w} windows open")
+            check(0 <= open_w <= 1, f"{name}: {open_w} windows open")
         warns = [e for e in fleet.events if e["type"] == "canary_warning"]
         check(len(warns) == 1 and warns[0]["chip"] == canary
-              and set(warns[0]["tightened"]) == set(sorted(fleet.chips)[:-1]),
-              f"fleet: the canary's warnings {warns}")
+              and set(warns[0]["tightened"])
+              == set(sorted(fleet.chips)[:-1]),
+              f"{name}: the canary's warnings {warns}")
         full_stream = {u: list(t) for u, t in stream.items()}
         full_events = list(fleet.bus.events)
         full_sched = {c: ch.engine.scheduler.events
@@ -3404,17 +3602,21 @@ def phase_fleet(torch, dev) -> dict:
         run(res)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    check(stream == full_stream, "fleet: the restored fleet's streams "
+    check(stream == full_stream, f"{name}: the restored fleet's streams "
           "differ from the uninterrupted fleet's")
-    check(res.bus.events == full_events, "fleet: events differ")
+    check(res.bus.events == full_events, f"{name}: events differ")
     check({c: ch.engine.scheduler.events for c, ch in res.chips.items()}
-          == full_sched, "fleet: the chips' scheduler events differ")
-    out = {"phase": "fleet", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "cut": f"{cfg.n_layers} of 36 layers a chip (host aging time, "
-                  f"4 chips on one card)",
-           "dtype": cfg.dtype, "chips": FLEET["chips"],
-           "canary": "stressed", "capacity_floor": FLEET["floor"],
-           "router": "least-loaded", "requests": FLEET["requests"],
+          == full_sched, f"{name}: the chips' scheduler events differ")
+    depth = serve.make_config(arch).n_layers
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of {depth} layers a chip (host aging "
+                  f"time, {spec['chips']} chips on one card)"
+           if cfg.n_layers < depth else
+           f"none: {depth} layers a chip ({spec['chips']} chips on one "
+           f"card)",
+           "dtype": cfg.dtype, "chips": spec["chips"],
+           "canary": "stressed", "capacity_floor": spec["floor"],
+           "router": "least-loaded", "requests": spec["requests"],
            "inl_threshold_lsb": thr, "build_and_aging_s": build_s,
            "events": {t: sum(e["type"] == t for e in full_events)
                       for t in sorted({e["type"] for e in full_events})},
@@ -3427,6 +3629,277 @@ def phase_fleet(torch, dev) -> dict:
            "seconds": time.perf_counter() - t0}
     emit(out)
     del res
+    return out
+
+
+def _state_leaves(model, state) -> dict:
+    """Every decode-state tensor by keystr path (the shared index aside)."""
+    return {path: t for path, t in _named_leaves(
+        {k: v for k, v in state.items() if k != "index"})}
+
+
+def _thresholds_of(model) -> dict:
+    """Every programmed activation's deployed ramp and realized banks."""
+    return {name: (act.adc.thresholds.clone(),
+                   {w: b.thresholds.thr.clone()
+                    for w, b in act.banks().items()})
+            for name, act in sorted(vars(model).items())
+            if hasattr(act, "deployed") and act.adc is not None}
+
+
+def _meta_params(torch, cfg):
+    """``cfg``'s params at their published shapes as meta tensors (the
+    init traced under a fake-tensor mode: nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.nn.model import build
+
+    model = build(cfg.replace(analog=dataclasses.replace(
+        cfg.analog, backend="ref")), "cpu")
+    with FakeTensorMode():
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        fake = model.init(gen)
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [meta(v) for v in tree]
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+    return meta(fake)
+
+
+def phase_serve_lifecycle_hybrid(torch, dev) -> dict:
+    """recurrentgemma-9b at full width, 5 layers (one (rec, rec, attn)
+    group and the 2-block tail), float32, ``aged-1day`` with 512-column
+    banks, the serve phase's requests under a threshold-only scheduler
+    (the threshold between the median INLs, a probe every 4 steps).
+    Saved mid-run; the uninterrupted run from there with every call of
+    kernel 3 audited against ref's gate; the checkpoint restored into a
+    fresh cuda engine (the rest of the run bitwise: streams, the decode
+    state, params, thresholds, the scheduler) and into a ``ref`` model
+    (given the cuda run's gate outputs: logits within LSB/2, streams
+    equal or parted at a near tie, the same events, the same chip at the
+    end).  Then a forced per-tile weight refresh of one bank of the
+    GeGLU gate's gelu: only the gate and up matrices' col-tile under it
+    change, in the group and in the tail, written into the engine's own
+    tensors (peak above the engine at most the serve's).  Host s of the
+    aging (per layer, embedding and head), ms per probe, s per
+    re-program; ``ChipEnergyModel.price`` of the 38-layer model on meta
+    tensors."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import crossbar as CB
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.launch import serve
+    from repro_torch.obs import ChipEnergyModel
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.lifecycle import RecalPolicy
+
+    name = "serve_lifecycle_hybrid"
+    t0 = time.perf_counter()
+    spec = LC_HYBRID
+    cfg, models, params = _lc_models(torch, dev, spec["n_layers"],
+                                     arch=spec["arch"])
+    chip = device_model(LC["preset"])
+    thr = _split_threshold(chip, models["cuda"])
+    policy = RecalPolicy(age_per_step_s=0.0, check_every=4,
+                         inl_threshold_lsb=thr)
+    kw = dict(max_batch=SERVE["max_batch"], max_len=SERVE["max_len"])
+    ta = time.perf_counter()
+    with _aging_timer(chip) as aging:
+        eng = ServingEngine(models["cuda"], params, device=chip,
+                            recal=policy, **kw)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - ta
+    del params
+    sched = eng.scheduler
+    probe_ms = []
+    check_fn = sched.check
+
+    def timed_check():
+        ts = time.perf_counter()
+        out = check_fn()
+        probe_ms.append(1e3 * (time.perf_counter() - ts))
+        return out
+
+    sched.check = timed_check
+    reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(spec["save_at"]):
+        eng.step()
+    root = tempfile.mkdtemp(prefix="serve_lc_hybrid_")
+    try:
+        ts = time.perf_counter()
+        eng.save(root, spec["save_at"])
+        save_s = time.perf_counter() - ts
+        n_bytes = _dir_bytes(Path(root) / f"step_{spec['save_at']:08d}")
+        free_disk = shutil.disk_usage(root).free
+        got = {r.uid: list(r.generated) for r in reqs}
+        # the uninterrupted run from the save on
+        logits = {"cuda": [], "ref": []}
+        audit, free = [], []
+        unwrap = _recorded(torch, models["cuda"], logits["cuda"])
+        undo = _audit_gates(torch, models["cuda"], logits["cuda"], audit)
+        steps0 = {k: getattr(eng, k) for k in ("prefill_steps",
+                                                "decode_steps")}
+        _, launches = _counted(eng.run_to_completion)
+        undo()
+        unwrap()
+        _path_launches(name, cfg, {k: getattr(eng, k) - v
+                                   for k, v in steps0.items()}, launches,
+                       recurrent_launches(models["cuda"]))
+        check(all(len(r.generated) == SERVE["max_new"] for r in reqs),
+              f"{name}: token counts")
+        want = {r.uid: r.generated for r in reqs}
+        want_state = {p: t.clone() for p, t in
+                      _state_leaves(models["cuda"], eng.state).items()}
+        want_thr = _thresholds_of(models["cuda"])
+        want_sched = json.dumps(sched.to_dict())
+        # the checkpoint resumed by a fresh cuda engine
+        ts = time.perf_counter()
+        res = ServingEngine.restore(models["cuda"], root)
+        restore_s = time.perf_counter() - ts
+        live = {r.uid: r for r in list(res.slot_req) + res.queue
+                if r is not None}
+        check(live, f"{name}: nothing left to resume")
+        base = _peak_reset(torch)
+        res.run_to_completion()
+        peak_serve = _peak_since(torch, base)
+        got.update({uid: r.generated for uid, r in live.items()})
+        check(got == want, f"{name}: resumed streams {got} differ from "
+              f"{want}")
+        have = dict(_named_leaves(res.params))
+        for p, a in _named_leaves(eng.params):
+            check(torch.equal(a, have[p]), f"{name}: resumed params {p}")
+        have = _state_leaves(models["cuda"], res.state)
+        check(have.keys() == want_state.keys() and all(
+            torch.equal(have[p], t) for p, t in want_state.items()),
+            f"{name}: the resumed decode state differs")
+        have_thr = _thresholds_of(models["cuda"])
+        for act, (ramp, banks) in want_thr.items():
+            check(torch.equal(ramp, have_thr[act][0])
+                  and all(torch.equal(banks[w], have_thr[act][1][w])
+                          for w in banks),
+                  f"{name}: resumed thresholds of {act}")
+        check(json.dumps(res.scheduler.to_dict()) == want_sched,
+              f"{name}: the resumed scheduler differs")
+        del res, have, want_state
+        free_device(torch)
+        # the same checkpoint on the ref backend, given the cuda run's
+        # gate outputs
+        ref = ServingEngine.restore(models["ref"], root)
+        ref_live = [r for r in list(ref.slot_req) + ref.queue
+                    if r is not None]
+        unwrap = _recorded(torch, models["ref"], logits["ref"])
+        undo = _replay_gates(torch, models["ref"], audit, free)
+        ref.run_to_completion()
+        undo()
+        unwrap()
+        ref_streams = dict(got)
+        ref_streams.update({r.uid: r.generated for r in ref_live})
+        check(ref.scheduler.events == sched.events,
+              f"{name}: the schedulers' events differ")
+        _same_chip(torch, name, models["cuda"], models["ref"])
+        del ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device(torch)
+    flips = dict(_flip_summary(name, audit), free_run_flips=sum(free))
+    del audit
+    agreement = _agree(name, logits["cuda"], logits["ref"],
+                       models["cuda"].act.ramp.lsb)
+    check(agreement["parted"] is not None or ref_streams == want,
+          f"{name}: ref streams {ref_streams} differ from cuda's {want}")
+    del logits
+    events = sched.events
+    ramps = sorted(sched.ramps)
+    recal = sorted({k for ev in events for k in ev.get("recal_ramps", [])})
+    check(sched.n_recals >= 1 and recal and len(recal) < len(ramps),
+          f"{name}: {sched.n_recals} recals over {recal} of {ramps}")
+    del sched.check
+    # a forced per-tile refresh of one bank of the GeGLU gate's gelu
+    bank_j = 3
+    key = f"act@{cfg.d_ff}:{bank_j}"
+    cols = CB.plan_tiles(cfg.d_model, cfg.d_ff).tile_cols
+    lo = bank_j * LC["bank_cols"]
+    hi = min(lo + LC["bank_cols"], cfg.d_ff)
+    tiles = list(range(lo // cols, (hi - 1) // cols + 1))
+    names = [p for p, _ in _named_leaves(eng.params)]
+    before = [t.detach().clone() for t in _leaves(eng.params)]
+    ids = [id(t) for t in _leaves(eng.params)]
+    sched.weight_refresh_pending = True
+    sched.weight_refresh_ramps = [key]
+    base = _peak_reset(torch)
+    ts = time.perf_counter()
+    with _aging_timer(chip) as refresh_aging:
+        eng._on_chip_reprogram()
+        torch.cuda.synchronize()
+    reprogram_s = time.perf_counter() - ts
+    peak_refresh = _peak_since(torch, base)
+    check([id(t) for t in _leaves(eng.params)] == ids,
+          f"{name}: the re-program replaced tensors")
+    changed = {}
+    for p, a, b in zip(names, before, _leaves(eng.params)):
+        diff = a != b
+        if diff.any():
+            hit = diff.reshape(-1, diff.shape[-1]).any(dim=0)
+            changed[p] = sorted({int(c) // cols
+                                 for c in hit.nonzero().flatten()})
+    del before
+    mapped = [p for p in names if "['wi_gate']" in p or "['wi_up']" in p]
+    check(eng._weight_gen == 0 and set(eng._tile_gens) == {key},
+          f"{name}: refresh {eng._weight_gen}, {eng._tile_gens}")
+    check(sorted(changed) == sorted(mapped)
+          and all(changed[p] == tiles for p in mapped)
+          and any(p.startswith("['groups']") for p in mapped)
+          and any(p.startswith("['tail']") for p in mapped),
+          f"{name}: the per-tile refresh changed {changed}")
+    check(peak_refresh <= peak_serve, f"{name}: the re-program's peak "
+          f"{peak_refresh} B above the engine exceeds the serve's "
+          f"{peak_serve} B")
+    full_cfg = serve.make_config(spec["arch"], bank_cols=LC["bank_cols"])
+    priced = ChipEnergyModel.price(_meta_params(torch, full_cfg),
+                                   bits=full_cfg.analog.adc_bits,
+                                   bank_cols=LC["bank_cols"])
+    out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of 38 layers: a group and the tail "
+                  "(host aging time)",
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+           "analog_device": LC["preset"], "bank_cols": LC["bank_cols"],
+           "policy": policy.to_dict(), "ramps": len(ramps),
+           "ramps_recalibrated": recal, "recals": sched.n_recals,
+           "probes": len(events), "probe_host_ms": probe_ms,
+           "build_and_aging_s": build_s,
+           "aging_host_s_per_layer": aging["layers"] / cfg.n_layers,
+           "aging_host_s_embedding_and_head": aging["rest"],
+           "saved_at_step": spec["save_at"], "bytes": n_bytes,
+           "disk_free_bytes": free_disk, "save_s": save_s,
+           "restore_s": restore_s, "requests_resumed": len(live),
+           "resumed_bitwise": True, "launches": launches,
+           "kernel3_vs_ref": flips, "agreement": agreement,
+           "streams_equal": ref_streams == want,
+           "refresh": {"key": key, "col_tiles": tiles,
+                       "leaves_changed": len(changed),
+                       "reprogram_host_s": reprogram_s,
+                       "aging_host_s": refresh_aging,
+                       "peak_bytes": peak_refresh,
+                       "peak_bytes_serve": peak_serve},
+           "hwcost_model_38_layers": {
+               "label": "core/hwcost.py's model of the analog chip, not a "
+                        "measurement of the GPU",
+               "n_macros": priced.n_macros,
+               "e_per_token_pj": {k: v["e_per_token_pj"]
+                                  for k, v in priced.variants.items()},
+               "tops_per_w": {k: v["tops_per_w"]
+                              for k, v in priced.variants.items()}},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del eng, models
     return out
 
 
@@ -3828,7 +4301,9 @@ def recurrent_kernel_cases(torch, dev) -> list:
     recurrentgemma's GeGLU gate (4 and 1 rows, 4096 x 12288, gelu,
     bfloat16 x, flat and banked-512: the GEMV); ``prefill_attention`` at
     its local attention (H 16 over Hkv 1, D 256, S 128, bfloat16 and
-    float32), and its rolling buffer cut to 16 slots."""
+    float32), its rolling buffer cut to 16 slots, and its full window
+    (S 2048, bfloat16 and float32: the float32 V streamed through the
+    kernel's ring of boxes)."""
     bf16, f32 = torch.bfloat16, torch.float32
     heads = (16, 1, 256)
     return [
@@ -3847,7 +4322,10 @@ def recurrent_kernel_cases(torch, dev) -> list:
         phase_attention(torch, dev, "local_bf16", bf16, 128, heads),
         phase_attention(torch, dev, "local_f32", f32, 128, heads),
         phase_attention(torch, dev, "local_window16_bf16", bf16,
-                        AGREE_HYBRID["window"], heads)]
+                        AGREE_HYBRID["window"], heads),
+        phase_attention(torch, dev, "local_s2048_bf16", bf16, 2048, heads,
+                        bf16_atol=ATTN_BF16_LONG_ATOL),
+        phase_attention(torch, dev, "local_s2048_f32", f32, 2048, heads)]
 
 
 def recurrent_train_cases(torch, dev) -> list:
@@ -3905,8 +4383,8 @@ def _recurrent_train_phases(torch, dev) -> list:
 
 
 def _recurrent_phases(torch, dev) -> dict:
-    """The recurrent families' serve and agreement phases, in order; the
-    serve phases' results by name."""
+    """The recurrent families' serve and agreement phases and the
+    full-window one, in order; the serve phases' results by name."""
     out = {"serve_ssm": phase_serve_recurrent(torch, dev, "serve_ssm",
                                               SERVE_SSM)}
     free_device(torch)
@@ -3924,6 +4402,8 @@ def _recurrent_phases(torch, dev) -> dict:
                               analog_device=LM_INFER_DEVICE)
     phase_agreement_recurrent(torch, dev, "agreement_hybrid_int8",
                               AGREE_HYBRID, kv_cache_dtype="int8")
+    free_device(torch)
+    out["serve_window_hybrid"] = phase_serve_window_hybrid(torch, dev)
     free_device(torch)
     return out
 
@@ -3950,8 +4430,9 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 
 
 def _lifecycle_phases(torch, dev) -> dict:
-    """The lifecycle and observability phases, in order; their kernel
-    launches by path (every path's kernels 3 and 5)."""
+    """The lifecycle and observability phases, then the recurrent
+    families' deployment (recurrentgemma's lifecycle, mamba2's fleet), in
+    order; their kernel launches by path."""
     import shutil
     import tempfile
 
@@ -3975,6 +4456,18 @@ def _lifecycle_phases(torch, dev) -> dict:
     free_device(torch)
     out["serve_obs"] = phase_serve_obs(torch, dev)["launches"]
     free_device(torch)
+    # the recurrent families' deployment, each phase's seconds printed
+    seconds = {}
+    for name, run in (
+            ("serve_lifecycle_hybrid",
+             lambda: phase_serve_lifecycle_hybrid(torch, dev)),
+            ("fleet_ssm", lambda: phase_fleet(torch, dev, FLEET_SSM,
+                                              "fleet_ssm"))):
+        t0 = time.perf_counter()
+        out[name] = run()["launches"]
+        free_device(torch)
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "recurrent_deploy_seconds", **seconds})
     return out
 
 
@@ -4090,22 +4583,25 @@ def main(argv=None) -> int:
     irs = [phase_ir(torch, dev, preset, name, shape)
            for preset in IR_PRESETS for name, shape in IR_SHAPES]
     base = {(r["config"], r["bank_cols"]): r for r in runs}
-    ir_runs = [phase_model(torch, dev, "ptb_lstm", bc, PTB_BATCHES,
+    ir_runs = [phase_model(torch, dev, "ptb_lstm", bc, IR_BATCHES,
                            PTB_BATCH, PTB_SEQ, analog_device=preset,
                            age_weights="tiled",
-                           baseline=base[("ptb_lstm", bc)])
+                           baseline=base[("ptb_lstm", bc)],
+                           repeats=IR_TIMING_REPEATS)
                for preset in IR_PRESETS for bc in (0, 512)]
-    ir_runs += [phase_model(torch, dev, "kws_lstm", 0, KWS_BATCHES,
+    ir_runs += [phase_model(torch, dev, "kws_lstm", 0, IR_BATCHES,
                             KWS_BATCH, analog_device=preset,
                             age_weights="tiled",
-                            baseline=base[("kws_lstm", 0)])
+                            baseline=base[("kws_lstm", 0)],
+                            repeats=IR_TIMING_REPEATS)
                 for preset in IR_PRESETS]
     trains.append(phase_train(torch, dev, "kws_lstm", 0,
                               analog_device="paper-ir"))
     free_device(torch)
     for preset, bc in PTB_IR_TRAINS:
         trains.append(phase_train(torch, dev, "ptb_lstm", bc,
-                                  analog_device=preset))
+                                  analog_device=preset,
+                                  steps=IR_TRAIN_STEPS))
         free_device(torch)
     phase_fig4d(torch, dev)
     free_device(torch)
@@ -4267,7 +4763,7 @@ def main(argv=None) -> int:
                "P": main_case["P"], "layout": main_case["layout"]})
     def mode_launches(phase, kernel):
         return {f"{phase['phase']}/{m['mode']}": m["launches"][kernel]
-                for m in phase["modes"]}
+                for m in phase.get("modes", ())}
 
     fm_main = fm_cases[0]
     def recurrent_launches_of(kernel):
@@ -4324,6 +4820,8 @@ def main(argv=None) -> int:
                 **mode_launches(served_moe_b, "nladc"),
                 "train_moe": moe_train["nladc"],
                 **recurrent_launches_of("nladc"),
+                **{k: v["nladc"] for k, v in lifecycle.items()
+                   if v["nladc"]},
                 **{t["phase"]: t["launches"]["nladc"] for t in rec_trained}}
     nl = kernel_entry(
         "nladc", "src/repro_torch/kernels/csrc/nladc.cu",

@@ -469,11 +469,40 @@ class DriftModel:
 
     def drift_weights(self, w: np.ndarray, t_s: float,
                       rng: Optional[np.random.Generator] = None) -> np.ndarray:
-        """Drift in weight space via the differential pair."""
-        g_pos, g_neg = weights_to_conductance_pairs(w)
-        return conductance_pairs_to_weights(
-            self.drift(g_pos, t_s, rng), self.drift(g_neg, t_s, rng)
+        """Drift in weight space via the differential pair:
+        ``drift(G+) - drift(G-)`` in weight units, the positive device's
+        draws first, bit for bit.
+
+        Of each pair one device holds the weight's magnitude and the other
+        none (both none at w = 0), and :meth:`drift` takes an empty device
+        exactly to the lowest reference curve, so the interpolation runs
+        once a weight, on the loaded device; the empty one is the lowest
+        curve plus its noise.  A deployment's weights are aged through
+        here on the host, where this is most of the aging's time."""
+        w = np.clip(np.asarray(w, dtype=np.float64), -W_CLIP, W_CLIP)
+        pos = w > 0.0
+        g = GAMMA_US * np.abs(w)
+        refs0 = self.ref_levels()
+        refs_t = self.ref_curves(t_s)
+        idx = np.clip(
+            np.searchsorted(refs0, g, side="right") - 1, 0, self.n_refs - 2
         )
+        lo0, hi0 = refs0[idx], refs0[idx + 1]
+        b = (g - lo0) / np.maximum(hi0 - lo0, 1e-12)
+        a = 1.0 - b
+        loaded = a * refs_t[idx] + b * refs_t[idx + 1]
+        loaded = np.where(g >= refs0[-1], refs_t[-1], loaded)
+        empty = np.full_like(loaded, refs_t[0])
+        if rng is not None:
+            decades = max(0.0, math.log10(max(t_s, self.t0_s) / self.t0_s))
+            sigma = self.sigma0_us * decades
+            n_pos = rng.normal(0.0, sigma, size=g.shape)
+            n_neg = rng.normal(0.0, sigma, size=g.shape)
+            loaded += np.where(pos, n_pos, n_neg)
+            empty += np.where(pos, n_neg, n_pos)
+        loaded = np.clip(loaded, 0.0, self.g_max_us)
+        empty = np.clip(empty, 0.0, self.g_max_us)
+        return np.where(pos, loaded - empty, empty - loaded) / GAMMA_US
 
 
 # ---------------------------------------------------------------------------

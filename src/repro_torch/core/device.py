@@ -474,7 +474,8 @@ class DeviceModel:
 
     def age_params(self, params, rng: Optional[np.random.Generator] = None,
                    *, stacked: str = "", generation: int = 0,
-                   leaf_overrides: Optional[Callable] = None, out=None):
+                   leaf_overrides: Optional[Callable] = None, out=None,
+                   keep: Optional[Callable] = None):
         """Build-stage aging of every matrix leaf of a params tree (nested
         dicts, lists and tuples of tensors).
 
@@ -511,7 +512,10 @@ class DeviceModel:
         aged values in place (one leaf at a time crosses from the host),
         so a re-program holds no second copy of the weights on the card;
         it is returned.  Its leaves of fewer than 2 dims (of 1 dim under
-        ``stacked``) are left as they are.
+        ``stacked``) are left as they are.  ``keep(path, col_overrides)``
+        (with ``out``): true where ``out``'s leaf already holds this aging
+        (the same device, generation and overrides), which is then not
+        aged again.
         """
         if not self.has_build_stage:
             return params
@@ -521,9 +525,14 @@ class DeviceModel:
                              "stream: it takes no stacked=, generation=, "
                              "leaf_overrides= or out=")
 
-        def tiled(w64, path, shape, first_index=0):
+        def overrides(path, shape):
+            """The leaf's col-tile overrides, or False where it keeps its
+            tensor."""
             cov = None if leaf_overrides is None \
                 else leaf_overrides(path, shape)
+            return False if keep is not None and keep(path, cov) else cov
+
+        def tiled(w64, path, cov, first_index=0):
             return self.age_weights_tiled(
                 w64, path, generation=generation, col_overrides=cov,
                 first_index=first_index)
@@ -531,8 +540,11 @@ class DeviceModel:
         def one(path, w, target):
             if getattr(w, "ndim", 0) < 2:
                 return w if target is None else target
-            w64 = w.detach().to("cpu", torch.float64).numpy()
-            aged = (tiled(w64, path, tuple(w.shape)) if rng is None
+            cov = overrides(path, tuple(w.shape)) if rng is None else None
+            if cov is False:
+                return target
+            w64 = _host64(w)
+            aged = (tiled(w64, path, cov) if rng is None
                     else self.age_weights(w64, rng))
             return _put(aged, w, target)
 
@@ -551,20 +563,27 @@ class DeviceModel:
                 path, []).append(w) if getattr(w, "ndim", 0) == 1 else w)
         aged_rows = {}
         for path, ws in rows.items():
-            w64 = torch.stack(ws).detach().to("cpu", torch.float64).numpy()
-            aged_rows[path] = tiled(w64, base + path, w64.shape)
+            cov = overrides(base + path, (n_layers,) + tuple(ws[0].shape))
+            if cov is False:
+                continue
+            w64 = _host64(torch.stack(ws))
+            aged_rows[path] = tiled(w64, base + path, cov)
 
         def layer_leaf(i):
             def fn(path, w, target):
                 ndim = getattr(w, "ndim", 0)
                 if ndim == 1:
+                    if path not in aged_rows:             # kept
+                        return target
                     return _put(aged_rows[path][i], w, target)
                 if ndim < 1:
                     return w if target is None else target
-                w64 = w.detach().to("cpu", torch.float64).numpy()
+                cov = overrides(base + path, (n_layers,) + tuple(w.shape))
+                if cov is False:
+                    return target
+                w64 = _host64(w)
                 per_layer = int(np.prod(w.shape[:-2], dtype=np.int64))
-                return _put(tiled(w64, base + path,
-                                  (n_layers,) + tuple(w.shape),
+                return _put(tiled(w64, base + path, cov,
                                   first_index=i * per_layer), w, target)
             return fn
 
@@ -590,10 +609,17 @@ _AGING_THREADS = 8
 _AGING_THREAD_MIN = 1 << 20
 
 
+def _host64(w: torch.Tensor) -> np.ndarray:
+    """``w`` as a host float64 array, cast on the host: a card's leaf
+    crosses in its own width, not in float64's."""
+    return w.detach().cpu().to(torch.float64).numpy()
+
+
 def _like(aged: np.ndarray, w: torch.Tensor) -> torch.Tensor:
-    """A host float64 result in ``w``'s dtype on ``w``'s device."""
-    return torch.from_numpy(np.ascontiguousarray(aged)).to(
-        device=w.device, dtype=w.dtype)
+    """A host float64 result in ``w``'s dtype on ``w``'s device, cast on
+    the host (the copy to the card carries ``w``'s width)."""
+    return torch.from_numpy(np.ascontiguousarray(aged)).to(w.dtype).to(
+        w.device)
 
 
 def _put(aged: np.ndarray, w: torch.Tensor, target) -> torch.Tensor:

@@ -60,6 +60,13 @@
 // its K rows (then, reusing the space, the whole row's G x S scores and
 // probabilities), and its V columns of every slot (S rounded up to whole
 // TMA boxes).
+//
+// A long cache, one that no cluster size can stage whole (float32 at
+// recurrentgemma's full window: S 2048, D 256, G 16), streams its V
+// columns through a ring of kRing boxes instead: the PV sum takes box
+// after box as it lands (the slots in the same order, so the same bits),
+// and each freed box is refilled with the box kRing ahead.  That needs
+// one (head, column) a thread, G x D / cs <= kThreads.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -82,6 +89,7 @@ constexpr int kMaxGroup = 16;       // query heads per KV head
 constexpr int kMaxCluster = 16;     // CTAs per (KV head, batch row)
 constexpr size_t kSmemMax = 232448; // bytes of shared memory a CTA can use
 constexpr int kBoxMax = 256;        // slots a TMA box of V holds
+constexpr int kRing = 2;            // V boxes staged at once, long caches
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -136,11 +144,13 @@ struct Plan {
   int k_pitch;     // bytes per staged K row
   int v_box;       // slots per TMA box of V
   int v_rows;      // V rows staged: S rounded up to whole boxes
+  int ring;        // 1: V streamed through kRing boxes (a long cache)
+  size_t v_pitch;  // bytes between the ring's boxes
   size_t off_q, off_own, off_r, off_v, total;
 };
 
-__host__ __device__ inline Plan make_plan(int group, int d_dim, int s_len,
-                                          int cs, int elem) {
+__host__ __device__ inline Plan make_full_plan(int group, int d_dim,
+                                               int s_len, int cs, int elem) {
   Plan p;
   p.n_per = (s_len + cs - 1) / cs;
   p.dc = d_dim / cs;
@@ -155,7 +165,28 @@ __host__ __device__ inline Plan make_plan(int group, int d_dim, int s_len,
   p.off_v = align128(p.off_r + r_bytes);
   p.v_box = s_len < kBoxMax ? s_len : kBoxMax;
   p.v_rows = (s_len + p.v_box - 1) / p.v_box * p.v_box;
+  p.ring = 0;
+  p.v_pitch = align128((size_t)p.v_box * p.dc * elem);
   p.total = p.off_v + (size_t)p.v_rows * p.dc * elem;
+  return p;
+}
+
+// the cluster sizes whose CTAs take whole 16-byte column slices of V
+__host__ __device__ inline bool slices_ok(int d_dim, int cs, int elem) {
+  return d_dim % cs == 0 && (d_dim / cs * elem) % 16 == 0;
+}
+
+// The plan of `cs` CTAs: every V slot staged at entry, or, for a cache
+// that no cluster size can stage whole, V streamed through the ring.
+__host__ __device__ inline Plan make_plan(int group, int d_dim, int s_len,
+                                          int cs, int elem) {
+  Plan p = make_full_plan(group, d_dim, s_len, cs, elem);
+  for (int c = 1; c <= kMaxCluster; c *= 2)
+    if (slices_ok(d_dim, c, elem) &&
+        make_full_plan(group, d_dim, s_len, c, elem).total <= kSmemMax)
+      return p;
+  p.ring = 1;
+  p.total = p.off_v + kRing * p.v_pitch;
   return p;
 }
 
@@ -176,7 +207,8 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   const int t0 = rank * n_per;
   const int n_here = max(0, min(n_per, s_len - t0));
 
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // [0] K, [1] V
+  // [0] K; [1] V, or [1 + j] the ring's box j
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* s_q = reinterpret_cast<float*>(smem + plan.off_q);      // G x (D+1)
   float* s_own = reinterpret_cast<float*>(smem + plan.off_own);  // G x n_per
   unsigned char* s_k = smem + plan.off_r;       // n_per K rows, then ...
@@ -186,16 +218,33 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   const size_t t_stride = (size_t)hkv * d_dim;  // elements between slots
   const T* kb = k + b * s_len * t_stride + (size_t)kvh * d_dim;
 
+  // box j of this CTA's V columns into the ring (thread 0)
+  const int n_boxes = plan.v_rows / plan.v_box;
+  auto load_box = [&](int j) {
+    const int slot = j % kRing;
+    mbar_expect_tx(&bar[1 + slot],
+                   (uint32_t)((size_t)plan.v_box * dc * sizeof(T)));
+    hopper::tma_load_3d(smem + plan.off_v + slot * plan.v_pitch, &v_map,
+                        rank * dc, kvh, (int)(b * s_len) + j * plan.v_box,
+                        &bar[1 + slot]);
+  };
+
   // every copy first: this CTA's K rows and its V columns of every slot
+  // (of the ring's first boxes, for a long cache)
   if (threadIdx.x == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
+    for (int i = 0; i < 1 + (plan.ring ? kRing : 1); ++i)
+      mbar_init(&bar[i], 1);
     hopper::fence_mbar_init();
     mbar_expect_tx(&bar[0], (uint32_t)((size_t)n_here * d_dim * sizeof(T)));
-    mbar_expect_tx(&bar[1], (uint32_t)((size_t)plan.v_rows * dc * sizeof(T)));
-    for (int r = 0; r < s_len; r += plan.v_box)
-      hopper::tma_load_3d(s_v + (size_t)r * dc, &v_map, rank * dc, kvh,
-                          (int)(b * s_len) + r, &bar[1]);
+    if (plan.ring) {
+      for (int j = 0; j < kRing && j < n_boxes; ++j) load_box(j);
+    } else {
+      mbar_expect_tx(&bar[1],
+                     (uint32_t)((size_t)plan.v_rows * dc * sizeof(T)));
+      for (int r = 0; r < s_len; r += plan.v_box)
+        hopper::tma_load_3d(s_v + (size_t)r * dc, &v_map, rank * dc, kvh,
+                            (int)(b * s_len) + r, &bar[1]);
+    }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < n_here; t += kThreads)
@@ -253,11 +302,40 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
       row[t] = round_to(__fdiv_rn(row[t], sum), qb);
   }
   __syncthreads();
-  mbar_wait(&bar[1], 0);
 
   // out = p @ v over this CTA's columns: thread -> (head, column), each
   // output summed over the slots in order
   T* ob = out + (b * h_dim + (size_t)kvh * group) * d_dim + (size_t)rank * dc;
+  if (plan.ring) {
+    const int i = threadIdx.x;
+    const bool mine = i < group * dc;
+    const int g = mine ? i / dc : 0, dl = mine ? i - g * dc : 0;
+    const float* pg = s_p + g * pitch;
+    typename Acc<T>::type a = 0;
+    for (int j = 0; j < n_boxes; ++j) {
+      const int slot = j % kRing, t0b = j * plan.v_box;
+      mbar_wait(&bar[1 + slot], (uint32_t)((j / kRing) & 1));
+      if (mine) {
+        const T* vd =
+            reinterpret_cast<const T*>(smem + plan.off_v + slot * plan.v_pitch) +
+            dl;
+        const int n = min(plan.v_box, s_len - t0b);
+#pragma unroll 8
+        for (int t = 0; t < n; ++t)
+          a = fma_acc(pg[t0b + t], to_float(vd[(size_t)t * dc]), a);
+      }
+      __syncthreads();  // every thread is done with the box
+      if (threadIdx.x == 0 && j + kRing < n_boxes) {
+        // the reads above before the copy engine's write into the box
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        load_box(j + kRing);
+      }
+    }
+    if (mine) store(ob + (size_t)g * d_dim + dl, static_cast<float>(a));
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    return;
+  }
+  mbar_wait(&bar[1], 0);
   for (int i = threadIdx.x; i < group * dc; i += kThreads) {
     const int g = i / dc, dl = i - g * dc;
     const float* pg = s_p + g * pitch;
@@ -277,10 +355,11 @@ int launch(const void* q, const void* k, const void* v, const int* mask,
            int cs, float scale, cudaStream_t stream) {
   const int group = h_dim / hkv;
   if (group > kMaxGroup || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) ||
-      d_dim % cs || (d_dim / cs * sizeof(T)) % 16 || s_len < 1)
+      !slices_ok(d_dim, cs, (int)sizeof(T)) || s_len < 1)
     return (int)cudaErrorInvalidValue;
   const Plan plan = make_plan(group, d_dim, s_len, cs, (int)sizeof(T));
-  if (plan.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  if (plan.total > kSmemMax || (plan.ring && group * plan.dc > kThreads))
+    return (int)cudaErrorInvalidValue;
   const uint64_t dims[3] = {(uint64_t)d_dim, (uint64_t)hkv,
                             (uint64_t)b_dim * s_len};
   const uint64_t strides[2] = {(uint64_t)d_dim * sizeof(T),
@@ -331,7 +410,8 @@ extern "C" {
 // q, k, v and out are bfloat16 when is_bf16 is nonzero, else float32, all
 // 16-byte aligned.  `scale` must already be representable in that type.
 // `cluster` CTAs share each (KV head, batch row): a power of two up to 16
-// that divides D into column slices of a multiple of 16 bytes.  Launches
+// that divides D into column slices of a multiple of 16 bytes (for a long
+// cache, also into at most kThreads / G columns).  Launches
 // on `stream`; allocates nothing.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what the kernel does not take.
 int prefill_attention_launch(const void* q, const void* k, const void* v,

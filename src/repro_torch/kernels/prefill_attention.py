@@ -37,6 +37,8 @@ _MAX_GROUP = 16                      # csrc: kMaxGroup
 _CLUSTERS = (1, 2, 4, 8, 16)         # csrc: kMaxCluster; 16 is non-portable
 _PORTABLE_CLUSTER = 8
 _V_BOX = 256                         # csrc: kBoxMax, slots a V box holds
+_RING = 2                            # csrc: kRing, V boxes of a long cache
+_THREADS = 256                       # csrc: kThreads
 _SMEM_MAX = 232448                   # bytes of shared memory a CTA can use
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -81,26 +83,54 @@ def _align128(v: int) -> int:
     return (v + 127) // 128 * 128
 
 
-def smem_bytes(group: int, d_dim: int, s_len: int, cluster: int,
-               elem: int) -> int:
-    """Shared memory one CTA of the kernel uses (``csrc: make_plan``): the
-    group's queries as float32 (rows of D + 1), this CTA's scores, its K
-    rows (rows of D elements + 16 bytes; their space then holds the whole
-    row's G x (S + 1) float32 scores), and its D / cluster columns of V
-    for every slot, S rounded up to whole TMA boxes of up to 256 slots."""
+def _full_bytes(group: int, d_dim: int, s_len: int, cluster: int,
+                elem: int) -> tuple:
+    """``(bytes before V, bytes with every V slot staged)`` of one CTA
+    (``csrc: make_full_plan``)."""
     n_per = -(-s_len // cluster)
     off_own = _align128(128 + 4 * group * (d_dim + 1))
     off_r = _align128(off_own + 4 * group * n_per)
     r_bytes = max(n_per * (d_dim * elem + 16), 4 * group * (s_len + 1))
     box = min(s_len, _V_BOX)
     v_rows = -(-s_len // box) * box if box else 0
-    return _align128(off_r + r_bytes) + v_rows * (d_dim // cluster) * elem
+    off_v = _align128(off_r + r_bytes)
+    return off_v, off_v + v_rows * (d_dim // cluster) * elem
+
+
+def _slices_ok(d_dim: int, cluster: int, elem: int) -> bool:
+    return d_dim % cluster == 0 and (d_dim // cluster * elem) % 16 == 0
+
+
+def _long_cache(group: int, d_dim: int, s_len: int, elem: int) -> bool:
+    """No cluster size stages every V slot (``csrc: make_plan``): the
+    kernel streams V through a ring of boxes."""
+    return not any(_slices_ok(d_dim, c, elem)
+                   and _full_bytes(group, d_dim, s_len, c, elem)[1]
+                   <= _SMEM_MAX for c in _CLUSTERS)
+
+
+def smem_bytes(group: int, d_dim: int, s_len: int, cluster: int,
+               elem: int) -> int:
+    """Shared memory one CTA of the kernel uses (``csrc: make_plan``): the
+    group's queries as float32 (rows of D + 1), this CTA's scores, its K
+    rows (rows of D elements + 16 bytes; their space then holds the whole
+    row's G x (S + 1) float32 scores), and its D / cluster columns of V
+    for every slot, S rounded up to whole TMA boxes of up to 256 slots;
+    for a long cache (:func:`_long_cache`), two such boxes."""
+    off_v, full = _full_bytes(group, d_dim, s_len, cluster, elem)
+    if not _long_cache(group, d_dim, s_len, elem):
+        return full
+    box = min(s_len, _V_BOX)
+    return off_v + _RING * _align128(box * (d_dim // cluster) * elem)
 
 
 def _cluster_fits(group, d_dim, s_len, cluster, elem) -> bool:
-    return (cluster in _CLUSTERS and d_dim % cluster == 0
-            and (d_dim // cluster * elem) % 16 == 0
-            and smem_bytes(group, d_dim, s_len, cluster, elem) <= _SMEM_MAX)
+    if cluster not in _CLUSTERS or not _slices_ok(d_dim, cluster, elem):
+        return False
+    if _long_cache(group, d_dim, s_len, elem) \
+            and group * (d_dim // cluster) > _THREADS:
+        return False          # the ring's PV sum: one column a thread
+    return smem_bytes(group, d_dim, s_len, cluster, elem) <= _SMEM_MAX
 
 
 @functools.lru_cache(maxsize=256)   # a serve step asks for a few shapes
@@ -108,7 +138,9 @@ def cluster_size(h_dim: int, hkv: int, d_dim: int, s_len: int,
                  dtype) -> int:
     """The CTAs that share one (KV head, batch row): the largest power of
     two up to 8 (and up to S) whose CTAs fit, else 16 (a non-portable
-    cluster, for caches eight CTAs cannot hold).
+    cluster, for caches eight CTAs cannot hold).  A long cache, which no
+    cluster can stage whole, streams V through two boxes; a cluster then
+    fits when its columns leave one (head, column) a thread.
     A cluster's CTA takes D / cluster columns of V, which must be a
     multiple of 16 bytes, and its shared memory (:func:`smem_bytes`) must
     fit the card's 227 KB.  Raises ValueError for what the kernel does not

@@ -2,11 +2,13 @@
 
 The JAX package's ``repro/obs/energy.py``.  The reference walks its
 stacked param tree, where one layer leaf is one macro of count
-``n_layers``; the port's LM keeps one dict per layer in a list, and
-:func:`_macro_shapes` prices that list as the stacked leaves it stands
-for (the reference's keys, shapes, counts and order), so ``variants`` and
-``n_macros`` are the reference's to the bit.  Only shapes are read:
-``device="meta"`` tensors price a model that was never allocated.
+``n_layers``; the port's LM keeps one dict per layer (per hybrid group)
+in a list, and :func:`_macro_shapes` prices that list as the stacked
+leaves it stands for (the reference's keys, shapes, counts and order),
+and the hybrid's ``tail``, a list in both packages, block by block, so
+``variants`` and ``n_macros`` are the reference's to the bit.  Only
+shapes are read: ``device="meta"`` tensors price a model that was never
+allocated.
 
 The paper's headline is area/energy/throughput efficiency of the in-memory
 NL-ADC; this module turns the serving stack's token counters into **costed
@@ -55,18 +57,31 @@ from repro_torch.core import hwcost as HW
 _EXCLUDE = ("embed", "norm", "bias", "scale")
 
 
+# the params keys whose list the reference stacks on a leading axis: the
+# LM's ``layers``, or the hybrid's ``groups`` (its ``tail`` is a list there)
+_STACKED = ("layers", "groups")
+
+
 def _stacked_leaves(tree, path: str = ""):
     """``[(keystr path, shape)]`` in JAX's flattening order (dict keys
-    sorted), a list of per-layer trees standing for the stacked tree: its
-    first item's leaves under the list's own path, each shape with the
-    list's length in front."""
+    sorted).  The list under a top-level key of :data:`_STACKED` (one tree
+    per layer or group) stands for the stacked tree: its first item's
+    leaves under the list's own path, each shape with the list's length in
+    front.  Any other list is walked by index, as ``keystr`` spells it
+    (``['tail'][0]``)."""
     if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in _stacked_leaves(tree[k], f"{path}[{k!r}]")]
+        out = []
+        for k in sorted(tree):
+            sub = f"{path}[{k!r}]"
+            v = tree[k]
+            if not path and k in _STACKED and isinstance(v, (list, tuple)) \
+                    and v:
+                out += [(p, (len(v),) + s)
+                        for p, s in _stacked_leaves(v[0], sub)]
+            else:
+                out += _stacked_leaves(v, sub)
+        return out
     if isinstance(tree, (list, tuple)):
-        if tree and isinstance(tree[0], dict):
-            return [(p, (len(tree),) + s)
-                    for p, s in _stacked_leaves(tree[0], path)]
         return [item for i, v in enumerate(tree)
                 for item in _stacked_leaves(v, f"{path}[{i}]")]
     return [(path, tuple(getattr(tree, "shape", ())))]

@@ -48,9 +48,8 @@ does; :meth:`ServingEngine.detok_flush` joins the backlog.
 stage ages the served weights at construction, per crossbar tile, as the
 reference ages its stacked params (bitwise the reference engine's
 ``params`` after ``convert.lm_params_from_jax``; the hybrid's ``groups``
-stand where the other families' ``layers`` do).  The lifecycle and the
-checkpoint of the hybrid family are not ported: ``recal=``, :meth:`save`
-and :meth:`restore` raise for it.
+stand where the other families' ``layers`` do, and its ``tail`` is a list
+in both packages).
 
 The lifecycle (``recal=``, ``drain_before_rejit=``,
 ``external_maintenance=``): a :class:`~repro_torch.serve.lifecycle.
@@ -77,8 +76,9 @@ The deployment (params as served, decode state, slot arrays, served ramps
 and banks, requests, the scheduler, the pristine params, the lifecycle
 counters and the ``obs`` block) checkpoints with
 :meth:`ServingEngine.save` (schema 2) in the reference's layout, stacked
-layers included, and resumes with :meth:`ServingEngine.restore`, into any
-prefill or detok mode: either package restores what the other wrote.
+layers (or the hybrid's groups; its tail stays a list) included, and
+resumes with :meth:`ServingEngine.restore`, into any prefill or detok
+mode: either package restores what the other wrote.
 
 Every decode step and every prefill position runs the model's kernels once
 per layer on the ``cuda`` backend.
@@ -245,8 +245,6 @@ class ServingEngine:
                                       or prefill_buckets is not None):
             raise ValueError(
                 "pack_prefill / prefill_buckets require prefill='bucketed'")
-        if recal is not None:
-            _stacked_layers_only(model, "recal= (the lifecycle)")
         self.device = device
         self._acts = analog_activations(model)
         self.scheduler = None
@@ -262,6 +260,10 @@ class ServingEngine:
         self._weight_prog_age_s = 0.0
         self._refresh_ord = 0
         self._tile_gens: Dict[str, dict] = {}
+        # how the served params were last aged: (the aging device, the
+        # generation) and each leaf's col-tile overrides, so a re-program
+        # skips the leaves whose aging would not change (None: unknown)
+        self._aged_as: Optional[tuple] = None
         self._pristine_params = params
         if recal is not None:
             if device is None:
@@ -272,6 +274,7 @@ class ServingEngine:
             self._pristine_params = _host_copy(params)
         if device is not None and device.has_build_stage:
             params = device.age_params(params, stacked=_stacked_key(model))
+            self._aged_as = ((device.to_dict(), 0), {})
         elif recal is not None:
             # a re-program writes into the served tensors: not the caller's
             params = _clone(params)
@@ -351,18 +354,22 @@ class ServingEngine:
         self._m_decode_rebuilds = o.counter("serve.decode_rebuilds")
         # the served params priced under both peripheries (hwcost's model
         # of the analog chip), accumulated per processed token
-        spec = getattr(getattr(model, "cfg", None), "analog", None)
-        self.energy = EnergyMeter(
-            ChipEnergyModel.price(
-                self.params,
-                bits=spec.adc_bits if spec is not None else 5,
-                bank_cols=spec.bank_cols if spec is not None else 0,
-                redundancy=getattr(getattr(device, "redundancy", None),
-                                   "n_copies", 1)),
-            o.metrics, chip=o.chip)
+        self.energy = EnergyMeter(self._energy_price(), o.metrics,
+                                  chip=o.chip)
         if self.scheduler is not None:
             self.scheduler.obs = self.obs
         self._refresh_jit()
+
+    def _energy_price(self) -> ChipEnergyModel:
+        """The served params priced with the chip's ADC bits, banks and
+        Supp. S11 ramp copies."""
+        spec = getattr(getattr(self.model, "cfg", None), "analog", None)
+        return ChipEnergyModel.price(
+            self.params,
+            bits=spec.adc_bits if spec is not None else 5,
+            bank_cols=spec.bank_cols if spec is not None else 0,
+            redundancy=getattr(getattr(self.device, "redundancy", None),
+                               "n_copies", 1))
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
@@ -980,13 +987,33 @@ class ServingEngine:
             t_eff = max(sched.age_s - self._weight_prog_age_s, 0.0)
             aged_dev = self.device.with_drift(t_eff)
             if aged_dev.has_build_stage:
-                aged_dev.age_params(
-                    self._pristine_params, stacked="layers",
-                    generation=self._weight_gen,
-                    leaf_overrides=self._tile_overrides_fn(),
-                    out=self.params)
+                self._reage(aged_dev)
         self._maint_pending = False
         self._refresh_jit_selective()
+
+    def _reage(self, aged_dev) -> None:
+        """Age the pristine params on ``aged_dev`` into the served tensors.
+        Where the device and the generation are those of the last aging,
+        a leaf whose col-tile overrides are unchanged holds this aging
+        already and is left as it is: a refresh of some col-tiles rewrites
+        only the leaves under them."""
+        base = self._tile_overrides_fn()
+        covs: Dict[str, Optional[dict]] = {}
+
+        def overrides(path, shape):
+            covs[path] = None if base is None else base(path, shape)
+            return covs[path]
+
+        key = (aged_dev.to_dict(), self._weight_gen)
+        last = self._aged_as if self._aged_as is not None \
+            and self._aged_as[0] == key else None
+        aged_dev.age_params(
+            self._pristine_params, stacked=_stacked_key(self.model),
+            generation=self._weight_gen, leaf_overrides=overrides,
+            out=self.params,
+            keep=None if last is None
+            else (lambda path, cov: last[1].get(path) == cov))
+        self._aged_as = (key, covs)
 
     def _per_tile_refresh_scope(self, stalled):
         """The bank keys a col-tile-scoped rewrite covers, or None: every
@@ -1095,16 +1122,20 @@ class ServingEngine:
 
     def _ckpt_tree(self, include_pristine: bool, pristine=None):
         """The array state of the deployment in the reference's layout:
-        the per-layer lists stacked (:func:`stack_layers`, one leaf at a
-        time on the host).  ``pristine`` (the pre-aging params) is stored
-        only with a scheduler, as the reference stores it; a restore
-        template passes its own host stand-ins."""
-        params = dict(self.params, layers=stack_layers(self.params["layers"]))
+        the per-layer (per-group) lists stacked (:func:`stack_layers`, one
+        leaf at a time on the host), the hybrid's ``tail`` a list.
+        ``pristine`` (the pre-aging params) is stored only with a
+        scheduler, as the reference stores it; a restore template passes
+        its own host stand-ins."""
+        key = _stacked_key(self.model)
+
+        def stacked(tree):
+            return dict(tree, **{key: stack_layers(tree[key])})
+
         tree = {
-            "params": params,                            # aged, as served
-            "state": {"index": torch.tensor(self.state["index"],
-                                            dtype=torch.int32),
-                      "layers": stack_layers(self.state["layers"])},
+            "params": stacked(self.params),              # aged, as served
+            "state": stacked(dict(self.state, index=torch.tensor(
+                self.state["index"], dtype=torch.int32))),
             "noise_key": self._noise_key,
             "slot_pos": np.asarray(self.slot_pos),
             "slot_last": np.asarray(self.slot_last),
@@ -1121,14 +1152,13 @@ class ServingEngine:
         }
         if include_pristine:
             src = self._pristine_params if pristine is None else pristine
-            tree["pristine"] = dict(src, layers=stack_layers(src["layers"]))
+            tree["pristine"] = stacked(src)
         return tree
 
     def save(self, root: str, step: int) -> str:
         """Atomic full-deployment checkpoint; returns the directory.  The
         tree and the metadata (schema 2, with the scheduler, the lifecycle
         counters and the ``obs`` block) are the reference's."""
-        _stacked_layers_only(self.model, "save (the deployment checkpoint)")
         # land the detokenize backlog first: `generated` and the host
         # last-token mirror must be caught up before they are written
         self.detok_flush()
@@ -1251,7 +1281,6 @@ class ServingEngine:
         lifecycle counters and the ``obs`` block all come from the
         checkpoint; the pristine params (with a scheduler) land on the
         host."""
-        _stacked_layers_only(model, "restore (the deployment checkpoint)")
         step, meta = read_metadata(root, step=step)
         if "engine" not in meta:
             hint = ("this is a fleet manifest — restore via "
@@ -1323,14 +1352,16 @@ class ServingEngine:
             root, eng._ckpt_tree(include_pristine=has_sched, pristine=host),
             step=step)
         # matching leaves were written into the engine's own tensors
-        eng.params = dict(tree["params"],
-                          layers=unstack_layers(tree["params"]["layers"]))
-        eng.state = {"index": int(tree["state"]["index"]),
-                     "layers": unstack_layers(tree["state"]["layers"])}
+        key = _stacked_key(model)
+
+        def unstacked(tree):
+            return dict(tree, **{key: unstack_layers(tree[key])})
+
+        eng.params = unstacked(tree["params"])
+        eng.state = dict(unstacked(tree["state"]),
+                         index=int(tree["state"]["index"]))
         if has_sched:
-            pristine = tree["pristine"]
-            eng._pristine_params = dict(
-                pristine, layers=unstack_layers(pristine["layers"]))
+            eng._pristine_params = unstacked(tree["pristine"])
         else:
             # nothing re-ages without a scheduler
             eng._pristine_params = eng.params
@@ -1348,6 +1379,9 @@ class ServingEngine:
             eng._slot_ntok[s] = 0 if req is None else len(req.generated)
         if meta["device"] is not None:
             eng.device = device_from_dict(meta["device"])
+            # priced with the chip's ramp copies, as the saved run was
+            # (the reference's restore keeps one: ROADMAP.md queue C)
+            eng.energy.model = eng._energy_price()
         # re-program the chip exactly as checkpointed
         for name, thr in tree["ramps"].items():
             act = eng._acts[name]
@@ -1400,18 +1434,6 @@ def _stacked_key(model) -> str:
     ``layers``."""
     family = getattr(getattr(model, "cfg", None), "family", "")
     return "groups" if family == "hybrid" else "layers"
-
-
-def _stacked_layers_only(model, what: str) -> None:
-    """Raise for a model whose params are not one ``layers`` list (the
-    hybrid's ``groups`` and ``tail``): the aging, the checkpoint and the
-    lifecycle map the reference's stacked ``layers`` one to one."""
-    family = getattr(getattr(model, "cfg", None), "family", "")
-    if family == "hybrid":
-        raise NotImplementedError(
-            f"{what} of the hybrid family (params in groups and tail) is "
-            f"not ported yet; ROADMAP.md queue A item 5 (the hybrid's "
-            f"deployment features) brings it")
 
 
 def _map(tree, fn):

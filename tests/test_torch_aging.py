@@ -185,3 +185,29 @@ def test_lstm_eval_runs_every_preset_on_aged_weights(preset):
     with pytest.raises(ValueError, match="age_weights"):
         lstm_eval.build_model("kws_lstm", torch.device("cpu"),
                               age_weights="sequential")
+
+
+@pytest.mark.parametrize("t_s", [86400.0, 60.0, 0.0, 1e7])
+@pytest.mark.parametrize("noise", [True, False])
+def test_drift_weights_is_the_pairs_drift(t_s, noise):
+    """``DriftModel.drift_weights`` interpolates once a weight (the pair's
+    empty device drifts to the lowest reference curve): bit for bit
+    ``drift(G+) - drift(G-)`` over the pair, the positive device's draws
+    first, at and beside the reference levels, at 0 and -0, past the clip,
+    at the smallest subnormal and at NaN."""
+    model = TCB.DriftModel()
+    levels = model.ref_levels() / TCB.GAMMA_US
+    w = np.concatenate([
+        np.random.default_rng(0).normal(0.0, 0.8, 20_000), levels, -levels,
+        np.nextafter(levels, np.inf), [0.0, -0.0, 2.0, -2.0, 3.0, -3.0,
+                                       5e-324, -5e-324, np.nan]])
+
+    def rng():
+        return np.random.default_rng(3) if noise else None
+
+    g_pos, g_neg = TCB.weights_to_conductance_pairs(w)
+    r = rng()       # one stream, the positive device's draws first
+    want = TCB.conductance_pairs_to_weights(model.drift(g_pos, t_s, r),
+                                            model.drift(g_neg, t_s, r))
+    got = model.drift_weights(w, t_s, rng())
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))

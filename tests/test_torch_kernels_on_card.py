@@ -19,7 +19,9 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
 * ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
   bfloat16, ragged masks with a row that sees a single slot, at a SMOKE
   shape and the serving path's, S not a multiple of the cluster's split,
-  S 1 and 2048, G 1, 8 and 16, D 64 and 256; and every cluster size
+  S 1 and 2048, G 1, 8 and 16, D 64 and 256; the full local window (S
+  2048, G 16, D 256: float32 V streams through the kernel's ring of two
+  boxes; bfloat16 within one ulp or 1e-5); and every cluster size
   computes the same bits.
 * ``nladc``: bitwise equal to its plain version (codes and values), at
   the router's shape (4, 64) bfloat16, the (4, 11008) bfloat16 width with
@@ -286,6 +288,28 @@ def test_prefill_attention_kernel_matches_plain(dtype, b, s, h, hkv, d):
     else:
         assert bool((diff <= _bf16_ulp(torch.maximum(got.abs(),
                                                      want.abs()))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_attention_at_the_full_local_window(dtype):
+    """recurrentgemma's local attention at its published window (S 2048,
+    G 16, D 256).  In float32 no cluster stages V whole, so it streams
+    through the kernel's ring of two boxes (cluster 16): within 1e-6.
+    bfloat16 (V staged): within one ulp or 1e-5, as the outputs near 0
+    move a few of their ulps with the 2048-slot sum's order."""
+    dev = _card()
+    q, k, v, mask = _attention_inputs(dev, dtype, 4, 2048, 16, 1, 256)
+    assert TPA.cluster_size(16, 1, 256, 2048, dtype) == 16
+    got = TPA.prefill_attention(q, k, v, mask).float()
+    want = TPA.prefill_attention_plain(q, k, v, mask).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= F32_ATOL
+    else:
+        ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        assert bool((diff <= torch.clamp_min(ulp, 1e-5)).all())
 
 
 @pytest.mark.cuda

@@ -46,7 +46,6 @@ from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.launch import train as TTRAIN
 from repro_torch.nn.model import build as tbuild
-from repro_torch.serve.engine import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, BATCH, MAX_LEN = 8, 2, 16
@@ -178,14 +177,15 @@ def test_init_layout_matches_jax():
 
 
 @pytest.mark.parametrize("what", ["family", "ep_shardmap", "train",
-                                  "hybrid_save"])
-def test_outside_the_slice_raises(what, tmp_path):
+                                  "hybrid_grad_comm"])
+def test_outside_the_slice_raises(what):
     """What is not ported raises, naming its ``ROADMAP.md`` item: the
     encoder-decoder family, expert parallelism
     (``moe_impl="ep_shardmap"``), the hybrid's training under
     ``remat_policy="dots"`` (``launch.train --arch recurrentgemma-9b
     --override remat_policy=dots``: its groups are recomputed whole) and
-    the hybrid's deployment checkpoint.  The SSM
+    the hybrid's training under ``--grad-comm hierarchical`` (the
+    two-level data-parallel all-reduce).  The SSM
     and hybrid families serve, the rolling-window cache and its int8
     fallback with them (tests/test_torch_lm_recurrent.py), and train
     (tests/test_torch_lm_recurrent_train.py); the dense and MoE int8
@@ -197,13 +197,10 @@ def test_outside_the_slice_raises(what, tmp_path):
             TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
                          "--device", "cpu", "--steps", "1", "--override",
                          "remat_policy=dots"])
-        elif what == "hybrid_save":
-            cfg = TC.get_smoke("recurrentgemma-9b")
-            model = tbuild(cfg, device="cpu")
-            gen = torch.Generator()
-            gen.manual_seed(0)
-            ServingEngine(model, model.init(gen), max_batch=1,
-                          max_len=4).save(str(tmp_path), 0)
+        elif what == "hybrid_grad_comm":
+            TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
+                         "--device", "cpu", "--steps", "1", "--grad-comm",
+                         "hierarchical"])
         else:
             cfg = {"family": TC.get_smoke("qwen2.5-3b").replace(
                        family="encdec"),

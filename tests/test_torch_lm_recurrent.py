@@ -34,8 +34,8 @@ numpy-seeded tokens.
 * weights aged by ``device=`` bitwise the reference engine's (mamba2's
   ``layers``, the hybrid's ``groups`` and ``tail``); mamba2's deployment
   checkpoint against the reference's and resumed bitwise; the hybrid's
-  checkpoint, lifecycle and fleet raise, naming their ``ROADMAP.md``
-  item.
+  checkpoint, lifecycle and fleet run (held to the reference in
+  ``tests/test_torch_recurrent_{lifecycle,ckpt,fleet}.py``).
 
 Logit criterion, as ``tests/test_torch_lm_forward.py``'s: max |delta| <
 LSB/2 of the hidden ramp (0.102 for silu, 0.068 for gelu); measured below
@@ -478,19 +478,47 @@ def test_ssm_checkpoint_is_the_references_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("what", ["save", "restore", "recal", "fleet"])
 def test_hybrid_deployment_features_raise(tmp_path, what):
-    """The hybrid's checkpoint, lifecycle and fleet are not ported: each
-    raises naming its ``ROADMAP.md`` item (its aging is, above)."""
-    _, _, tm, tp = models("recurrentgemma-9b", "infer")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "save":
-            ServingEngine(tm, tp, max_batch=1, max_len=8).save(
-                str(tmp_path), 0)
-        elif what == "restore":
-            ServingEngine.restore(tm, str(tmp_path))
-        elif what == "recal":
-            ServingEngine(tm, tp, max_batch=1, max_len=8,
-                          device=tget_device(PRESET),
-                          recal=RecalPolicy(age_per_step_s=1.0))
-        else:
-            FleetEngine.build(tm.cfg, 2, max_batch=1, max_len=8,
-                              torch_device=torch.device("cpu"))
+    """The hybrid's deployment features, which raised until they were
+    ported, now run (held to the reference in
+    ``tests/test_torch_recurrent_{lifecycle,ckpt,fleet}.py``): its
+    checkpoint in the reference's layout (``groups`` stacked, ``tail`` by
+    index) and the restore of it, an engine with a re-calibration
+    scheduler, and a fleet of two chips."""
+    _, _, tm, tp = models("recurrentgemma-9b", "infer",
+                          overrides=AGED["recurrentgemma-9b"])
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=3)
+            for i, p in enumerate(PROMPTS[:2])]
+    if what in ("save", "restore"):
+        eng = ServingEngine(tm, tp, max_batch=2, max_len=16)
+        for r in reqs:
+            eng.submit(r)
+        eng.step()
+        root = eng.save(str(tmp_path), 1)
+        with open(f"{root}/manifest.json") as f:
+            paths = json.load(f)["paths"]
+        assert "['state']['groups']['b2_attn']['k']" in paths
+        assert "['params']['tail'][1]['rec']['lam']" in paths
+        if what == "restore":
+            eng.run_to_completion()
+            res = ServingEngine.restore(tm, str(tmp_path),
+                                        params_like=_clone(tp))
+            live = [r for r in res.slot_req if r is not None]
+            res.run_to_completion()
+            assert [r.generated for r in live] == \
+                [reqs[r.uid].generated for r in live]
+    elif what == "recal":
+        eng = ServingEngine(tm, tp, max_batch=2, max_len=16,
+                            device=tget_device(PRESET),
+                            recal=RecalPolicy(age_per_step_s=3600.0,
+                                              check_every=1))
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        assert eng.scheduler.events and eng.scheduler.age_s > 0
+    else:
+        fleet = FleetEngine.build(tm.cfg, 2, max_batch=1, max_len=16,
+                                  params=tp, torch_device="cpu")
+        for r in reqs:
+            fleet.submit(r)
+        fleet.run_to_completion()
+        assert all(len(r.generated) == 3 for r in reqs)

@@ -202,7 +202,8 @@ def _meta_params(arch):
     return meta(fake)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "moonshot-v1-16b-a3b",
+                                  "mamba2-370m", "recurrentgemma-9b"])
 def test_energy_price_at_published_widths(arch):
     jm = jbuild(JC.get(arch))
     jshapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
@@ -214,3 +215,25 @@ def test_energy_price_at_published_widths(arch):
         b = JOBS.ChipEnergyModel.price(jshapes, **kw).to_dict()
         assert repr(a) == repr(b)
         assert a["n_macros"] > 0
+
+
+@pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-9b", 5),
+                                           ("mamba2-370m", 2)])
+def test_macro_shapes_are_the_references(arch, n_layers):
+    """Key for key, the reference's crossbar macros at SMOKE widths: the
+    stacked ``layers`` or hybrid ``groups`` one macro of count n a leaf,
+    the hybrid's 2-block ``tail`` (at 5 layers) priced block by block,
+    its 1-D ``lam`` in no macro."""
+    jm = jbuild(JC.get_smoke(arch).replace(n_layers=n_layers))
+    jshapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    tm = tbuild(TSERVE.make_config(arch, smoke=True, backend="ref",
+                                   overrides={"n_layers": n_layers}),
+                device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    got = TOBS.energy._macro_shapes(tm.init(gen))
+    assert got == JOBS.energy._macro_shapes(jshapes)
+    tail = [k for k in got if k.startswith("['tail']")]
+    assert bool(tail) == (arch == "recurrentgemma-9b")
+    assert all(k.startswith(("['tail'][0]", "['tail'][1]")) for k in tail)
+    assert not any("['lam']" in k for k in got)

@@ -185,7 +185,8 @@ BF16, F32 = torch.bfloat16, torch.float32
     (16, 2, 128, 2048, BF16, 8),
     (16, 2, 128, 2048, F32, 16),     # only 16 CTAs hold it
     (16, 16, 64, 2048, BF16, 8),     # G 1, D 64
-    (16, 1, 256, 128, F32, 8)])      # G 16, D 256
+    (16, 1, 256, 128, F32, 8),       # G 16, D 256
+    (16, 1, 256, 2048, F32, 16)])    # a long cache: V through two boxes
 def test_cluster_size_fits_the_card(h, hkv, d, s, dtype, want):
     cs = TPA.cluster_size(h, hkv, d, s, dtype)
     assert cs == want
