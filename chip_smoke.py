@@ -68,8 +68,8 @@ Phases, one JSON line each:
               on ``cuda`` and ``ref`` within rtol 2e-4 / atol 2e-5, both
               tail kernels T launches a step, every loss finite, peak
               device memory under TRAIN_PEAK_GB (half the card, as in
-              every train phase); ms per step and peak printed; 2 Adam
-              steps (the script's time).
+              every train phase); ms per step and peak printed; 1 Adam
+              step (the script's time).
 4h. fig4d   — ``benchmarks/fig4d_kws.py``'s quick mode on the card
               (``lstm_train.fig4d``): 768 training samples, 4 epochs, float
               vs 5-, 4- and 3-bit NL-ADCs trained with Alg. 1 noise, read
@@ -202,6 +202,26 @@ Phases, one JSON line each:
               S 2048); cuda against ref as ``agreement_hybrid``; the
               longer row against ``LM.prefill`` with the NL-ADC off
               (relative < 1e-3).
+13a6. serve_granite8b, serve_pixtral, serve_qwen32b, serve_granite34b —
+              the dense family's other configs as ``serve`` (bf16,
+              ``cuda``, seeded weights drawn on the card, a warm-up, one
+              counted run, one timed repeat): granite-3-8b (40 layers,
+              tied embeddings over a vocab of 49,155), pixtral-12b (40
+              layers; then one ``LM.forward`` at B 1 over its 256 patch
+              embeddings and 16 text tokens: finite logits, kernel 3 once
+              a layer), qwen2.5-32b cut to 30 of 64 layers and granite-34b
+              to 40 of 88 (the f32 weights: 64.7 and 63.1 GB), whose 48
+              query heads share one KV head (kernel 5 in chunks of 16);
+              granite-34b again with an int8 KV cache (kernel 6 at a group
+              of 48, in chunks of 8).  Kernels 3 and 5 (6) launch
+              n_layers x (prefill steps + decode steps) times; tokens/s,
+              ms per decode and prefill step, setup s, peak memory.
+13a7. agreement_dense — ``agreement`` for each of the four at 2 layers,
+              full width, float32, and granite-34b with an int8 cache:
+              logits < LSB/2 (0.102 silu, 0.068 gelu), each kernel once a
+              layer a step; pixtral's forward over its patches, cuda
+              against ref, kernel 3 audited and replayed as
+              ``serve_recal`` judges.
 13-1. serve_bucketed — qwen2.5-3b as ``serve`` (36 layers, bf16, cuda):
               the scan run again, then the bucketed prefill (one bucket
               call a request), the packed one (the wave in one call of
@@ -236,7 +256,7 @@ Phases, one JSON line each:
               checkpoint and 1 resumed step; params and Adam moments
               bitwise; the resumed run's peak device memory at most the
               uninterrupted run's; bytes and seconds.
-13-6. serve_recal — qwen2.5-3b at full width, 4 of 36 layers (host
+13-6. serve_recal — qwen2.5-3b at full width, 2 of 36 layers (host
               aging time), float32, infer mode on ``aged-1day`` with
               512-column banks, 4 requests x 16 tokens, a threshold-only
               re-calibration scheduler (``RecalPolicy(age_per_step_s=0,
@@ -301,8 +321,9 @@ Phases, one JSON line each:
               serve's); host s of the aging, ms per probe, s per
               re-program; ``ChipEnergyModel.price`` at 38 layers (meta
               tensors).
-13-13. fleet_ssm — ``fleet`` for mamba2-370m at full depth (48 layers a
-              chip): ``nladc`` 96 launches a step, the rest as ``fleet``.
+13-13. fleet_ssm — ``fleet`` for mamba2-370m at 4 of its 48 layers a
+              chip (the script's time: 4 host agings): ``nladc`` 8
+              launches a step, the rest as ``fleet``.
 13a. train_lm — qwen2.5-3b trained at full width and all 36 layers
               (``repro_torch.launch.train``: B 8 x S 128, train mode on the
               ``paper`` preset, flat thresholds, AdamW with clip 1.0, each
@@ -400,9 +421,11 @@ raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 ``ok`` line; ``--lifecycle`` runs only the device phase and 13-6 to
 13-13, and ``--recurrent`` only the device phase, the recurrent
 families' kernel cases (their training shapes too), 13a1 to 13a5 and
-13e to 13g; neither prints the ``ok``
-line.  Without a GPU, or without the repository's ``src/repro_torch``
-beside this script, it exits non-zero and prints no result.
+13e to 13g, and ``--dense`` only the device phase, the dense configs'
+kernel cases (kernel 3's MLP gates, kernels 5 and 6 at G 48 and G 5),
+13a6 and 13a7; none of them prints the ``ok`` line.  Without a GPU, or
+without the repository's ``src/repro_torch`` beside this script, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -440,9 +463,9 @@ IR_SHAPES = (("w_gates", (632, 8064)), ("w_proj", (2016, 504)))
 IR_ULPS = 32        # IR correction vs float64, ulps at the float64 value
 # PTB Alg. 1 on the circuit-level presets: (preset, bank_cols) runs
 PTB_IR_TRAINS = (("paper-ir", 0), ("paper-ir", 512), ("stressed-ir", 0))
-# the circuit-level runs cut to one batch, one timing repeat and two Adam
-# steps (the script's time: an IR step is ~10x a paper-infer step)
-IR_BATCHES, IR_TIMING_REPEATS, IR_TRAIN_STEPS = 1, 1, 2
+# the circuit-level runs cut to one batch, one timing repeat and one Adam
+# step (the script's time: an IR step is ~10x a paper-infer step)
+IR_BATCHES, IR_TIMING_REPEATS, IR_TRAIN_STEPS = 1, 1, 1
 TRAIN_PEAK_GB = 40.0       # every train phase's peak, at most half the card
 # the nodal oracle at the paper's tile: (active rows, columns)
 ORACLE_SHAPES = ((256, 512), (633, 512))
@@ -452,12 +475,13 @@ ATTN_F32_ATOL = 1e-6
 ATTN_BF16_LONG_ATOL = 1e-5   # bfloat16 at the full local window (S 2048,
 #                            G 16, D 256): outputs near 0 move a few of
 #                            their ulps with the 2048-slot sum's order
+# timed repeats cut for the script's time
 SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
-             max_new=16, repeats=5)
+             max_new=16, repeats=2)
 AGREE_LAYERS, AGREE_STEPS = 2, 8
 SERVE_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=24,
                  kv_cache_dtype="int8", requests=4, max_batch=4, max_len=128,
-                 max_new=16, repeats=3)
+                 max_new=16, repeats=2)
 FLASH_ATOL = 1e-5
 HOST_CALLS, HOST_REPEATS = 200, 5
 GRAD_HALF_ATOL = 1e-5      # kernel_tune's gradient halves, cuda vs ref
@@ -486,8 +510,8 @@ TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
 CARD_GB = 80.0
 # the recurrent LM families served at full width and depth (serve's
 # workload); their decode states are not KV caches
-SERVE_SSM = dict(SERVE, arch="mamba2-370m", repeats=2, mode_repeats=1)
-SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=2,
+SERVE_SSM = dict(SERVE, arch="mamba2-370m", repeats=1, mode_repeats=1)
+SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=1,
                     mode_repeats=1)
 # cuda against ref at full width, cut depth, float32; the hybrid's local
 # attention window cut to 16 with max_len 64, so 64 decode steps roll its
@@ -513,15 +537,32 @@ PREFILL_INT8_REL = 5e-2    # the same with an int8 KV cache: the reference's
 #                            int8-against-float decode bound
 # the lifecycle phases: qwen2.5-3b at full width on aged-1day, 512-column
 # banks; depth cut for the host's aging of every crossbar (2.71 s a layer
-# and 8 s for the embedding on an H100 host, PR 23)
-LC = dict(preset="aged-1day", bank_cols=512, recal_layers=4, layers=2)
+# and 8 s for the embedding on an H100 host, PR 23); serve_recal's cut
+# to 2 layers for the script's time
+LC = dict(preset="aged-1day", bank_cols=512, recal_layers=2, layers=2)
 FLEET = dict(chips=4, layers=1, floor=0.75, requests=16, save_at=4,
              max_steps=200)
 # the recurrent families' deployment: recurrentgemma-9b's lifecycle at
 # one group and its tail (host aging: ~2.1 B elements of embedding and
-# head, ~0.2 B a layer), mamba2-370m's fleet at full depth
+# head, ~0.2 B a layer), mamba2-370m's fleet at 4 of its 48 layers a
+# chip (the script's time: 4 host agings)
 LC_HYBRID = dict(arch="recurrentgemma-9b", n_layers=5, save_at=8)
-FLEET_SSM = dict(FLEET, arch="mamba2-370m", layers=48)
+FLEET_SSM = dict(FLEET, arch="mamba2-370m", layers=4)
+# the dense family's other configs served at full width (serve's workload:
+# a warm-up, one counted run, one timed repeat), depth cut where the f32
+# weights pass the card: qwen2.5-32b 30 of 64 layers (64.7 GB), granite-34b
+# 40 of 88 (63.1 GB); (phase, arch, layers)
+DENSE_SERVES = (("serve_granite8b", "granite-3-8b", 40),
+                ("serve_pixtral", "pixtral-12b", 40),
+                ("serve_qwen32b", "qwen2.5-32b", 30),
+                ("serve_granite34b", "granite-34b", 40))
+DENSE_REPEATS = 1
+PIXTRAL_TEXT = 16          # text tokens after pixtral's 256 patches
+# agreement_dense: each config at 2 layers, granite-34b with an int8 cache
+# too (kernel 6 at a group of 48); (arch, kv cache dtype)
+DENSE_AGREES = (("granite-3-8b", ""), ("qwen2.5-32b", ""),
+                ("pixtral-12b", ""), ("granite-34b", ""),
+                ("granite-34b", "int8"))
 
 
 _T0 = time.perf_counter()
@@ -1257,13 +1298,17 @@ def attention_bound(b: int, h: int, hkv: int, d: int, s_len: int,
 
 
 def phase_attention(torch, dev, name: str, dtype, s_len: int,
-                    heads=(16, 2, 128), bf16_atol: float = 0.0):
+                    heads=(16, 2, 128), bf16_atol: float = 0.0,
+                    explained: bool = False):
     """The cached-attention kernel against its plain version at a serving
     path's heads ``(H, Hkv, D)`` (qwen2.5-3b's by default), ragged masks
     (one row sees a single slot): float32 within ATTN_F32_ATOL, bfloat16
     within one ulp, or within ``bf16_atol`` where that is larger (an
     output near 0, whose float32 sum over a long cache runs in another
-    order than the plain version's)."""
+    order than the plain version's).  With ``explained`` (the dense
+    configs' groups), an output past that is held to
+    ``prefill_attention.explained_differences``: none unexplained by
+    float32 rounding, at most MAX_FLIP_SHARE past the contract."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention as pa
@@ -1285,13 +1330,20 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int,
     err = float(diff.max())
     check(ok.dtype == dtype and bool(torch.isfinite(ok.float()).all()),
           f"{name}: output dtype {ok.dtype} or non-finite values")
-    if dtype == torch.float32:
+    ulps = None if dtype == torch.float32 else float((diff / bf16_ulp(
+        torch, torch.maximum(ok.float().abs(), op.float().abs()))).max())
+    contract = None
+    if explained:
+        contract = pa.explained_differences(q, k, v, mask, ok,
+                                            bf16_atol=bf16_atol)
+        check(contract["unexplained"] == 0 and contract["beyond"]
+              <= MAX_FLIP_SHARE * contract["outputs"],
+              f"{name}: {contract} (max abs diff {err}, {ulps} ulps)")
+    elif dtype == torch.float32:
         check(err <= ATTN_F32_ATOL, f"{name}: max abs diff {err}")
-        ulps = None
     else:
         ulp = bf16_ulp(torch, torch.maximum(ok.float().abs(),
                                             op.float().abs()))
-        ulps = float((diff / ulp).max())
         check(bool((diff <= torch.clamp_min(ulp, bf16_atol)).all()),
               f"{name}: {ulps} bfloat16 ulps apart, {err} at most (one "
               f"ulp or {bf16_atol})")
@@ -1317,6 +1369,7 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int,
            "D": d, "S": s_len, "dtype": str(dtype).replace("torch.", ""),
            "cluster": pa.cluster_size(h, hkv, d, s_len, dtype),
            "max_abs_err": err, "max_bf16_ulps": ulps,
+           "explained": contract,
            "bf16_atol": bf16_atol if dtype == torch.bfloat16 else None,
            "library_max_abs_diff": lib_diff,
            "call_ms": cuda_ms(kernel),
@@ -1327,17 +1380,22 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int,
 
 
 def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
-                analog_device: str = "", repeats: int = SERVE["repeats"]
-                ) -> dict:
-    """qwen2.5-3b at full width and depth on the cuda backend, in the
-    spec's analog mode or ``analog_mode`` on ``analog_device``."""
+                analog_device: str = "", repeats: int = SERVE["repeats"],
+                arch: str = SERVE["arch"], n_layers: int = 0,
+                more=None) -> dict:
+    """``arch`` (qwen2.5-3b) at full width and depth (or ``n_layers``) on
+    the cuda backend, in the spec's analog mode or ``analog_mode`` on
+    ``analog_device``; ``more(torch, dev, cfg, model, params)`` adds its
+    results to the phase's line after the timed runs."""
     from repro_torch.launch import serve
     from repro_torch.serve.engine import ServingEngine
 
     t0 = time.perf_counter()
-    cfg = serve.make_config(SERVE["arch"], backend="cuda",
-                            analog_mode=analog_mode,
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve.make_config(arch, backend="cuda", analog_mode=analog_mode,
                             analog_device=analog_device)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     model, params = serve.build_lm(cfg, dev, seed=0)
     engine = ServingEngine(model, params, max_batch=SERVE["max_batch"],
                            max_len=SERVE["max_len"])
@@ -1399,23 +1457,32 @@ def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
            "prefill_step_ms": statistics.median(pms),
            "prefill_step_ms_min": min(pms), "prefill_step_ms_max": max(pms),
            "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if more is not None:
+        out.update(more(torch, dev, cfg, model, params))
     emit(out)
     return out
 
 
 def phase_agreement(torch, dev, name: str = "agreement",
-                    analog_mode: str = "", analog_device: str = "") -> dict:
-    """A 2-layer, full-width, float32 variant on the cuda and ref backends:
-    the same weights and tokens, max |delta logits| < LSB/2."""
+                    analog_mode: str = "", analog_device: str = "",
+                    arch: str = SERVE["arch"],
+                    kv_cache_dtype: str = "") -> dict:
+    """A 2-layer, full-width, float32 variant of ``arch`` (qwen2.5-3b) on
+    the cuda and ref backends: the same weights and tokens, max |delta
+    logits| < LSB/2; the cuda model's kernel 3 and its cached attention
+    (kernel 5, or kernel 6 for an int8 cache) launch once a layer a
+    step.  A vision config also runs :func:`_vision_agreement`."""
     from repro_torch.launch import serve
     from repro_torch.nn.model import build
 
     models = {}
     for bk in ("cuda", "ref"):
         cfg = serve.make_config(
-            SERVE["arch"], backend=bk, analog_mode=analog_mode,
+            arch, backend=bk, analog_mode=analog_mode,
             analog_device=analog_device).replace(n_layers=AGREE_LAYERS,
                                                  dtype="float32")
+        if kv_cache_dtype:
+            cfg = cfg.replace(kv_cache_dtype=kv_cache_dtype)
         models[bk] = build(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1426,6 +1493,9 @@ def phase_agreement(torch, dev, name: str = "agreement",
     states = {bk: m.init_decode_state(b, SERVE["max_len"])
               for bk, m in models.items()}
     worst = 0.0
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
     for t in range(AGREE_STEPS):
         logits = {}
         for bk, m in models.items():
@@ -1435,14 +1505,26 @@ def phase_agreement(torch, dev, name: str = "agreement",
               f"{name}: non-finite logits")
         worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
                                  .max()))
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    attention = "flash_decode_int8" if cfg.kv_cache_dtype == "int8" \
+        else "prefill_attention"
+    expected = {k: AGREE_LAYERS * AGREE_STEPS
+                if k in ("fused_matmul_nladc", attention) else 0
+                for k in wrappers}
+    check(launches == expected,
+          f"{name}: launches {launches}, expected {expected}")
     lsb = models["cuda"].act.ramp.lsb
     check(worst < lsb / 2, f"{name}: logits differ by {worst} >= "
           f"LSB/2 = {lsb / 2}")
-    out = {"phase": name, "analog_mode": cfg.analog.mode,
+    out = {"phase": name, "arch": cfg.name, "analog_mode": cfg.analog.mode,
            "analog_device": cfg.analog.device,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
            "n_layers": AGREE_LAYERS, "dtype": "float32",
            "B": b, "steps": AGREE_STEPS, "max_abs_logit_diff": worst,
-           "lsb_half": lsb / 2}
+           "lsb_half": lsb / 2, "launches": launches}
+    if cfg.modality == "vision":
+        out["vision_forward"] = _vision_agreement(torch, dev, name, models,
+                                                  params, lsb)
     emit(out)
     return out
 
@@ -2977,7 +3059,7 @@ def _path_launches(name: str, cfg, stats: dict, launches: dict,
 
 
 def phase_serve_recal(torch, dev) -> dict:
-    """qwen2.5-3b at full width, 4 layers, float32, ``aged-1day`` with
+    """qwen2.5-3b at full width, 2 layers, float32, ``aged-1day`` with
     512-column banks, the serve phase's requests: a threshold-only
     re-calibration scheduler (no aging per step, a probe every 4 steps,
     the threshold between the ramps' median INLs).  The cuda engine and
@@ -3473,7 +3555,7 @@ def _zip_named(a, b):
 
 def phase_fleet(torch, dev, spec: dict = FLEET, name: str = "fleet") -> dict:
     """4 chips of ``spec``'s arch at full width (qwen2.5-3b at 2 layers
-    each; ``fleet_ssm``: mamba2-370m at its 48): 3 serving on
+    each; ``fleet_ssm``: mamba2-370m at 4): 3 serving on
     ``aged-1day`` and a canary on ``stressed``, each its own device draws
     (per-chip seed), capacity floor 0.75, least-loaded router, 16
     requests; a threshold-only recal storm (the threshold between the
@@ -4408,6 +4490,172 @@ def _recurrent_phases(torch, dev) -> dict:
     return out
 
 
+def _vision_inputs(torch, dev, cfg):
+    """pixtral's B 1 forward input: the stub frontend's patch embeddings
+    (seed 7) over the first ``n_patches`` positions, then PIXTRAL_TEXT
+    text tokens."""
+    from repro_torch.nn.frontends import vision_patch_stub
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    extra = {"patch_embeds": vision_patch_stub(gen, 1, cfg.n_patches,
+                                               cfg.d_model)}
+    tokens = torch.randint(0, cfg.vocab, (1, cfg.n_patches + PIXTRAL_TEXT),
+                           generator=gen, device=dev)
+    return tokens, extra
+
+
+def _vision_forward(torch, dev, cfg, model, params) -> dict:
+    """``serve_pixtral``'s full-sequence forward at B 1 over the patch
+    embeddings and the text (the engine serves text only, as the
+    reference's): finite logits of the whole sequence, kernel 3 once a
+    layer (the tensor-core GEMM at M n_patches + 16), no other kernel;
+    host ms (ending on a synchronize)."""
+    tokens, extra = _vision_inputs(torch, dev, cfg)
+    model.forward(params, tokens, extra)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, launches = _counted(lambda: model.forward(params, tokens, extra))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    expected = {k: cfg.n_layers if k == "fused_matmul_nladc" else 0
+                for k in launches}
+    check(launches == expected, f"serve_pixtral: the vision forward's "
+          f"launches {launches}, expected {expected}")
+    check(tuple(logits.shape) == (1, tokens.shape[1], cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          "serve_pixtral: the vision forward's logits")
+    return {"vision_forward": {"B": 1, "patches": cfg.n_patches,
+                               "positions": tokens.shape[1], "ms": ms,
+                               "launches": launches}}
+
+
+def _int8_serve(torch, dev, cfg, model, params) -> dict:
+    """``serve_granite34b`` again with an int8 KV cache (a second model on
+    the same weights): every request its tokens, finite logits, kernels 3
+    and 6 (the flash decode at the group of 48) once a layer a step, no
+    other kernel; tokens/s and ms per decode step of the counted run."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+    from repro_torch.serve.engine import ServingEngine
+
+    model8 = build(cfg.replace(kv_cache_dtype="int8"), dev)
+    engine8 = ServingEngine(model8, params, max_batch=SERVE["max_batch"],
+                            max_len=SERVE["max_len"])
+    engine8.run_offline(serve.make_requests(cfg, 1, 2))        # warm-up
+    finite = []
+    decode_step = model8.decode_step
+
+    def checked(p, state, tokens):
+        logits, state = decode_step(p, state, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, state
+
+    model8.decode_step = checked
+    reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+    stats, launches = _counted(lambda: engine8.run_offline(reqs))
+    del model8.decode_step
+    _path_launches("serve_granite34b/int8", cfg, stats, launches, {
+        "fused_matmul_nladc": cfg.n_layers,
+        "flash_decode_int8": cfg.n_layers})
+    check(all(bool(f) for f in finite) and all(
+        len(r.generated) == SERVE["max_new"] for r in reqs),
+        "serve_granite34b/int8: non-finite logits or short streams")
+    return {"int8": {"kv_cache_dtype": "int8", "launches": launches,
+                     "tokens": stats["tokens"],
+                     "tokens_per_s": stats["tokens_per_s"],
+                     "decode_step_ms": stats["decode_step_ms"],
+                     "prefill_step_ms": stats["prefill_step_ms"]}}
+
+
+def _vision_agreement(torch, dev, name: str, models: dict, params,
+                      lsb: float) -> dict:
+    """pixtral's full-sequence forward (B 1, its patch embeddings and
+    PIXTRAL_TEXT tokens) on the cuda and ref models: kernel 3 (the
+    tensor-core GEMM at M n_patches + 16, float32 x) audited against ref's
+    gate on the same operands (code flips at most AGREE_FLIP_SHARE, one
+    level each); the ref forward given the cuda run's gate outputs within
+    LSB/2 of the cuda logits; the free ref forward's difference printed."""
+    cfg = models["cuda"].cfg
+    tokens, extra = _vision_inputs(torch, dev, cfg)
+    audit, free = [], []
+    undo = _audit_gates(torch, models["cuda"], [], audit)
+    try:
+        got = models["cuda"].forward(params, tokens, extra)
+    finally:
+        undo()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
+    flips = _flip_summary(f"{name}/vision", audit)
+    free_diff = float((models["ref"].forward(params, tokens, extra)
+                       - got).abs().max())
+    undo = _replay_gates(torch, models["ref"], audit, free)
+    try:
+        want = models["ref"].forward(params, tokens, extra)
+    finally:
+        undo()
+    diff = float((want - got).abs().max())
+    check(diff < lsb / 2, f"{name}: the vision forward's logits differ by "
+          f"{diff} >= LSB/2 = {lsb / 2} on the same gate outputs")
+    return {"B": 1, "positions": tokens.shape[1], **flips,
+            "max_abs_logit_diff": diff, "free_max_abs_logit_diff": free_diff,
+            "free_gate_flips": sum(free)}
+
+
+def dense_kernel_cases(torch, dev) -> list:
+    """The dense configs' kernel cases, each checked against its plain
+    version: ``fused_matmul_nladc`` at each MLP gate at serving rows (M 4,
+    bfloat16 x: the GEMV; silu, granite-34b's plain MLP gelu);
+    ``prefill_attention`` at granite-34b's MQA (H 48 over Hkv 1, D 128:
+    three chunks of 16 heads) at S 128 in bfloat16 and float32 and at S
+    2048 in bfloat16, and at qwen2.5-32b's G 5 (H 40 over Hkv 8) in
+    bfloat16 and float32; ``flash_decode_int8`` at the same two groups
+    (six chunks of 8 heads, and G 5)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    mqa, g5 = (48, 1, 128), (40, 8, 128)
+    gates = (("granite8b", 4096, 12800, "silu"),
+             ("qwen32b", 5120, 27648, "silu"),
+             ("pixtral", 5120, 14336, "silu"),
+             ("granite34b", 6144, 24576, "gelu"))
+    return [
+        *(phase_fused_matmul(torch, dev, f"{tag}_decode_flat", 4, k, n, bf16,
+                             0, act_name=act)
+          for tag, k, n, act in gates),
+        *(phase_attention(torch, dev, name, dt, s_len, heads,
+                          explained=True)
+          for name, dt, s_len, heads in (
+              ("mqa48_bf16", bf16, 128, mqa), ("mqa48_f32", f32, 128, mqa),
+              ("mqa48_s2048_bf16", bf16, 2048, mqa),
+              ("g5_bf16", bf16, 128, g5), ("g5_f32", f32, 128, g5))),
+        phase_flash_decode(torch, dev, "mqa48", 4, 48, 1, 128, 128,
+                           [128, 1, 37, 100], bf16),
+        phase_flash_decode(torch, dev, "g5", 4, 40, 8, 128, 128,
+                           [128, 1, 37, 100], bf16)]
+
+
+def _dense_phases(torch, dev) -> dict:
+    """The dense configs' serve phases and ``agreement_dense``, in order,
+    each one's seconds emitted; the serve phases' results by name."""
+    more = {"serve_pixtral": _vision_forward,
+            "serve_granite34b": _int8_serve}
+    out, seconds = {}, {}
+    for name, arch, layers in DENSE_SERVES:
+        t0 = time.perf_counter()
+        out[name] = phase_serve(torch, dev, name, arch=arch,
+                                n_layers=layers, repeats=DENSE_REPEATS,
+                                more=more.get(name))
+        free_device(torch)
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch, kv in DENSE_AGREES:
+        out[f"agreement_dense/{arch}{'-' + kv if kv else ''}"] = \
+            phase_agreement(torch, dev, "agreement_dense", arch=arch,
+                            kv_cache_dtype=kv)
+        free_device(torch)
+    seconds["agreement_dense"] = time.perf_counter() - t0
+    emit({"phase": "dense_seconds", **seconds})
+    return out
+
+
 def free_device(torch) -> None:
     """Return the memory of a finished phase to the card."""
     import gc
@@ -4498,6 +4746,10 @@ def main(argv=None) -> int:
                     help="run only the device phase, the recurrent "
                          "families' kernel cases and their serve and "
                          "agreement phases")
+    ap.add_argument("--dense", action="store_true",
+                    help="run only the device phase, the dense configs' "
+                         "kernel cases and their serve and agreement "
+                         "phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4561,6 +4813,14 @@ def main(argv=None) -> int:
         launches.update({t["phase"]: t["launches"]
                          for t in _recurrent_train_phases(torch, dev)})
         emit({"recurrent_launches": launches})
+        return 0
+    if args.dense:
+        floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+        for case in dense_kernel_cases(torch, dev):
+            phase_kernel_time(*case, floor_ms=floor_ms)
+        free_device(torch)
+        emit({"dense_launches": {k: v["launches"] for k, v in
+                                 _dense_phases(torch, dev).items()}})
         return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
@@ -4694,6 +4954,7 @@ def main(argv=None) -> int:
     phase_train_ckpt(torch, dev)
     free_device(torch)
     lifecycle = _lifecycle_phases(torch, dev)
+    dense = _dense_phases(torch, dev)
     layers = TRAIN_MOE["n_layers"]
     trained = [phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
         "fused_matmul_nladc": 2 * 36})]
@@ -4717,6 +4978,9 @@ def main(argv=None) -> int:
     free_device(torch)
     tuned = phase_kernel_tune(torch, dev)
     free_device(torch)
+    # made after the main paths, so their 1.7 GB of weights do not move
+    # the allocator's layout under train_ckpt's peak comparison (ROADMAP C)
+    dense_cases = dense_kernel_cases(torch, dev)
 
     floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
 
@@ -4725,7 +4989,7 @@ def main(argv=None) -> int:
                 for c in checked_cases]
 
     cases = timed(checked)
-    rec_cases = {}
+    rec_cases, dense_timed = {}, {}
     for case in timed(recurrent_cases):
         rec_cases.setdefault(case["phase"], []).append(case)
     bwd_cases = timed(bwd_checked)
@@ -4736,13 +5000,16 @@ def main(argv=None) -> int:
     flash_cases = timed(flash_checked)
     tile_cases = timed(tile_checked)
     train_cases = timed(train_checked)
+    for case in timed(dense_cases):
+        dense_timed.setdefault(case["phase"], []).append(case)
     # train_cases: kernel 3 flat and banked, kernel 4, the router, then
     # recurrent_train_cases (kernel 3, four of kernel 2)
     fm_cases += train_cases[:2] + rec_cases["fused_matmul"] \
-        + train_cases[4:5]
+        + train_cases[4:5] + dense_timed["fused_matmul"]
     moe_cases.append(train_cases[2])
     nladc_cases += train_cases[3:4] + rec_cases["nladc"] + train_cases[5:]
-    attn_cases += rec_cases["attention"]
+    attn_cases += rec_cases["attention"] + dense_timed["attention"]
+    flash_cases += dense_timed["flash_decode"]
     for case, call in irs:
         phase_ir_time(torch, case, call)
 
@@ -4774,6 +5041,7 @@ def main(argv=None) -> int:
                 out.update(mode_launches(phase, kernel))
         return out
 
+    dense_serves = [name for name, _, _ in DENSE_SERVES]
     fm_paths = {"serve": served["launches"]["fused_matmul_nladc"],
                 "serve_moe": served_moe["launches"]["fused_matmul_nladc"],
                 **mode_launches(served_b, "fused_matmul_nladc"),
@@ -4782,7 +5050,13 @@ def main(argv=None) -> int:
                 **{t["phase"]: t["launches"]["fused_matmul_nladc"]
                    for t in trained + rec_trained},
                 **{k: v["fused_matmul_nladc"] for k, v in lifecycle.items()},
-                **recurrent_launches_of("fused_matmul_nladc")}
+                **recurrent_launches_of("fused_matmul_nladc"),
+                **{k: dense[k]["launches"]["fused_matmul_nladc"]
+                   for k in dense_serves},
+                "serve_pixtral/vision": dense["serve_pixtral"][
+                    "vision_forward"]["launches"]["fused_matmul_nladc"],
+                "serve_granite34b/int8": dense["serve_granite34b"]["int8"][
+                    "launches"]["fused_matmul_nladc"]}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -4801,7 +5075,9 @@ def main(argv=None) -> int:
                 **mode_launches(served_b, "prefill_attention"),
                 "lm_infer": infer["launches"]["prefill_attention"],
                 **{k: v["prefill_attention"] for k, v in lifecycle.items()},
-                **recurrent_launches_of("prefill_attention")}
+                **recurrent_launches_of("prefill_attention"),
+                **{k: dense[k]["launches"]["prefill_attention"]
+                   for k in dense_serves}}
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -4812,7 +5088,8 @@ def main(argv=None) -> int:
                                        "cluster")},
         per_case={c["case"]: {k: c[k] for k in (
             "H", "Hkv", "D", "S", "dtype", "cluster", "ms", "plain_ms",
-            "library_ms", "bound_ms", "max_abs_err", "max_bf16_ulps")}
+            "library_ms", "bound_ms", "max_abs_err", "max_bf16_ulps",
+            "explained")}
             for c in attn_cases})
     nl_main = nladc_cases[0]
     moe_train = trained[-1]["launches"]
@@ -4852,7 +5129,9 @@ def main(argv=None) -> int:
             "bound_ms", "code_flips")} for c in moe_cases})
     fl_main = flash_cases[0]
     fl_paths = {"serve_moe": served_moe["launches"]["flash_decode_int8"],
-                **mode_launches(served_moe_b, "flash_decode_int8")}
+                **mode_launches(served_moe_b, "flash_decode_int8"),
+                "serve_granite34b/int8": dense["serve_granite34b"]["int8"][
+                    "launches"]["flash_decode_int8"]}
     flash = kernel_entry(
         "flash_decode_int8",
         "src/repro_torch/kernels/csrc/flash_decode_int8.cu",

@@ -201,10 +201,13 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The paper's two LSTM workloads, the dense LM, the two MoE LMs and the two
-# recurrent LMs (SSD and RG-LRU); the other LM families are not ported yet.
-ARCH_NAMES = ("kws_lstm", "ptb_lstm", "qwen2.5-3b", "moonshot-v1-16b-a3b",
-              "deepseek-moe-16b", "mamba2-370m", "recurrentgemma-9b")
+# The paper's two LSTM workloads, the dense LMs (pixtral-12b with its
+# vision patch embeddings), the two MoE LMs and the two recurrent LMs (SSD
+# and RG-LRU); the encoder-decoder family is not ported yet.
+ARCH_NAMES = ("kws_lstm", "ptb_lstm", "qwen2.5-3b", "granite-3-8b",
+              "qwen2.5-32b", "pixtral-12b", "granite-34b",
+              "moonshot-v1-16b-a3b", "deepseek-moe-16b", "mamba2-370m",
+              "recurrentgemma-9b")
 
 _MODULE_FOR = {n: "repro_torch.configs." + n.replace("-", "_")
                .replace(".", "_") for n in ARCH_NAMES}

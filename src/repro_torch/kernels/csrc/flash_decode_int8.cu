@@ -29,8 +29,13 @@
 // the dependent chains of the scores, the softmax and the PV sums.  The
 // design:
 //
-//   * Grid (Hkv, B, splits), a cluster of `splits` CTAs along z per (KV
-//     head, batch row).  `splits` is a function of the shape only (the
+//   * Grid (Hkv x chunks, B, splits), a cluster of `splits` CTAs along z
+//     per (KV head, chunk of its query group, batch row): a group of more
+//     than kMaxGroup heads is split into chunks of at most kMaxGroup
+//     (granite-34b's 48 heads over one KV head: 6 chunks of 8), each of
+//     which reads its row's K and V again; a group of at most kMaxGroup is
+//     one chunk, so its plan and bits are those of the unchunked kernel.
+//     `splits` is a function of the shape only (the
 //     wrapper's split_count: enough CTAs to cover the H100's 132 SMs, at
 //     least 32 slots a CTA, at most 8), never a tune knob: it sets the
 //     summation order.  CTA r owns slots r*n .. r*n+n-1 (n = ceil(S /
@@ -62,8 +67,9 @@
 // slots), so the result agrees with both to float32 rounding: within
 // 1e-5 of the plain version for every split count.
 //
-// A CTA takes at most 8 query heads per KV head (moonshot's G is 1,
-// qwen2.5-3b's 8) and D at most 256, a multiple of 16 (the TMA box's row).
+// A CTA takes at most 8 query heads (moonshot's G is 1, qwen2.5-3b's 8;
+// any larger group is chunked) and D at most 256, a multiple of 16 (the TMA
+// box's row).
 // exp is expf (no fast-math), and products and sums are written as
 // __fmul_rn / __fmaf_rn / __fadd_rn / __fdiv_rn so nvcc's --fmad choice
 // cannot change the rounding.
@@ -85,7 +91,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxGroup = 8;    // query heads per KV head
+constexpr int kMaxGroup = 8;    // query heads of a chunk of the group
 constexpr int kMaxD = 256;      // head dim
 constexpr int kMaxSplits = 8;   // CTAs per cluster (portable)
 constexpr int kTile = 64;       // slots a TMA box holds at most
@@ -118,6 +124,8 @@ __host__ __device__ inline size_t align128(size_t v) {
 // One CTA's slots and its shared-memory layout, in bytes: at most 137 KB
 // (D 256, G 8), so every shape the launch takes fits.
 struct Plan {
+  int gc;            // query heads of a chunk (the last may have fewer)
+  int chunks;        // chunks of a KV head's group
   int n_per;         // cache slots a CTA owns
   int box;           // slots per TMA box (a tile)
   int stages;        // ring stages, each a K tile and a V tile
@@ -130,8 +138,17 @@ struct Plan {
 constexpr size_t kSmallFloats = 2 * kWarps * kMaxGroup + 2 * kMaxGroup +
                                 kMaxSplits * kMaxGroup + kMaxGroup;
 
-inline Plan make_plan(int d_dim, int s_len, int splits, int kg) {
+// The heads of a chunk: a group of G heads is split into ceil(G /
+// kMaxGroup) chunks as even as can be, so G <= kMaxGroup is one chunk.
+inline int chunk_heads(int group) {
+  const int chunks = (group + kMaxGroup - 1) / kMaxGroup;
+  return (group + chunks - 1) / chunks;
+}
+
+inline Plan make_plan(int group, int d_dim, int s_len, int splits, int kg) {
   Plan p;
+  p.gc = chunk_heads(group);
+  p.chunks = (group + p.gc - 1) / p.gc;
   p.n_per = (s_len + splits - 1) / splits;
   p.box = p.n_per < kTile ? p.n_per : kTile;
   p.tile_bytes = align128((size_t)p.box * d_dim);
@@ -147,7 +164,7 @@ inline Plan make_plan(int d_dim, int s_len, int splits, int kg) {
 }
 
 // k_map, v_map: the caches as (D, Hkv, B*S) int8, a box of D codes by
-// plan.box slots.  kG >= H / Hkv query heads; kDC = ceil(D / 128).
+// plan.box slots.  kG >= the chunk's query heads; kDC = ceil(D / 128).
 template <typename T, int kG, int kDC>
 __global__ void __launch_bounds__(kThreads) flash_decode_int8_kernel(
     const __grid_constant__ CUtensorMap k_map,
@@ -160,9 +177,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_int8_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int group = h_dim / hkv;
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / plan.chunks;
   const int b = blockIdx.y;
+  // this chunk's heads: g0 .. g0 + group - 1 of the KV head's group
+  const int g0 = (blockIdx.x - kvh * plan.chunks) * plan.gc;
+  const int group = min(plan.gc, h_dim / hkv - g0);
+  const size_t h0 = (size_t)kvh * (h_dim / hkv) + g0;  // its first head
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   uint64_t* k_full = reinterpret_cast<uint64_t*>(smem);
@@ -217,9 +237,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_int8_kernel(
   float ksc = 0.f, vsc = 0.f;
   if (n_tiles > 0) load_scales(0, ksc, vsc);
 
-  // the group's queries, scaled, in registers: lane l holds d = 128 c +
+  // the chunk's queries, scaled, in registers: lane l holds d = 128 c +
   // 4 l + e
-  const T* qb = q + ((size_t)b * h_dim + (size_t)kvh * group) * d_dim;
+  const T* qb = q + ((size_t)b * h_dim + h0) * d_dim;
   float qr[kG][kDC][4];
 #pragma unroll
   for (int g = 0; g < kG; ++g)
@@ -405,7 +425,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_int8_kernel(
       s_den[g] = fmaxf(den, 1e-30f);
     }
     __syncthreads();
-    float* ob = out + ((size_t)b * h_dim + (size_t)kvh * group) * d_dim;
+    float* ob = out + ((size_t)b * h_dim + h0) * d_dim;
     for (int i = threadIdx.x; i < group * d_dim; i += kThreads) {
       const int g = i / d_dim;
       float num = 0.f;
@@ -423,8 +443,9 @@ int launch(const void* q, const int8_t* k8, const void* k_scale,
            const int8_t* v8, const void* v_scale, const int* length,
            float* out, int b_dim, int h_dim, int hkv, int d_dim, int s_len,
            int splits, float inv_sqrt_d, cudaStream_t stream) {
-  const Plan plan = make_plan(d_dim, s_len, splits, kG);
-  if (plan.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  const Plan plan = make_plan(h_dim / hkv, d_dim, s_len, splits, kG);
+  if (plan.total > kSmemMax || (long long)hkv * plan.chunks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   const uint64_t dims[3] = {(uint64_t)d_dim, (uint64_t)hkv,
                             (uint64_t)b_dim * s_len};
   const uint64_t strides[2] = {(uint64_t)d_dim, (uint64_t)hkv * d_dim};
@@ -443,7 +464,7 @@ int launch(const void* q, const int8_t* k8, const void* k_scale,
     if (set != 0) return set;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(hkv, b_dim, splits);
+  cfg.gridDim = dim3(hkv * plan.chunks, b_dim, splits);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = plan.total;
   cfg.stream = stream;
@@ -463,13 +484,13 @@ int launch(const void* q, const int8_t* k8, const void* k_scale,
   return (int)cudaGetLastError();
 }
 
-// the template instance for G query heads a KV head and head dim D
+// the template instance for a chunk's query heads and head dim D
 template <typename T>
 int dispatch(const void* q, const int8_t* k8, const void* k_scale,
              const int8_t* v8, const void* v_scale, const int* length,
              float* out, int b_dim, int h_dim, int hkv, int d_dim, int s_len,
              int splits, float inv_sqrt_d, cudaStream_t stream) {
-  const int group = h_dim / hkv;
+  const int group = chunk_heads(h_dim / hkv);
 #define FD_CASE(G, DC)                                                     \
   if (group <= G && d_dim <= 128 * DC)                                     \
     return launch<T, G, DC>(q, k8, k_scale, v8, v_scale, length, out,      \
@@ -487,9 +508,10 @@ extern "C" {
 
 // q is bfloat16 when q_bf16 is nonzero, else float32; the scales are
 // bfloat16, the output float32.  `inv_sqrt_d` is 1/sqrt(D) in float32.
-// `splits` CTAs share each (KV head, batch row): 1 to 8 (a CTA whose
-// slots all lie past S or past the row's length contributes nothing).  k8 and v8 are 16-byte aligned and D a multiple of 16
-// (the tensor maps').  Launches on `stream`; allocates nothing.  Returns
+// `splits` CTAs share each (KV head, chunk of its group, batch row): 1 to
+// 8 (a CTA whose slots all lie past S or past the row's length contributes
+// nothing).  H is any multiple of Hkv.  k8 and v8 are 16-byte aligned and
+// D a multiple of 16 (the tensor maps').  Launches on `stream`; allocates nothing.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 int flash_decode_int8_launch(const void* q, const int8_t* k8,
                              const void* k_scale, const int8_t* v8,
@@ -497,7 +519,7 @@ int flash_decode_int8_launch(const void* q, const int8_t* k8,
                              float* out, int b_dim, int h_dim, int hkv,
                              int d_dim, int s_len, int splits,
                              float inv_sqrt_d, int q_bf16, void* stream) {
-  if (hkv < 1 || h_dim % hkv || h_dim / hkv > kMaxGroup || d_dim < 16 ||
+  if (hkv < 1 || h_dim % hkv || d_dim < 16 ||
       d_dim > kMaxD || d_dim % 16 || s_len < 1 || splits < 1 ||
       splits > kMaxSplits || reinterpret_cast<uintptr_t>(k8) % 16 ||
       reinterpret_cast<uintptr_t>(v8) % 16)

@@ -17,7 +17,12 @@
 //
 // q is (B, H, D), k and v (B, S, Hkv, D), mask (B, S) int32, all of one
 // type (float32 or bfloat16); the G = H / Hkv query heads of KV head h are
-// heads h*G .. h*G+G-1, as in the reference's grouped layout.
+// heads h*G .. h*G+G-1, as in the reference's grouped layout.  Any G that
+// divides H is taken: a group of more than kMaxGroup heads is split into
+// chunks of at most kMaxGroup (granite-34b's 48 heads over one KV head: 3
+// chunks of 16), each its own cluster, which reads its row's K and V again.
+// A group of at most kMaxGroup is one chunk, so its plan and bits are those
+// of the unchunked kernel.
 //
 // Bound on this card: at the serving path's shape (B 4, H 16, Hkv 2,
 // D 128, S 128, bfloat16) one call reads 256 KB of cache and does about
@@ -26,10 +31,11 @@
 // memory, then the chains of dependent float32 adds.  The design:
 //
 //   * One cluster of `cs` CTAs (a power of two up to 16, chosen by the
-//     wrapper from S and D; a launch config) per (KV head, batch row): 64
-//     CTAs at the serving shape instead of 8.  CTA r scores the slots
-//     r*n .. r*n+n-1 (n = ceil(S / cs)) and sums the output columns
-//     r*D/cs .. (r+1)*D/cs - 1 of every query head of the group.
+//     wrapper from S and D; a launch config) per (KV head, batch row, chunk
+//     of the group): 64 CTAs at the serving shape instead of 8.  CTA r
+//     scores the slots r*n .. r*n+n-1 (n = ceil(S / cs)) and sums the
+//     output columns r*D/cs .. (r+1)*D/cs - 1 of every query head of the
+//     chunk.
 //   * Every copy is issued at entry, on two mbarriers, so V arrives while
 //     the scores are computed: its slots' K rows (one cp.async.bulk of D
 //     elements each, into rows padded by 16 bytes, so the threads of a
@@ -56,7 +62,7 @@
 //     shared memory alive until every peer has read its scores.
 //
 // Shared memory per CTA (Plan below; kernels/prefill_attention.py's
-// smem_bytes mirrors it): the group's scaled queries, this CTA's scores,
+// smem_bytes mirrors it): the chunk's scaled queries, this CTA's scores,
 // its K rows (then, reusing the space, the whole row's G x S scores and
 // probabilities), and its V columns of every slot (S rounded up to whole
 // TMA boxes).
@@ -85,7 +91,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxGroup = 16;       // query heads per KV head
+constexpr int kMaxGroup = 16;       // query heads of a chunk of the group
 constexpr int kMaxCluster = 16;     // CTAs per (KV head, batch row)
 constexpr size_t kSmemMax = 232448; // bytes of shared memory a CTA can use
 constexpr int kBoxMax = 256;        // slots a TMA box of V holds
@@ -138,6 +144,7 @@ __host__ __device__ inline size_t align128(size_t v) {
 
 // One CTA's share of the work and its shared-memory layout, in bytes.
 struct Plan {
+  int gc;          // query heads of a chunk (the last chunk may have fewer)
   int n_per;       // cache slots a CTA scores
   int dc;          // output columns a CTA sums
   int p_pitch;     // floats per row of the G x S score matrix
@@ -152,6 +159,7 @@ struct Plan {
 __host__ __device__ inline Plan make_full_plan(int group, int d_dim,
                                                int s_len, int cs, int elem) {
   Plan p;
+  p.gc = group;
   p.n_per = (s_len + cs - 1) / cs;
   p.dc = d_dim / cs;
   p.p_pitch = s_len + 1;  // rows of two heads in one warp use other banks
@@ -176,8 +184,16 @@ __host__ __device__ inline bool slices_ok(int d_dim, int cs, int elem) {
   return d_dim % cs == 0 && (d_dim / cs * elem) % 16 == 0;
 }
 
-// The plan of `cs` CTAs: every V slot staged at entry, or, for a cache
-// that no cluster size can stage whole, V streamed through the ring.
+// The heads of a chunk: a group of G heads is split into ceil(G /
+// kMaxGroup) chunks as even as can be, so G <= kMaxGroup is one chunk.
+__host__ __device__ inline int chunk_heads(int group) {
+  const int chunks = (group + kMaxGroup - 1) / kMaxGroup;
+  return (group + chunks - 1) / chunks;
+}
+
+// The plan of `cs` CTAs for chunks of `group` heads: every V slot staged
+// at entry, or, for a cache that no cluster size can stage whole, V
+// streamed through the ring.
 __host__ __device__ inline Plan make_plan(int group, int d_dim, int s_len,
                                           int cs, int elem) {
   Plan p = make_full_plan(group, d_dim, s_len, cs, elem);
@@ -200,9 +216,12 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int group = h_dim / hkv;
   const int kvh = blockIdx.x / cs;
   const size_t b = blockIdx.y;
+  // this chunk's heads: g0 .. g0 + group - 1 of the KV head's group
+  const int g0 = blockIdx.z * plan.gc;
+  const int group = min(plan.gc, h_dim / hkv - g0);
+  const size_t h0 = (size_t)kvh * (h_dim / hkv) + g0;  // its first head
   const int n_per = plan.n_per, dc = plan.dc, pitch = plan.p_pitch;
   const int t0 = rank * n_per;
   const int n_here = max(0, min(n_per, s_len - t0));
@@ -251,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
     bulk_load(s_k + (size_t)t * plan.k_pitch, kb + (size_t)(t0 + t) * t_stride,
               (uint32_t)(d_dim * sizeof(T)), &bar[0]);
 
-  const T* qb = q + (b * h_dim + (size_t)kvh * group) * d_dim;
+  const T* qb = q + (b * h_dim + h0) * d_dim;
   for (int i = threadIdx.x; i < group * d_dim; i += kThreads) {
     const int g = i / d_dim, d = i - g * d_dim;
     s_q[g * (d_dim + 1) + d] = round_to(__fmul_rn(to_float(qb[i]), scale), qb);
@@ -305,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) prefill_attention_kernel(
 
   // out = p @ v over this CTA's columns: thread -> (head, column), each
   // output summed over the slots in order
-  T* ob = out + (b * h_dim + (size_t)kvh * group) * d_dim + (size_t)rank * dc;
+  T* ob = out + (b * h_dim + h0) * d_dim + (size_t)rank * dc;
   if (plan.ring) {
     const int i = threadIdx.x;
     const bool mine = i < group * dc;
@@ -353,12 +372,14 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* mask,
            void* out, int b_dim, int h_dim, int hkv, int d_dim, int s_len,
            int cs, float scale, cudaStream_t stream) {
-  const int group = h_dim / hkv;
-  if (group > kMaxGroup || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) ||
-      !slices_ok(d_dim, cs, (int)sizeof(T)) || s_len < 1)
+  if (hkv < 1 || h_dim % hkv || cs < 1 || cs > kMaxCluster ||
+      (cs & (cs - 1)) || !slices_ok(d_dim, cs, (int)sizeof(T)) || s_len < 1)
     return (int)cudaErrorInvalidValue;
-  const Plan plan = make_plan(group, d_dim, s_len, cs, (int)sizeof(T));
-  if (plan.total > kSmemMax || (plan.ring && group * plan.dc > kThreads))
+  const int group = h_dim / hkv, gc = chunk_heads(group);
+  const int chunks = (group + gc - 1) / gc;
+  const Plan plan = make_plan(gc, d_dim, s_len, cs, (int)sizeof(T));
+  if (plan.total > kSmemMax || (plan.ring && gc * plan.dc > kThreads) ||
+      chunks > 65535)
     return (int)cudaErrorInvalidValue;
   const uint64_t dims[3] = {(uint64_t)d_dim, (uint64_t)hkv,
                             (uint64_t)b_dim * s_len};
@@ -384,7 +405,7 @@ int launch(const void* q, const void* k, const void* v, const int* mask,
   if (set != 0) return set;
   cudaError_t err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * hkv, b_dim, 1);
+  cfg.gridDim = dim3(cs * hkv, b_dim, chunks);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = plan.total;
   cfg.stream = stream;
@@ -409,9 +430,10 @@ extern "C" {
 
 // q, k, v and out are bfloat16 when is_bf16 is nonzero, else float32, all
 // 16-byte aligned.  `scale` must already be representable in that type.
-// `cluster` CTAs share each (KV head, batch row): a power of two up to 16
-// that divides D into column slices of a multiple of 16 bytes (for a long
-// cache, also into at most kThreads / G columns).  Launches
+// `cluster` CTAs share each (KV head, batch row, chunk of the group): a
+// power of two up to 16 that divides D into column slices of a multiple of
+// 16 bytes (for a long cache, also into at most kThreads / (the chunk's
+// heads) columns).  H is any multiple of Hkv.  Launches
 // on `stream`; allocates nothing.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what the kernel does not take.
 int prefill_attention_launch(const void* q, const void* k, const void* v,

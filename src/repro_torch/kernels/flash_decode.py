@@ -9,7 +9,10 @@ kernel (``csrc/flash_decode_int8.cu``), never to device memory, and an
 online softmax runs over tiles of slots with the ``length`` mask, as in the
 Pallas kernel.  The kernel splits each (KV head, batch row)'s slots over a
 thread-block cluster of :func:`split_count` CTAs, whose partial softmax
-states one CTA combines in split order.  The query is multiplied by
+states one CTA combines in split order.  Any group H/Hkv is taken, as the
+reference's kernel takes it: a group of more than 8 query heads is split
+into :func:`chunk_heads`-sized chunks (granite-34b's 48: 6 of 8), each
+its own cluster; a group of at most 8 is one chunk.  The query is multiplied by
 ``1/sqrt(D)`` rounded to float32, as the Pallas kernel does and as XLA
 compiles the oracle's ``q / sqrt(d)`` (a division by a constant becomes a
 multiplication by its float32 reciprocal in the jitted HLO).
@@ -35,15 +38,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_decode_int8_plain, inv_sqrt_d
 
 _GRID_Y_MAX = 65535
-_MAX_GROUP = 8                       # csrc: kMaxGroup
+_MAX_GROUP = 8                       # csrc: kMaxGroup, heads of a chunk
 _MAX_D = 256                         # csrc: kMaxD
 _MAX_SPLITS = 8                      # csrc: kMaxSplits (a portable cluster)
 _MIN_SLOTS_PER_CTA = 32
 _SMS = 132                           # H100 SXM: the split count's target
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 
-__all__ = ["flash_decode_int8", "flash_decode_int8_plain", "library",
-           "split_count"]
+__all__ = ["chunk_heads", "flash_decode_int8", "flash_decode_int8_plain",
+           "library", "split_count"]
+
+
+def chunk_heads(group: int) -> int:
+    """The query heads a CTA takes (``csrc: chunk_heads``): a group of G
+    heads split into ceil(G / 8) chunks as even as can be; G <= 8 is one
+    chunk."""
+    chunks = -(-group // _MAX_GROUP)
+    return -(-group // chunks)
 
 
 def split_count(b_dim: int, hkv: int, s_len: int) -> int:
@@ -55,15 +66,13 @@ def split_count(b_dim: int, hkv: int, s_len: int) -> int:
     return max(1, min(want, _MAX_SPLITS, s_len // _MIN_SLOTS_PER_CTA))
 
 
-def _check_kernel_shape(b_dim, h_dim, hkv, d_dim):
-    """What the kernel takes beyond the plain version's arguments."""
-    group = h_dim // hkv
-    if b_dim > _GRID_Y_MAX or group > _MAX_GROUP or d_dim > _MAX_D or \
-            d_dim % 16:
-        raise ValueError(f"flash_decode_int8: needs B <= {_GRID_Y_MAX}, "
-                         f"H/Hkv <= {_MAX_GROUP} and D <= {_MAX_D} a "
-                         f"multiple of 16 (a TMA box row); got B {b_dim}, "
-                         f"H/Hkv {group}, D {d_dim}")
+def _check_kernel_shape(b_dim, d_dim):
+    """What the kernel takes beyond the plain version's arguments (any
+    group H/Hkv: :func:`chunk_heads`)."""
+    if b_dim > _GRID_Y_MAX or d_dim > _MAX_D or d_dim % 16:
+        raise ValueError(f"flash_decode_int8: needs B <= {_GRID_Y_MAX} and "
+                         f"D <= {_MAX_D} a multiple of 16 (a TMA box row); "
+                         f"got B {b_dim}, D {d_dim}")
 
 
 def _check(q, k8, k_scale, v8, v_scale, length):
@@ -145,7 +154,7 @@ def _launch(q, k8, k_scale, v8, v_scale, length, splits, dims=None):
     the caller has it."""
     b_dim, h_dim, hkv, d_dim, s_len = dims or _check(q, k8, k_scale, v8,
                                                      v_scale, length)
-    _check_kernel_shape(b_dim, h_dim, hkv, d_dim)
+    _check_kernel_shape(b_dim, d_dim)
     out = torch.empty((b_dim, h_dim, d_dim), dtype=torch.float32,
                       device=q.device)
     if out.numel() == 0:

@@ -21,7 +21,11 @@ The cases, all from seeded inputs made on the card:
 
 * ``attention``: ``prefill_attention`` at the qwen2.5-3b serving shape
   (B 4, H 16, Hkv 2, D 128, S 128) in bfloat16 and float32, and at S 2048
-  in bfloat16; rows see S, S - 3, S / 2 and 1 slots;
+  in bfloat16; at recurrentgemma's local attention (H 16, Hkv 1, D 256)
+  over its full window S 2048 in bfloat16 and float32 (the ring of V
+  boxes); at granite-34b's MQA (H 48, Hkv 1, D 128, S 128: three chunks
+  of 16 heads, which a checkout without chunks refuses) and qwen2.5-32b's
+  G 5 (H 40, Hkv 8: one chunk); rows see S, S - 3, S / 2 and 1 slots;
 * ``gate_all_live`` / ``gate_serving_fill``: ``moe_fused_matmul`` at the
   moonshot expert gate's shape (E 64, C 6, K 2048, N 1408, bfloat16 x,
   float32 w, 31 flat thresholds) with every expert live, and with 17
@@ -30,10 +34,10 @@ The cases, all from seeded inputs made on the card:
   ``fused_matmul_nladc`` at qwen2.5-3b's MLP gate, bfloat16 x, at a decode
   step's (4, 2048, 11008) and a prefill step's M 1 (the GEMV, M <= 8) and
   at the training shape M = B x S = 1024 (the tensor-core GEMM);
-* ``flash_serve`` / ``flash_gqa``: ``flash_decode_int8`` at
-  ``chip_smoke.py``'s shapes, bfloat16 q: moonshot's serving shape (B 4,
-  H = Hkv = 16, D 128, S 128, full rows) and a GQA case (Hkv 2, lengths
-  128, 1, 37, 100);
+* ``flash_serve`` / ``flash_gqa`` / ``flash_mqa48``: ``flash_decode_int8``
+  at ``chip_smoke.py``'s shapes, bfloat16 q: moonshot's serving shape (B
+  4, H = Hkv = 16, D 128, S 128, full rows), a GQA case (Hkv 2, lengths
+  128, 1, 37, 100) and granite-34b's H 48 over Hkv 1 (six chunks of 8);
 * ``tile_ptb``: ``analog_tile`` at the PTB gate crossbar (16, 632, 8064),
   bfloat16 x, 5-bit PWM, read noise, the tanh ramp;
 * ``lstm_ptb_flat`` / ``lstm_ptb_banked`` / ``lstm_kws``: ``lstm_gates``
@@ -151,20 +155,28 @@ def _cases(torch, dev):
         return torch.randn(shape, generator=gen, device=dev)
 
     cases = {}
-    for dtype, s_len in ((torch.bfloat16, 128), (torch.float32, 128),
-                         (torch.bfloat16, 2048)):
-        q = randn(4, 16, 128).to(dtype)
-        k = randn(4, s_len, 2, 128).to(dtype)
-        v = randn(4, s_len, 2, 128).to(dtype)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for tag, dtype, s_len, (h, hkv, d) in (
+            ("", bf16, 128, (16, 2, 128)), ("", f32, 128, (16, 2, 128)),
+            ("", bf16, 2048, (16, 2, 128)),
+            ("local_", bf16, 2048, (16, 1, 256)),
+            ("local_", f32, 2048, (16, 1, 256)),
+            ("mqa48_", bf16, 128, (48, 1, 128)),
+            ("g5_", bf16, 128, (40, 8, 128))):
+        q = randn(4, h, d).to(dtype)
+        k = randn(4, s_len, hkv, d).to(dtype)
+        v = randn(4, s_len, hkv, d).to(dtype)
         seen = torch.tensor([s_len, s_len - 3, s_len // 2, 1], device=dev)
         mask = (torch.arange(s_len, device=dev)[None] < seen[:, None]).int()
-        name = f"attention_{str(dtype)[6:]}_s{s_len}"
+        name = f"attention_{tag}{str(dtype)[6:]}_s{s_len}"
         cases[name] = (lambda q=q, k=k, v=v, m=mask:
                        pa.prefill_attention(q, k, v, m))
 
-    for name, hkv, lengths in (("flash_serve", 16, [128, 128, 128, 128]),
-                               ("flash_gqa", 2, [128, 1, 37, 100])):
-        q = randn(4, 16, 128).bfloat16()
+    for name, h, hkv, lengths in (
+            ("flash_serve", 16, 16, [128, 128, 128, 128]),
+            ("flash_gqa", 16, 2, [128, 1, 37, 100]),
+            ("flash_mqa48", 48, 1, [128, 1, 37, 100])):
+        q = randn(4, h, 128).bfloat16()
         k8, v8 = (torch.randint(-127, 128, (4, 128, hkv, 128), generator=gen,
                                 device=dev, dtype=torch.int8)
                   for _ in range(2))
@@ -212,7 +224,6 @@ def _cases(torch, dev):
                                   ("lstm_ptb_banked", 16, 2016, 512),
                                   ("lstm_kws", 16, 32, 0)):
         cases[name] = _lstm_case(torch, dev, b, h, bank_cols)
-    bf16, f32 = torch.bfloat16, torch.float32
     for name, shape, act, dtype, bank_cols in (
             ("nladc_router_bf16", (4, 64), "sigmoid", bf16, 0),
             ("nladc_mlp_banked_bf16", (4, 11008), "silu", bf16, 512),

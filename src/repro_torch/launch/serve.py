@@ -1,7 +1,12 @@
 """Serve an LM on the GPU: ``python -m repro_torch.launch.serve --arch
-qwen2.5-3b``, a MoE LM with an int8 KV cache, or a recurrent LM (the SSD
-of mamba2-370m, the RG-LRU and local attention of recurrentgemma-9b)::
+qwen2.5-3b``, another dense LM (granite-3-8b, qwen2.5-32b, pixtral-12b
+served on text, as the reference's engine serves it, and granite-34b,
+whose 48 query heads share one KV head), a MoE LM with an int8 KV cache,
+or a recurrent LM (the SSD of mamba2-370m, the RG-LRU and local attention
+of recurrentgemma-9b)::
 
+    python -m repro_torch.launch.serve --arch granite-34b \
+        --override n_layers=40 [--override kv_cache_dtype=int8]
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --override n_layers=24 --override kv_cache_dtype=int8
     python -m repro_torch.launch.serve --arch mamba2-370m
@@ -114,7 +119,8 @@ from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.fleet import ROUTERS, FleetEngine, FleetPolicy
 from repro_torch.serve.lifecycle import RecalPolicy
 
-ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
+ARCHS = ("qwen2.5-3b", "granite-3-8b", "qwen2.5-32b", "pixtral-12b",
+         "granite-34b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
          "mamba2-370m", "recurrentgemma-9b")
 
 # the kernel wrappers whose launches the summary counts

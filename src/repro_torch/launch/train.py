@@ -14,7 +14,9 @@ a cosine schedule; each layer recomputed in the backward) and the
         [--kernel-cache kernel_tune.json] [--kernel-blocks SPEC] \\
         [--device cuda|cpu] [--profile] [--ckpt-dir DIR]
 
-Every LM family of ``ARCHS`` trains: the dense and MoE ones, mamba2-370m
+Every LM family of ``ARCHS`` trains: the dense and MoE ones (pixtral-12b
+with the stub frontend's patch embeddings over its first ``n_patches``
+positions, as the reference's launcher feeds them), mamba2-370m
 (SSD) and recurrentgemma-9b (RG-LRU and local attention; its params are
 the reference's ``groups`` of (rec, rec, attn) and a ``tail``, and
 ``--override n_layers=5`` cuts it to one group and a 2-block tail, as the
@@ -57,6 +59,7 @@ from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
 from repro_torch.launch.serve import ARCHS, KERNELS, make_config, \
     parse_overrides
 from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.nn.frontends import vision_patch_stub
 from repro_torch.nn.model import build
 from repro_torch.train.loop import TrainState, Trainer, to_device_batch
 
@@ -74,9 +77,20 @@ def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
     gen.manual_seed(seed)
     params = model.init(gen)
     opt = make_optimizer(cfg, total_steps=steps)
+    extra = {}
+    if cfg.modality == "vision":
+        # the stub frontend's patch embeddings, the same every step (the
+        # reference draws them from one fixed key, 7)
+        pgen = torch.Generator(device=device)
+        pgen.manual_seed(7)
+        extra["patch_embeds"] = vision_patch_stub(pgen, batch,
+                                                  cfg.n_patches, cfg.d_model)
+
+    def put_batch(b):
+        return {**to_device_batch(b, device), **extra}
+
     trainer = Trainer(model, opt, make_train_step(model, opt),
-                      SyntheticLM(cfg.vocab, seq, batch),
-                      put_batch=lambda b: to_device_batch(b, device),
+                      SyntheticLM(cfg.vocab, seq, batch), put_batch=put_batch,
                       log=log, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
     return model, trainer, TrainState(params, opt.init(params))
 
@@ -190,8 +204,7 @@ def main(argv=None) -> dict:
     print(json.dumps(out), flush=True)
     if args.profile:
         state = res["state"]
-        batch = to_device_batch(trainer.pipeline.batch_at(args.steps),
-                                device)
+        batch = trainer.put_batch(trainer.pipeline.batch_at(args.steps))
         _, prof = device_profile(lambda: trainer.train_step(
             state.params, state.opt_state, batch, args.steps), top=24)
         out["profile"] = prof

@@ -1,7 +1,8 @@
 """Decoder-only LM: the dense, MoE, SSM and hybrid families.
 
 The JAX package's ``repro/nn/transformer.py`` for its ``attn``,
-``moe_attn``, ``ssd`` and ``rec`` blocks: ``init``, ``embed``, ``logits``,
+``moe_attn``, ``ssd`` and ``rec`` blocks: ``init``, ``embed`` (a vision
+config's patch embeddings overwrite the first positions), ``logits``,
 ``layer_kinds``, the full-sequence ``forward`` / ``loss`` / ``prefill``,
 and the decode path (``init_decode_state`` with a bf16/f32 or int8 KV
 cache, a rolling-window cache for the hybrid's local attention and the
@@ -220,9 +221,24 @@ class LM:
 
     # -- embedding and readout --------------------------------------------
 
-    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return L.embedding_apply(params["embed"], tokens,
-                                 compute_dtype=self.compute_dtype)
+    def embed(self, params, tokens: torch.Tensor,
+              extra: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
+        """The token embeddings (B, S, d_model) in the compute dtype; for a
+        vision config (``modality == "vision"``) with
+        ``extra["patch_embeds"]`` (B, n_patches, d_model), the first
+        n_patches positions are those embeddings, cast to the compute
+        dtype, as the reference's stub frontend hands them over."""
+        x = L.embedding_apply(params["embed"], tokens,
+                              compute_dtype=self.compute_dtype)
+        if self.cfg.modality == "vision" and extra \
+                and "patch_embeds" in extra:
+            pe = extra["patch_embeds"].to(x.dtype)
+            if pe.shape[1] > x.shape[1]:
+                raise ValueError(f"{pe.shape[1]} patch embeddings for "
+                                 f"{x.shape[1]} positions")
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return x
 
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -301,13 +317,15 @@ class LM:
             aux = aux + a
         return x, aux
 
-    def forward(self, params, tokens: torch.Tensor, *,
+    def forward(self, params, tokens: torch.Tensor,
+                extra: Optional[Dict[str, torch.Tensor]] = None, *,
                 noise: Optional[NoiseSource] = None,
                 collect_aux: bool = False, remat: bool = False):
         """Full-sequence logits.  tokens: (B, S) -> (B, S, padded_vocab)
         float32, and with ``collect_aux`` the MoE load-balance loss summed
-        over layers.  ``noise``: the train-mode ramp draws, one keyed unit
-        after another (:meth:`_keyed_units`; None: the programmed ramps).
+        over layers.  ``extra``: the modality inputs (:meth:`embed`).
+        ``noise``: the train-mode ramp draws, one keyed unit after another
+        (:meth:`_keyed_units`; None: the programmed ramps).
         ``remat`` recomputes each layer's body, or each hybrid group's, in
         the backward (``remat_policy="full"``, the reference's
         ``nothing_saveable``; ``"none"`` keeps everything); the result is
@@ -318,7 +336,7 @@ class LM:
                 f"remat_policy={cfg.remat_policy!r} is not ported yet; "
                 f"ROADMAP.md queue A item 3 (what is left of the LM "
                 f"forward) brings it")
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, extra)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for unit, recompute in self._keyed_units(params):
@@ -343,14 +361,18 @@ class LM:
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
              noise: Optional[NoiseSource] = None, remat: bool = True):
         """Next-token cross entropy over ``batch["labels"]`` (-1 = masked),
-        plus ``router_aux_coef`` x the load-balance loss for a MoE.
-        Returns ``(total, metrics)``: ``loss``, ``aux_loss`` and
-        ``tokens``, the true count of valid labels (0 for an all-masked
-        batch; only the division is clamped)."""
+        plus ``router_aux_coef`` x the load-balance loss for a MoE; every
+        other key of ``batch`` goes to :meth:`forward` as ``extra`` (a
+        vision config's ``patch_embeds``).  Returns ``(total, metrics)``:
+        ``loss``, ``aux_loss`` and ``tokens``, the true count of valid
+        labels (0 for an all-masked batch; only the division is
+        clamped)."""
         cfg = self.cfg
         moe = cfg.family == "moe"
-        out = self.forward(params, batch["tokens"], noise=noise,
-                           collect_aux=moe, remat=remat)
+        extra = {k: v for k, v in batch.items()
+                 if k not in ("tokens", "labels")}
+        out = self.forward(params, batch["tokens"], extra or None,
+                           noise=noise, collect_aux=moe, remat=remat)
         logits, aux = out if moe else (out, torch.zeros(
             (), dtype=torch.float32, device=out.device))
         labels = batch["labels"]
@@ -365,12 +387,13 @@ class LM:
         return total, {"loss": loss, "aux_loss": aux,
                        "tokens": n_valid.to(torch.float32)}
 
-    def prefill(self, params, tokens: torch.Tensor, *,
+    def prefill(self, params, tokens: torch.Tensor,
+                extra: Optional[Dict[str, torch.Tensor]] = None, *,
                 noise: Optional[NoiseSource] = None) -> torch.Tensor:
         """Forward a prompt, returning the last position's logits (B, 1,
         V); no cache is written (the cache-writing prefill is
         :meth:`prefill_cache`)."""
-        return self.forward(params, tokens, noise=noise)[:, -1:]
+        return self.forward(params, tokens, extra, noise=noise)[:, -1:]
 
     def prefill_cache(self, params, state, tokens, valid_len):
         """Cache-writing chunked and batched prefill (see

@@ -237,11 +237,10 @@ def test_serving_shape_splits_in_three():
 
 def test_kernel_shape_checks():
     """What the kernel takes beyond the plain version: D a multiple of 16
-    up to 256 (a TMA box row of int8 codes), at most 8 query heads a KV
-    head, B within the grid."""
-    TFD._check_kernel_shape(4, 16, 16, 128)
-    TFD._check_kernel_shape(4, 16, 2, 256)
-    for args in ((4, 16, 16, 72), (4, 16, 16, 8), (4, 16, 16, 272),
-                 (4, 16, 1, 128), (70000, 16, 16, 128)):
+    up to 256 (a TMA box row of int8 codes) and B within the grid; any
+    query group (a group of more than 8 heads is chunked)."""
+    TFD._check_kernel_shape(4, 128)
+    TFD._check_kernel_shape(4, 256)
+    for args in ((4, 72), (4, 8), (4, 272), (70000, 128)):
         with pytest.raises(ValueError, match="multiple of 16"):
             TFD._check_kernel_shape(*args)

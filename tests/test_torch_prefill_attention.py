@@ -203,7 +203,8 @@ def test_smem_bytes_at_the_serving_shape():
 
 @pytest.mark.parametrize("h,hkv,d,s,dtype,match", [
     (16, 2, 4, 8, BF16, "multiple of 16"),
-    (34, 2, 128, 8, BF16, "H/Hkv <= 16"),
+    (16, 2, 2, 8, F32, "multiple of 16"),   # 8-byte rows of float32
+    (34, 0, 128, 8, BF16, "multiple of Hkv"),
     (16, 2, 128, 200_000, BF16, "does not fit"),
     (16, 2, 128, 0, BF16, "S >= 1")])
 def test_cluster_size_refuses_what_the_kernel_cannot_take(h, hkv, d, s, dtype,
