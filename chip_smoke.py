@@ -380,6 +380,34 @@ Phases, one JSON line each:
               programmed once at build time; ``paper`` has no build stage,
               so infer mode on it is exact mode), 4 requests x 16 tokens;
               then ``lm_infer_agreement``, ``agreement`` in infer mode.
+13w1. serve_whisper — whisper-base (arXiv:2212.04356; 6 + 6 layers, d
+              512, 8 heads of 64, ff 2048, gelu) at full width and depth,
+              bf16, on ``serve``'s workload: its decoder served on text
+              with cross K/V of zeros, as the reference's engine serves
+              it; the scan engine, then the packed prefill
+              (``serve_whisper_packed``: the scan's streams); kernels 3
+              and 5 once a decoder layer a position; tokens/s, ms a decode
+              step, peak memory.  Run after every earlier main path and
+              train_ckpt, which keep their allocator layout.
+13w2. transcribe_whisper — through ``launch.steps.build_all``'s serve
+              step: B 4 stub audio frames (1500 x 512, seed 7),
+              ``start_decode`` (kernel 3's GEMM at M 6000 once an encoder
+              layer), then 32 greedy steps in a 448-slot cache (kernel 3's
+              GEMV at M 4, kernel 5 at S 448, once a decoder layer a
+              step); the encoder's ms, ms a decode step, tokens/s, peak.
+13w3. agreement_whisper — full depth, float32, cuda against ref: the
+              forward over B 2 x S 32 and (2, 1500, 512) frames within
+              LSB/2 (0.068, gelu) on the cuda run's gate outputs, kernel
+              3's flips audited (at most 1e-4, one level); decode against
+              forward with the NL-ADC off, rel < 1e-3.
+13w4. train_whisper — ``launch.train`` at full depth, ``paper`` train
+              mode, B 8 x S 128, 3 steps (kernel 3 once a layer of each
+              stack a step); ms a step, peak; then
+              ``train_agreement_whisper``: ``train_agreement`` at 2 + 2
+              layers over (2, 1500, 512) frames.
+    whisper kernel cases — kernel 3 at whisper's gate (K 512, N 2048,
+              gelu, bf16) at M 4 and M 6000, kernel 5 at (H 8, Hkv 8, D
+              64, S 448) in bf16 and f32, each against its plain version.
 14. analog_tile — the crossbar-tile kernel against its plain version at
               the PTB gate crossbar as one tile (16, 632, 8064; bfloat16 x,
               5-bit PWM, read noise, tanh), the JAX sweep's (128, 256, 256)
@@ -423,7 +451,8 @@ raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 families' kernel cases (their training shapes too), 13a1 to 13a5 and
 13e to 13g, and ``--dense`` only the device phase, the dense configs'
 kernel cases (kernel 3's MLP gates, kernels 5 and 6 at G 48 and G 5),
-13a6 and 13a7; none of them prints the ``ok`` line.  Without a GPU, or
+13a6 and 13a7, and ``--encdec`` only the device phase, whisper's kernel
+cases and 13w1 to 13w4; none of them prints the ``ok`` line.  Without a GPU, or
 without the repository's ``src/repro_torch`` beside this script, it exits
 non-zero and prints no result.
 """
@@ -563,6 +592,24 @@ PIXTRAL_TEXT = 16          # text tokens after pixtral's 256 patches
 DENSE_AGREES = (("granite-3-8b", ""), ("qwen2.5-32b", ""),
                 ("pixtral-12b", ""), ("granite-34b", ""),
                 ("granite-34b", "int8"))
+# whisper-base (arXiv:2212.04356), the encoder-decoder family, at full
+# width and depth (6 + 6 layers): served on serve's workload (text, the
+# cross K/V zero, as the reference's engine serves it), scan and packed;
+# transcribed through build_all's serve step: B 4 stub audio frames (1500
+# x 512, seed 7), start_decode, then 32 greedy steps in a cache of 448
+# slots (Whisper's published text context), from the start-of-transcript
+# token 50258 of Whisper's multilingual vocabulary
+WHISPER = dict(arch="whisper-base", batch=4, max_len=448, steps=32,
+               start_token=50258, repeats=2)
+WHISPER_SERVE_REPEATS = 1
+# agreement_whisper: float32, cuda against ref, B 2 x S 32 over (2, 1500,
+# 512) frames; then decode against forward with the NL-ADC off
+WHISPER_AGREE = dict(batch=2, seq=32)
+# launch.train's B 8 x S 128, 3 steps, train mode on paper; the gradient
+# agreement at 2 + 2 layers
+TRAIN_WHISPER = dict(TRAIN_LM, arch="whisper-base")
+TRAIN_AGREE_WHISPER = dict(TRAIN_AGREE, n_layers=4, overrides=dict(
+    n_enc_layers=2, n_dec_layers=2))
 
 
 _T0 = time.perf_counter()
@@ -1379,6 +1426,12 @@ def phase_attention(torch, dev, name: str, dtype, s_len: int,
     return out, kernel, plain, library
 
 
+def decoder_layers(cfg) -> int:
+    """The layers a decode step runs: the encoder-decoder's decoder
+    stack, else every layer."""
+    return cfg.n_dec_layers if cfg.family == "encdec" else cfg.n_layers
+
+
 def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
                 analog_device: str = "", repeats: int = SERVE["repeats"],
                 arch: str = SERVE["arch"], n_layers: int = 0,
@@ -1421,7 +1474,7 @@ def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
     launches = {k: fn.launches for k, fn in wrappers.items()}
     del model.decode_step
     steps = stats["prefill_steps"] + stats["decode_steps"]
-    expected = {k: cfg.n_layers * steps
+    expected = {k: decoder_layers(cfg) * steps
                 if k in ("fused_matmul_nladc", "prefill_attention") else 0
                 for k in wrappers}
     check(launches == expected,
@@ -2707,6 +2760,19 @@ def _peak_since(torch, base: int) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
+def _requested_now(torch) -> int:
+    """The bytes the live tensors asked for (no block rounding)."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _requested_peak_since(torch, base: int) -> int:
+    """The peak bytes the tensors asked for above ``base`` since
+    :func:`_peak_reset` (the allocator's peak less its block rounding)."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["requested_bytes.all.peak"] - base
+
+
 def _dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*")
                if f.is_file())
@@ -2817,9 +2883,11 @@ def phase_train_ckpt(torch, dev) -> dict:
                                    log=None, ckpt_dir=ckpt_dir)
 
     base = _peak_reset(torch)
+    req_base = _requested_now(torch)
     _, full, state = trainer()
     full_state = train.train(full, state, spec["steps"], dev)["state"]
     peak_full = _peak_since(torch, base)
+    req_full = _requested_peak_since(torch, req_base)
     root = tempfile.mkdtemp(prefix="train_ckpt_")
     try:
         _, part, state = trainer(root)
@@ -2830,11 +2898,13 @@ def phase_train_ckpt(torch, dev) -> dict:
         del part, state
         free_device(torch)
         base = _peak_reset(torch)
+        req_base = _requested_now(torch)
         _, resumed, state = trainer(root)
         ts = time.perf_counter()
         res = train.train(resumed, state, spec["steps"], dev)
         resume_s = time.perf_counter() - ts
         peak_res = _peak_since(torch, base)
+        req_res = _requested_peak_since(torch, req_base)
         res_state = res["state"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2857,6 +2927,9 @@ def phase_train_ckpt(torch, dev) -> dict:
     check(peak_res <= peak_full,
           f"train_ckpt: the resumed run's peak {peak_res} B exceeds the "
           f"uninterrupted run's {peak_full} B")
+    check(req_res <= req_full,
+          f"train_ckpt: the resumed run's requested peak {req_res} B "
+          f"exceeds the uninterrupted run's {req_full} B")
     out = {"phase": "train_ckpt", "arch": cfg.name,
            "n_layers": spec["n_layers"], "d_model": cfg.d_model,
            "B": spec["batch"], "S": spec["seq"], "steps": spec["steps"],
@@ -2867,6 +2940,8 @@ def phase_train_ckpt(torch, dev) -> dict:
            "restore_step_and_save_s": resume_s,
            "peak_bytes_uninterrupted": peak_full,
            "peak_bytes_resumed": peak_res,
+           "requested_peak_bytes_uninterrupted": req_full,
+           "requested_peak_bytes_resumed": req_res,
            "max_abs_diff": worst, "bitwise": True,
            "seconds": time.perf_counter() - t0}
     emit(out)
@@ -4170,7 +4245,7 @@ def phase_train_lm(torch, dev, name: str, spec: dict, path: dict,
            "analog_mode": "train", "analog_device": spec["analog_device"],
            "bank_cols": bank_cols, "B": spec["batch"], "S": spec["seq"],
            "steps": spec["steps"], "setup_s": setup_s, "losses": losses,
-           "aux_losses": [h["aux_loss"] for h in hist],
+           "aux_losses": [h.get("aux_loss", 0.0) for h in hist],
            "grad_norms": [h["grad_norm"] for h in hist],
            "step_ms_all": trainer.step_ms, "step_ms": step_ms,
            "step_ms_min": min(later), "step_ms_max": max(later),
@@ -4275,7 +4350,8 @@ def phase_train_agreement(torch, dev, arch: str,
     from repro_torch.train import optim
 
     b, s = spec["batch"], spec["seq"]
-    overrides = {"n_layers": spec["n_layers"], "dtype": "float32"}
+    overrides = {"n_layers": spec["n_layers"], "dtype": "float32",
+                 **spec.get("overrides", {})}
     if "window" in spec:
         overrides["window"] = spec["window"]
     models = {}
@@ -4291,6 +4367,10 @@ def phase_train_agreement(torch, dev, arch: str,
         p.requires_grad_(True)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.modality == "audio":
+        from repro_torch.nn.frontends import audio_frame_stub
+
+        batch["frames"] = audio_frame_stub(gen, b, cfg.enc_len, cfg.d_model)
     gates = {"cuda": [], "ref": []}
     same_inputs = {"flips": 0, "steps": []}
 
@@ -4656,6 +4736,294 @@ def _dense_phases(torch, dev) -> dict:
     return out
 
 
+def phase_serve_whisper(torch, dev) -> dict:
+    """whisper-base at full width and depth (6 + 6 layers), bf16, cuda, on
+    serve's workload, its decoder served on text with cross K/V of zeros
+    (the reference's engine never calls ``start_decode``): the scan
+    engine (:func:`phase_serve`: kernels 3 and 5 once a decoder layer a
+    step, every logit finite), then the packed prefill on the same
+    weights: the scan's streams, the same launches a position; tokens/s,
+    ms a decode step and peak memory of each.  Returns the launches by
+    path."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    scan = phase_serve(torch, dev, "serve_whisper", arch=WHISPER["arch"],
+                       repeats=WHISPER_SERVE_REPEATS)
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve.make_config(WHISPER["arch"], backend="cuda")
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    spec = dict(SERVE, repeats=WHISPER_SERVE_REPEATS)
+    packed = _serve_mode(
+        torch, ServingEngine, model, params, cfg, "serve_whisper", "packed",
+        dict(prefill="bucketed", pack_prefill=True), spec, scan["streams"],
+        None, {k: cfg.n_dec_layers for k in ("fused_matmul_nladc",
+                                             "prefill_attention")})
+    emit({"phase": "serve_whisper_packed", "arch": cfg.name,
+          "n_enc_layers": cfg.n_enc_layers, "n_dec_layers": cfg.n_dec_layers,
+          "dtype": cfg.dtype, "backend": "cuda", **packed,
+          "streams_equal_scan": True,
+          "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "seconds": time.perf_counter() - t0})
+    del model, params
+    return {"serve_whisper": scan["launches"],
+            "serve_whisper/packed": packed["launches"]}
+
+
+def phase_transcribe_whisper(torch, dev) -> dict:
+    """whisper-base at full width and depth, bf16, cuda, through
+    ``launch.steps.build_all``'s serve step: B 4 stub audio frames (seed
+    7) encoded by ``start_decode`` (kernel 3 once an encoder layer, the
+    GEMM at M = B x 1500, nothing else), then WHISPER["steps"] greedy
+    steps in a cache of WHISPER["max_len"] slots (kernels 3 and 5 once a
+    decoder layer a step: the GEMV at M = B, the cached attention at S =
+    max_len), every logit finite, the cross K/V non-zero.  The encoder's
+    ms, ms a decode step and tokens/s (host clock ending on a
+    synchronize: the median of the timed repeats), peak memory.  Returns
+    the launches by path."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.nn.frontends import audio_frame_stub
+
+    t0 = time.perf_counter()
+    spec, b = WHISPER, WHISPER["batch"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve.make_config(spec["arch"], backend="cuda")
+    model, _, _, serve_step = steps.build_all(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    gen.manual_seed(7)
+    frames = audio_frame_stub(gen, b, cfg.enc_len, cfg.d_model)
+    first = torch.full((b, 1), spec["start_token"], dtype=torch.int64,
+                       device=dev)
+    finite = []
+    decode_step = model.decode_step
+
+    def checked(p, state, tokens):
+        logits, state = decode_step(p, state, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, state
+
+    def encode():
+        return model.start_decode(
+            params, model.init_decode_state(b, spec["max_len"]), frames)
+
+    def greedy(state):
+        tok, out = first, []
+        for _ in range(spec["steps"]):
+            nxt, state = serve_step(params, state, tok)
+            out.append(nxt)
+            tok = nxt[:, None].long()
+        return torch.stack(out, 1), state
+
+    model.decode_step = checked
+    try:
+        greedy(encode())                                        # warm-up
+        torch.cuda.synchronize()
+        finite.clear()
+        state, enc_launches = _counted(encode)
+        (toks, state), dec_launches = _counted(lambda: greedy(state))
+        torch.cuda.synchronize()
+        counted = list(finite)
+        enc_ms, dec_s = [], []
+        for _ in range(spec["repeats"]):
+            ts = time.perf_counter()
+            st = encode()
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - ts) * 1e3)
+            ts = time.perf_counter()
+            greedy(st)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - ts)
+    finally:
+        del model.decode_step
+    n = spec["steps"]
+    want_enc = {k: cfg.n_enc_layers if k == "fused_matmul_nladc" else 0
+                for k in enc_launches}
+    want_dec = {k: cfg.n_dec_layers * n
+                if k in ("fused_matmul_nladc", "prefill_attention") else 0
+                for k in dec_launches}
+    check(enc_launches == want_enc, f"transcribe_whisper: the encoder's "
+          f"launches {enc_launches}, expected {want_enc}")
+    check(dec_launches == want_dec, f"transcribe_whisper: the decode "
+          f"launches {dec_launches}, expected {want_dec}")
+    check(len(counted) == n and all(bool(f) for f in counted),
+          "transcribe_whisper: non-finite logits")
+    check(tuple(toks.shape) == (b, n) and bool((toks >= 0).all())
+          and bool((toks < cfg.padded_vocab).all()),
+          f"transcribe_whisper: tokens {tuple(toks.shape)}")
+    check(all(bool(c["k"].abs().sum() > 0) for c in state["cross"]),
+          "transcribe_whisper: start_decode left a cross K/V of zeros")
+    dec = statistics.median(dec_s)
+    out = {"phase": "transcribe_whisper", "arch": cfg.name,
+           "n_enc_layers": cfg.n_enc_layers, "n_dec_layers": cfg.n_dec_layers,
+           "dtype": cfg.dtype, "backend": "cuda", "B": b,
+           "frames": cfg.enc_len, "max_len": spec["max_len"],
+           "steps": n, "start_token": spec["start_token"],
+           "gate_rows": {"encoder": b * cfg.enc_len, "decode": b},
+           "launches": {"encode": enc_launches, "decode": dec_launches},
+           "repeats": spec["repeats"],
+           "encoder_ms": statistics.median(enc_ms),
+           "encoder_ms_all": enc_ms,
+           "decode_step_ms": dec * 1e3 / n,
+           "tokens_per_s": b * n / dec,
+           "first_stream": toks[0].tolist(),
+           "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del model, params, state
+    return {"transcribe_whisper/encode": enc_launches,
+            "transcribe_whisper/decode": dec_launches}
+
+
+def phase_agreement_whisper(torch, dev) -> dict:
+    """whisper-base at full width and depth in float32 on the cuda and ref
+    backends, the same weights: the forward over B 2 x S 32 tokens and
+    (2, 1500, 512) stub frames, kernel 3 once a layer of each stack,
+    audited against ref's gate on the same operands (code flips at most
+    AGREE_FLIP_SHARE, one level each); the ref forward given the cuda
+    run's gate outputs within LSB/2 of the cuda logits; the free ref
+    forward's difference printed.  Then the reference's
+    ``test_decode_consistency`` on the card: NL-ADC off, ``start_decode``
+    and S teacher-forced decode steps (kernel 5 once a decoder layer a
+    step) against ``forward``, relative difference under PREFILL_REL."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.frontends import audio_frame_stub
+    from repro_torch.nn.model import build
+
+    t0 = time.perf_counter()
+    b, s = WHISPER_AGREE["batch"], WHISPER_AGREE["seq"]
+    models = {bk: build(serve.make_config(WHISPER["arch"], backend=bk)
+                        .replace(dtype="float32"), dev)
+              for bk in ("cuda", "ref")}
+    cfg = models["cuda"].cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = models["cuda"].init(gen)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    extra = {"frames": audio_frame_stub(gen, b, cfg.enc_len, cfg.d_model)}
+    audit, free = [], []
+    undo = _audit_gates(torch, models["cuda"], [], audit)
+    try:
+        got, launches = _counted(
+            lambda: models["cuda"].forward(params, tokens, extra))
+    finally:
+        undo()
+    want_launches = {k: cfg.n_enc_layers + cfg.n_dec_layers
+                     if k == "fused_matmul_nladc" else 0 for k in launches}
+    check(launches == want_launches, f"agreement_whisper: launches "
+          f"{launches}, expected {want_launches}")
+    check(bool(torch.isfinite(got).all()),
+          "agreement_whisper: non-finite logits")
+    flips = _flip_summary("agreement_whisper", audit)
+    free_diff = float((models["ref"].forward(params, tokens, extra)
+                       - got).abs().max())
+    undo = _replay_gates(torch, models["ref"], audit, free)
+    try:
+        want = models["ref"].forward(params, tokens, extra)
+    finally:
+        undo()
+    lsb = models["cuda"].act.ramp.lsb
+    diff = float((want - got).abs().max())
+    check(diff < lsb / 2, f"agreement_whisper: logits differ by {diff} >= "
+          f"LSB/2 = {lsb / 2} on the same gate outputs")
+    del models, got, want
+    # decode against forward, NL-ADC off
+    off = serve.make_config(WHISPER["arch"], backend="cuda").replace(
+        dtype="float32")
+    off = off.replace(analog=dataclasses.replace(off.analog, enabled=False))
+    model = build(off, dev)
+    full = model.forward(params, tokens, extra)
+
+    def decode():
+        state = model.start_decode(params, model.init_decode_state(b, s),
+                                   extra["frames"])
+        logits = []
+        for t in range(s):
+            step, state = model.decode_step(params, state,
+                                            tokens[:, t:t + 1])
+            logits.append(step)
+        return logits
+
+    outs, dec_launches = _counted(decode)
+    want_dec = {k: cfg.n_dec_layers * s if k == "prefill_attention" else 0
+                for k in dec_launches}
+    check(dec_launches == want_dec, f"agreement_whisper: decode launches "
+          f"{dec_launches}, expected {want_dec}")
+    rel = float((torch.cat(outs, 1) - full).abs().max()
+                / full.abs().max())
+    check(rel < PREFILL_REL, f"agreement_whisper: decode against forward "
+          f"rel {rel} >= {PREFILL_REL}")
+    out = {"phase": "agreement_whisper", "arch": cfg.name,
+           "n_enc_layers": cfg.n_enc_layers, "n_dec_layers": cfg.n_dec_layers,
+           "dtype": "float32", "B": b, "S": s, "frames": cfg.enc_len,
+           "launches": launches, **flips, "max_abs_logit_diff": diff,
+           "lsb_half": lsb / 2, "free_max_abs_logit_diff": free_diff,
+           "free_gate_flips": sum(free),
+           "decode_vs_forward_rel": rel, "decode_rel_limit": PREFILL_REL,
+           "decode_launches": dec_launches,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return {}
+
+
+def phase_train_whisper(torch, dev) -> dict:
+    """whisper-base trained through ``launch.train`` at full width and
+    depth (train mode on ``paper``, B 8 x S 128, the stub frontend's
+    frames): kernel 3 once a layer of each stack a step (the encoder's
+    GEMM at M = 8 x 1500; the loss recomputes nothing, as the
+    reference's); then its cuda-against-ref gradients at 2 + 2 layers
+    (``train_agreement_whisper``).  Returns the launches by path."""
+    from repro_torch import configs
+
+    cfg = configs.get(TRAIN_WHISPER["arch"])
+    trained = phase_train_lm(torch, dev, "train_whisper", TRAIN_WHISPER, {
+        "fused_matmul_nladc": cfg.n_enc_layers + cfg.n_dec_layers})
+    free_device(torch)
+    phase_train_agreement(torch, dev, WHISPER["arch"],
+                          spec=TRAIN_AGREE_WHISPER,
+                          name="train_agreement_whisper")
+    return {"train_whisper": trained["launches"]}
+
+
+def _whisper_phases(torch, dev) -> dict:
+    """whisper-base's phases in order, each one's seconds emitted; the
+    kernel launches of its main paths by path."""
+    out, seconds = {}, {}
+    for name, run in (("serve_whisper", phase_serve_whisper),
+                      ("transcribe_whisper", phase_transcribe_whisper),
+                      ("agreement_whisper", phase_agreement_whisper),
+                      ("train_whisper", phase_train_whisper)):
+        t0 = time.perf_counter()
+        out.update(run(torch, dev))
+        free_device(torch)
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "whisper_seconds", **seconds,
+          "total": sum(seconds.values())})
+    return out
+
+
+def whisper_kernel_cases(torch, dev) -> list:
+    """whisper-base's kernel cases, each checked against its plain version:
+    ``fused_matmul_nladc`` at its MLP gate (K 512, N 2048, gelu, bfloat16
+    x) at the decode rows (M 4: the GEMV) and the encoder's (M 6000 = 4 x
+    1500: the GEMM, a ragged last tile); ``prefill_attention`` at its
+    decoder's heads (H 8 over Hkv 8, D 64: a group of 1) over the
+    448-slot cache, bfloat16 and float32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, frames = WHISPER["batch"], 1500
+    return [
+        phase_fused_matmul(torch, dev, "whisper_decode_flat", b, 512, 2048,
+                           bf16, 0, act_name="gelu"),
+        phase_fused_matmul(torch, dev, "whisper_encoder", b * frames, 512,
+                           2048, bf16, 0, act_name="gelu", reps=5, inner=3),
+        *(phase_attention(torch, dev, name, dt, WHISPER["max_len"],
+                          heads=(8, 8, 64))
+          for name, dt in (("whisper_bf16", bf16), ("whisper_f32", f32)))]
+
+
 def free_device(torch) -> None:
     """Return the memory of a finished phase to the card."""
     import gc
@@ -4750,6 +5118,10 @@ def main(argv=None) -> int:
                     help="run only the device phase, the dense configs' "
                          "kernel cases and their serve and agreement "
                          "phases")
+    ap.add_argument("--encdec", action="store_true",
+                    help="run only the device phase, whisper-base's kernel "
+                         "cases and its serve, transcribe, agreement and "
+                         "train phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4821,6 +5193,13 @@ def main(argv=None) -> int:
         free_device(torch)
         emit({"dense_launches": {k: v["launches"] for k, v in
                                  _dense_phases(torch, dev).items()}})
+        return 0
+    if args.encdec:
+        floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+        for case in whisper_kernel_cases(torch, dev):
+            phase_kernel_time(*case, floor_ms=floor_ms)
+        free_device(torch)
+        emit({"encdec_launches": _whisper_phases(torch, dev)})
         return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
@@ -4981,6 +5360,8 @@ def main(argv=None) -> int:
     # made after the main paths, so their 1.7 GB of weights do not move
     # the allocator's layout under train_ckpt's peak comparison (ROADMAP C)
     dense_cases = dense_kernel_cases(torch, dev)
+    whisper = _whisper_phases(torch, dev)
+    whisper_cases = whisper_kernel_cases(torch, dev)
 
     floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
 
@@ -5000,7 +5381,7 @@ def main(argv=None) -> int:
     flash_cases = timed(flash_checked)
     tile_cases = timed(tile_checked)
     train_cases = timed(train_checked)
-    for case in timed(dense_cases):
+    for case in timed(dense_cases + whisper_cases):
         dense_timed.setdefault(case["phase"], []).append(case)
     # train_cases: kernel 3 flat and banked, kernel 4, the router, then
     # recurrent_train_cases (kernel 3, four of kernel 2)
@@ -5056,7 +5437,8 @@ def main(argv=None) -> int:
                 "serve_pixtral/vision": dense["serve_pixtral"][
                     "vision_forward"]["launches"]["fused_matmul_nladc"],
                 "serve_granite34b/int8": dense["serve_granite34b"]["int8"][
-                    "launches"]["fused_matmul_nladc"]}
+                    "launches"]["fused_matmul_nladc"],
+                **{k: v["fused_matmul_nladc"] for k, v in whisper.items()}}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -5077,7 +5459,9 @@ def main(argv=None) -> int:
                 **{k: v["prefill_attention"] for k, v in lifecycle.items()},
                 **recurrent_launches_of("prefill_attention"),
                 **{k: dense[k]["launches"]["prefill_attention"]
-                   for k in dense_serves}}
+                   for k in dense_serves},
+                **{k: v["prefill_attention"] for k, v in whisper.items()
+                   if v["prefill_attention"]}}
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",

@@ -202,10 +202,10 @@ class ModelConfig:
 
 
 # The paper's two LSTM workloads, the dense LMs (pixtral-12b with its
-# vision patch embeddings), the two MoE LMs and the two recurrent LMs (SSD
-# and RG-LRU); the encoder-decoder family is not ported yet.
+# vision patch embeddings), the encoder-decoder whisper-base (audio frame
+# embeddings), the two MoE LMs and the two recurrent LMs (SSD and RG-LRU).
 ARCH_NAMES = ("kws_lstm", "ptb_lstm", "qwen2.5-3b", "granite-3-8b",
-              "qwen2.5-32b", "pixtral-12b", "granite-34b",
+              "qwen2.5-32b", "pixtral-12b", "whisper-base", "granite-34b",
               "moonshot-v1-16b-a3b", "deepseek-moe-16b", "mamba2-370m",
               "recurrentgemma-9b")
 

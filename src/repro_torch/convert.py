@@ -9,6 +9,10 @@
   dict per layer in a list (:func:`lm_params_from_jax`).  The hybrid
   family's ``groups`` carry a leading ``n_groups`` axis the same way and
   become a list of per-group dicts; its ``tail`` is already a list.
+* The encoder-decoder: the JAX ``EncDecLM.init`` tree holds ``embed``,
+  ``pos_dec``, ``enc_norm``, ``dec_norm`` and the stacked ``enc_layers``
+  and ``dec_layers``, which become lists of per-layer dicts
+  (:func:`encdec_params_from_jax`).
 
 Leaves may be numpy arrays or anything numpy can convert; they become
 float32 tensors.  On disk a tree is one ``.npz`` whose keys are the leaf
@@ -67,6 +71,18 @@ def lm_params_from_jax(tree, device=None):
     return out
 
 
+def encdec_params_from_jax(tree, device=None):
+    """The port's encoder-decoder params from the JAX ``EncDecLM.init``
+    tree: the stacked ``enc_layers`` and ``dec_layers`` leaves are split
+    into lists of per-layer dicts; ``embed``, ``pos_dec``, ``enc_norm``
+    and ``dec_norm`` are kept as they are."""
+    stacked = ("enc_layers", "dec_layers")
+    out = {k: _map(v, lambda a: _leaf(a, device))
+           for k, v in tree.items() if k not in stacked}
+    out.update({k: _unstack(tree[k], device) for k in stacked})
+    return out
+
+
 def _flatten(tree, prefix=""):
     flat = {}
     items = enumerate(tree) if isinstance(tree, (list, tuple)) \
@@ -87,7 +103,8 @@ def save_npz(path, tree) -> None:
 
 def load_npz(path, device=None):
     """Read a tree written by :func:`save_npz` into the port's params: a
-    classifier (``lstm``/``fc``) or an LM (``embed``/``layers``)."""
+    classifier (``lstm``/``fc``), an encoder-decoder (``enc_layers``) or
+    an LM (``embed``/``layers``)."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -98,6 +115,8 @@ def load_npz(path, device=None):
             node[name] = z[key]
     if "lstm" in tree:
         return params_from_jax(tree, device)
+    if "enc_layers" in tree:
+        return encdec_params_from_jax(tree, device)
     if "embed" in tree:
         return lm_params_from_jax(tree, device)
     raise ValueError(f"{path}: neither a classifier tree (lstm/fc) nor an "

@@ -1,9 +1,12 @@
 """Serve an LM on the GPU: ``python -m repro_torch.launch.serve --arch
 qwen2.5-3b``, another dense LM (granite-3-8b, qwen2.5-32b, pixtral-12b
 served on text, as the reference's engine serves it, and granite-34b,
-whose 48 query heads share one KV head), a MoE LM with an int8 KV cache,
-or a recurrent LM (the SSD of mamba2-370m, the RG-LRU and local attention
-of recurrentgemma-9b)::
+whose 48 query heads share one KV head), the encoder-decoder whisper-base
+(its decoder served on text with cross K/V of zeros, as the reference's
+engine serves it; its deployment flags, an aging ``--analog-device``,
+``--age-per-step-s``, ``--ckpt-dir`` and ``--fleet``, raise), a MoE LM
+with an int8 KV cache, or a recurrent LM (the SSD of mamba2-370m, the
+RG-LRU and local attention of recurrentgemma-9b)::
 
     python -m repro_torch.launch.serve --arch granite-34b \
         --override n_layers=40 [--override kv_cache_dtype=int8]
@@ -120,8 +123,8 @@ from repro_torch.serve.fleet import ROUTERS, FleetEngine, FleetPolicy
 from repro_torch.serve.lifecycle import RecalPolicy
 
 ARCHS = ("qwen2.5-3b", "granite-3-8b", "qwen2.5-32b", "pixtral-12b",
-         "granite-34b", "moonshot-v1-16b-a3b", "deepseek-moe-16b",
-         "mamba2-370m", "recurrentgemma-9b")
+         "whisper-base", "granite-34b", "moonshot-v1-16b-a3b",
+         "deepseek-moe-16b", "mamba2-370m", "recurrentgemma-9b")
 
 # the kernel wrappers whose launches the summary counts
 KERNELS = {"fused_matmul_nladc": fmn.fused_matmul_nladc,

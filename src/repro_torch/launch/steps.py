@@ -1,7 +1,9 @@
-"""Step factories for the LM: the optimizer and the train step.
+"""Step factories for the LM: the optimizer, the train step, the prefill
+and serve steps.
 
 The torch twin of the JAX package's ``repro/launch/steps.py``
-(``make_optimizer``, ``make_train_step``).  The reference derives every
+(``make_optimizer``, ``make_train_step``, ``make_prefill_step``,
+``make_serve_step``, ``build_all``).  The reference derives every
 step's randomness from ``jax.random.PRNGKey(seed)``; here a step draws
 from the :class:`NoiseSource` that ``noise_for(seed)`` returns, by
 default a ``torch.Generator`` on the model's device seeded with ``seed``.
@@ -17,6 +19,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.crossbar import GeneratorNoise, NoiseSource
+from repro_torch.nn.model import build
 from repro_torch.train import optim
 
 
@@ -72,3 +75,36 @@ def make_train_step(model, optimizer: optim.Adam, *, remat: bool = True,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(model) -> Callable:
+    """``prefill_step(params, batch) -> (next_token (B, 1) int32, logits
+    (B, 1, V))``: the prompt's forward (every key of ``batch`` but
+    ``tokens`` is the modality input, as ``frames``), greedy."""
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        logits = model.prefill(params, tokens, extra or None)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    return prefill_step
+
+
+def make_serve_step(model) -> Callable:
+    """One decode step: ``serve_step(params, state, tokens (B, 1)) ->
+    (greedy next token (B,) int32, new state)``."""
+    def serve_step(params, state, tokens):
+        logits, new_state = model.decode_step(params, state, tokens)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), \
+            new_state
+
+    return serve_step
+
+
+def build_all(cfg, device=None):
+    """(model, train_step, prefill_step, serve_step) for one config, the
+    model on ``device`` (default ``cuda``)."""
+    model = build(cfg, device)
+    opt = make_optimizer(cfg)
+    return (model, make_train_step(model, opt), make_prefill_step(model),
+            make_serve_step(model))

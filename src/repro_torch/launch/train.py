@@ -16,7 +16,12 @@ a cosine schedule; each layer recomputed in the backward) and the
 
 Every LM family of ``ARCHS`` trains: the dense and MoE ones (pixtral-12b
 with the stub frontend's patch embeddings over its first ``n_patches``
-positions, as the reference's launcher feeds them), mamba2-370m
+positions, as the reference's launcher feeds them), whisper-base (the
+stub frontend's ``enc_len`` audio frames into its encoder, drawn once
+from seed 7 as the reference draws them from key 7; every gate of both
+stacks shares one train-mode ramp draw, as the reference's one key gives
+it, and no layer is recomputed, as the reference's encoder-decoder loss
+ignores ``remat``), mamba2-370m
 (SSD) and recurrentgemma-9b (RG-LRU and local attention; its params are
 the reference's ``groups`` of (rec, rec, attn) and a ``tail``, and
 ``--override n_layers=5`` cuts it to one group and a 2-block tail, as the
@@ -59,7 +64,7 @@ from repro_torch.launch.common import (add_kernel_flags, configure_kernels,
 from repro_torch.launch.serve import ARCHS, KERNELS, make_config, \
     parse_overrides
 from repro_torch.launch.steps import make_optimizer, make_train_step
-from repro_torch.nn.frontends import vision_patch_stub
+from repro_torch.nn.frontends import audio_frame_stub, vision_patch_stub
 from repro_torch.nn.model import build
 from repro_torch.train.loop import TrainState, Trainer, to_device_batch
 
@@ -78,13 +83,16 @@ def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
     params = model.init(gen)
     opt = make_optimizer(cfg, total_steps=steps)
     extra = {}
+    # the stub frontend's patch embeddings or audio frames, the same every
+    # step (the reference draws them from one fixed key, 7)
+    fgen = torch.Generator(device=device)
+    fgen.manual_seed(7)
     if cfg.modality == "vision":
-        # the stub frontend's patch embeddings, the same every step (the
-        # reference draws them from one fixed key, 7)
-        pgen = torch.Generator(device=device)
-        pgen.manual_seed(7)
-        extra["patch_embeds"] = vision_patch_stub(pgen, batch,
+        extra["patch_embeds"] = vision_patch_stub(fgen, batch,
                                                   cfg.n_patches, cfg.d_model)
+    if cfg.modality == "audio":
+        extra["frames"] = audio_frame_stub(fgen, batch, cfg.enc_len,
+                                           cfg.d_model)
 
     def put_batch(b):
         return {**to_device_batch(b, device), **extra}
@@ -193,7 +201,7 @@ def main(argv=None) -> dict:
            "analog_device": cfg.analog.device, "B": args.batch,
            "S": args.seq, "steps": args.steps,
            "losses": [h["loss"] for h in hist],
-           "aux_losses": [h["aux_loss"] for h in hist],
+           "aux_losses": [h.get("aux_loss", 0.0) for h in hist],
            "grad_norms": [h["grad_norm"] for h in hist],
            "step_ms_all": trainer.step_ms, "step_ms": step_ms,
            "tokens_per_s": (args.batch * args.seq * 1e3 / step_ms

@@ -14,8 +14,11 @@ hand-written kernel), a global int8 cache through ``decode_attention_int8``
 which dequantizes per tile inside the kernel), and a rolling int8 cache
 through the reference's dequantize-all fallback into
 ``prefill_attention``.  The full-sequence path is plain torch, as the
-reference's is plain jnp.  Cross-attention belongs to the
-encoder-decoder family, not ported yet.
+reference's is plain jnp.  The encoder-decoder family's
+``cross_attn_init``, ``cross_kv``, ``cross_attention`` and
+``bidirectional_attention`` (whisper's encoder) attend through
+``attend_chunked`` with every frame visible, plain torch as the
+reference's.
 
 GQA is computed in the grouped layout ``(B, S, H_kv, G, D)`` so KV heads
 are never repeated.  RoPE is applied before caching.
@@ -24,7 +27,7 @@ are never repeated.  RoPE is applied before caching.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -265,3 +268,51 @@ def cache_slot(index: int, slots: int, window: int = 0) -> int:
     """The slot a decode step at ``index`` writes: ``index % slots`` in a
     rolling cache, else ``index`` clamped to the last slot."""
     return index % slots if window > 0 else min(index, slots - 1)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention and the encoder's self-attention (whisper)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(generator: torch.Generator, d_model: int, n_heads: int,
+                    n_kv_heads: int, head_dim: int, *, qkv_bias: bool = False):
+    return attn_init(generator, d_model, n_heads, n_kv_heads, head_dim,
+                     qkv_bias=qkv_bias)
+
+
+def cross_kv(p, enc_out: torch.Tensor, *, n_kv_heads: int, head_dim: int):
+    """K and V of the encoder output (B, T, d_model), computed once a
+    request: each (B, T, H_kv, D)."""
+    k = _split_heads(L.dense_apply(p["wk"], enc_out), n_kv_heads, head_dim)
+    v = _split_heads(L.dense_apply(p["wv"], enc_out), n_kv_heads, head_dim)
+    return k, v
+
+
+def _all_visible(s: int, device):
+    return lambda kv_start, kv_len: torch.ones((s, kv_len), dtype=torch.bool,
+                                               device=device)
+
+
+def cross_attention(p, x, kv: Tuple[torch.Tensor, torch.Tensor], *,
+                    n_heads: int, head_dim: int, kv_chunk: int = 1024):
+    """Decoder-to-encoder attention, every frame visible (the K/V padded
+    to whole chunks and the padding masked, as the reference's).  x: (B,
+    S, d_model); kv: :func:`cross_kv`'s."""
+    b, s, _ = x.shape
+    k, v = kv
+    q = _split_heads(L.dense_apply(p["wq"], x), n_heads, head_dim)
+    out = attend_chunked(q, k, v, mask_fn=_all_visible(s, x.device),
+                         kv_chunk=kv_chunk)
+    return L.dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
+
+
+def bidirectional_attention(p, x, *, n_heads: int, n_kv_heads: int,
+                            head_dim: int, kv_chunk: int = 1024):
+    """The encoder's self-attention: every position visible, no RoPE."""
+    b, s, _ = x.shape
+    q = _split_heads(L.dense_apply(p["wq"], x), n_heads, head_dim)
+    k = _split_heads(L.dense_apply(p["wk"], x), n_kv_heads, head_dim)
+    v = _split_heads(L.dense_apply(p["wv"], x), n_kv_heads, head_dim)
+    out = attend_chunked(q, k, v, mask_fn=_all_visible(s, x.device),
+                         kv_chunk=kv_chunk)
+    return L.dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))

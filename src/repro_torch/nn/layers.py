@@ -1,4 +1,5 @@
-"""Primitive layers: seeded init helpers, Dense, Embedding, RMSNorm, RoPE.
+"""Primitive layers: seeded init helpers, Dense, Embedding, RMSNorm,
+LayerNorm, RoPE.
 
 Params are plain dicts of float32 tensors (the master weights); every
 layer is an ``init(generator, ...) -> params`` + ``apply(params, x)`` pair.
@@ -70,6 +71,21 @@ def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"]).to(x.dtype)
+
+
+def layernorm_init(d: int, device=None):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The mean and variance in float32, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    y = c * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):

@@ -1,11 +1,14 @@
-"""Model factory: one entry point for the ported LM architectures.
+"""Model factory: one entry point for the ported LM architectures
+(:class:`~repro_torch.nn.transformer.LM`, and
+:class:`~repro_torch.nn.encdec.EncDecLM` for the encoder-decoder family).
 
 Also home of the family-agnostic cache-writing prefill
 (:func:`prefill_cache`), the JAX package's ``repro/nn/model.py``: a masked
 run of ``decode_step`` that fills the decode caches of a batch of prompts
 of different lengths, one fixed-width chunk at a time: the building block
 of the serving engine's bucketed, packed and chunked prefill.
-:class:`~repro_torch.nn.transformer.LM` delegates to it.
+:class:`~repro_torch.nn.transformer.LM` and
+:class:`~repro_torch.nn.encdec.EncDecLM` delegate to it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ def build(cfg: ModelConfig, device=None):
     """Return the model object for a config, its ramps on ``device``:
     ``cuda`` unless the caller asks for another (``device="cpu"``); without
     a GPU the default raises."""
+    if cfg.family == "encdec":
+        from repro_torch.nn.encdec import EncDecLM
+
+        return EncDecLM(cfg, device)
     if cfg.family == "lstm":
         raise ValueError(
             "LSTM workloads use repro_torch.nn.lstm directly (see "
@@ -48,10 +55,11 @@ def decode_state_batch_axes(model):
     Found structurally, as the reference does: build the state for two
     batch sizes (9 cache slots, a few KB) and see which dimension moved.
     Leaves without a batch dimension (the shared ``index``) map to -1.
-    Every state leaf of the port's LM has its batch on axis 0, the layout
-    :func:`prefill_cache` and the engine's slot copies use; what follows
-    differs by block: a KV cache's slots, an SSD state's heads, a conv
-    history's last inputs, an RG-LRU state's width.
+    Every state leaf of the port's models has its batch on axis 0, the
+    layout :func:`prefill_cache` and the engine's slot copies use; what
+    follows differs by block: a KV cache's slots, an SSD state's heads, a
+    conv history's last inputs, an RG-LRU state's width, the
+    encoder-decoder's cross K/V frames.
     """
     s1 = model.init_decode_state(1, 9)
     s2 = model.init_decode_state(2, 9)
@@ -93,7 +101,9 @@ def prefill_cache(model, params, state, tokens, valid_len):
     back after: later steps read up to the shared ``index``.  A recurrent
     block's state (``ssm``, ``conv``, ``h``) is replaced whole by the
     step, so its masked rows are selected back from the old tensors.  A
-    step in which every row commits copies and selects nothing.
+    block of the model's ``read_only_kinds`` (the encoder-decoder's cross
+    K/V) is only read by the step and is left as it is.  A step in which
+    every row commits copies and selects nothing.
 
     The reference also takes a noise key, folded per global position.
     Nothing in the LM's decode step reads one (infer mode reads the ramps
@@ -102,6 +112,7 @@ def prefill_cache(model, params, state, tokens, valid_len):
     valid = np.asarray(valid_len.cpu() if isinstance(valid_len, torch.Tensor)
                        else valid_len).astype(np.int64)
     i0 = int(state["index"])
+    read_only = getattr(model, "read_only_kinds", ())
     for t in range(tokens.shape[1]):
         pos = i0 + t
         masked = np.flatnonzero(pos >= valid)
@@ -119,7 +130,8 @@ def prefill_cache(model, params, state, tokens, valid_len):
             leaf[rows, slot] = kept
         take = torch.as_tensor(pos < valid, device=tokens.device)
         for (kind, before), (_, after) in zip(old, model.blocks(state)):
-            if model.written_slot(kind, pos, 1) is None:    # replaced
+            if kind not in read_only \
+                    and model.written_slot(kind, pos, 1) is None:  # replaced
                 for name, fresh in after.items():
                     keep = take.view((-1,) + (1,) * (fresh.dim() - 1))
                     after[name] = torch.where(keep, fresh, before[name])

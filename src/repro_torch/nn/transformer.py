@@ -72,6 +72,19 @@ def _model_device(device=None) -> torch.device:
     return device
 
 
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """The mean cross entropy of ``logits`` over the labels >= 0 (-1 =
+    masked) and the count of those labels (only the division is clamped,
+    so an all-masked batch counts 0)."""
+    valid = labels >= 0
+    safe = torch.clamp_min(labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    n_valid = torch.sum(valid)
+    return torch.sum(nll) / torch.clamp_min(n_valid, 1), n_valid
+
+
 class LM:
     """A decoder-only language model for one dense, MoE, SSM or hybrid
     :class:`ModelConfig`, its activation ramps on ``device`` (default
@@ -375,14 +388,7 @@ class LM:
                            noise=noise, collect_aux=moe, remat=remat)
         logits, aux = out if moe else (out, torch.zeros(
             (), dtype=torch.float32, device=out.device))
-        labels = batch["labels"]
-        valid = labels >= 0
-        safe = torch.clamp_min(labels, 0).long()
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-        nll = torch.where(valid, nll, torch.zeros_like(nll))
-        n_valid = torch.sum(valid)
-        loss = torch.sum(nll) / torch.clamp_min(n_valid, 1)
+        loss, n_valid = next_token_loss(logits, batch["labels"])
         total = loss + cfg.router_aux_coef * aux
         return total, {"loss": loss, "aux_loss": aux,
                        "tokens": n_valid.to(torch.float32)}

@@ -58,8 +58,9 @@ _EXCLUDE = ("embed", "norm", "bias", "scale")
 
 
 # the params keys whose list the reference stacks on a leading axis: the
-# LM's ``layers``, or the hybrid's ``groups`` (its ``tail`` is a list there)
-_STACKED = ("layers", "groups")
+# LM's ``layers``, the hybrid's ``groups`` (its ``tail`` is a list there),
+# the encoder-decoder's ``enc_layers`` and ``dec_layers``
+_STACKED = ("layers", "groups", "enc_layers", "dec_layers")
 
 
 def _stacked_leaves(tree, path: str = ""):

@@ -11,6 +11,12 @@ exactly:
   last logits); a request ends at ``max_new_tokens``, its EOS, or the end
   of the cache, and frees its slot at once.
 
+The encoder-decoder (:class:`~repro_torch.nn.encdec.EncDecLM`) is served
+on text as the reference's engine serves it: the engine never calls
+``start_decode``, so its decode state's cross K/V stay zero.  Its
+deployment (``device=`` with a build stage, ``recal=``, :meth:`save` /
+:meth:`restore`, the fleet) raises ``NotImplementedError``.
+
 Two prefill paths fill the same caches:
 
 * ``prefill="scan"`` (default): each prompt runs through ``decode_step``
@@ -266,6 +272,7 @@ class ServingEngine:
         self._aged_as: Optional[tuple] = None
         self._pristine_params = params
         if recal is not None:
+            _stacked_key(model)     # raises for a family not ported here
             if device is None:
                 raise ValueError("recal policy requires a device model")
             # fab calibration at age 0, then drift to the preset's age
@@ -1431,8 +1438,15 @@ class ServingEngine:
 def _stacked_key(model) -> str:
     """The params key whose list the reference stacks on a leading axis:
     the hybrid's ``groups`` (its ``tail`` is a list there too), else
-    ``layers``."""
+    ``layers``.  The encoder-decoder stacks two (``enc_layers``,
+    ``dec_layers``), which the aging, the re-program and the checkpoint do
+    not handle yet: they raise."""
     family = getattr(getattr(model, "cfg", None), "family", "")
+    if family == "encdec":
+        raise NotImplementedError(
+            "the encoder-decoder's deployment (build-stage aging, recal=, "
+            "save/restore, the fleet) is not ported yet; ROADMAP.md queue A "
+            "item 5 brings it")
     return "groups" if family == "hybrid" else "layers"
 
 

@@ -40,7 +40,7 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.mamba2_370m", "configs.recurrentgemma_9b",
                  "configs.granite_3_8b", "configs.qwen2_5_32b",
                  "configs.pixtral_12b", "configs.granite_34b",
-                 "nn.frontends"):
+                 "nn.frontends", "nn.encdec", "configs.whisper_base"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"

@@ -12,14 +12,16 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   N 11008), flat and banked thresholds, float32 and bfloat16 x; at M > 8
   (the tensor-core GEMM) the SMOKE (33, 40, 24), and in bfloat16 (64,
   2048, 11008), a ragged (130, 300, 1000) (x staged: K x 2 bytes is no
-  multiple of 16) and the training shape (1024, 2048, 11008).  Every GEMM
+  multiple of 16) and the training shape (1024, 2048, 11008); whisper-base's
+  gelu gate (K 512, N 2048) at M 4 and M 6000.  Every GEMM
   config computes the default's bits; at M <= 8 (the GEMV) the outputs
   are the bits the GEMV computed before the GEMM existed (stored crc32
   digests).
 * ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
   bfloat16, ragged masks with a row that sees a single slot, at a SMOKE
   shape and the serving path's, S not a multiple of the cluster's split,
-  S 1 and 2048, G 1, 8 and 16, D 64 and 256; the full local window (S
+  S 1, 448 (whisper-base's text context) and 2048, G 1, 8 and 16, D 64
+  and 256; the full local window (S
   2048, G 16, D 256: float32 V streams through the kernel's ring of two
   boxes; bfloat16 within one ulp or 1e-5); and every cluster size
   computes the same bits.
@@ -138,6 +140,11 @@ MATMUL_CASES += [(m, k, n, name, torch.bfloat16, False, tiles)
                                       (5120, 14336, "silu"),
                                       (6144, 24576, "gelu")]
                  for m in (4, 1) for tiles in (0, 512)]
+# whisper-base's MLP gate (K 512, N 2048, gelu), bfloat16 x: the decode
+# GEMV (M 4) and the encoder's GEMM over 4 x 1500 frames (a ragged last
+# tile)
+MATMUL_CASES += [(m, 512, 2048, "gelu", torch.bfloat16, False, 0)
+                 for m in (4, 6000)]
 
 
 @pytest.mark.cuda
@@ -263,6 +270,7 @@ ATTN_CASES = [  # b, s, h, hkv, d
     (2, 1, 16, 2, 128),        # S 1
     (4, 2048, 16, 2, 128),     # S 2048
     (2, 96, 16, 16, 64),       # G 1, D 64
+    (4, 448, 8, 8, 64),        # whisper-base's decoder: G 1, D 64, S 448
     (2, 130, 16, 1, 256)]      # G 16, D 256
 # the groups the kernel takes in chunks, and qwen2.5-32b's G 5
 GROUP_CASES = [  # b, s, h, hkv, d
@@ -362,6 +370,26 @@ def test_every_cluster_size_computes_the_same_bits(dtype, b, s, h, hkv, d):
     for cs in (2, 4, 8, 16):
         got = TPA._launch(q, k, v, mask, cs)
         assert torch.equal(got, want), cs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_heads_every_cluster_size_computes_the_same_bits(dtype):
+    """whisper-base's decoder attention (H 8 over Hkv 8: a group of 1, D
+    64, S 448): every cluster the kernel takes gives the same bits.  A
+    CTA's slice of V must be a whole number of 16 bytes (bfloat16: up to
+    8 CTAs) and its shared memory must fit (float32: from 2 CTAs; one
+    would stage 255,232 B); the wrapper's choice is one of them."""
+    dev = _card()
+    q, k, v, mask = _attention_inputs(dev, dtype, 4, 448, 8, 8, 64)
+    elem = q.element_size()
+    sizes = [cs for cs in (1, 2, 4, 8, 16)
+             if TPA._cluster_fits(1, 64, 448, cs, elem)]
+    assert sizes == ([1, 2, 4, 8] if elem == 2 else [2, 4, 8, 16])
+    assert TPA.cluster_size(8, 8, 64, 448, dtype) in sizes
+    want = TPA._launch(q, k, v, mask, sizes[0])
+    for cs in sizes[1:]:
+        assert torch.equal(TPA._launch(q, k, v, mask, cs), want), cs
 
 
 @pytest.mark.cuda
@@ -1007,7 +1035,9 @@ KERNELS = {"fused_matmul_nladc": TFM.fused_matmul_nladc,
     ("qwen2.5-3b", "bfloat16", ("fused_matmul_nladc", "prefill_attention")),
     ("moonshot-v1-16b-a3b", "int8",
      ("fused_matmul_nladc", "nladc", "moe_fused_matmul",
-      "flash_decode_int8"))])
+      "flash_decode_int8")),
+    ("whisper-base", "bfloat16", ("fused_matmul_nladc",
+                                  "prefill_attention"))])
 def test_smoke_lm_cuda_backend_matches_ref(arch, kv, path):
     dev = _card()
     models = {}
@@ -1031,9 +1061,9 @@ def test_smoke_lm_cuda_backend_matches_ref(arch, kv, path):
                                                    tokens[t])
         worst = max(worst, float((logits["cuda"] - logits["ref"]).abs()
                                  .max()))
+    layers = cfg.n_dec_layers if cfg.family == "encdec" else cfg.n_layers
     assert {name: fn.launches - n0[name] for name, fn in KERNELS.items()} \
-        == {name: cfg.n_layers * 8 if name in path else 0
-            for name in KERNELS}
+        == {name: layers * 8 if name in path else 0 for name in KERNELS}
     assert worst < models["cuda"].act.ramp.lsb / 2
 
 

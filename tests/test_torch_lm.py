@@ -44,6 +44,7 @@ from repro_torch.core import backend as TBK
 from repro_torch.core.nladc import BankedThresholds
 from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels import prefill_attention as TPA
+from repro_torch.launch import serve as TSERVE
 from repro_torch.launch import train as TTRAIN
 from repro_torch.nn.model import build as tbuild
 
@@ -180,13 +181,16 @@ def test_init_layout_matches_jax():
                                   "hybrid_grad_comm"])
 def test_outside_the_slice_raises(what):
     """What is not ported raises, naming its ``ROADMAP.md`` item: the
-    encoder-decoder family, expert parallelism
+    encoder-decoder family's deployment (``launch.serve --arch
+    whisper-base --analog-mode infer --analog-device aged-1day``: the
+    build-stage aging of its two stacks), expert parallelism
     (``moe_impl="ep_shardmap"``), the hybrid's training under
     ``remat_policy="dots"`` (``launch.train --arch recurrentgemma-9b
     --override remat_policy=dots``: its groups are recomputed whole) and
     the hybrid's training under ``--grad-comm hierarchical`` (the
     two-level data-parallel all-reduce).  The SSM
-    and hybrid families serve, the rolling-window cache and its int8
+    and hybrid families serve, whisper-base serves and trains
+    (tests/test_torch_whisper*.py), the rolling-window cache and its int8
     fallback with them (tests/test_torch_lm_recurrent.py), and train
     (tests/test_torch_lm_recurrent_train.py); the dense and MoE int8
     caches (tests/test_torch_moe.py, tests/test_torch_flash_decode.py),
@@ -201,11 +205,13 @@ def test_outside_the_slice_raises(what):
             TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
                          "--device", "cpu", "--steps", "1", "--grad-comm",
                          "hierarchical"])
+        elif what == "family":
+            TSERVE.main(["--arch", "whisper-base", "--smoke", "--device",
+                         "cpu", "--analog-mode", "infer", "--analog-device",
+                         "aged-1day"])
         else:
-            cfg = {"family": TC.get_smoke("qwen2.5-3b").replace(
-                       family="encdec"),
-                   "ep_shardmap": TC.get_smoke("moonshot-v1-16b-a3b")
-                   .replace(moe_impl="ep_shardmap")}[what]
+            cfg = TC.get_smoke("moonshot-v1-16b-a3b").replace(
+                moe_impl="ep_shardmap")
             tbuild(cfg, device="cpu").init_decode_state(1, 4)
 
 
