@@ -405,9 +405,44 @@ Phases, one JSON line each:
               stack a step); ms a step, peak; then
               ``train_agreement_whisper``: ``train_agreement`` at 2 + 2
               layers over (2, 1500, 512) frames.
+13w5. serve_lifecycle_whisper — whisper-base deployed at full width
+              and depth, float32, ``aged-1day`` with 512-column banks (the
+              one gelu ramp of both stacks' MLPs: 4 banks at d_ff 2048),
+              ``serve_recal``'s requests and threshold-only policy: saved
+              mid-run, resumed bitwise on the scan path and on packed +
+              detok (streams, the decode state with the cross K/V,
+              params, thresholds, the scheduler; resumed peak at most the
+              uninterrupted run's, allocated and requested), restored into
+              ``ref`` and judged as ``serve_recal`` (kernel 3 audited,
+              logits < LSB/2 = 0.068 on the cuda run's gate outputs,
+              events equal, some ramps re-calibrated, not all); then a
+              forced weight refresh, chip-wide (the model maps no
+              activation to param leaves): every crossbar of both stacks
+              re-aged in place.  Host s of aging, ms per probe, s per
+              re-program.
+13w6. fleet_whisper — ``fleet`` for whisper-base at full depth a chip
+              (3 chips on ``aged-1day`` and a ``stressed`` canary, infer
+              mode): kernels 3 and 5 once a decoder layer a step, the rest
+              as ``fleet``.
     whisper kernel cases — kernel 3 at whisper's gate (K 512, N 2048,
               gelu, bf16) at M 4 and M 6000, kernel 5 at (H 8, Hkv 8, D
               64, S 448) in bf16 and f32, each against its plain version.
+13d1. serve_deepseek — deepseek-moe-16b (arXiv:2401.06066; 2 shared and
+              64 routed experts, top-6, a softmax router kept in full
+              precision) at full width, 26 of its 28 layers (62.8 GB of
+              f32 weights), bf16, on ``serve``'s workload, scan then packed
+              (the scan's streams); kernels 3 (the shared experts' gate,
+              N 2816), 4 (the routed experts) and 5 (a group of 1, D 128)
+              once a layer a position, kernel 2 never; peak < 80 GB.
+13d2. agreement_deepseek — 2 layers, full width, float32, cuda against
+              ref over 8 decode steps of B 4: kernels 3 and 4 audited
+              against ref's gates on their operands (flips at most 1e-4,
+              one level each), ref given the cuda run's gate outputs
+              within LSB/2 of the cuda logits; the free run's difference
+              printed.
+    deepseek kernel cases — kernel 3's GEMV at (4, 2048, 2816) silu and
+              kernel 5 at (H 16, Hkv 16, D 128, S 128) in bf16 and f32,
+              each against its plain version.
 14. analog_tile — the crossbar-tile kernel against its plain version at
               the PTB gate crossbar as one tile (16, 632, 8064; bfloat16 x,
               5-bit PWM, read noise, tanh), the JAX sweep's (128, 256, 256)
@@ -451,8 +486,10 @@ raises.  ``python3 chip_smoke.py --agreement-seeds 4 5 6`` runs only
 families' kernel cases (their training shapes too), 13a1 to 13a5 and
 13e to 13g, and ``--dense`` only the device phase, the dense configs'
 kernel cases (kernel 3's MLP gates, kernels 5 and 6 at G 48 and G 5),
-13a6 and 13a7, and ``--encdec`` only the device phase, whisper's kernel
-cases and 13w1 to 13w4; none of them prints the ``ok`` line.  Without a GPU, or
+13a6 and 13a7, ``--encdec`` only the device phase, whisper's kernel
+cases and 13w1 to 13w6, and ``--deepseek`` only the device phase,
+deepseek's kernel cases, 13d1 and 13d2; none of them prints the ``ok``
+line.  Without a GPU, or
 without the repository's ``src/repro_torch`` beside this script, it exits
 non-zero and prints no result.
 """
@@ -610,6 +647,15 @@ WHISPER_AGREE = dict(batch=2, seq=32)
 TRAIN_WHISPER = dict(TRAIN_LM, arch="whisper-base")
 TRAIN_AGREE_WHISPER = dict(TRAIN_AGREE, n_layers=4, overrides=dict(
     n_enc_layers=2, n_dec_layers=2))
+# whisper-base deployed at full depth (6 + 6 layers, 87.6 M parameters:
+# one host aging takes seconds): the lifecycle saved after 8 steps, and
+# a fleet of 4 chips
+LC_WHISPER = dict(arch="whisper-base", save_at=8)
+FLEET_WHISPER = dict(FLEET, arch="whisper-base", layers=12)
+# deepseek-moe-16b (arXiv:2401.06066) served at 26 of its 28 layers (62.8
+# GB of f32 weights; 67.5 GB at 28), serve's workload, one timed repeat
+SERVE_DEEPSEEK = dict(SERVE, arch="deepseek-moe-16b", n_layers=26,
+                      repeats=1)
 
 
 _T0 = time.perf_counter()
@@ -1435,11 +1481,13 @@ def decoder_layers(cfg) -> int:
 def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
                 analog_device: str = "", repeats: int = SERVE["repeats"],
                 arch: str = SERVE["arch"], n_layers: int = 0,
-                more=None) -> dict:
+                more=None, per_step=None) -> dict:
     """``arch`` (qwen2.5-3b) at full width and depth (or ``n_layers``) on
     the cuda backend, in the spec's analog mode or ``analog_mode`` on
     ``analog_device``; ``more(torch, dev, cfg, model, params)`` adds its
-    results to the phase's line after the timed runs."""
+    results to the phase's line after the timed runs.  Each kernel
+    launches ``per_step[kernel]`` times a position (default: kernels 3 and
+    5 once a decoder layer), the others never."""
     from repro_torch.launch import serve
     from repro_torch.serve.engine import ServingEngine
 
@@ -1474,9 +1522,10 @@ def phase_serve(torch, dev, name: str = "serve", analog_mode: str = "",
     launches = {k: fn.launches for k, fn in wrappers.items()}
     del model.decode_step
     steps = stats["prefill_steps"] + stats["decode_steps"]
-    expected = {k: decoder_layers(cfg) * steps
-                if k in ("fused_matmul_nladc", "prefill_attention") else 0
-                for k in wrappers}
+    if per_step is None:
+        per_step = {k: decoder_layers(cfg)
+                    for k in ("fused_matmul_nladc", "prefill_attention")}
+    expected = {k: per_step.get(k, 0) * steps for k in wrappers}
     check(launches == expected,
           f"{name}: launches {launches}, expected {expected}")
     check(len(finite) == steps and all(bool(f) for f in finite),
@@ -2645,16 +2694,18 @@ def phase_serve_window_hybrid(torch, dev) -> dict:
 @contextlib.contextmanager
 def _aging_timer(chip):
     """Host seconds of the weight aging inside the block, by leaf: the
-    blocks' (``layers``, or the hybrid's ``groups`` and ``tail``) and the
-    rest's (the embedding and the head), in the yielded dict."""
+    blocks' (``layers``, the hybrid's ``groups`` and ``tail``, the
+    encoder-decoder's ``enc_layers`` and ``dec_layers``) and the rest's
+    (the embedding and the head), in the yielded dict."""
     host_s = {"layers": 0.0, "rest": 0.0}
     tiled = type(chip).age_weights_tiled
 
     def timed(self, w, key, *args, **kw):
         ta = time.perf_counter()
         out = tiled(self, w, key, *args, **kw)
-        part = "layers" if key.startswith(("['layers']", "['groups']",
-                                           "['tail']")) else "rest"
+        part = "layers" if key.startswith((
+            "['layers']", "['groups']", "['tail']", "['enc_layers']",
+            "['dec_layers']")) else "rest"
         host_s[part] += time.perf_counter() - ta
         return out
 
@@ -2997,57 +3048,73 @@ def _recorded(torch, model, sink: list):
     return lambda: delattr(model, "decode_step")
 
 
-def _audit_gates(torch, model, steps: list, sink: list):
-    """Hold every call of ``model``'s backend's fused gate (kernel 3) to
-    the ``ref`` backend's on the same operands (the served thresholds of
-    that call): per call the decode step (``len(steps)``), the outputs
-    (kept for :func:`_replay_gates`), the ones that differ (code flips,
-    allowed within float32 rounding of a threshold) and their largest
-    distance in decode levels.  Returns the undo."""
+def _audit_gates(torch, model, steps: list, sink: list,
+                 methods=("matmul_nladc",)):
+    """Hold every call of ``model``'s backend's fused gate (kernel 3; with
+    ``moe_matmul_nladc`` among ``methods``, the expert gate, kernel 4,
+    too) to the ``ref`` backend's on the same operands (the served
+    thresholds of that call): per call the decode step (``len(steps)``),
+    the outputs (kept for :func:`_replay_gates`), the ones that differ
+    (code flips, allowed within float32 rounding of a threshold) and
+    their largest distance in decode levels.  Returns the undo."""
     from repro_torch.core import backend as BK
 
     cuda_bk = BK.get_backend(model.cfg.analog.backend)
     ref_bk = BK.get_backend("ref")
-    kernel = cuda_bk.matmul_nladc
 
-    def audited(*args, **kw):
-        y = kernel(*args, **kw)
-        want = ref_bk.matmul_nladc(*args, **kw)
-        adc = next(a for a in (*args, *kw.values()) if hasattr(a, "y_table"))
-        levels = _level_steps(torch, adc, y, want)
-        sink.append({"step": len(steps), "outputs": y.numel(),
-                     "flips": int(len(levels)),
-                     "max_level": int(levels.max()) if len(levels) else 0,
-                     "y": y.detach().clone()})
-        return y
+    def audit(method):
+        kernel, plain = getattr(cuda_bk, method), getattr(ref_bk, method)
 
-    cuda_bk.matmul_nladc = audited
-    return lambda: delattr(cuda_bk, "matmul_nladc")
+        def audited(*args, **kw):
+            y = kernel(*args, **kw)
+            want = plain(*args, **kw)
+            adc = next(a for a in (*args, *kw.values())
+                       if hasattr(a, "y_table"))
+            levels = _level_steps(torch, adc, y, want)
+            sink.append({"step": len(steps), "outputs": y.numel(),
+                         "flips": int(len(levels)),
+                         "max_level": int(levels.max()) if len(levels)
+                         else 0, "y": y.detach().clone()})
+            return y
+
+        setattr(cuda_bk, method, audited)
+
+    for method in methods:
+        audit(method)
+    return lambda: [delattr(cuda_bk, m) for m in methods]
 
 
-def _replay_gates(torch, model, sink: list, free: list):
+def _replay_gates(torch, model, sink: list, free: list,
+                  methods=("matmul_nladc",)):
     """Give ``model``'s (ref) run of the same schedule the cuda run's gate
     outputs, call for call (as ``train_agreement`` holds gradients given
     the cuda run's codes): the runs then differ only where the rest of
     the model does.  The outputs its own gate would have given that
     differ (free-run flips: its operands differ from the cuda run's by
-    rounding) are counted into ``free``.  Returns the undo."""
+    rounding) are counted into ``free``.  ``methods`` as
+    :func:`_audit_gates`'s.  Returns the undo."""
     from repro_torch.core import backend as BK
 
     bk = BK.get_backend(model.cfg.analog.backend)
-    own = bk.matmul_nladc
     calls = iter(sink)
 
-    def replayed(*args, **kw):
-        y = own(*args, **kw)
-        rec = next(calls)["y"]
-        check(rec.shape == y.shape, f"replay: a gate call of shape "
-              f"{tuple(y.shape)} met the cuda run's {tuple(rec.shape)}")
-        free.append(int((y != rec).sum()))
-        return rec.to(y.dtype)
+    def replay(method):
+        own = getattr(bk, method)
 
-    bk.matmul_nladc = replayed
-    return lambda: delattr(bk, "matmul_nladc")
+        def replayed(*args, **kw):
+            y = own(*args, **kw)
+            rec = next(calls)["y"]
+            check(rec.shape == y.shape, f"replay: a gate call of shape "
+                  f"{tuple(y.shape)} met the cuda run's "
+                  f"{tuple(rec.shape)}")
+            free.append(int((y != rec).sum()))
+            return rec.to(y.dtype)
+
+        setattr(bk, method, replayed)
+
+    for method in methods:
+        replay(method)
+    return lambda: [delattr(bk, m) for m in methods]
 
 
 def _flip_summary(name: str, audit: list) -> dict:
@@ -3122,11 +3189,11 @@ def _path_launches(name: str, cfg, stats: dict, launches: dict,
                    per_step=None) -> dict:
     """Check a serving run's launches: each kernel ``per_step`` times per
     prefill position and decode step (default: kernels 3 and 5 once a
-    layer), the others never."""
+    decoder layer), the others never."""
     steps = stats["prefill_steps"] + stats["decode_steps"]
     if per_step is None:
-        per_step = {"fused_matmul_nladc": cfg.n_layers,
-                    "prefill_attention": cfg.n_layers}
+        per_step = {"fused_matmul_nladc": decoder_layers(cfg),
+                    "prefill_attention": decoder_layers(cfg)}
     expected = {k: per_step.get(k, 0) * steps for k in launches}
     check(launches == expected,
           f"{name}: launches {launches}, expected {expected}")
@@ -4988,6 +5055,270 @@ def phase_train_whisper(torch, dev) -> dict:
     return {"train_whisper": trained["launches"]}
 
 
+def _resumed_run(torch, name: str, model, root: str, want: dict,
+                 want_state: dict, want_thr: dict, want_sched: str,
+                 **kw) -> tuple:
+    """The deployment at ``root`` restored by a fresh engine on ``model``
+    (``kw``: its prefill and detok modes) and run to its end: streams,
+    the decode state, thresholds and the scheduler are ``want``'s, bitwise.
+    Returns its restore seconds and its peak allocated and requested
+    bytes above the start, and the restored engine."""
+    from repro_torch.serve.engine import ServingEngine
+
+    base = _peak_reset(torch)
+    req_base = _requested_now(torch)
+    ts = time.perf_counter()
+    res = ServingEngine.restore(model, root, **kw)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - ts
+    live = {r.uid: r for r in list(res.slot_req) + res.queue
+            if r is not None}
+    check(live, f"{name}: nothing left to resume")
+    res.run_to_completion()
+    out = {"restore_s": restore_s, "requests_resumed": len(live),
+           "peak_bytes": _peak_since(torch, base),
+           "requested_peak_bytes": _requested_peak_since(torch, req_base)}
+    got = {uid: r.generated for uid, r in live.items()}
+    check(got == {u: want[u] for u in live}, f"{name}: resumed streams "
+          f"{got} differ from the uninterrupted run's")
+    have = _state_leaves(model, res.state)
+    check(have.keys() == want_state.keys() and all(
+        torch.equal(have[p], t) for p, t in want_state.items()),
+        f"{name}: the resumed decode state differs")
+    have_thr = _thresholds_of(model)
+    for act, (ramp, banks) in want_thr.items():
+        check(torch.equal(ramp, have_thr[act][0])
+              and all(torch.equal(banks[w], have_thr[act][1][w])
+                      for w in banks),
+              f"{name}: resumed thresholds of {act}")
+    check(json.dumps(res.scheduler.to_dict()) == want_sched,
+          f"{name}: the resumed scheduler differs")
+    return out, res
+
+
+def phase_serve_lifecycle_whisper(torch, dev) -> dict:
+    """whisper-base at full width and depth (6 + 6 layers), float32,
+    ``aged-1day`` with 512-column banks (the one gelu ramp that both
+    stacks' MLPs share: 4 banks at d_ff 2048), the serve phase's requests
+    under ``serve_recal``'s threshold-only scheduler.  Saved after
+    LC_WHISPER["save_at"] steps with every request decoding; the
+    uninterrupted run to its end; the checkpoint resumed by fresh cuda
+    engines on the scan path and on packed + detok (streams, the decode
+    state with its cross K/V, params, thresholds, the scheduler bitwise;
+    each one's peak allocated and requested bytes at most the
+    uninterrupted run's, built and aged from nothing); once more with
+    every call of kernel 3 audited against ref's gate, and into a ``ref``
+    model given the cuda run's gate outputs (logits within LSB/2, streams
+    equal or parted at a near tie, the same events, the same chip); the
+    energy model re-priced on the restored params as on the served ones.
+    Then a forced weight refresh behind one bank: chip-wide (the model
+    maps no activation to param leaves), ``weight_gen`` 1, every crossbar
+    of both stacks and every top-level matrix re-aged in place, the final
+    LayerNorms untouched, peak above the engine at most the serve's.
+    Host s of aging (the stacks', the embedding's and ``pos_dec``'s), ms
+    per probe, s per re-program."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.device import resolve_device as device_model
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.lifecycle import RecalPolicy
+
+    name = "serve_lifecycle_whisper"
+    t0 = time.perf_counter()
+    spec = LC_WHISPER
+    full_base = _peak_reset(torch)
+    full_req_base = _requested_now(torch)
+    depth = serve.make_config(spec["arch"]).n_layers
+    cfg, models, params = _lc_models(torch, dev, depth, arch=spec["arch"])
+    chip = device_model(LC["preset"])
+    thr = _split_threshold(chip, models["cuda"])
+    policy = RecalPolicy(age_per_step_s=0.0, check_every=4,
+                         inl_threshold_lsb=thr)
+    kw = dict(max_batch=SERVE["max_batch"], max_len=SERVE["max_len"])
+    ta = time.perf_counter()
+    with _aging_timer(chip) as aging:
+        eng = ServingEngine(models["cuda"], params, device=chip,
+                            recal=policy, **kw)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - ta
+    del params
+    sched = eng.scheduler
+    probe_ms = []
+    check_fn = sched.check
+
+    def timed_check():
+        ts = time.perf_counter()
+        out = check_fn()
+        probe_ms.append(1e3 * (time.perf_counter() - ts))
+        return out
+
+    sched.check = timed_check
+    reqs = serve.make_requests(cfg, SERVE["requests"], SERVE["max_new"])
+    root = tempfile.mkdtemp(prefix="serve_lc_whisper_")
+    try:
+        def uninterrupted():
+            for r in reqs:
+                eng.submit(r)
+            for _ in range(spec["save_at"]):
+                eng.step()
+            check(not eng.queue and not all(eng.slot_free),
+                  f"{name}: the save is not mid-stream")
+            ts = time.perf_counter()
+            eng.save(root, spec["save_at"])
+            saved = ({r.uid: list(r.generated) for r in reqs},
+                     time.perf_counter() - ts)
+            eng.run_to_completion()
+            return saved
+
+        steps0 = {k: getattr(eng, k) for k in ("prefill_steps",
+                                                "decode_steps")}
+        (got, save_s), launches = _counted(uninterrupted)
+        peak_full = _peak_since(torch, full_base)
+        req_full = _requested_peak_since(torch, full_req_base)
+        del sched.check
+        _path_launches(name, cfg, {k: getattr(eng, k) - v
+                                   for k, v in steps0.items()}, launches)
+        check(all(len(r.generated) == SERVE["max_new"] for r in reqs),
+              f"{name}: token counts")
+        n_bytes = _dir_bytes(Path(root) / f"step_{spec['save_at']:08d}")
+        want = {r.uid: r.generated for r in reqs}
+        want_state = {p: t.clone() for p, t in
+                      _state_leaves(models["cuda"], eng.state).items()}
+        check(all(not want_state[p].any() for p in want_state
+                  if p.startswith("['cross']")),
+              f"{name}: the text path filled the cross K/V")
+        want_thr = _thresholds_of(models["cuda"])
+        want_sched = json.dumps(sched.to_dict())
+        resumes = {}
+        for mode, rkw in (("scan", {}), ("packed_detok", dict(
+                prefill="bucketed", pack_prefill=True, detok_thread=True))):
+            resumes[mode], res = _resumed_run(
+                torch, f"{name}/{mode}", models["cuda"], root, want,
+                want_state, want_thr, want_sched, **rkw)
+            have = dict(_named_leaves(res.params))
+            for p, a in _named_leaves(eng.params):
+                check(torch.equal(a, have[p]),
+                      f"{name}/{mode}: resumed params {p}")
+            check(res.energy.model.n_macros == eng.energy.model.n_macros
+                  and res.energy.model.variants
+                  == eng.energy.model.variants,
+                  f"{name}/{mode}: the restored energy model differs")
+            check(resumes[mode]["peak_bytes"] <= peak_full
+                  and resumes[mode]["requested_peak_bytes"] <= req_full,
+                  f"{name}/{mode}: the resumed run's peak "
+                  f"{resumes[mode]} exceeds the uninterrupted run's "
+                  f"{peak_full} B ({req_full} B requested)")
+            del res, have
+            free_device(torch)
+        peak_serve = max(r["peak_bytes"] for r in resumes.values())
+        # the same resume with kernel 3 audited, then into ref given its
+        # gate outputs
+        logits = {"cuda": [], "ref": []}
+        audit, free = [], []
+        res = ServingEngine.restore(models["cuda"], root)
+        audited = [r for r in list(res.slot_req) + res.queue
+                   if r is not None]
+        unwrap = _recorded(torch, models["cuda"], logits["cuda"])
+        undo = _audit_gates(torch, models["cuda"], logits["cuda"], audit)
+        res.run_to_completion()
+        undo()
+        unwrap()
+        check({r.uid: r.generated for r in audited}
+              == {r.uid: want[r.uid] for r in audited},
+              f"{name}: the audited resume's streams differ")
+        del res
+        ref = ServingEngine.restore(models["ref"], root)
+        ref_live = [r for r in list(ref.slot_req) + ref.queue
+                    if r is not None]
+        unwrap = _recorded(torch, models["ref"], logits["ref"])
+        undo = _replay_gates(torch, models["ref"], audit, free)
+        ref.run_to_completion()
+        undo()
+        unwrap()
+        ref_streams = dict(got)
+        ref_streams.update({r.uid: r.generated for r in ref_live})
+        check(ref.scheduler.events == sched.events,
+              f"{name}: the schedulers' events differ")
+        _same_chip(torch, name, models["cuda"], models["ref"])
+        del ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device(torch)
+    flips = dict(_flip_summary(name, audit), free_run_flips=sum(free))
+    del audit
+    agreement = _agree(name, logits["cuda"], logits["ref"],
+                       models["cuda"].act.ramp.lsb)
+    check(agreement["parted"] is not None or ref_streams == want,
+          f"{name}: ref streams {ref_streams} differ from cuda's {want}")
+    del logits
+    events = sched.events
+    ramps = sorted(sched.ramps)
+    recal = sorted({k for ev in events for k in ev.get("recal_ramps", [])})
+    check(sched.n_recals >= 1 and recal and len(recal) < len(ramps),
+          f"{name}: {sched.n_recals} recals over {recal} of {ramps}")
+    # a forced refresh behind one bank of the gelu ramp: chip-wide
+    key = f"act@{cfg.d_ff}:1"
+    names = [p for p, _ in _named_leaves(eng.params)]
+    before = [t.detach().clone() for t in _leaves(eng.params)]
+    ids = [id(t) for t in _leaves(eng.params)]
+    check(eng._per_tile_refresh_scope([key]) is None,
+          f"{name}: a per-tile scope for {key}")
+    sched.weight_refresh_pending = True
+    sched.weight_refresh_ramps = [key]
+    base = _peak_reset(torch)
+    ts = time.perf_counter()
+    with _aging_timer(chip) as refresh_aging:
+        eng._on_chip_reprogram()
+        torch.cuda.synchronize()
+    reprogram_s = time.perf_counter() - ts
+    peak_refresh = _peak_since(torch, base)
+    check([id(t) for t in _leaves(eng.params)] == ids,
+          f"{name}: the re-program replaced tensors")
+    changed = {p for p, a, b in zip(names, before, _leaves(eng.params))
+               if not torch.equal(a, b)}
+    del before
+    stacks = ("['enc_layers']", "['dec_layers']")
+    crossbars = {p for p, t in zip(names, _leaves(eng.params))
+                 if p.startswith(stacks) or t.dim() >= 2}
+    check(eng._weight_gen == 1 and not eng._tile_gens,
+          f"{name}: refresh {eng._weight_gen}, {eng._tile_gens}")
+    check(changed == crossbars, f"{name}: the chip-wide refresh changed "
+          f"{sorted(changed ^ crossbars)} against the crossbars")
+    check(peak_refresh <= peak_serve, f"{name}: the re-program's peak "
+          f"{peak_refresh} B above the engine exceeds the serve's "
+          f"{peak_serve} B")
+    out = {"phase": name, "arch": cfg.name,
+           "n_enc_layers": cfg.n_enc_layers, "n_dec_layers": cfg.n_dec_layers,
+           "cut": f"none: {cfg.n_enc_layers} + {cfg.n_dec_layers} layers, "
+                  "full width",
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "dtype": cfg.dtype,
+           "analog_device": LC["preset"], "bank_cols": LC["bank_cols"],
+           "policy": policy.to_dict(), "ramps": len(ramps),
+           "ramps_recalibrated": recal, "recals": sched.n_recals,
+           "probes": len(events), "probe_host_ms": probe_ms,
+           "build_and_aging_s": build_s,
+           "aging_host_s_stacks": aging["layers"],
+           "aging_host_s_embedding_and_pos_dec": aging["rest"],
+           "saved_at_step": spec["save_at"], "bytes": n_bytes,
+           "save_s": save_s, "peak_bytes_uninterrupted": peak_full,
+           "requested_peak_bytes_uninterrupted": req_full,
+           "resumes": resumes, "resumed_bitwise": True,
+           "launches": launches, "kernel3_vs_ref": flips,
+           "agreement": agreement, "streams_equal": ref_streams == want,
+           "refresh": {"key": key, "scope": "chip",
+                       "leaves_changed": len(changed),
+                       "reprogram_host_s": reprogram_s,
+                       "aging_host_s": refresh_aging,
+                       "peak_bytes": peak_refresh,
+                       "peak_bytes_serve": peak_serve},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del eng, models
+    return {name: launches}
+
+
 def _whisper_phases(torch, dev) -> dict:
     """whisper-base's phases in order, each one's seconds emitted; the
     kernel launches of its main paths by path."""
@@ -4995,13 +5326,21 @@ def _whisper_phases(torch, dev) -> dict:
     for name, run in (("serve_whisper", phase_serve_whisper),
                       ("transcribe_whisper", phase_transcribe_whisper),
                       ("agreement_whisper", phase_agreement_whisper),
-                      ("train_whisper", phase_train_whisper)):
+                      ("train_whisper", phase_train_whisper),
+                      ("serve_lifecycle_whisper",
+                       phase_serve_lifecycle_whisper),
+                      ("fleet_whisper", lambda torch, dev: {
+                          "fleet_whisper": phase_fleet(
+                              torch, dev, FLEET_WHISPER,
+                              "fleet_whisper")["launches"]})):
         t0 = time.perf_counter()
         out.update(run(torch, dev))
         free_device(torch)
         seconds[name] = time.perf_counter() - t0
+    deploy = ("serve_lifecycle_whisper", "fleet_whisper")
     emit({"phase": "whisper_seconds", **seconds,
-          "total": sum(seconds.values())})
+          "total": sum(seconds.values()),
+          "deploy_total": sum(seconds[k] for k in deploy)})
     return out
 
 
@@ -5022,6 +5361,161 @@ def whisper_kernel_cases(torch, dev) -> list:
         *(phase_attention(torch, dev, name, dt, WHISPER["max_len"],
                           heads=(8, 8, 64))
           for name, dt in (("whisper_bf16", bf16), ("whisper_f32", f32)))]
+
+
+def deepseek_launches(n_layers: int) -> dict:
+    """deepseek-moe-16b's launches a position: the shared experts' gate
+    (kernel 3), the routed experts' (kernel 4) and the cached attention
+    (kernel 5) once a layer; its softmax router takes no NL-ADC (kernel
+    2), its bfloat16 cache no kernel 6."""
+    return {k: n_layers for k in ("fused_matmul_nladc", "moe_fused_matmul",
+                                  "prefill_attention")}
+
+
+def phase_serve_deepseek(torch, dev) -> dict:
+    """deepseek-moe-16b at full width, SERVE_DEEPSEEK["n_layers"] of its 28
+    layers, bf16, cuda, on serve's workload: the scan engine
+    (:func:`phase_serve`, :func:`deepseek_launches` a position, every
+    logit finite), then the packed prefill on the same weights drawn
+    again: the scan's streams, the same launches a position.  Peak memory
+    of each under the card's 80 GB.  Returns the launches by path."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    name, spec = "serve_deepseek", SERVE_DEEPSEEK
+    per_step = deepseek_launches(spec["n_layers"])
+
+    def size(torch, dev, cfg, model, params):
+        n = sum(t.numel() for t in _leaves(params))
+        return {"params": n, "params_gb_f32": 4 * n / 1e9,
+                "n_experts": cfg.n_experts, "n_shared_experts":
+                cfg.n_shared_experts, "top_k": cfg.top_k,
+                "cut": f"{cfg.n_layers} of 28 layers (f32 weights: 67.5 GB "
+                       "at 28)"}
+
+    t0 = time.perf_counter()
+    scan = phase_serve(torch, dev, name, arch=spec["arch"],
+                       n_layers=spec["n_layers"], repeats=spec["repeats"],
+                       more=size, per_step=per_step)
+    check(scan["max_memory_gb"] < CARD_GB,
+          f"{name}: peak {scan['max_memory_gb']} GB")
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve.make_config(spec["arch"], backend="cuda",
+                            overrides={"n_layers": spec["n_layers"]})
+    model, params = serve.build_lm(cfg, dev, seed=0)
+    packed = _serve_mode(
+        torch, ServingEngine, model, params, cfg, name, "packed",
+        dict(prefill="bucketed", pack_prefill=True), spec, scan["streams"],
+        None, per_step)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(peak < CARD_GB, f"{name}/packed: peak {peak} GB")
+    emit({"phase": "serve_deepseek_packed", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "backend": "cuda",
+          **packed, "streams_equal_scan": True, "max_memory_gb": peak,
+          "seconds": time.perf_counter() - t0})
+    del model, params
+    return {name: scan["launches"], f"{name}/packed": packed["launches"]}
+
+
+def phase_agreement_deepseek(torch, dev) -> dict:
+    """deepseek-moe-16b at 2 layers, full width, float32, on the cuda and
+    ref backends, the same weights and tokens: AGREE_STEPS decode steps of
+    B 4 with kernels 3 and 4 audited against ref's gates on their operands
+    (code flips at most AGREE_FLIP_SHARE, one level each), the ref steps
+    given the cuda run's gate outputs within LSB/2 of the cuda logits;
+    the free ref run's difference printed.  Kernels 3, 4 and 5 launch once
+    a layer a step."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+
+    name = "agreement_deepseek"
+    t0 = time.perf_counter()
+    models = {bk: build(serve.make_config(
+        SERVE_DEEPSEEK["arch"], backend=bk,
+        overrides={"n_layers": AGREE_LAYERS}).replace(dtype="float32"), dev)
+        for bk in ("cuda", "ref")}
+    cfg = models["cuda"].cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    params = models["cuda"].init(gen)
+    b = SERVE["max_batch"]
+    tokens = torch.randint(0, cfg.vocab, (AGREE_STEPS, b, 1), generator=gen,
+                           device=dev)
+    gates = ("matmul_nladc", "moe_matmul_nladc")
+
+    def decode(bk, steps):
+        state = models[bk].init_decode_state(b, SERVE["max_len"])
+        out = []
+        for t in range(AGREE_STEPS):
+            steps.append(t)
+            logits, state = models[bk].decode_step(params, state, tokens[t])
+            out.append(logits.double())
+        return out
+
+    audit, free, steps = [], [], []
+    undo = _audit_gates(torch, models["cuda"], steps, audit, gates)
+    try:
+        got, launches = _counted(lambda: decode("cuda", steps))
+    finally:
+        undo()
+    want_launches = {k: deepseek_launches(AGREE_LAYERS).get(k, 0)
+                     * AGREE_STEPS for k in launches}
+    check(launches == want_launches, f"{name}: launches {launches}, "
+          f"expected {want_launches}")
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          f"{name}: non-finite logits")
+    flips = _flip_summary(name, audit)
+    free_diff = max(float((a - w).abs().max())
+                    for a, w in zip(got, decode("ref", [])))
+    undo = _replay_gates(torch, models["ref"], audit, free, gates)
+    try:
+        want = decode("ref", [])
+    finally:
+        undo()
+    lsb = models["cuda"].act.ramp.lsb
+    diff = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    check(diff < lsb / 2, f"{name}: logits differ by {diff} >= LSB/2 = "
+          f"{lsb / 2} on the same gate outputs")
+    out = {"phase": name, "arch": cfg.name, "n_layers": AGREE_LAYERS,
+           "dtype": "float32", "B": b, "steps": AGREE_STEPS,
+           "launches": launches, **flips, "max_abs_logit_diff": diff,
+           "lsb_half": lsb / 2, "free_max_abs_logit_diff": free_diff,
+           "free_gate_flips": sum(free),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del models, params
+    return out
+
+
+def _deepseek_phases(torch, dev) -> dict:
+    """deepseek-moe-16b's serve and agreement phases, their seconds
+    emitted; the serve paths' launches by path."""
+    t0 = time.perf_counter()
+    out = phase_serve_deepseek(torch, dev)
+    free_device(torch)
+    t1 = time.perf_counter()
+    phase_agreement_deepseek(torch, dev)
+    free_device(torch)
+    t2 = time.perf_counter()
+    emit({"phase": "deepseek_seconds", "serve_deepseek": t1 - t0,
+          "agreement_deepseek": t2 - t1, "total": t2 - t0})
+    return out
+
+
+def deepseek_kernel_cases(torch, dev) -> list:
+    """deepseek-moe-16b's kernel cases, each checked against its plain
+    version: ``fused_matmul_nladc`` at its shared experts' gate (K 2048,
+    N 2 x 1408 = 2816, silu, bfloat16 x) at the decode rows (M 4: the
+    GEMV); ``prefill_attention`` at its heads (H 16 over Hkv 16, D 128: a
+    group of 1) over serve's 128-slot cache, bfloat16 and float32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        phase_fused_matmul(torch, dev, "deepseek_shared_flat", 4, 2048, 2816,
+                           bf16, 0, act_name="silu"),
+        *(phase_attention(torch, dev, name, dt, SERVE["max_len"],
+                          heads=(16, 16, 128))
+          for name, dt in (("deepseek_bf16", bf16), ("deepseek_f32", f32)))]
 
 
 def free_device(torch) -> None:
@@ -5120,8 +5614,11 @@ def main(argv=None) -> int:
                          "phases")
     ap.add_argument("--encdec", action="store_true",
                     help="run only the device phase, whisper-base's kernel "
-                         "cases and its serve, transcribe, agreement and "
-                         "train phases")
+                         "cases and its serve, transcribe, agreement, "
+                         "train, lifecycle and fleet phases")
+    ap.add_argument("--deepseek", action="store_true",
+                    help="run only the device phase, deepseek-moe-16b's "
+                         "kernel cases and its serve and agreement phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5200,6 +5697,13 @@ def main(argv=None) -> int:
             phase_kernel_time(*case, floor_ms=floor_ms)
         free_device(torch)
         emit({"encdec_launches": _whisper_phases(torch, dev)})
+        return 0
+    if args.deepseek:
+        floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+        for case in deepseek_kernel_cases(torch, dev):
+            phase_kernel_time(*case, floor_ms=floor_ms)
+        free_device(torch)
+        emit({"deepseek_launches": _deepseek_phases(torch, dev)})
         return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
@@ -5334,6 +5838,7 @@ def main(argv=None) -> int:
     free_device(torch)
     lifecycle = _lifecycle_phases(torch, dev)
     dense = _dense_phases(torch, dev)
+    deepseek = _deepseek_phases(torch, dev)
     layers = TRAIN_MOE["n_layers"]
     trained = [phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
         "fused_matmul_nladc": 2 * 36})]
@@ -5362,6 +5867,7 @@ def main(argv=None) -> int:
     dense_cases = dense_kernel_cases(torch, dev)
     whisper = _whisper_phases(torch, dev)
     whisper_cases = whisper_kernel_cases(torch, dev)
+    deepseek_cases = deepseek_kernel_cases(torch, dev)
 
     floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
 
@@ -5381,7 +5887,7 @@ def main(argv=None) -> int:
     flash_cases = timed(flash_checked)
     tile_cases = timed(tile_checked)
     train_cases = timed(train_checked)
-    for case in timed(dense_cases + whisper_cases):
+    for case in timed(dense_cases + whisper_cases + deepseek_cases):
         dense_timed.setdefault(case["phase"], []).append(case)
     # train_cases: kernel 3 flat and banked, kernel 4, the router, then
     # recurrent_train_cases (kernel 3, four of kernel 2)
@@ -5438,7 +5944,8 @@ def main(argv=None) -> int:
                     "vision_forward"]["launches"]["fused_matmul_nladc"],
                 "serve_granite34b/int8": dense["serve_granite34b"]["int8"][
                     "launches"]["fused_matmul_nladc"],
-                **{k: v["fused_matmul_nladc"] for k, v in whisper.items()}}
+                **{k: v["fused_matmul_nladc"] for k, v in whisper.items()},
+                **{k: v["fused_matmul_nladc"] for k, v in deepseek.items()}}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -5461,7 +5968,8 @@ def main(argv=None) -> int:
                 **{k: dense[k]["launches"]["prefill_attention"]
                    for k in dense_serves},
                 **{k: v["prefill_attention"] for k, v in whisper.items()
-                   if v["prefill_attention"]}}
+                   if v["prefill_attention"]},
+                **{k: v["prefill_attention"] for k, v in deepseek.items()}}
     attention = kernel_entry(
         "prefill_attention",
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -5498,7 +6006,8 @@ def main(argv=None) -> int:
     moe_main = moe_cases[0]
     moe_paths = {"serve_moe": served_moe["launches"]["moe_fused_matmul"],
                  **mode_launches(served_moe_b, "moe_fused_matmul"),
-                 "train_moe": moe_train["moe_fused_matmul"]}
+                 "train_moe": moe_train["moe_fused_matmul"],
+                 **{k: v["moe_fused_matmul"] for k, v in deepseek.items()}}
     moe = kernel_entry(
         "moe_fused_matmul",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",

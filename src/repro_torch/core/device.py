@@ -473,7 +473,7 @@ class DeviceModel:
         return out.reshape(w.shape)
 
     def age_params(self, params, rng: Optional[np.random.Generator] = None,
-                   *, stacked: str = "", generation: int = 0,
+                   *, stacked=(), generation: int = 0,
                    leaf_overrides: Optional[Callable] = None, out=None,
                    keep: Optional[Callable] = None):
         """Build-stage aging of every matrix leaf of a params tree (nested
@@ -489,9 +489,11 @@ class DeviceModel:
         the same tree.  An explicit ``rng`` is threaded through the leaves
         in the JAX flattening order (dict keys sorted).
 
-        ``stacked`` names a top-level key whose list holds one params tree
-        per layer where the JAX package stacks the layers on a leading
-        axis (the LM's ``"layers"``).  Layer ``i``'s leaf at
+        ``stacked`` names a top-level key (or a tuple of them) whose list
+        holds one params tree per layer where the JAX package stacks the
+        layers on a leading axis (the LM's ``"layers"``, the
+        encoder-decoder's ``("enc_layers", "dec_layers")``, each stack on
+        its own).  Layer ``i``'s leaf at
         ``['layers'][i]<rest>`` then gets the draws of the stacked leaf
         ``['layers']<rest>`` at leading index ``i``, per layer, without
         stacking the matrices on the host.  A 1-D leaf of a layer (a norm
@@ -548,13 +550,24 @@ class DeviceModel:
                     else self.age_weights(w64, rng))
             return _put(aged, w, target)
 
-        if not stacked:
+        keys = (stacked,) if isinstance(stacked, str) else tuple(stacked)
+        keys = tuple(k for k in keys if k)
+        if not keys:
             return _map2(params, out, one)
-        base = f"[{stacked!r}]"
         res = {k: _map2(v, None if out is None else out[k], one,
                         f"[{k!r}]")
-               for k, v in params.items() if k != stacked}
-        layers = params[stacked]
+               for k, v in params.items() if k not in keys}
+        for key in keys:
+            res[key] = self._age_stack(
+                key, params[key], None if out is None else out[key],
+                overrides, tiled)
+        return {k: res[k] for k in params}
+
+    def _age_stack(self, stacked: str, layers: list, out, overrides,
+                   tiled) -> list:
+        """:meth:`age_params` of the per-layer list under the top-level
+        key ``stacked``, aged as the reference's stacked leaves."""
+        base = f"[{stacked!r}]"
         n_layers = len(layers)
         # the 1-D leaves of every layer, by path, stacked as the reference's
         rows: Dict[str, list] = {}
@@ -587,10 +600,8 @@ class DeviceModel:
                                   first_index=i * per_layer), w, target)
             return fn
 
-        res[stacked] = [
-            _map2(p, None if out is None else out[stacked][i], layer_leaf(i))
-            for i, p in enumerate(layers)]
-        return {k: res[k] for k in params}
+        return [_map2(p, None if out is None else out[i], layer_leaf(i))
+                for i, p in enumerate(layers)]
 
     # -- serialization -----------------------------------------------------
 

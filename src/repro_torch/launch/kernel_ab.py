@@ -34,6 +34,10 @@ The cases, all from seeded inputs made on the card:
   ``fused_matmul_nladc`` at qwen2.5-3b's MLP gate, bfloat16 x, at a decode
   step's (4, 2048, 11008) and a prefill step's M 1 (the GEMV, M <= 8) and
   at the training shape M = B x S = 1024 (the tensor-core GEMM);
+* ``attention_ds_*`` / ``dense_gate_shared``: deepseek-moe-16b's cached
+  attention (H 16 over Hkv 16, D 128, S 128) in bfloat16 and float32, and
+  its shared experts' gate (4, 2048, 2816), bfloat16 x; their inputs are
+  drawn after every other case's, so the earlier cases keep theirs;
 * ``flash_serve`` / ``flash_gqa`` / ``flash_mqa48``: ``flash_decode_int8``
   at ``chip_smoke.py``'s shapes, bfloat16 q: moonshot's serving shape (B
   4, H = Hkv = 16, D 128, S 128, full rows), a GQA case (Hkv 2, lengths
@@ -229,6 +233,17 @@ def _cases(torch, dev):
             ("nladc_mlp_banked_bf16", (4, 11008), "silu", bf16, 512),
             ("nladc_ragged_f32", (33, 1000), "tanh", f32, 0)):
         cases[name] = _nladc_case(torch, dev, shape, act, dtype, bank_cols)
+    # deepseek-moe-16b's shapes, drawn after every earlier case's inputs
+    for dtype in (bf16, f32):
+        q = randn(4, 16, 128).to(dtype)
+        k, v = (randn(4, 128, 16, 128).to(dtype) for _ in range(2))
+        seen = torch.tensor([128, 125, 64, 1], device=dev)
+        mask = (torch.arange(128, device=dev)[None] < seen[:, None]).int()
+        cases[f"attention_ds_{str(dtype)[6:]}_s128"] = (
+            lambda q=q, k=k, v=v, m=mask: pa.prefill_attention(q, k, v, m))
+    xs, ws = randn(4, 2048).bfloat16(), randn(2048, 2816) / math.sqrt(2048)
+    cases["dense_gate_shared"] = lambda: fmn.fused_matmul_nladc(
+        xs, ws, None, thr, y_table)
     return cases
 
 

@@ -3,15 +3,22 @@ qwen2.5-3b``, another dense LM (granite-3-8b, qwen2.5-32b, pixtral-12b
 served on text, as the reference's engine serves it, and granite-34b,
 whose 48 query heads share one KV head), the encoder-decoder whisper-base
 (its decoder served on text with cross K/V of zeros, as the reference's
-engine serves it; its deployment flags, an aging ``--analog-device``,
-``--age-per-step-s``, ``--ckpt-dir`` and ``--fleet``, raise), a MoE LM
-with an int8 KV cache, or a recurrent LM (the SSD of mamba2-370m, the
-RG-LRU and local attention of recurrentgemma-9b)::
+engine serves it, and deployed as the others are: an aging
+``--analog-device``, the lifecycle, ``--ckpt-dir`` / ``--resume`` and
+``--fleet``), a MoE LM (moonshot-v1-16b-a3b with an int8 KV cache,
+deepseek-moe-16b's softmax router and shared experts), or a recurrent LM
+(the SSD of mamba2-370m, the RG-LRU and local attention of
+recurrentgemma-9b)::
 
     python -m repro_torch.launch.serve --arch granite-34b \
         --override n_layers=40 [--override kv_cache_dtype=int8]
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --override n_layers=24 --override kv_cache_dtype=int8
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+        --override n_layers=26
+    python -m repro_torch.launch.serve --arch whisper-base \
+        --analog-mode infer --analog-device aged-1day \
+        --age-per-step-s 3600 --recal-every 8 --ckpt-dir DIR
     python -m repro_torch.launch.serve --arch mamba2-370m
     python -m repro_torch.launch.serve --arch recurrentgemma-9b
 

@@ -34,9 +34,11 @@ distinct shape at its first use, across activations), which a recompute
 under ``remat`` reads again, so it sees the same thresholds.  The router's sigmoid NL-ADC takes no key: its thresholds are
 noiseless.
 
-The other families, ``moe_impl="ep_shardmap"`` and ``remat_policy="dots"``
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
-them.  The model lives on the GPU unless the caller asks for the CPU.
+Another family raises ``ValueError`` (``nn/model.py::build`` gives the
+encoder-decoder its ``EncDecLM``); ``moe_impl="ep_shardmap"`` and
+``remat_policy="dots"`` raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings them.  The model lives on the GPU unless
+the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -92,9 +94,10 @@ class LM:
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to repro_torch yet; "
-                f"ROADMAP.md queue A item 5 (LM families) brings it")
+            raise ValueError(
+                f"LM takes the decoder-only families {FAMILIES}, not "
+                f"{cfg.family!r}; repro_torch.nn.model.build returns the "
+                f"encoder-decoder's EncDecLM")
         if cfg.family == "moe" and cfg.moe_impl != "gspmd":
             raise NotImplementedError(
                 f"moe_impl={cfg.moe_impl!r} (expert parallelism) is not "

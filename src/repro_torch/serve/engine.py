@@ -13,9 +13,11 @@ exactly:
 
 The encoder-decoder (:class:`~repro_torch.nn.encdec.EncDecLM`) is served
 on text as the reference's engine serves it: the engine never calls
-``start_decode``, so its decode state's cross K/V stay zero.  Its
-deployment (``device=`` with a build stage, ``recal=``, :meth:`save` /
-:meth:`restore`, the fleet) raises ``NotImplementedError``.
+``start_decode``, so its decode state's cross K/V stay zero.  It deploys
+as the other families do, its two stacks (``enc_layers``, ``dec_layers``)
+aged, re-programmed and checkpointed as the reference stacks them; it maps
+no activation to param leaves, so every weight refresh is chip-wide, as
+the reference's.
 
 Two prefill paths fill the same caches:
 
@@ -54,8 +56,9 @@ does; :meth:`ServingEngine.detok_flush` joins the backlog.
 stage ages the served weights at construction, per crossbar tile, as the
 reference ages its stacked params (bitwise the reference engine's
 ``params`` after ``convert.lm_params_from_jax``; the hybrid's ``groups``
-stand where the other families' ``layers`` do, and its ``tail`` is a list
-in both packages).
+and the encoder-decoder's ``enc_layers`` and ``dec_layers`` stand where
+the other families' ``layers`` do, and the hybrid's ``tail`` is a list in
+both packages).
 
 The lifecycle (``recal=``, ``drain_before_rejit=``,
 ``external_maintenance=``): a :class:`~repro_torch.serve.lifecycle.
@@ -82,7 +85,8 @@ The deployment (params as served, decode state, slot arrays, served ramps
 and banks, requests, the scheduler, the pristine params, the lifecycle
 counters and the ``obs`` block) checkpoints with
 :meth:`ServingEngine.save` (schema 2) in the reference's layout, stacked
-layers (or the hybrid's groups; its tail stays a list) included, and
+layers (the hybrid's groups, its tail a list; the encoder-decoder's two
+stacks, its cross K/V as ``cross_k`` / ``cross_v``) included, and
 resumes with :meth:`ServingEngine.restore`, into any prefill or detok
 mode: either package restores what the other wrote.
 
@@ -272,7 +276,6 @@ class ServingEngine:
         self._aged_as: Optional[tuple] = None
         self._pristine_params = params
         if recal is not None:
-            _stacked_key(model)     # raises for a family not ported here
             if device is None:
                 raise ValueError("recal policy requires a device model")
             # fab calibration at age 0, then drift to the preset's age
@@ -280,7 +283,8 @@ class ServingEngine:
             # what a re-program ages from, kept on the host
             self._pristine_params = _host_copy(params)
         if device is not None and device.has_build_stage:
-            params = device.age_params(params, stacked=_stacked_key(model))
+            params = device.age_params(params,
+                                       stacked=_stacked_keys(model))
             self._aged_as = ((device.to_dict(), 0), {})
         elif recal is not None:
             # a re-program writes into the served tensors: not the caller's
@@ -1015,7 +1019,7 @@ class ServingEngine:
         last = self._aged_as if self._aged_as is not None \
             and self._aged_as[0] == key else None
         aged_dev.age_params(
-            self._pristine_params, stacked=_stacked_key(self.model),
+            self._pristine_params, stacked=_stacked_keys(self.model),
             generation=self._weight_gen, leaf_overrides=overrides,
             out=self.params,
             keep=None if last is None
@@ -1128,20 +1132,15 @@ class ServingEngine:
     # -- checkpoint / restore ---------------------------------------------
 
     def _ckpt_tree(self, include_pristine: bool, pristine=None):
-        """The array state of the deployment in the reference's layout:
-        the per-layer (per-group) lists stacked (:func:`stack_layers`, one
-        leaf at a time on the host), the hybrid's ``tail`` a list.
-        ``pristine`` (the pre-aging params) is stored only with a
-        scheduler, as the reference stores it; a restore template passes
-        its own host stand-ins."""
-        key = _stacked_key(self.model)
-
-        def stacked(tree):
-            return dict(tree, **{key: stack_layers(tree[key])})
-
+        """The array state of the deployment in the reference's layout
+        (:func:`_stack_params`, :func:`_stack_state`: one leaf at a time
+        on the host).  ``pristine`` (the pre-aging params) is stored only
+        with a scheduler, as the reference stores it; a restore template
+        passes its own host stand-ins."""
+        model = self.model
         tree = {
-            "params": stacked(self.params),              # aged, as served
-            "state": stacked(dict(self.state, index=torch.tensor(
+            "params": _stack_params(model, self.params),  # aged, as served
+            "state": _stack_state(model, dict(self.state, index=torch.tensor(
                 self.state["index"], dtype=torch.int32))),
             "noise_key": self._noise_key,
             "slot_pos": np.asarray(self.slot_pos),
@@ -1159,7 +1158,7 @@ class ServingEngine:
         }
         if include_pristine:
             src = self._pristine_params if pristine is None else pristine
-            tree["pristine"] = stacked(src)
+            tree["pristine"] = _stack_params(model, src)
         return tree
 
     def save(self, root: str, step: int) -> str:
@@ -1359,16 +1358,11 @@ class ServingEngine:
             root, eng._ckpt_tree(include_pristine=has_sched, pristine=host),
             step=step)
         # matching leaves were written into the engine's own tensors
-        key = _stacked_key(model)
-
-        def unstacked(tree):
-            return dict(tree, **{key: unstack_layers(tree[key])})
-
-        eng.params = unstacked(tree["params"])
-        eng.state = dict(unstacked(tree["state"]),
+        eng.params = _unstack_params(model, tree["params"])
+        eng.state = dict(_unstack_state(model, tree["state"]),
                          index=int(tree["state"]["index"]))
         if has_sched:
-            eng._pristine_params = unstacked(tree["pristine"])
+            eng._pristine_params = _unstack_params(model, tree["pristine"])
         else:
             # nothing re-ages without a scheduler
             eng._pristine_params = eng.params
@@ -1435,19 +1429,59 @@ class ServingEngine:
         return eng
 
 
-def _stacked_key(model) -> str:
-    """The params key whose list the reference stacks on a leading axis:
+def _family(model) -> str:
+    return getattr(getattr(model, "cfg", None), "family", "")
+
+
+def _stacked_keys(model) -> Tuple[str, ...]:
+    """The params keys whose per-layer lists the reference stacks on a
+    leading axis: the encoder-decoder's ``enc_layers`` and ``dec_layers``,
     the hybrid's ``groups`` (its ``tail`` is a list there too), else
-    ``layers``.  The encoder-decoder stacks two (``enc_layers``,
-    ``dec_layers``), which the aging, the re-program and the checkpoint do
-    not handle yet: they raise."""
-    family = getattr(getattr(model, "cfg", None), "family", "")
+    ``layers``."""
+    family = _family(model)
     if family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder's deployment (build-stage aging, recal=, "
-            "save/restore, the fleet) is not ported yet; ROADMAP.md queue A "
-            "item 5 brings it")
-    return "groups" if family == "hybrid" else "layers"
+        return ("enc_layers", "dec_layers")
+    return ("groups",) if family == "hybrid" else ("layers",)
+
+
+def _stack_params(model, tree) -> dict:
+    """A params tree in the reference's layout: each list of
+    :func:`_stacked_keys` as :func:`stack_layers` leaves."""
+    return dict(tree, **{k: stack_layers(tree[k])
+                         for k in _stacked_keys(model)})
+
+
+def _unstack_params(model, tree) -> dict:
+    """The inverse of :func:`_stack_params`."""
+    return dict(tree, **{k: unstack_layers(tree[k])
+                         for k in _stacked_keys(model)})
+
+
+def _stack_state(model, state) -> dict:
+    """A decode state in the reference's layout: stacked under the params'
+    key (``layers``, the hybrid's ``groups``), or for the encoder-decoder
+    its ``self`` caches stacked and its ``cross`` list of ``{"k", "v"}``
+    as ``cross_k`` and ``cross_v``, each (n_dec, B, enc_len, Hkv, D)."""
+    if _family(model) != "encdec":
+        return _stack_params(model, state)
+    tree = {k: v for k, v in state.items() if k != "cross"}
+    tree["self"] = stack_layers(state["self"])
+    for name in "kv":
+        tree[f"cross_{name}"] = stack_layers([c[name]
+                                              for c in state["cross"]])
+    return tree
+
+
+def _unstack_state(model, tree) -> dict:
+    """The inverse of :func:`_stack_state`."""
+    if _family(model) != "encdec":
+        return _unstack_params(model, tree)
+    state = {k: v for k, v in tree.items()
+             if k not in ("cross_k", "cross_v")}
+    state["self"] = unstack_layers(tree["self"])
+    state["cross"] = [{"k": k, "v": v} for k, v in zip(
+        unstack_layers(tree["cross_k"]), unstack_layers(tree["cross_v"]))]
+    return state
 
 
 def _map(tree, fn):

@@ -185,13 +185,6 @@ class Chip:
         return self.spec.chip_id
 
 
-def _not_encdec(cfg) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "a fleet of the encoder-decoder is not ported yet; ROADMAP.md "
-            "queue A item 5 brings it")
-
-
 class FleetEngine:
     """N chips, one router, one maintenance planner, one event trace.
 
@@ -270,7 +263,6 @@ class FleetEngine:
         ``torch_device``: where the models and params live (default
         ``cuda``).
         """
-        _not_encdec(cfg)
         if n_chips < 1:
             raise ValueError(f"n_chips must be >= 1, got {n_chips}")
         if len(canary_presets) >= n_chips:
@@ -596,7 +588,6 @@ class FleetEngine:
         load in place into a ``model.init`` tree of its own (the
         reference's ``params_like``, one tree shared by every chip, would
         be overwritten chip by chip here)."""
-        _not_encdec(cfg)
         step, meta = read_metadata(root, step=step)
         if "fleet" not in meta:
             hint = ("this is a single-chip deployment — restore via "

@@ -46,6 +46,8 @@ from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.launch import serve as TSERVE
 from repro_torch.launch import train as TTRAIN
+from repro_torch.nn import transformer as TM
+from repro_torch.nn.encdec import EncDecLM
 from repro_torch.nn.model import build as tbuild
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -180,22 +182,27 @@ def test_init_layout_matches_jax():
 @pytest.mark.parametrize("what", ["family", "ep_shardmap", "train",
                                   "hybrid_grad_comm"])
 def test_outside_the_slice_raises(what):
-    """What is not ported raises, naming its ``ROADMAP.md`` item: the
-    encoder-decoder family's deployment (``launch.serve --arch
-    whisper-base --analog-mode infer --analog-device aged-1day``: the
-    build-stage aging of its two stacks), expert parallelism
-    (``moe_impl="ep_shardmap"``), the hybrid's training under
+    """What is not ported raises, naming its ``ROADMAP.md`` item: expert
+    parallelism (``moe_impl="ep_shardmap"``), the hybrid's training under
     ``remat_policy="dots"`` (``launch.train --arch recurrentgemma-9b
     --override remat_policy=dots``: its groups are recomputed whole) and
     the hybrid's training under ``--grad-comm hierarchical`` (the
-    two-level data-parallel all-reduce).  The SSM
-    and hybrid families serve, whisper-base serves and trains
+    two-level data-parallel all-reduce).  Every family is ported: the
+    decoder-only ``LM`` given the encoder-decoder's config raises, naming
+    the ``EncDecLM`` that ``build`` returns for it.  The SSM
+    and hybrid families serve, whisper-base serves, trains and deploys
     (tests/test_torch_whisper*.py), the rolling-window cache and its int8
     fallback with them (tests/test_torch_lm_recurrent.py), and train
     (tests/test_torch_lm_recurrent_train.py); the dense and MoE int8
     caches (tests/test_torch_moe.py, tests/test_torch_flash_decode.py),
     and the infer and train modes (tests/test_torch_lm_forward.py) are
     ported."""
+    if what == "family":
+        with pytest.raises(ValueError, match="EncDecLM"):
+            TM.LM(TC.get_smoke("whisper-base"), device="cpu")
+        assert isinstance(tbuild(TC.get_smoke("whisper-base"),
+                                 device="cpu"), EncDecLM)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "train":
             TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
@@ -205,10 +212,6 @@ def test_outside_the_slice_raises(what):
             TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
                          "--device", "cpu", "--steps", "1", "--grad-comm",
                          "hierarchical"])
-        elif what == "family":
-            TSERVE.main(["--arch", "whisper-base", "--smoke", "--device",
-                         "cpu", "--analog-mode", "infer", "--analog-device",
-                         "aged-1day"])
         else:
             cfg = TC.get_smoke("moonshot-v1-16b-a3b").replace(
                 moe_impl="ep_shardmap")

@@ -2,7 +2,8 @@
 repro_torch's ``ServingEngine`` against the JAX package's scan engine.
 
 qwen2.5-3b SMOKE in float32 and moonshot-v1-16b-a3b SMOKE with an int8
-KV cache, exact mode, ``ref`` backend, the same weights
+KV cache (deepseek-moe-16b SMOKE on the scan and packed paths), exact
+mode, ``ref`` backend, the same weights
 (``lm_params_from_jax``), ``max_batch`` 2, ``max_len`` 48 and the
 reference's own throughput-test prompts (5, 13, 1 and 22 tokens: a
 prompt with no prefill, and one longer than the chunked case's largest
@@ -42,13 +43,15 @@ BITWISE_PACKED = {"moe_int8"}
 _INT8 = {"kv_cache_dtype": "int8"}
 ARCHS = {"qwen": ("qwen2.5-3b", None), "moe_int8": ("moonshot-v1-16b-a3b",
                                                     _INT8)}
+# served on the scan and packed paths only (the suite's time)
+DEEPSEEK = {"deepseek": ("deepseek-moe-16b", None)}
 _MODELS = {}
 
 
 def _models(key):
     """(jax model, jax params, port model, port params), built once."""
     if key not in _MODELS:
-        arch, overrides = ARCHS[key]
+        arch, overrides = {**ARCHS, **DEEPSEEK}[key]
         jcfg = JC.get_smoke(arch).replace(
             dtype="float32", analog=JSpec(enabled=True, adc_bits=5,
                                           activation="silu", backend="ref"),
@@ -88,6 +91,18 @@ def _jax_scan(key):
     return _JAX_SCAN[key]
 
 
+_PORT_SCAN = {}
+
+
+def _port_scan(key):
+    """The port's scan engine run once per config: every prefill mode is
+    held to it (its engine's decode state is only read)."""
+    if key not in _PORT_SCAN:
+        _, _, tm, tp = _models(key)
+        _PORT_SCAN[key] = _run(ServingEngine, Request, tm, tp)
+    return _PORT_SCAN[key]
+
+
 def _cache_leaves(eng):
     return [t for layer in eng.state["layers"] for _, t in
             sorted(layer.items())]
@@ -115,7 +130,7 @@ MODES = {
 def test_prefill_modes_match_jax_scan_engine(key, mode):
     _, _, tm, tp = _models(key)
     want = _jax_scan(key)
-    n0, s0, e0 = _run(ServingEngine, Request, tm, tp)
+    n0, s0, e0 = _port_scan(key)
     assert (n0, s0) == want
     n1, s1, e1 = _run(ServingEngine, Request, tm, tp, **MODES[mode])
     assert (n1, s1) == want, f"stream mismatch ({mode})"
@@ -130,6 +145,22 @@ def test_prefill_modes_match_jax_scan_engine(key, mode):
         # bucket, the last one padded
         assert 8 in e1.buckets_called and \
             e1.prefill_steps == sum(e1.buckets_called)
+
+
+@pytest.mark.parametrize("mode", ["scan", "packed"])
+def test_deepseek_matches_jax_scan_engine(mode):
+    """deepseek-moe-16b (its softmax router and shared expert): the scan
+    and packed streams are the JAX scan engine's, the packed caches within
+    PACKED_ATOL of the port's scan."""
+    n0, s0, e0 = _port_scan("deepseek")
+    assert (n0, s0) == _jax_scan("deepseek")
+    if mode == "scan":
+        return
+    _, _, tm, tp = _models("deepseek")
+    n1, s1, e1 = _run(ServingEngine, Request, tm, tp, **MODES[mode])
+    assert (n1, s1) == (n0, s0), "packed streams differ from the scan's"
+    assert e1.state["index"] == e0.state["index"]
+    assert _max_diff(e0, e1) <= PACKED_ATOL
 
 
 @pytest.mark.parametrize("max_len", [2, 9, 16, 48, 128, 200])

@@ -13,9 +13,9 @@ float32, exact mode, ``ref`` backend, the same weights
   axis, and ``prefill_cache`` leaves the cross K/V untouched.
 * The energy model prices the reference's stacked ``enc_layers`` and
   ``dec_layers``: the reference's variants, to the bit.
-* The deployment not ported yet (build-stage aging, ``recal=``,
-  ``save``, the fleet) raises ``NotImplementedError`` naming its
-  ``ROADMAP.md`` item.
+* The deployment (aging, ``recal=``, the checkpoint, the fleet) is held
+  to the reference in ``tests/test_torch_whisper_deploy.py`` and
+  ``tests/test_torch_whisper_fleet.py``.
 * CPU rehearsals: ``python -m repro_torch.launch.serve --arch
   whisper-base --smoke --device cpu`` (scan and packed) and ``launch.train
   --arch whisper-base --smoke --device cpu`` in train mode.
@@ -31,14 +31,11 @@ from repro.nn import model as JM
 from repro.obs.energy import ChipEnergyModel as JEnergy
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServingEngine as JEngine
-from repro_torch.core.device import resolve_device
 from repro_torch.launch import serve as TSERVE
 from repro_torch.launch import train as TTRAIN
 from repro_torch.nn import model as TM
 from repro_torch.obs.energy import ChipEnergyModel
 from repro_torch.serve.engine import Request, ServingEngine
-from repro_torch.serve.fleet import FleetEngine
-from repro_torch.serve.lifecycle import RecalPolicy
 from test_torch_serve_bucketed import MAX_BATCH, MAX_LEN, MAX_NEW, PROMPTS
 from test_torch_whisper import models
 
@@ -143,24 +140,6 @@ def test_energy_model_is_the_references():
     # reads them, pos_dec and the 9 stacked Q/K/V biases (n_layers, width)
     assert got.n_macros == want.n_macros == 16 + 1 + 9
     assert got.variants == want.variants
-
-
-@pytest.mark.parametrize("what", ["aging", "recal", "save", "fleet"])
-def test_the_deployment_raises(what, tmp_path):
-    _, _, tm, tp = models("exact")
-    chip = resolve_device("aged-1day")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        if what == "aging":
-            ServingEngine(tm, tp, max_batch=1, max_len=8, device=chip)
-        elif what == "recal":
-            ServingEngine(tm, tp, max_batch=1, max_len=8,
-                          device=resolve_device("paper-infer"),
-                          recal=RecalPolicy())
-        elif what == "save":
-            ServingEngine(tm, tp, max_batch=1, max_len=8).save(
-                str(tmp_path), 0)
-        else:
-            FleetEngine.build(tm.cfg, 2, torch_device="cpu")
 
 
 @pytest.mark.parametrize("packed", [False, True])
