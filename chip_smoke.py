@@ -102,8 +102,9 @@ Phases, one JSON line each:
               ``geglu_*``) with one (P,) ramp and with 512-column
               threshold banks, a ragged
               float32 case (M 33: the tensor-core GEMM, x split in three
-              bfloat16 parts), and the training shape (M = B x S = 1024,
-              flat and banked-512: the GEMM).  Codes equal except where the
+              bfloat16 parts), and the training shapes (M = B x S = 1024,
+              flat and banked-512, and a microbatch of 4 rows, M 512,
+              flat: the GEMM).  Codes equal except where the
               float64 accumulator lies within the float32 summation bound
               of a crossed threshold (the count of such flips is printed);
               outputs equal the table at the kernel's codes.  Each case's
@@ -163,15 +164,17 @@ Phases, one JSON line each:
               ``flash_decode_int8`` and ``fused_matmul_nladc`` (the shared
               experts) each launch 24 x (prefill steps + decode steps)
               times, ``prefill_attention`` never; every step's logits are
-              finite; peak device memory.
+              finite; peak device memory; one timed repeat (the
+              script's time).
 13. agreement_moe — a 2-layer, full-width, float32 moonshot with an int8
               cache on the ``cuda`` and ``ref`` backends: max |delta
               logits| < LSB/2.
-13a1. serve_ssm — mamba2-370m (SSD, 48 layers, d 1024, state 128) at full
-              width and depth, bfloat16, ``cuda``, seeded weights,
+13a1. serve_ssm — mamba2-370m (SSD, d 1024, state 128) at full width and
+              16 of its 48 layers (the script's time),
+              bfloat16, ``cuda``, seeded weights,
               ``serve``'s workload: every request its 16 tokens, every
               step's logits finite, ``nladc`` (dt softplus, z-gate silu)
-              48 x 2 x (prefill + decode steps) launches and no other
+              16 x 2 x (prefill + decode steps) launches and no other
               kernel; then the bucketed, packed and chunked prefills: the
               scan run's streams, the same launches per bucket width, the
               decode-state leaves' max |delta| against the scan run;
@@ -182,13 +185,14 @@ Phases, one JSON line each:
               given the cuda run's gate outputs; logits < LSB/2, streams
               equal or parted at a near tie); ``LM.prefill`` against the
               last decode step with the NL-ADC off (relative < 1e-3).
-13a3. serve_hybrid — recurrentgemma-9b (38 layers: (rec, rec, attn) x 12
-              + (rec, rec), d 4096, 16 heads over 1 KV head of 256, d_ff
-              12288, vocab 256000; 38.5 GB of f32 weights drawn on the
-              card) as ``serve_ssm``: a step launches ``nladc`` 78 (26
-              RG-LRU blocks x r, i and W_g), ``fused_matmul_nladc`` 38
-              and ``prefill_attention`` 12; max_len 128 < window 2048, so
-              its 128-slot cache never rolls.
+13a3. serve_hybrid — recurrentgemma-9b at 14 of its 38 layers (the
+              script's time; (rec, rec, attn) x 4 +
+              (rec, rec), d 4096, 16 heads over 1 KV head of 256, d_ff
+              12288, vocab 256000; weights drawn on the card) as
+              ``serve_ssm``: a step launches ``nladc`` 30 (10 RG-LRU
+              blocks x r, i and W_g), ``fused_matmul_nladc`` 14 and
+              ``prefill_attention`` 4; max_len 128 < window 2048, so its
+              128-slot cache never rolls.
 13a4. agreement_hybrid — one group of 3 layers at full width, float32,
               the window cut to 16 and max_len 64: 64 steps roll the
               buffer 3 times; exact, infer, and again with an int8 cache
@@ -327,11 +331,38 @@ Phases, one JSON line each:
 13a. train_lm — qwen2.5-3b trained at full width and all 36 layers
               (``repro_torch.launch.train``: B 8 x S 128, train mode on the
               ``paper`` preset, flat thresholds, AdamW with clip 1.0, each
-              layer recomputed in the backward), ``cuda`` backend, 3 steps,
-              then ``train_lm_banked`` the same with 512-column banks:
+              layer recomputed in the backward), ``cuda`` backend, 3 steps
+              through the trainer (its retrying executor and ``Obs``):
               every loss and gradient norm finite, ``fused_matmul_nladc``
-              36 x 2 launches a step and no other kernel; ms per step
-              (steps 2-3), tokens/s, peak device memory (< 80 GB).
+              36 x 2 launches a step and no other kernel; the executor's
+              stats (3 steps, no retry, no restore; stragglers) and the
+              ``Obs`` metrics (``train.steps_total`` 3, ``train.step_ms``
+              count 3); ms per step (steps 2-3), tokens/s, peak device
+              memory (< 80 GB).  Every train phase (``train_lm_banked``,
+              ``train_moe``, ``train_ssm``, ``train_hybrid``,
+              ``train_whisper``, ``train_ckpt``) runs through the same
+              trainer, with the same executor and ``Obs`` checks.
+13a-1. train_accum — qwen2.5-3b's gradient accumulation
+              (``train.loop.grad_accum_step``), B 8 x S 128 as 2
+              microbatches of 4: at 4 layers, float32, exact mode, from
+              the same seeded weights under AdamW (lr 1e-3), ``n_micro`` 1
+              bitwise ``make_train_step`` (loss, gradient norm, every
+              updated leaf) and ``n_micro`` 2 within rtol 1e-5 of its loss;
+              given the monolithic run's gate outputs, at most 1e-4 of
+              kernel 3's outputs differ (one level each) and every
+              averaged gradient leaf is within rtol 2e-4 / atol 2e-5 (the
+              free run's flips and excess, the updated leaves' excess
+              printed); then 36 layers, train
+              mode on ``paper``, 2 accumulated steps through the trainer:
+              ``fused_matmul_nladc`` 2 a layer a microbatch, losses finite,
+              ms a step, peak < 80 GB.
+13a-2. train_remat — qwen2.5-3b at 36 layers, one trainer step under
+              each ``remat_policy`` (full, dots, none) from the same seeded
+              weights: the loss, the gradient norm and per-leaf digests of
+              the params and Adam moments bitwise equal; peaks ordered
+              full <= dots <= none, each < 80 GB; ``fused_matmul_nladc``
+              72, 72 and 36 launches.  ``trainer_seconds`` prints the three
+              phases' seconds.
 13b. train_moe — moonshot-v1-16b-a3b at full width, 4 of its 48 layers,
               the same: ``nladc`` (the router), ``moe_fused_matmul`` (the
               routed experts' gate) and ``fused_matmul_nladc`` (the shared
@@ -487,9 +518,11 @@ families' kernel cases (their training shapes too), 13a1 to 13a5 and
 13e to 13g, and ``--dense`` only the device phase, the dense configs'
 kernel cases (kernel 3's MLP gates, kernels 5 and 6 at G 48 and G 5),
 13a6 and 13a7, ``--encdec`` only the device phase, whisper's kernel
-cases and 13w1 to 13w6, and ``--deepseek`` only the device phase,
-deepseek's kernel cases, 13d1 and 13d2; none of them prints the ``ok``
-line.  Without a GPU, or
+cases and 13w1 to 13w6, ``--deepseek`` only the device phase,
+deepseek's kernel cases, 13d1 and 13d2, and ``--trainer`` only the
+device phase, kernel 3 at the microbatch's GEMM shape (512, 2048,
+11008), 13a, 13a-1 and 13a-2; none of them prints the ``ok`` line.
+Without a GPU, or
 without the repository's ``src/repro_torch`` beside this script, it exits
 non-zero and prints no result.
 """
@@ -547,7 +580,7 @@ SERVE = dict(arch="qwen2.5-3b", requests=4, max_batch=4, max_len=128,
 AGREE_LAYERS, AGREE_STEPS = 2, 8
 SERVE_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=24,
                  kv_cache_dtype="int8", requests=4, max_batch=4, max_len=128,
-                 max_new=16, repeats=2)
+                 max_new=16, repeats=1)
 FLASH_ATOL = 1e-5
 HOST_CALLS, HOST_REPEATS = 200, 5
 GRAD_HALF_ATOL = 1e-5      # kernel_tune's gradient halves, cuda vs ref
@@ -556,6 +589,14 @@ TRAIN_LM = dict(arch="qwen2.5-3b", batch=8, seq=128, steps=3,
 TRAIN_MOE = dict(arch="moonshot-v1-16b-a3b", n_layers=4, batch=8, seq=128,
                  steps=3, analog_device="paper")
 TRAIN_AGREE = dict(n_layers=2, batch=2, seq=32, seed=4)
+# the trainer's gradient accumulation (B 8 as 2 microbatches of 4): its
+# agreement at 4 layers, exact mode; 2 accumulated steps at full depth
+TRAIN_ACCUM = dict(TRAIN_LM, n_layers=36, n_micro=2, agree_layers=4,
+                   steps=2)
+ACCUM_LOSS_RTOL = 1e-5     # n_micro 2 against the monolithic step's loss
+# one trainer step under each remat policy at full width and depth
+TRAIN_REMAT = dict(TRAIN_LM, n_layers=36)
+REMAT_POLICIES = ("full", "dots", "none")
 AGREE_FLIP_SHARE = 1e-4    # train_agreement: gate outputs that differ
 #                            between the backends, at most (qwen2.5-3b
 #                            showed 80 of 1409024 = 5.7e-5 on an H100)
@@ -574,11 +615,14 @@ CKPT_LAYERS, CKPT_SAVE_AT = 2, 6
 TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
                   analog_device="paper")
 CARD_GB = 80.0
-# the recurrent LM families served at full width and depth (serve's
-# workload); their decode states are not KV caches
-SERVE_SSM = dict(SERVE, arch="mamba2-370m", repeats=1, mode_repeats=1)
-SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", repeats=1,
-                    mode_repeats=1)
+# the recurrent LM families served at full width (serve's workload);
+# their decode states are not KV caches; mamba2 at 16 of its 48 layers,
+# recurrentgemma at 14 of its 38 (the script's time: eager blocks of tens
+# of launches a step, host-bound)
+SERVE_SSM = dict(SERVE, arch="mamba2-370m", n_layers=16, repeats=1,
+                 mode_repeats=1)
+SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", n_layers=14,
+                    repeats=1, mode_repeats=1)
 # cuda against ref at full width, cut depth, float32; the hybrid's local
 # attention window cut to 16 with max_len 64, so 64 decode steps roll its
 # 16-slot buffer 3 times
@@ -2393,7 +2437,8 @@ def phase_serve_recurrent(torch, dev, name: str, spec: dict) -> dict:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = serve.make_config(spec["arch"], backend="cuda")
+    cfg = serve.make_config(spec["arch"], backend="cuda", overrides={
+        "n_layers": spec["n_layers"]} if "n_layers" in spec else {})
     model, params = serve.build_lm(cfg, dev, seed=0)
     engine = ServingEngine(model, params, max_batch=spec["max_batch"],
                            max_len=spec["max_len"])
@@ -4275,11 +4320,7 @@ def phase_train_lm(torch, dev, name: str, spec: dict, path: dict,
     first), tokens/s, peak device memory under the card's 80 GB."""
     from repro_torch.launch import serve, train
 
-    overrides = {"n_layers": spec["n_layers"]} if "n_layers" in spec else {}
-    cfg = serve.make_config(spec["arch"], backend="cuda", bank_cols=bank_cols,
-                            analog_mode="train",
-                            analog_device=spec["analog_device"],
-                            overrides=overrides)
+    cfg = _lm_cfg(serve, spec, "train", bank_cols=bank_cols)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model, trainer, state = train.build_trainer(
@@ -4304,6 +4345,7 @@ def phase_train_lm(torch, dev, name: str, spec: dict, path: dict,
           f"{name}: non-finite losses or gradient norms {hist}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     check(peak_gb < CARD_GB, f"{name}: peak memory {peak_gb} GB")
+    executor, obs = _trainer_readings(name, trainer, spec["steps"])
     later = trainer.step_ms[1:]
     step_ms = statistics.median(later)
     out = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
@@ -4321,9 +4363,333 @@ def phase_train_lm(torch, dev, name: str, spec: dict, path: dict,
            "expected_launches_per_step": expected,
            "launches": {k: sum(r[k] for r in res["launches"])
                         for k in wrappers},
-           "peak_memory_gb": peak_gb}
+           "peak_memory_gb": peak_gb, "executor": executor, "obs": obs}
     emit(out)
     del model, trainer, state, res
+    return out
+
+
+def _trainer_readings(name: str, trainer, steps: int) -> tuple:
+    """The trainer's executor stats and ``Obs`` metrics after ``steps``
+    uninterrupted steps: every step run once (no retry, no restore),
+    ``train.steps_total`` and the ``train.step_ms`` histogram's count
+    equal to ``steps``; the histogram printed without its buckets."""
+    stats = dataclasses.asdict(trainer.executor.stats)
+    check(stats["steps"] == steps and stats["retries"] == 0
+          and stats["restores"] == 0,
+          f"{name}: executor stats {stats} after {steps} steps")
+    obs = {m["name"]: {k: v for k, v in m["state"].items()
+                       if k != "buckets"}
+           for m in trainer.obs.metrics.snapshot()["metrics"]}
+    check(obs["train.steps_total"]["value"] == steps
+          and obs["train.step_ms"]["count"] == steps,
+          f"{name}: Obs metrics {obs} after {steps} steps")
+    return stats, obs
+
+
+def _digests(torch, tree) -> list:
+    """One int64 a leaf, summed on the card over its 32-bit (or 16-bit)
+    words: equal digests of two trees say their bits agree, without a
+    second copy of either on the card."""
+    out = []
+    for leaf in _leaves(tree):
+        word = torch.int32 if leaf.element_size() == 4 else torch.int16
+        out.append(leaf.detach().contiguous().view(word).sum(
+            dtype=torch.int64))
+    return torch.stack(out).tolist()
+
+
+def _lm_cfg(serve, spec: dict, analog_mode: str, bank_cols: int = 0,
+            **overrides):
+    """``spec``'s LM on the cuda backend in ``analog_mode`` on its preset,
+    cut to its ``n_layers`` where it has one, with ``overrides``."""
+    layers = {"n_layers": spec["n_layers"]} if "n_layers" in spec else {}
+    return serve.make_config(spec["arch"], backend="cuda",
+                             bank_cols=bank_cols, analog_mode=analog_mode,
+                             analog_device=spec["analog_device"],
+                             overrides={**layers, **overrides})
+
+
+class _KeepGrads:
+    """An optimizer that keeps the gradients it is handed, then updates
+    as ``opt`` does."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def update_(self, grads, state, params, norm=None):
+        self.grads = grads
+        return self.opt.update_(grads, state, params, norm=norm)
+
+
+def phase_train_accum(torch, dev) -> dict:
+    """qwen2.5-3b's gradient accumulation (``train.loop.grad_accum_step``)
+    at full width, B 8 x S 128 as ``n_micro`` 2 microbatches of 4.
+
+    Agreement, at 4 layers in exact mode (kernel 3 on noiseless ramps),
+    float32 (as the reference's test and the other agreement phases: a
+    bfloat16 sum over another split of the rows moves a gradient by ~1e-3
+    of itself), each run from the same seeded weights, AdamW (lr 1e-3,
+    weight decay 0.1, clip 1.0): ``n_micro`` 1 bitwise
+    ``make_train_step`` (loss, gradient norm, every updated leaf);
+    ``n_micro`` 2 within rtol 1e-5 of the monolithic step's loss.
+    Kernel 3 gives a row the same bits at any M (a card test), but cuBLAS
+    picks its GEMMs' algorithms by M, so a microbatch's attention and
+    projections round otherwise than the monolithic step's, the gates'
+    inputs move by float32 rounding and codes may flip, and a flip moves
+    every later layer's inputs: as ``train_agreement``
+    holds cuda to ref on the same inputs, the microbatches are run again
+    given the monolithic run's gate outputs (their own straight-through
+    backward), and there at most AGREE_FLIP_SHARE of the outputs differ
+    from the monolithic run's, each one level, and the averaged gradients
+    are within rtol 2e-4 / atol 2e-5 of the monolithic ones (the
+    reference's ``test_grad_accum_equivalent_to_full_batch`` tolerance).
+    The free run's differing outputs (each one level) and gradient excess
+    are printed, not gated, as the hybrid's free runs are (an H100 read
+    260,574 of 90,177,536 outputs differing in the free run and 190 on
+    the monolithic codes).  The updated leaves' excess over
+    the tolerance is printed too (Adam's first step,
+    ``lr * g / (|g| + eps)``, moves a gradient near ``eps`` by ``lr``
+    with its rounding).  Then
+    full depth (36 layers), train mode on ``paper``,
+    ``TRAIN_ACCUM["steps"]`` accumulated steps through the trainer: ms a
+    step, peak under the card's 80 GB, kernel 3 twice a layer a
+    microbatch (forward and recompute), losses finite."""
+    from repro_torch.core import backend as BK
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.model import build
+    from repro_torch.train import loop, optim
+
+    t0 = time.perf_counter()
+    spec = TRAIN_ACCUM
+    n_micro = spec["n_micro"]
+    cfg = _lm_cfg(serve, dict(spec, n_layers=spec["agree_layers"]), "exact",
+                  dtype="float32")
+    model = build(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params0 = model.init(gen)
+    batch = loop.to_device_batch(SyntheticLM(
+        cfg.vocab, spec["seq"], spec["batch"]).batch_at(0), dev)
+    fmn = _wrappers()["fused_matmul_nladc"]
+    mono_gates, audits = [], {}
+
+    def record(y, adc):
+        mono_gates.append(y.detach())
+        return y
+
+    def against_mono(label, replay):
+        """Each gate call's outputs against the monolithic run's rows of
+        its microbatch; ``replay`` hands those rows on instead (the
+        microbatch's own straight-through gradient)."""
+        audit = audits[label] = {"calls": 0, "steps": []}
+
+        def on_output(y, adc):
+            m, i = divmod(audit["calls"], len(mono_gates))
+            audit["calls"] += 1
+            rows = mono_gates[i].shape[0] // n_micro
+            z = mono_gates[i][m * rows:(m + 1) * rows]
+            check(z.shape == y.shape, f"train_accum: gate call {i} gives "
+                  f"{tuple(y.shape)}, the monolithic rows {tuple(z.shape)}")
+            audit["steps"].append(_level_steps(torch, adc, y.detach(), z))
+            return z + (y - y.detach()) if replay else y
+        return on_output
+
+    runs = {}
+    for label, n, on_output in (
+            ("monolithic", None, record), ("n_micro_1", 1, None),
+            ("n_micro_2", n_micro, against_mono("n_micro_2", False)),
+            ("n_micro_2_on_monolithic_codes", n_micro,
+             against_mono("n_micro_2_on_monolithic_codes", True))):
+        params = optim.tree_map(lambda p: p.detach().clone(), params0)
+        opt = _KeepGrads(optim.Adam(lr=1e-3, weight_decay=0.1,
+                                    grad_clip_norm=1.0))
+        step = make_train_step(model, opt) if n is None \
+            else loop.grad_accum_step(model, opt, n)
+        b = batch if n is None else loop.split_micro(batch, n)
+        undo = _wrap_gates(BK.get_backend("cuda"), on_output) \
+            if on_output else (lambda: None)
+        n0 = fmn.launches
+        try:
+            params, _, metrics = step(params, opt.opt.init(params), b, 0)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        runs[label] = {"params": params,
+                       "grads": list(_leaves(opt.grads)),
+                       "loss": metrics["loss"],
+                       "grad_norm": metrics["grad_norm"],
+                       "launches": fmn.launches - n0}
+    mono, one = runs["monolithic"], runs.pop("n_micro_1")
+    for k in ("loss", "grad_norm"):
+        check(torch.equal(one[k], mono[k]),
+              f"train_accum: n_micro 1 {k} {float(one[k])} is not the "
+              f"monolithic step's {float(mono[k])}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        _leaves(one["params"]), _leaves(mono["params"]))),
+        "train_accum: n_micro 1 updated leaves differ from the monolithic "
+        "step's")
+    one = {k: one[k] for k in ("loss", "grad_norm", "launches")}
+    two, replayed = runs["n_micro_2"], runs["n_micro_2_on_monolithic_codes"]
+    n_gate = sum(g.numel() for g in mono_gates)
+    flips = {k: int(sum(s.numel() for s in a["steps"]))
+             for k, a in audits.items()}
+    max_levels = max((int(s.max()) for a in audits.values()
+                      for s in a["steps"] if s.numel()), default=0)
+    check(all(a["calls"] == n_micro * len(mono_gates)
+              for a in audits.values()) and mono_gates,
+          f"train_accum: gate calls {[a['calls'] for a in audits.values()]}"
+          f" against {len(mono_gates)} monolithic ones")
+    same = flips["n_micro_2_on_monolithic_codes"]
+    check(same <= AGREE_FLIP_SHARE * n_gate and max_levels <= 1,
+          f"train_accum: on the monolithic codes {same} gate outputs of "
+          f"{n_gate} differ from the monolithic run's, up to {max_levels} "
+          f"levels")
+    loss_rel = abs(float(two["loss"]) - float(mono["loss"])) \
+        / abs(float(mono["loss"]))
+    check(loss_rel <= ACCUM_LOSS_RTOL,
+          f"train_accum: n_micro {n_micro} loss {float(two['loss'])} vs "
+          f"{float(mono['loss'])}")
+    excess = {k: _grad_excess(torch, r["grads"], mono["grads"])
+              for k, r in (("n_micro_2", two),
+                           ("n_micro_2_on_monolithic_codes", replayed))}
+    check(excess["n_micro_2_on_monolithic_codes"] <= 0.0,
+          f"train_accum: on the monolithic codes the gradients are past "
+          f"rtol {TRAIN_RTOL} / atol {TRAIN_ATOL} by {excess}")
+    past, leaf_excess = 0, -math.inf
+    for g, w in zip(_leaves(two["params"]), _leaves(mono["params"])):
+        g, w = g.detach().double(), w.detach().double()
+        ex = (g - w).abs() - (TRAIN_ATOL + TRAIN_RTOL * w.abs())
+        past += int((ex > 0).sum())
+        leaf_excess = max(leaf_excess, float(ex.max()))
+    agreement = {
+        "n_layers": cfg.n_layers, "analog_mode": "exact",
+        "dtype": cfg.dtype, "gate_outputs": n_gate,
+        "loss": {k: float(r["loss"]) for k, r in runs.items()},
+        "grad_norm": {k: float(r["grad_norm"]) for k, r in runs.items()},
+        "kernel3_launches": {k: r["launches"] for k, r in runs.items()},
+        "n_micro_1": {"bitwise": True, "loss": float(one["loss"]),
+                      "launches": one["launches"]},
+        "code_flips": flips, "max_flip_levels": max_levels,
+        "n_micro_2_loss_rel": loss_rel, "grad_excess": excess,
+        "n_micro_2_updated_leaf_excess": leaf_excess,
+        "n_micro_2_updated_elements_past_tolerance": past,
+        "elements": sum(p.numel() for p in _leaves(params0))}
+    del runs, mono, two, replayed, params0, model, params, mono_gates
+    free_device(torch)
+
+    cfg = _lm_cfg(serve, spec, "train")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, trainer, state = train.build_trainer(
+        cfg, dev, steps=spec["steps"], batch=spec["batch"], seq=spec["seq"],
+        log=None)
+    trainer.train_step = loop.grad_accum_step(model, trainer.optimizer,
+                                              n_micro)
+    put_batch = trainer.put_batch
+    trainer.put_batch = lambda b: loop.split_micro(put_batch(b), n_micro)
+    wrappers = _wrappers()
+    res = train.train(trainer, state, spec["steps"], dev)
+    expected = {k: 0 for k in wrappers}
+    expected["fused_matmul_nladc"] = 2 * cfg.n_layers * n_micro
+    check(all(step == expected for step in res["launches"]),
+          f"train_accum: launches per step {res['launches']}, expected "
+          f"{expected}")
+    losses = [h["loss"] for h in trainer.history]
+    check(len(losses) == spec["steps"] and all(
+        math.isfinite(v) for v in losses + [h["grad_norm"]
+                                            for h in trainer.history]),
+          f"train_accum: non-finite losses {trainer.history}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(peak_gb < CARD_GB, f"train_accum: peak memory {peak_gb} GB")
+    executor, obs = _trainer_readings("train_accum", trainer, spec["steps"])
+    out = {"phase": "train_accum", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "B": spec["batch"], "S": spec["seq"], "n_micro": n_micro,
+           "micro_rows": spec["batch"] // n_micro, "steps": spec["steps"],
+           "analog_mode": "train", "analog_device": spec["analog_device"],
+           "agreement": agreement, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in trainer.history],
+           "step_ms_all": trainer.step_ms,
+           "step_ms": statistics.median(trainer.step_ms[1:]
+                                        or trainer.step_ms),
+           "launches_per_step": res["launches"][-1],
+           "launches": {k: sum(r[k] for r in res["launches"])
+                        for k in wrappers},
+           "peak_memory_gb": peak_gb, "executor": executor, "obs": obs,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del model, trainer, state, res
+    return out
+
+
+def phase_train_remat(torch, dev) -> dict:
+    """qwen2.5-3b at full width and ``TRAIN_REMAT``'s depth, train mode on
+    ``paper``, one trainer step under each ``remat_policy`` ("full",
+    "dots", "none") from the same seeded weights: the loss, the gradient
+    norm and a per-leaf digest (:func:`_digests`) of the updated params
+    and Adam moments bitwise equal across the three (the first step's
+    learning rate is 0 under the warm-up, so the moments carry the
+    gradients' bits); peak memory full <= dots <= none, each under the
+    card's 80 GB; kernel 3 launched twice a layer under "full" and "dots"
+    (the selective checkpoint recomputes it: a ``ctypes`` launch is no
+    matrix product to its policy), once under "none"."""
+    from repro_torch.launch import serve, train
+
+    t0 = time.perf_counter()
+    spec = TRAIN_REMAT
+    wrappers = _wrappers()
+    runs = {}
+    for policy in REMAT_POLICIES:
+        cfg = _lm_cfg(serve, spec, "train", remat_policy=policy)
+        free_device(torch)
+        base = _peak_reset(torch)
+        ts = time.perf_counter()
+        model, trainer, state = train.build_trainer(
+            cfg, dev, steps=1, batch=spec["batch"], seq=spec["seq"],
+            log=None)
+        res = train.train(trainer, state, 1, dev)
+        peak = _peak_since(torch, base)
+        state = res["state"]
+        h = trainer.history[-1]
+        runs[policy] = {
+            "loss": h["loss"], "grad_norm": h["grad_norm"],
+            "step_ms": trainer.step_ms[0],
+            "params": _digests(torch, state.params),
+            "moments": _digests(torch, state.opt_state.mu)
+            + _digests(torch, state.opt_state.nu),
+            "launches": res["launches"][0], "peak_bytes": peak,
+            "seconds": time.perf_counter() - ts}
+        del model, trainer, state, res
+    full = runs["full"]
+    for policy, r in runs.items():
+        for k in ("loss", "grad_norm", "params", "moments"):
+            check(r[k] == full[k],
+                  f"train_remat: {policy}'s {k} differs from full's")
+        want = {k: 0 for k in wrappers}
+        want["fused_matmul_nladc"] = (1 if policy == "none" else 2) \
+            * spec["n_layers"]
+        check(r["launches"] == want,
+              f"train_remat: {policy} launched {r['launches']}, expected "
+              f"{want}")
+        check(r["peak_bytes"] < CARD_GB * 1e9,
+              f"train_remat: {policy}'s peak {r['peak_bytes']} B")
+    peaks = [runs[p]["peak_bytes"] for p in REMAT_POLICIES]
+    check(peaks == sorted(peaks),
+          f"train_remat: peaks {dict(zip(REMAT_POLICIES, peaks))} not "
+          f"ordered full <= dots <= none")
+    out = {"phase": "train_remat", "arch": cfg.name,
+           "n_layers": spec["n_layers"], "B": spec["batch"],
+           "S": spec["seq"], "analog_mode": "train",
+           "analog_device": spec["analog_device"],
+           "loss": full["loss"], "grad_norm": full["grad_norm"],
+           "leaves": len(full["params"]), "bitwise": True,
+           **{p: {k: runs[p][k] for k in ("step_ms", "peak_bytes",
+                                          "launches", "seconds")}
+              for p in REMAT_POLICIES},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
     return out
 
 
@@ -5518,6 +5884,41 @@ def deepseek_kernel_cases(torch, dev) -> list:
           for name, dt in (("deepseek_bf16", bf16), ("deepseek_f32", f32)))]
 
 
+def trainer_kernel_cases(torch, dev) -> list:
+    """Kernel 3 at the trainer's microbatch GEMM shape: qwen2.5-3b's MLP
+    gate over B 4 x S 128 = 512 rows (``train_accum``'s microbatch), (512,
+    2048, 11008) silu, bfloat16 x, beside the monolithic step's M 1024."""
+    return [phase_fused_matmul(torch, dev, "train_micro_flat", 512, 2048,
+                               11008, torch.bfloat16, 0, reps=5, inner=3)]
+
+
+def _trainer_phases(torch, dev) -> tuple:
+    """The LM trainer's phases in order, their seconds emitted:
+    ``train_lm`` (qwen2.5-3b, 36 layers, 3 steps through the trainer:
+    kernel 3 twice a layer a step), ``train_accum`` and ``train_remat``.
+    Returns train_lm's result and every phase's kernel launches by path."""
+    seconds, paths = {}, {}
+    t0 = time.perf_counter()
+    train_lm = phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
+        "fused_matmul_nladc": 2 * 36})
+    paths["train_lm"] = train_lm["launches"]
+    free_device(torch)
+    seconds["train_lm"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    paths["train_accum"] = phase_train_accum(torch, dev)["launches"]
+    free_device(torch)
+    seconds["train_accum"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    remat = phase_train_remat(torch, dev)
+    paths.update({f"train_remat/{p}": remat[p]["launches"]
+                  for p in REMAT_POLICIES})
+    free_device(torch)
+    seconds["train_remat"] = time.perf_counter() - t2
+    emit({"phase": "trainer_seconds", **seconds,
+          "new_phases": seconds["train_accum"] + seconds["train_remat"]})
+    return train_lm, paths
+
+
 def free_device(torch) -> None:
     """Return the memory of a finished phase to the card."""
     import gc
@@ -5619,6 +6020,10 @@ def main(argv=None) -> int:
     ap.add_argument("--deepseek", action="store_true",
                     help="run only the device phase, deepseek-moe-16b's "
                          "kernel cases and its serve and agreement phases")
+    ap.add_argument("--trainer", action="store_true",
+                    help="run only the device phase, kernel 3 at the "
+                         "microbatch's GEMM shape and the LM trainer's "
+                         "phases (train_lm, train_accum, train_remat)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5705,6 +6110,13 @@ def main(argv=None) -> int:
         free_device(torch)
         emit({"deepseek_launches": _deepseek_phases(torch, dev)})
         return 0
+    if args.trainer:
+        floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+        for case in trainer_kernel_cases(torch, dev):
+            phase_kernel_time(*case, floor_ms=floor_ms)
+        free_device(torch)
+        emit({"trainer_launches": _trainer_phases(torch, dev)[1]})
+        return 0
 
     checked = [phase_kernel(torch, dev, "ptb_flat", 16, 2016, 0),
                phase_kernel(torch, dev, "ptb_banked", 16, 2016, 512),
@@ -5778,6 +6190,7 @@ def main(argv=None) -> int:
                          0),
         phase_nladc(torch, dev, "router_train_bf16", (1024, 64), "sigmoid",
                     bf16, 0), *recurrent_train_cases(torch, dev)]
+    micro_checked = trainer_kernel_cases(torch, dev)
     attn_checked = [
         phase_attention(torch, dev, "serve_bf16", bf16, SERVE["max_len"]),
         phase_attention(torch, dev, "serve_f32", f32, SERVE["max_len"]),
@@ -5840,9 +6253,8 @@ def main(argv=None) -> int:
     dense = _dense_phases(torch, dev)
     deepseek = _deepseek_phases(torch, dev)
     layers = TRAIN_MOE["n_layers"]
-    trained = [phase_train_lm(torch, dev, "train_lm", TRAIN_LM, {
-        "fused_matmul_nladc": 2 * 36})]
-    free_device(torch)
+    train_lm, trainer_paths = _trainer_phases(torch, dev)
+    trained = [train_lm]
     trained.append(phase_train_lm(torch, dev, "train_lm_banked", TRAIN_LM, {
         "fused_matmul_nladc": 2 * 36}, bank_cols=512))
     free_device(torch)
@@ -5887,11 +6299,12 @@ def main(argv=None) -> int:
     flash_cases = timed(flash_checked)
     tile_cases = timed(tile_checked)
     train_cases = timed(train_checked)
+    micro_cases = timed(micro_checked)
     for case in timed(dense_cases + whisper_cases + deepseek_cases):
         dense_timed.setdefault(case["phase"], []).append(case)
     # train_cases: kernel 3 flat and banked, kernel 4, the router, then
     # recurrent_train_cases (kernel 3, four of kernel 2)
-    fm_cases += train_cases[:2] + rec_cases["fused_matmul"] \
+    fm_cases += train_cases[:2] + micro_cases + rec_cases["fused_matmul"] \
         + train_cases[4:5] + dense_timed["fused_matmul"]
     moe_cases.append(train_cases[2])
     nladc_cases += train_cases[3:4] + rec_cases["nladc"] + train_cases[5:]
@@ -5936,6 +6349,8 @@ def main(argv=None) -> int:
                 "lm_infer": infer["launches"]["fused_matmul_nladc"],
                 **{t["phase"]: t["launches"]["fused_matmul_nladc"]
                    for t in trained + rec_trained},
+                **{k: v["fused_matmul_nladc"] for k, v in
+                   trainer_paths.items() if k != "train_lm"},
                 **{k: v["fused_matmul_nladc"] for k, v in lifecycle.items()},
                 **recurrent_launches_of("fused_matmul_nladc"),
                 **{k: dense[k]["launches"]["fused_matmul_nladc"]

@@ -11,6 +11,7 @@ numbers as the JAX package's pipelines for the same seed:
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Dict, Iterator, Tuple
 
@@ -91,11 +92,18 @@ class CharCorpus:
         # Bigram transition matrix with strong structure (sparse rows).
         trans = rng.random((self.N_CHARS, self.N_CHARS)) ** 8
         trans /= trans.sum(1, keepdims=True)
-        stream = np.empty(corpus_len, np.int32)
-        stream[0] = 0
-        for i in range(1, corpus_len):
-            stream[i] = rng.choice(self.N_CHARS, p=trans[stream[i - 1]])
-        self._stream = stream
+        # The reference's chain, rng.choice(N_CHARS, p=trans[prev]) a step,
+        # as that call computes it (one uniform draw a step, searched in
+        # the row's normalized cumulative sum, side="right"), the draws
+        # taken at once: the same stream and generator state, bitwise
+        cdf = np.cumsum(trans, axis=1)
+        rows = (cdf / cdf[:, -1:]).tolist()
+        draws = rng.random(corpus_len - 1).tolist()
+        stream, prev = [0], 0
+        for u in draws:
+            prev = bisect.bisect_right(rows[prev], u)
+            stream.append(prev)
+        self._stream = np.asarray(stream, np.int32)
         self.seq_len = seq_len
         self.batch = batch
         self.seed = seed

@@ -4,8 +4,11 @@ qwen2.5-3b``.
 The torch twin of the JAX package's ``repro.launch.train`` on one device:
 the deterministic ``SyntheticLM`` pipeline, the train step of
 ``launch.steps`` (AdamW with weight decay 0.1, clip to global norm 1.0,
-a cosine schedule; each layer recomputed in the backward) and the
-``Trainer`` loop.  Weights are drawn on the device from ``--seed``.
+a cosine schedule; each layer recomputed in the backward as the config's
+``remat_policy`` says: ``full``, ``dots`` or ``none``, the same bits) and
+the ``Trainer`` loop (its retrying executor, its ``Obs`` metrics and
+spans; every step's metrics kept in its history).  Weights are drawn on
+the device from ``--seed``.
 
     python -m repro_torch.launch.train --arch qwen2.5-3b \\
         [--smoke] [--override key=value ...] [--steps 100] [--batch 8] \\
@@ -44,8 +47,10 @@ package's layout.
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises on a host
 without a GPU otherwise; on the GPU the backend defaults to ``cuda``, on
 the CPU to ``ref``; TF32 is off (``launch.common.configure_numerics``).
-Not ported, raising with its ``ROADMAP.md`` item: ``--production-mesh``
-and ``--grad-comm`` other than ``gspmd`` (queue A item 6).
+``--override remat_policy=dots`` trains with the matrix products' outputs
+kept for the backward.  Not ported, raising with its ``ROADMAP.md`` item:
+``--production-mesh`` and ``--grad-comm`` other than ``gspmd``, and a
+MoE's ``moe_impl=ep_shardmap`` (queue A item 6, distribution).
 """
 
 from __future__ import annotations
@@ -99,7 +104,8 @@ def build_trainer(cfg, device: torch.device, *, steps: int, batch: int,
 
     trainer = Trainer(model, opt, make_train_step(model, opt),
                       SyntheticLM(cfg.vocab, seq, batch), put_batch=put_batch,
-                      log=log, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+                      log=log, log_every=1, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every)
     return model, trainer, TrainState(params, opt.init(params))
 
 

@@ -136,8 +136,9 @@ def self_attention(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
                    rope_theta: float, window: int = 0, positions=None,
                    kv_chunk: int = 1024):
     """Causal (optionally windowed) self-attention over a full sequence.
-    x: (B, S, d_model).  The reference's ``return_kv`` (the roped k, v for
-    ``prefill_cache``) comes with that port (``ROADMAP.md`` queue A)."""
+    x: (B, S, d_model).  The reference's ``return_kv`` option has no
+    caller there (``prefill_cache`` writes the cache through the decode
+    path, in both packages), so the port has none."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]

@@ -34,19 +34,27 @@ distinct shape at its first use, across activations), which a recompute
 under ``remat`` reads again, so it sees the same thresholds.  The router's sigmoid NL-ADC takes no key: its thresholds are
 noiseless.
 
+Remat (``loss(remat=True)``) follows ``cfg.remat_policy`` as the
+reference's ``jax.checkpoint`` does: ``"full"`` recomputes a unit's body
+in the backward (``nothing_saveable``), ``"dots"`` keeps the outputs of
+its matrix products and recomputes the rest (``dots_saveable``, through a
+selective checkpoint), ``"none"`` keeps everything; the bits are the same
+under all three.
+
 Another family raises ``ValueError`` (``nn/model.py::build`` gives the
-encoder-decoder its ``EncDecLM``); ``moe_impl="ep_shardmap"`` and
-``remat_policy="dots"`` raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them.  The model lives on the GPU unless
-the caller asks for the CPU.
+encoder-decoder its ``EncDecLM``); ``moe_impl="ep_shardmap"`` raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+The model lives on the GPU unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig, \
@@ -62,6 +70,21 @@ from repro_torch.nn.mlp import make_activation, mlp_apply, mlp_init, \
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
 ATTENTION_KINDS = ("attn", "moe_attn")
+# the matrix products (einsum lowers to these): what "dots" keeps
+DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                     torch.ops.aten.bmm.default,
+                     torch.ops.aten.baddbmm.default))
+
+
+def _dots_saveable(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """The selective checkpoint's policy for ``remat_policy="dots"``: keep
+    every matrix product's output, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if func in DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_saveable)
 
 
 def _model_device(device=None) -> torch.device:
@@ -343,15 +366,17 @@ class LM:
         ``noise``: the train-mode ramp draws, one keyed unit after another
         (:meth:`_keyed_units`; None: the programmed ramps).
         ``remat`` recomputes each layer's body, or each hybrid group's, in
-        the backward (``remat_policy="full"``, the reference's
-        ``nothing_saveable``; ``"none"`` keeps everything); the result is
-        the same bits either way."""
+        the backward as ``cfg.remat_policy`` says: ``"full"`` (or any
+        other name: the reference's ``nothing_saveable``) all of it,
+        ``"dots"`` (its ``dots_saveable``) all but the outputs of
+        ``DOT_OPS``, ``"none"`` nothing; the hybrid's tail is never
+        recomputed.  The result is the same bits under each.  The kernels
+        run through ``ctypes`` (``kernels/_build.py``), outside the
+        selective checkpoint's view, as a ``pallas_call`` is no dot to the
+        reference's policy: a step under ``"full"`` or ``"dots"`` launches
+        kernel 3 (``fused_matmul_nladc``) twice a layer, forward and
+        recompute, and once under ``"none"``."""
         cfg = self.cfg
-        if remat and cfg.remat_policy not in ("full", "none"):
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet; "
-                f"ROADMAP.md queue A item 3 (what is left of the LM "
-                f"forward) brings it")
         x = self.embed(params, tokens, extra)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -361,10 +386,12 @@ class LM:
             # every block of the unit shares the draws; the recompute
             # under remat finds those its forward made
             draws = None if noise is None else RampDraws(noise)
-            if remat and recompute and cfg.remat_policy == "full":
+            if remat and recompute and cfg.remat_policy != "none":
+                kw = {"context_fn": _DOTS_CONTEXT} \
+                    if cfg.remat_policy == "dots" else {}
                 x, aux = checkpoint(self._apply_unit, ps, x, kinds,
                                     positions, draws, collect_aux,
-                                    use_reentrant=False)
+                                    use_reentrant=False, **kw)
             else:
                 x, aux = self._apply_unit(ps, x, kinds, positions, draws,
                                           collect_aux)

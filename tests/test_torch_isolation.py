@@ -36,8 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "core.circuit", "ckpt.checkpoint", "serve.lifecycle",
                  "serve.engine", "nn.model", "core.hwcost", "obs",
                  "obs.metrics", "obs.trace", "obs.energy", "obs.replay",
-                 "serve.fleet", "ft.elastic", "nn.ssd", "nn.rglru",
-                 "configs.mamba2_370m", "configs.recurrentgemma_9b",
+                 "serve.fleet", "ft.elastic", "ft.executor", "nn.ssd",
+                 "nn.rglru", "configs.mamba2_370m",
+                 "configs.recurrentgemma_9b",
                  "configs.granite_3_8b", "configs.qwen2_5_32b",
                  "configs.pixtral_12b", "configs.granite_34b",
                  "nn.frontends", "nn.encdec", "configs.whisper_base"):

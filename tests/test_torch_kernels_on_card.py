@@ -12,9 +12,11 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   N 11008), flat and banked thresholds, float32 and bfloat16 x; at M > 8
   (the tensor-core GEMM) the SMOKE (33, 40, 24), and in bfloat16 (64,
   2048, 11008), a ragged (130, 300, 1000) (x staged: K x 2 bytes is no
-  multiple of 16) and the training shape (1024, 2048, 11008); whisper-base's
+  multiple of 16) and the training shapes (512 and 1024, 2048, 11008: a
+  microbatch of 4 rows and the monolithic step); whisper-base's
   gelu gate (K 512, N 2048) at M 4 and M 6000.  Every GEMM
-  config computes the default's bits; at M <= 8 (the GEMV) the outputs
+  config computes the default's bits, and a microbatch's rows the bits
+  the monolithic call gives them; at M <= 8 (the GEMV) the outputs
   are the bits the GEMV computed before the GEMM existed (stored crc32
   digests).
 * ``prefill_attention``: max abs diff 1e-6 in float32, one bfloat16 ulp in
@@ -83,7 +85,9 @@ tests/test_torch_kernels_on_card.py``.  Without a GPU every test skips.
   accumulator in plain torch), non-zero; without a gradient no graph.
 * The SMOKE LMs' train-mode loss and gradients on the ``cuda`` backend
   against ``ref`` (same weights, same generator state), rtol 2e-4 / atol
-  2e-5, each gate kernel launched twice per layer (``remat``).
+  2e-5, each gate kernel launched twice per layer (``remat``); and on the
+  ``cuda`` backend alone, bitwise equal under every ``remat_policy``
+  (full, dots, none), recurrentgemma's group and tail too.
 """
 
 import dataclasses
@@ -129,7 +133,7 @@ MATMUL_CASES = [(m, k, n, name, dt, bias, tiles)
 # the tensor-core GEMM (M > 8) at the LM's widths, bfloat16 x
 MATMUL_CASES += [(m, k, n, name, torch.bfloat16, bias, tiles)
                  for (m, k, n) in [(64, 2048, 11008), (130, 300, 1000),
-                                   (1024, 2048, 11008)]
+                                   (512, 2048, 11008), (1024, 2048, 11008)]
                  for name in ("sigmoid", "silu")
                  for bias, tiles in [(False, 0), (True, 16), (False, 512)]]
 # the dense configs' MLP gates at serving rows (the GEMV), bfloat16 x:
@@ -236,6 +240,24 @@ GEMM_CONFIG_CASES = [(1024, 2048, 11008, "silu", torch.bfloat16, False, 512),
                      (130, 300, 1000, "silu", torch.float32, True, 0),
                      (64, 2048, 11008, "silu", torch.float32, False, 512),
                      (33, 40, 24, "silu", torch.float32, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_cols", [0, 512])
+def test_gemm_rows_keep_their_bits_in_a_microbatch(tile_cols):
+    """The monolithic train step's gate (1024, 2048, 11008) and the same
+    rows as two microbatches of 512 (``grad_accum_step``'s): each row
+    sums its K in one order whatever M, so the halves are bitwise the
+    monolithic call's rows."""
+    dev = _card()
+    args = [a.to(dev) if a is not None else None for a in _matmul_inputs(
+        1024, 2048, 11008, "silu", torch.bfloat16, False, tile_cols,
+        seed=7)]
+    x, rest = args[0], args[1:]
+    want = TFM.fused_matmul_nladc(x, *rest)
+    got = torch.cat([TFM.fused_matmul_nladc(x[i:i + 512], *rest)
+                     for i in (0, 512)])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1167,3 +1189,51 @@ def test_smoke_lm_train_grads_cuda_match_ref(arch):
                                atol=2e-5)
     for g, w in zip(grads["cuda"], grads["ref"]):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,overrides", [
+    ("qwen2.5-3b", {}), ("moonshot-v1-16b-a3b", {}),
+    ("recurrentgemma-9b", {"n_layers": 5})])
+def test_remat_policies_compute_the_same_bits(arch, overrides):
+    """Train mode on the ``cuda`` backend (recurrentgemma with one group
+    and its tail): the loss and every gradient leaf bitwise equal under
+    ``remat_policy`` "full", "dots" and "none"; the gate kernels launch
+    twice per recomputed block under "full" and "dots" (the selective
+    checkpoint recomputes a ``ctypes`` launch: it is no matrix product),
+    once under "none"."""
+    from repro_torch.core.crossbar import GeneratorNoise
+    from repro_torch.train import optim
+
+    dev = _card()
+    base = configs.get_smoke(arch).replace(dtype="float32", **overrides)
+    base = base.replace(analog=dataclasses.replace(
+        base.analog, backend="cuda", mode="train", device="paper"))
+    model = build(base, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    leaves = optim.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, base.vocab, (2, 16), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    got = {}
+    for policy in ("full", "dots", "none"):
+        model.cfg = base.replace(remat_policy=policy)
+        ng = torch.Generator(device=dev)
+        ng.manual_seed(1)
+        n0 = {name: fn.launches for name, fn in KERNELS.items()}
+        total, _ = model.loss(params, batch, noise=GeneratorNoise(ng),
+                              remat=True)
+        got[policy] = (total.detach(), torch.autograd.grad(total, leaves),
+                       {name: fn.launches - n0[name]
+                        for name, fn in KERNELS.items()})
+    for policy in ("dots", "none"):
+        assert torch.equal(got[policy][0], got["full"][0]), policy
+        for g, w in zip(got[policy][1], got["full"][1]):
+            assert torch.equal(g, w), policy
+    for name, n in got["none"][2].items():
+        assert got["full"][2][name] == got["dots"][2][name] >= n, name
+    assert got["full"][2]["fused_matmul_nladc"] \
+        > got["none"][2]["fused_matmul_nladc"] > 0

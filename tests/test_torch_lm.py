@@ -183,11 +183,13 @@ def test_init_layout_matches_jax():
                                   "hybrid_grad_comm"])
 def test_outside_the_slice_raises(what):
     """What is not ported raises, naming its ``ROADMAP.md`` item: expert
-    parallelism (``moe_impl="ep_shardmap"``), the hybrid's training under
-    ``remat_policy="dots"`` (``launch.train --arch recurrentgemma-9b
-    --override remat_policy=dots``: its groups are recomputed whole) and
-    the hybrid's training under ``--grad-comm hierarchical`` (the
-    two-level data-parallel all-reduce).  Every family is ported: the
+    parallelism (``moe_impl="ep_shardmap"``) and the hybrid's training
+    under ``--grad-comm hierarchical`` (the two-level data-parallel
+    all-reduce).  The hybrid's training under ``remat_policy="dots"`` is
+    ported: ``launch.train --arch recurrentgemma-9b --override
+    remat_policy=dots`` trains (train mode, a group and the tail that is
+    never recomputed), with the losses and gradient norms of ``"full"``
+    (the default), bitwise.  Every family is ported: the
     decoder-only ``LM`` given the encoder-decoder's config raises, naming
     the ``EncDecLM`` that ``build`` returns for it.  The SSM
     and hybrid families serve, whisper-base serves, trains and deploys
@@ -203,12 +205,19 @@ def test_outside_the_slice_raises(what):
         assert isinstance(tbuild(TC.get_smoke("whisper-base"),
                                  device="cpu"), EncDecLM)
         return
+    if what == "train":
+        argv = ["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu",
+                "--steps", "1", "--batch", "2", "--seq", "16",
+                "--analog-mode", "train", "--analog-device", "paper",
+                "--override", "n_layers=5"]
+        dots = TTRAIN.main(argv + ["--override", "remat_policy=dots"])
+        full = TTRAIN.main(argv)
+        assert len(dots["losses"]) == 1 and np.isfinite(dots["losses"][0])
+        for k in ("losses", "grad_norms"):
+            assert dots[k] == full[k], k
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "train":
-            TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
-                         "--device", "cpu", "--steps", "1", "--override",
-                         "remat_policy=dots"])
-        elif what == "hybrid_grad_comm":
+        if what == "hybrid_grad_comm":
             TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
                          "--device", "cpu", "--steps", "1", "--grad-comm",
                          "hierarchical"])

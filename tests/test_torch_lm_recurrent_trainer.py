@@ -7,8 +7,8 @@ banks, the ramp draws replayed through the reference's key tree
 (``tests/test_torch_lm_recurrent_train.py::draws``).
 
 * Three ``Trainer`` steps against the reference's: loss, token count and
-  gradient norm within rtol 1e-5, as ``tests/test_torch_lm_train.py``
-  holds qwen's.
+  gradient norm within rtol 1e-5, and the trainers' ``Obs`` metrics and
+  trace, as ``tests/test_torch_lm_train.py`` holds qwen's.
 * ``python -m repro_torch.launch.train --smoke --device cpu`` for both
   archs (the ``ref`` backend, no kernel launched), and ``--ckpt-dir``: a
   run resumed at step 2 is bitwise the uninterrupted run.
@@ -22,16 +22,19 @@ import torch
 
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.launch import steps as JS
+from repro.obs import Obs as JObs
 from repro.train import loop as JLOOP
 from repro_torch.ckpt import checkpoint as TCK
 from repro_torch.core.crossbar import ReplayNoise
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import steps as TS
 from repro_torch.launch import train as TTRAIN
+from repro_torch.obs import Obs as TObs
 from repro_torch.train import loop as TLOOP
 from repro_torch.train import optim as TO
 from test_torch_lm_recurrent_train import (ARCHS, B, BANK_COLS, OVERRIDES, S,
                                            _models, draws)
+from test_torch_trainer import hold_obs
 
 
 @pytest.mark.parametrize("banked", [False, True])
@@ -40,8 +43,10 @@ def test_three_trainer_steps_match_the_reference(arch, banked):
     jm, jp, tm, tp = _models(arch, BANK_COLS if banked else 0)
     seq, bsz, steps = S, B, 3
     jopt = JS.make_optimizer(jm.cfg, total_steps=steps)
+    jobs, tobs = JObs(trace=True), TObs(trace=True)
     jtr = JLOOP.Trainer(jm, jopt, JS.make_train_step(jm, jopt),
-                        JSyntheticLM(jm.cfg.vocab, seq, bsz), log_every=1)
+                        JSyntheticLM(jm.cfg.vocab, seq, bsz), log_every=1,
+                        obs=jobs)
     jp = jax.tree_util.tree_map(jnp.copy, jp)       # the step donates it
     jtr.fit(JLOOP.TrainState(jp, jopt.init(jp)), steps)
 
@@ -50,7 +55,8 @@ def test_three_trainer_steps_match_the_reference(arch, banked):
         draws(jm, jax.random.PRNGKey(seed))))
     ttr = TLOOP.Trainer(tm, topt, step, SyntheticLM(tm.cfg.vocab, seq, bsz),
                         put_batch=lambda b: TLOOP.to_device_batch(
-                            b, torch.device("cpu")), log=None)
+                            b, torch.device("cpu")), log_every=1, obs=tobs,
+                        log=None)
     state = ttr.fit(TLOOP.TrainState(tp, topt.init(tp)), steps)
     assert [h["step"] for h in ttr.history] == [1, 2, 3]
     assert int(state.opt_state.count) == 3
@@ -58,6 +64,7 @@ def test_three_trainer_steps_match_the_reference(arch, banked):
         for k in ("loss", "tokens", "grad_norm"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
                                        atol=1e-7, err_msg=k)
+    hold_obs(tobs, jobs, steps)
 
 
 def _argv(arch, steps, extra=()):

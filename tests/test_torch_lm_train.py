@@ -6,7 +6,9 @@ the reference's per-layer keys, as in ``tests/test_torch_lm_forward.py``).
 * Whole-model gradients of ``LM.loss`` against ``jax.grad`` of the
   reference's, rtol 2e-4 / atol 2e-5 (the JAX package's own whole-model
   tolerance, ``tests/test_backend_parity.py::test_model_train_grad_parity``),
-  with ``remat`` on and off; the port's remat changes no bit.
+  with ``remat`` on and off; the port's remat changes no bit, under
+  ``remat_policy`` "full", "dots" and "none" alike, and the bytes a
+  forward leaves for its backward are ordered full < dots < none.
 * The backward of each ``cuda``-backend Function (the NL-ADC, the fused
   gate with and without a bias, the expert gate, the cached attention),
   run with its kernel's plain version on the CPU, against ``jax.vjp`` of
@@ -20,7 +22,9 @@ the reference's per-layer keys, as in ``tests/test_torch_lm_forward.py``).
   the leaf's largest magnitude.
   ``update_`` (in place, chunked) is bitwise ``update``.
 * Three ``Trainer`` steps of ``make_train_step`` against the JAX
-  ``Trainer`` over ``make_train_step``: losses within rtol 1e-5.
+  ``Trainer`` over ``make_train_step``: losses within rtol 1e-5; both
+  trainers' ``Obs`` (``tests/test_torch_trainer.py::hold_obs``): the same
+  metrics and trace.
 * ``python -m repro_torch.launch.train --smoke --device cpu --steps 2``.
 """
 
@@ -31,11 +35,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import backend as JBK
 from repro.core import nladc as JN
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
 from repro.launch import steps as JS
+from repro.obs import Obs as JObs
 from repro.train import loop as JLOOP
 from repro.train import optim as JO
 from repro_torch.core import backend as TBK
@@ -46,9 +54,11 @@ from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.launch import kernel_tune as TKT
 from repro_torch.launch import steps as TS
 from repro_torch.launch import train as TTRAIN
+from repro_torch.obs import Obs as TObs
 from repro_torch.train import loop as TLOOP
 from repro_torch.train import optim as TO
 from test_torch_lm_forward import batch, draws, models, noise_for, tbatch
+from test_torch_trainer import hold_obs
 
 ROOT = Path(__file__).resolve().parents[1]
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
@@ -112,13 +122,57 @@ def test_model_grads_match_jax(arch, banked):
     assert float(gate.abs().max()) > 0
 
 
+class _LiveBytes(TorchDispatchMode):
+    """Every storage an op makes while the mode is on; :meth:`alive` sums
+    the bytes of those still alive (what a forward leaves for its
+    backward: the saved activations, a checkpoint's inputs and a
+    selective checkpoint's cache alike)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                self.made[st._cdata] = (StorageWeakRef(st), st.nbytes())
+        return out
+
+    def alive(self) -> int:
+        return sum(n for ref, n in self.made.values() if not ref.expired())
+
+
 def test_remat_dots_is_not_ported():
-    _, _, tm, tp = models("qwen2.5-3b", "exact")
-    tm.cfg = tm.cfg.replace(remat_policy="dots")
-    b = tbatch(batch(tm.cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss(tp, b, remat=True)
-    tm.loss(tp, b, remat=False)                  # no recompute, no raise
+    """``remat_policy="dots"`` is ported: the loss and every gradient leaf
+    bitwise ``"full"``'s and ``"none"``'s (train mode, the same replayed
+    draws), and the bytes the forward leaves for the backward ordered
+    full < dots < none (the matrix products' outputs kept, the rest
+    recomputed).  An outer ``saved_tensors_hooks`` sees only the
+    checkpoint's inputs under both ``"full"`` and ``"dots"`` (the
+    selective checkpoint's cache is no saved tensor), so the bytes are
+    those of the storages the forward made that are still alive."""
+    _, _, tm, tp = models("qwen2.5-3b", "train")
+    b, key = batch(tm.cfg, seed=1), jax.random.PRNGKey(3)
+    cfg, leaves = tm.cfg, TO.tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    got, live = {}, {}
+    for policy in ("full", "dots", "none"):
+        tm.cfg = cfg.replace(remat_policy=policy)
+        mode = _LiveBytes()
+        with mode:
+            total, _ = tm.loss(tp, tbatch(b), noise=noise_for(tm, key),
+                               remat=True)
+        live[policy] = mode.alive()
+        got[policy] = (total.detach(), torch.autograd.grad(total, leaves))
+    tm.cfg = cfg
+    assert live["full"] < live["dots"] < live["none"], live
+    for policy in ("dots", "none"):
+        assert torch.equal(got[policy][0], got["full"][0]), policy
+        for a, w in zip(got[policy][1], got["full"][1]):
+            assert torch.equal(a, w), policy
 
 
 # -- the cuda backend's Functions, their kernels' plain versions ------------
@@ -346,8 +400,10 @@ def test_three_trainer_steps_match_the_reference(arch):
     jm, jp, tm, tp = models(arch, "train")
     seq, bsz, steps = 10, 2, 3
     jopt = JS.make_optimizer(jm.cfg, total_steps=steps)
+    jobs, tobs = JObs(trace=True), TObs(trace=True)
     jtr = JLOOP.Trainer(jm, jopt, JS.make_train_step(jm, jopt),
-                        JSyntheticLM(jm.cfg.vocab, seq, bsz), log_every=1)
+                        JSyntheticLM(jm.cfg.vocab, seq, bsz), log_every=1,
+                        obs=jobs)
     jtr.fit(JLOOP.TrainState(jp, jopt.init(jp)), steps)
 
     topt = TS.make_optimizer(tm.cfg, total_steps=steps)
@@ -355,7 +411,8 @@ def test_three_trainer_steps_match_the_reference(arch):
         draws(tm, jax.random.PRNGKey(seed))))
     ttr = TLOOP.Trainer(tm, topt, step, SyntheticLM(tm.cfg.vocab, seq, bsz),
                         put_batch=lambda b: TLOOP.to_device_batch(
-                            b, torch.device("cpu")), log=None)
+                            b, torch.device("cpu")), log_every=1, obs=tobs,
+                        log=None)
     state = ttr.fit(TLOOP.TrainState(tp, topt.init(tp)), steps)
     assert [h["step"] for h in ttr.history] == [1, 2, 3]
     assert len(ttr.step_ms) == steps and int(state.opt_state.count) == 3
@@ -363,6 +420,7 @@ def test_three_trainer_steps_match_the_reference(arch):
         for k in ("loss", "aux_loss", "tokens", "grad_norm"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
                                        atol=1e-7, err_msg=k)
+    hold_obs(tobs, jobs, steps)
     assert ttr.history[0]["tokens"] == seq * bsz
 
 

@@ -210,7 +210,9 @@ def _codes(gates, c_new, sig_thr, tanh_thr):
 
 def _reference_codes(js, acts_j, pj, xs, key):
     """Every step's codes in the reference, from ``lstm_cell``'s own pieces
-    unrolled under ``jax.jit`` with ``lstm_scan``'s key splits."""
+    under ``jax.jit``, scanned over time with ``lstm_scan``'s key splits
+    (one compiled step: an unrolled loop gives the same codes and
+    compiles T copies of it)."""
     sig, tnh = acts_j
     width = js.n_hidden
 
@@ -218,24 +220,28 @@ def _reference_codes(js, acts_j, pj, xs, key):
         k, _ = jax.random.split(key)
         h = jnp.zeros((x.shape[0], js.out_dim))
         c = jnp.zeros((x.shape[0], width))
-        out = []
-        for t in range(x.shape[1]):
+
+        def step(carry, x_t):
+            h, c, k = carry
             k, k_t = jax.random.split(k)
             k_mm, k_g = jax.random.split(k_t)
             gates = JAL.analog_matmul_act(
-                jnp.concatenate([x[:, t], h], -1), p["lstm"]["w_gates"],
+                jnp.concatenate([x_t, h], -1), p["lstm"]["w_gates"],
                 js.analog, key=k_mm)
             st, tt = (a.thresholds_for(k_g, width) for a in acts_j)
             h, c = JBK.get_backend("ref").lstm_gates(
                 gates, c, sig.adc, tnh.adc, sig_thr=st, tanh_thr=tt)
-            out.append((gates, c, st.thr if hasattr(st, "thr") else st,
-                        tt.thr if hasattr(tt, "thr") else tt))
+            out = (gates, c, st.thr if hasattr(st, "thr") else st,
+                   tt.thr if hasattr(tt, "thr") else tt)
             h = JAL.analog_matmul_act(h, p["lstm"]["w_proj"], js.analog,
                                       key=k_mm)
-        return out
+            return (h, c, k), out
 
-    return [_codes(g, cn, _dense(st, width), _dense(tt, width))
-            for g, cn, st, tt in jax.jit(run)(pj, jnp.asarray(xs))]
+        return jax.lax.scan(step, (h, c, k), jnp.swapaxes(x, 0, 1))[1]
+
+    gates, c_new, st, tt = jax.jit(run)(pj, jnp.asarray(xs))
+    return [_codes(gates[t], c_new[t], _dense(st[t], width),
+                   _dense(tt[t], width)) for t in range(gates.shape[0])]
 
 
 def _recording_tail(monkeypatch):
@@ -347,6 +353,7 @@ def test_configs_match():
 def test_data_pipelines_match():
     jc = JDATA.CharCorpus(seq_len=32, batch=4, corpus_len=4000, seed=3)
     tc = TDATA.CharCorpus(seq_len=32, batch=4, corpus_len=4000, seed=3)
+    np.testing.assert_array_equal(jc._stream, tc._stream)
     np.testing.assert_array_equal(jc.embeddings(), tc.embeddings())
     for step in (0, 10_000):
         a, b = jc.batch_at(step), tc.batch_at(step)
