@@ -474,6 +474,32 @@ Phases, one JSON line each:
     deepseek kernel cases — kernel 3's GEMV at (4, 2048, 2816) silu and
               kernel 5 at (H 16, Hkv 16, D 128, S 128) in bf16 and f32,
               each against its plain version.
+13x1. dist_dp — data-parallel training (``launch.steps.
+              make_dp_train_step``) on qwen2.5-3b at full width, cut to 2
+              of its 36 layers, exact mode, a global batch of B 4 x S 128,
+              2 steps: at world size 1 over NCCL, through the launcher's
+              entry point (``launch.train.main`` in the environment
+              ``torch.distributed.run`` gives one rank), ``--grad-comm
+              psum`` and ``hierarchical`` are bitwise the plain trainer
+              (params, moments, losses, norms); ``int8`` has a residual,
+              its first loss is psum's and its first gradient norm, and
+              params, near psum's (``DIST_INT8_*``); then 2 ranks on the
+              one card over gloo (NCCL puts one rank on a GPU), the
+              launcher's trainer over ``int8`` (its ``put_batch`` takes a
+              rank's rows): params bitwise alike across ranks, residuals
+              populated, held to world size 1's psum run by the same
+              bounds, and the bytes the collectives staged through the
+              host printed.  Kernel 3's launches a run.
+13x2. dist_ep — expert-parallel MoE (``dist/ep.py``): deepseek-moe-16b
+              at full width, 2 of its 28 layers, float32, capacity factor
+              8 (no token dropped), a prefill forward of B 2 x S 128 on 2
+              gloo ranks sharing the card (model 2), held to the 1-rank
+              GSPMD forward on the card: analog off, logits rel < 2e-4;
+              analog on (kernel 4 at each rank's split shape (32, 2 x C,
+              2048, 1408)), the first layer's gate codes per (token,
+              expert) equal except flips explained by float32 rounding
+              (``code_flips``), at most 1%; the logits' gap printed.
+              Kernel 4's launches on each rank.
 14. analog_tile — the crossbar-tile kernel against its plain version at
               the PTB gate crossbar as one tile (16, 632, 8064; bfloat16 x,
               5-bit PWM, read noise, tanh), the JAX sweep's (128, 256, 256)
@@ -521,7 +547,9 @@ kernel cases (kernel 3's MLP gates, kernels 5 and 6 at G 48 and G 5),
 cases and 13w1 to 13w6, ``--deepseek`` only the device phase,
 deepseek's kernel cases, 13d1 and 13d2, and ``--trainer`` only the
 device phase, kernel 3 at the microbatch's GEMM shape (512, 2048,
-11008), 13a, 13a-1 and 13a-2; none of them prints the ``ok`` line.
+11008), 13a, 13a-1 and 13a-2, and ``--dist`` only the device phase,
+kernel 4 at EP's split shape, 13x1 and 13x2; none of them prints the
+``ok`` line.
 Without a GPU, or
 without the repository's ``src/repro_torch`` beside this script, it exits
 non-zero and prints no result.
@@ -615,6 +643,27 @@ CKPT_LAYERS, CKPT_SAVE_AT = 2, 6
 TRAIN_CKPT = dict(arch="qwen2.5-3b", n_layers=2, batch=8, seq=128, steps=3,
                   analog_device="paper")
 CARD_GB = 80.0
+# distribution: the DP step on qwen2.5-3b at full width cut to 2 of 36
+# layers (exact mode; a global batch of B 4 x S 128, 2 steps); EP on
+# deepseek-moe-16b at full width cut to 2 of 28 layers (float32, a B 2 x S
+# 128 prefill over model 2, capacity factor 8: nothing dropped, the
+# reference test's condition for the two paths to agree)
+DIST_DP = dict(arch="qwen2.5-3b", n_layers=2, batch=4, seq=128, steps=2,
+               ranks=2)
+DIST_EP = dict(arch="deepseek-moe-16b", n_layers=2, batch=2, seq=128,
+               capacity_factor=8.0, ranks=2)
+DIST_EP_RTOL = 2e-4        # analog off: EP logits against GSPMD's
+# int8 against psum on the same global batch, 2 steps: the first step's
+# loss (the same params; the share-weighted sum of the ranks' CE) to rtol
+# 1e-3, its reduced gradient's norm to rtol 2e-2 (a block's int8 error is
+# at most its amax / 254 a rank): these two see a wrong scale or share,
+# which Adam's update would hide; the params to 1e-3, a loose bound that
+# sees only params parted otherwise (Adam moves an element by at most
+# about lr a step, whatever its gradient: two sign flips over the
+# schedule's 3e-4 and 3e-5 part it by 6.6e-4 at most)
+DIST_INT8_LOSS_RTOL, DIST_INT8_NORM_RTOL, DIST_INT8_PARAM_ATOL = \
+    1e-3, 2e-2, 1e-3
+DIST_JOIN_S = 300.0        # the gloo ranks' run, start to end
 # the recurrent LM families served at full width (serve's workload);
 # their decode states are not KV caches; mamba2 at 16 of its 48 layers,
 # recurrentgemma at 14 of its 38 (the script's time: eager blocks of tens
@@ -5919,6 +5968,571 @@ def _trainer_phases(torch, dev) -> tuple:
     return train_lm, paths
 
 
+def _dist_lm(torch, dev, spec: dict, analog: bool, mesh=None, **overrides):
+    """``spec``'s LM on the cuda backend, exact mode (the NL-ADC on its
+    noiseless ramps) or with the analog spec off, cut to its
+    ``n_layers``, and its params drawn on the card from seed 0 (the same
+    bits in every process)."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.model import build
+
+    cfg = serve.make_config(spec["arch"], backend="cuda",
+                            analog_mode="exact", overrides={
+                                "n_layers": spec["n_layers"], **overrides})
+    if not analog:
+        cfg = cfg.replace(analog=dataclasses.replace(cfg.analog,
+                                                     enabled=False))
+    model = build(cfg, dev, mesh=mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return model, model.init(gen)
+
+
+def _dp_argv() -> list:
+    """``DIST_DP``'s run as the launcher's arguments (exact mode; weights
+    from seed 0)."""
+    spec = DIST_DP
+    return ["--arch", spec["arch"], "--override",
+            f"n_layers={spec['n_layers']}", "--steps", str(spec["steps"]),
+            "--batch", str(spec["batch"]), "--seq", str(spec["seq"]),
+            "--analog-mode", "exact", "--device", "cuda"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_dp(torch, mode: str) -> tuple:
+    """One ``python -m repro_torch.launch.train`` run of :func:`_dp_argv`,
+    in this process: ``mode`` "plain" without ``--grad-comm``, else with
+    it, in the environment ``torch.distributed.run`` gives rank 0 of 1
+    (so the launcher's NCCL rendezvous runs).  (summary, trained state,
+    kernel launches); the launcher's printed lines are counted, not
+    shown."""
+    import io
+    import os
+
+    from repro_torch.launch import train
+
+    argv = _dp_argv() + ([] if mode == "plain" else ["--grad-comm", mode])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    lines = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(lines):
+            out, launches = _counted(lambda: train.main(argv))
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    state = out.pop("state")
+    out["printed_lines"] = len(lines.getvalue().splitlines())
+    return out, state, launches
+
+
+def _first_step_gaps(run: dict, psum: dict) -> dict:
+    """An int8 run's first-step loss and gradient norm against psum's, as
+    relative gaps."""
+    return {"loss_rel": abs(run["losses"][0] - psum["losses"][0])
+            / abs(psum["losses"][0]),
+            "grad_norm_rel": abs(run["grad_norms"][0]
+                                 - psum["grad_norms"][0])
+            / psum["grad_norms"][0]}
+
+
+def _int8_gates(name: str, gaps: dict) -> None:
+    check(gaps["loss_rel"] < DIST_INT8_LOSS_RTOL
+          and gaps["grad_norm_rel"] < DIST_INT8_NORM_RTOL
+          and gaps["max_param_gap_to_psum"] < DIST_INT8_PARAM_ATOL,
+          f"{name}: int8 against psum {gaps}")
+
+
+def _record_layer0(torch, sink: dict):
+    """Keep the first MoE layer's dispatch plan (``nn/moe.py::
+    dispatch_plan``, which the GSPMD and EP paths both call) and its
+    expert gate's input rows and codes (kernel 4's counting-table launch
+    on the same operands, not counted) in ``sink``; returns the undo."""
+    from repro_torch.core import backend as BK
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+    from repro_torch.nn import moe as M
+
+    plan, bk = M.dispatch_plan, BK.get_backend("cuda")
+    gate = bk.moe_matmul_nladc
+
+    def planned(*args):
+        out = plan(*args)
+        if "plan" not in sink:                   # (st, dest, valid)
+            sink["plan"] = [out[0].detach(), out[2].detach(),
+                            out[3].detach()]
+        return out
+
+    def gated(x, w, adc, thresholds=None):
+        y = gate(x, w, adc, thresholds)
+        if "codes" not in sink:
+            thr = BK._dense(thresholds, adc)
+            count = torch.arange(thr.shape[-1] + 1, dtype=torch.float32,
+                                 device=x.device)
+            n0 = fmn.moe_fused_matmul.launches
+            sink["codes"] = fmn.moe_fused_matmul(
+                x.contiguous(), w.contiguous(), thr, count).to(torch.int16)
+            fmn.moe_fused_matmul.launches = n0
+            sink["x"], sink["thr"] = x.detach().float(), thr
+            sink["C"] = x.shape[1]
+        return y
+
+    M.dispatch_plan, bk.moe_matmul_nladc = planned, gated
+
+    def undo():
+        M.dispatch_plan = plan
+        delattr(bk, "moe_matmul_nladc")
+
+    return undo
+
+
+def _rank_dist(rank: int, tmp: str, world: int) -> None:
+    """One gloo rank on ``cuda:0`` (spawned by :func:`phase_dist`): the
+    launcher's trainer over the int8 DP step (its ``put_batch`` takes the
+    rank's rows of ``DIST_DP``'s batches; rank 0 measures its params'
+    gap to world size 1's psum run), then the EP forwards; its readings
+    to ``rank<r>.json``, the EP run's logits and first-layer records to
+    ``ep_*_rank<r>.pt``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.ft.elastic import build_mesh, plan_for_devices
+    from repro_torch.launch.common import configure_numerics
+    from repro_torch.train import optim
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    configure_numerics()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "gloo"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=120))
+    out = {"rank": rank}
+    try:
+        from repro_torch.launch import serve, train
+
+        spec = DIST_DP
+        mesh = build_mesh(plan_for_devices(world, global_batch=spec["batch"],
+                                           model_parallel=1), "cpu")
+        cfg = serve.make_config(spec["arch"], backend="cuda",
+                                analog_mode="exact",
+                                overrides={"n_layers": spec["n_layers"]})
+        C.STAGED.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _, trainer, state = train.build_trainer(
+            cfg, dev, steps=spec["steps"], batch=spec["batch"],
+            seq=spec["seq"], log=None, mesh=mesh, grad_comm="int8")
+        res, launches = _counted(lambda: train.train(
+            trainer, state, spec["steps"], dev))
+        params, state = res["state"].params, res["state"].opt_state
+        torch.cuda.synchronize()
+        hist = trainer.history
+        out["dp"] = {"s": time.perf_counter() - t0,
+                     "losses": [h["loss"] for h in hist],
+                     "grad_norms": [h["grad_norm"] for h in hist],
+                     "launches": launches,
+                     "ef_norm": float(optim.global_norm(state["ef"])),
+                     "digests": _digests(torch, params),
+                     "staged_bytes": C.STAGED.bytes,
+                     "staged_calls": C.STAGED.calls,
+                     "peak_memory_gb":
+                         torch.cuda.max_memory_allocated(dev) / 1e9}
+        if rank == 0:      # against world size 1's psum run (phase_dist_dp)
+            psum = torch.load(os.path.join(tmp, "psum_params.pt"))
+            out["dp"]["max_param_gap_to_psum"] = max(
+                float((a.detach() - b.to(dev)).abs().max())
+                for a, b in zip(_leaves(params), psum))
+            del psum
+        del params, state, res, trainer
+        free_device(torch)
+
+        spec = DIST_EP
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        C.STAGED.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out["ep"] = {}
+        for analog in (True, False):
+            model, params = _dist_lm(
+                torch, dev, spec, analog, mesh=mesh, moe_impl="ep_shardmap",
+                dtype="float32", capacity_factor=spec["capacity_factor"])
+            if analog:
+                tokens = torch.randint(0, model.cfg.vocab, (spec["batch"],
+                                                            spec["seq"]),
+                                       generator=gen, device=dev)
+            rec = {}
+            undo = _record_layer0(torch, rec) if analog else (lambda: None)
+            try:
+                with torch.no_grad():
+                    logits, launches = _counted(
+                        lambda: model.forward(params, tokens))
+            finally:
+                undo()
+            key = "on" if analog else "off"
+            out["ep"][key] = {"launches": launches,
+                              "params_gb": sum(t.numel() * t.element_size()
+                                               for t in _leaves(params))
+                              / 1e9,
+                              "digest": _digests(torch, [logits])[0],
+                              "expert_rows": params["layers"][0]["moe"][
+                                  "w_gate"].shape[0]}
+            saved = {"rec": {k: (v if k == "C" else
+                                 [t.cpu() for t in v] if k == "plan"
+                                 else v.cpu()) for k, v in rec.items()}}
+            if rank == 0:
+                saved.update(logits=logits.cpu(), tokens=tokens.cpu())
+            torch.save(saved, os.path.join(tmp, f"ep_{key}_rank{rank}.pt"))
+            del model, params, logits, rec
+            free_device(torch)
+        torch.cuda.synchronize()
+        out["ep"].update(s=time.perf_counter() - t0,
+                         staged_bytes=C.STAGED.bytes,
+                         staged_calls=C.STAGED.calls,
+                         peak_memory_gb=torch.cuda.max_memory_allocated(dev)
+                         / 1e9)
+    finally:
+        dist.destroy_process_group()
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _spawn_ranks(fn, tmp: str, world: int) -> list:
+    """``fn(rank, tmp, world)`` on ``world`` spawned processes, each bound
+    by ``DIST_JOIN_S``; a rank that fails or outlives it fails the phase
+    (every rank is stopped).  Returns each rank's ``rank<r>.json``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(tmp, world), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + DIST_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.perf_counter() < deadline,
+                  f"ranks still running after {DIST_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _ep_pairs(plan, capacity: int, n_experts: int):
+    """Every routed slot within capacity of a recorded plan: (token * E +
+    expert, the slot's flat index ``expert * capacity + row``)."""
+    st, dest, valid = plan
+    keep = valid.bool()
+    expert = dest[keep] // capacity
+    return st[keep].long() * n_experts + expert.long(), dest[keep].long()
+
+
+def _dist_expected(launches: dict, want: dict, name: str) -> None:
+    """A run launched each kernel of ``want`` that many times, the others
+    never."""
+    expected = {k: want.get(k, 0) for k in launches}
+    check(launches == expected,
+          f"{name}: launches {launches}, expected {expected}")
+
+
+def phase_dist_dp(torch, dev, tmp: str) -> dict:
+    """13x1 at world size 1 over NCCL (in this process), each mode through
+    the launcher's entry point; psum's params saved for the 2-rank gloo
+    half (:func:`phase_dist`)."""
+    import os
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.train import optim
+
+    t0 = time.perf_counter()
+    held_gb = torch.cuda.memory_reserved(dev) / 1e9   # the script's own
+    torch.cuda.reset_peak_memory_stats(dev)
+    C.STAGED.reset()
+    runs = {}
+    out, state, launches = _launch_dp(torch, "plain")
+    keys = ("losses", "grad_norms", "aux_losses")
+    want = ({k: out[k] for k in keys}, _digests(torch, state.params),
+            _digests(torch, state.opt_state.mu),
+            _digests(torch, state.opt_state.nu))
+    runs["plain"] = {"losses": out["losses"],
+                     "grad_norms": out["grad_norms"], "launches": launches}
+    del state
+    for mode in ("psum", "hierarchical"):
+        out, state, launches = _launch_dp(torch, mode)
+        check(out["world"] == 1 and out["grad_comm"] == mode,
+              f"dist_dp: the launcher ran {out['grad_comm']} over "
+              f"{out['world']} ranks")
+        got = ({k: out[k] for k in keys}, _digests(torch, state.params),
+               _digests(torch, state.opt_state.mu),
+               _digests(torch, state.opt_state.nu))
+        check(got == want, f"dist_dp: {mode} at world size 1 is not "
+              f"bitwise the plain trainer: {got[0]} against {want[0]}")
+        runs[mode] = {"losses": out["losses"],
+                      "grad_norms": out["grad_norms"], "launches": launches,
+                      "bitwise_plain": True}
+        if mode == "psum":
+            psum_run, psum = out, state.params
+        del state
+    out, state, launches = _launch_dp(torch, "int8")
+    ef_norm = float(optim.global_norm(state.opt_state["ef"]))
+    check(ef_norm > 0 and out["ef_norm"] == ef_norm,
+          f"dist_dp: int8 residual norm {ef_norm} ({out['ef_norm']} "
+          f"printed)")
+    gaps = dict(_first_step_gaps(out, psum_run), max_param_gap_to_psum=max(
+        float((a - b).detach().abs().max())
+        for a, b in zip(_leaves(state.params), _leaves(psum))))
+    check(out["losses"][0] == psum_run["losses"][0],
+          f"dist_dp: int8's first loss {out['losses'][0]}, psum's "
+          f"{psum_run['losses'][0]} (the same params and batch)")
+    _int8_gates("dist_dp world size 1", gaps)
+    runs["int8"] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+                    "launches": launches, "ef_norm": ef_norm, **gaps}
+    del state
+    torch.save([t.detach().cpu() for t in _leaves(psum)],
+               os.path.join(tmp, "psum_params.pt"))
+    del psum
+    torch.cuda.synchronize()
+    free_device(torch)
+    return {"world1": runs, "world1_psum": psum_run,
+            "world1_s": time.perf_counter() - t0,
+            "reserved_before_gb": held_gb,
+            "world1_staged_bytes": C.STAGED.bytes,
+            "world1_peak_memory_gb":
+                torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def phase_dist_ep(torch, dev, tmp: str, ranks: list) -> dict:
+    """13x2's GSPMD side, on one rank in this process, and the comparison
+    with the EP ranks' records."""
+    import os
+
+    spec = DIST_EP
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    saved = {k: [torch.load(os.path.join(tmp, f"ep_{k}_rank{r}.pt"))
+                 for r in range(len(ranks))] for k in ("on", "off")}
+    out = {}
+    for analog in (True, False):
+        key = "on" if analog else "off"
+        model, params = _dist_lm(torch, dev, spec, analog,
+                                 dtype="float32",
+                                 capacity_factor=spec["capacity_factor"])
+        tokens = saved[key][0]["tokens"].to(dev)
+        rec = {}
+        undo = _record_layer0(torch, rec) if analog else (lambda: None)
+        try:
+            with torch.no_grad():
+                want, launches = _counted(
+                    lambda: model.forward(params, tokens))
+        finally:
+            undo()
+        got = saved[key][0]["logits"].to(dev)
+        digests = {r["ep"][key]["digest"] for r in ranks}
+        check(len(digests) == 1,
+              f"dist_ep: the ranks' logits differ (analog {key})")
+        check(all(r["ep"][key]["expert_rows"] * len(ranks)
+                  == model.cfg.n_experts for r in ranks),
+              f"dist_ep: a rank holds other than its share of the experts")
+        rel = float((got - want).abs().max() / want.abs().max())
+        res = {"rel_logits": rel, "gspmd_launches": launches,
+               "rank_launches": [r["ep"][key]["launches"] for r in ranks],
+               "rank_expert_rows": [r["ep"][key]["expert_rows"]
+                                    for r in ranks],
+               "rank_params_gb": [r["ep"][key]["params_gb"] for r in ranks],
+               "gspmd_params_gb": sum(t.numel() * t.element_size()
+                                      for t in _leaves(params)) / 1e9}
+        if analog:
+            res.update(_ep_codes(torch, model, params, rec, saved["on"],
+                                 spec))
+        else:
+            check(rel < DIST_EP_RTOL, f"dist_ep: EP logits rel {rel} "
+                  f"from the GSPMD forward's (analog off)")
+        out[key] = res
+        del model, params, want, got, rec
+        free_device(torch)
+    out["gspmd_s"] = time.perf_counter() - t0
+    out["gspmd_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _ep_codes(torch, model, params, rec: dict, ranks: list,
+              spec: dict) -> dict:
+    """The first MoE layer's gate codes, EP ranks against the GSPMD run,
+    per (token, expert) pair routed in both: the inputs bitwise alike, the
+    codes equal except flips explained by float32 rounding."""
+    from repro_torch.kernels import fused_matmul_nladc as fmn
+
+    world = len(ranks)
+    e = model.cfg.n_experts
+    e_loc = e // world
+    s_loc = spec["seq"] // world
+    dev = rec["codes"].device
+    gs_keys, gs_rows = _ep_pairs(rec["plan"], rec["C"], e)
+    gs_codes = rec["codes"].reshape(-1, rec["codes"].shape[-1])
+    gs_x = rec["x"].reshape(-1, rec["x"].shape[-1])
+    # every sender's slots, located in their owner's received buffer
+    # (E_loc, world * C, d): expert e_loc's rows p * C + c from sender p
+    keys, codes, xs = [], [], []
+    for p, saved in enumerate(ranks):
+        r = saved["rec"]
+        cap = r["C"] // world
+        lkeys, ldest = _ep_pairs([t.to(dev) for t in r["plan"]], cap, e)
+        lt, ex = lkeys // e, lkeys % e
+        t = (lt // s_loc) * spec["seq"] + p * s_loc + lt % s_loc
+        c = ldest % cap
+        owner, el = ex // e_loc, ex % e_loc
+        row = el * r["C"] + p * cap + c
+        for o in range(world):
+            sel = owner == o
+            oc = ranks[o]["rec"]["codes"].to(dev)
+            ox = ranks[o]["rec"]["x"].to(dev)
+            keys.append(t[sel] * e + ex[sel])
+            codes.append(oc.reshape(-1, oc.shape[-1])[row[sel]])
+            xs.append(ox.reshape(-1, ox.shape[-1])[row[sel]])
+    keys, codes, xs = torch.cat(keys), torch.cat(codes), torch.cat(xs)
+    order_g, order_e = torch.argsort(gs_keys), torch.argsort(keys)
+    common, ig, ie = _intersect(torch, gs_keys[order_g], keys[order_e])
+    rows_g = gs_rows[order_g][ig]
+    rows_e = order_e[ie]
+    x = gs_x[rows_g]
+    check(torch.equal(x, xs[rows_e]), "dist_ep: a token's first-layer "
+          "expert input differs between the EP and GSPMD runs")
+    a, b = codes[rows_e].long(), gs_codes[rows_g].long()
+    w = params["layers"][0]["moe"]["w_gate"]
+    expert = common % e
+    flips = unexplained = 0
+    for k in range(e):
+        sel = expert == k
+        if not bool(sel.any()):
+            continue
+        acc, bound = fmn.accumulator_bound(x[sel][None], w[k:k + 1])
+        f, u = fmn.code_flips(a[sel], b[sel], acc[0], bound[0], rec["thr"])
+        flips, unexplained = flips + f, unexplained + u
+    routed = {"gspmd": int(gs_keys.numel()), "ep": int(keys.numel()),
+              "both": int(common.numel())}
+    elements = int(a.numel())
+    check(unexplained == 0, f"dist_ep: {unexplained} gate code flips "
+          f"beyond float32 rounding")
+    check(flips <= MAX_FLIP_SHARE * elements,
+          f"dist_ep: {flips} gate code flips of {elements}")
+    check(routed["both"] >= (1 - MAX_FLIP_SHARE) * max(routed["gspmd"],
+                                                       routed["ep"]),
+          f"dist_ep: routing parts between the paths: {routed}")
+    return {"pairs": routed, "gate_elements": elements,
+            "code_flips": flips, "unexplained_flips": unexplained,
+            "ep_gate_shape": [e_loc, ranks[0]["rec"]["C"]],
+            "gspmd_gate_shape": [e, rec["C"]]}
+
+
+def _intersect(torch, a, b):
+    """Sorted unique ``a`` and ``b``: (common values, their index in a,
+    in b)."""
+    pos = torch.searchsorted(a, b).clamp_max(a.numel() - 1)
+    hit = a[pos] == b
+    return b[hit], pos[hit], torch.nonzero(hit)[:, 0]
+
+
+def dist_kernel_case(torch, dev):
+    """Kernel 4 at expert parallelism's split shape in ``dist_ep``: a
+    rank's 32 of deepseek's 64 experts over 2 senders' capacity rows (C 96
+    each at B 2 x S 64 local tokens, top-6, capacity factor 8), float32."""
+    return phase_moe_matmul(torch, dev, "ep_split_f32", 32, 192, 2048, 1408,
+                            torch.float32, 0)
+
+
+def phase_dist(torch, dev) -> dict:
+    """13x1 and 13x2: the launcher at world size 1 over NCCL (plain,
+    psum, hierarchical, int8), then 2 gloo ranks on the card (the int8 DP
+    trainer, the EP forwards), then EP's GSPMD side here; a line each,
+    their kernel launches by path."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_dist_")
+    try:
+        t0 = time.perf_counter()
+        world1 = phase_dist_dp(torch, dev, tmp)
+        t1 = time.perf_counter()
+        ranks = _spawn_ranks(_rank_dist, tmp, DIST_DP["ranks"])
+        spawn_s = time.perf_counter() - t1
+        dps = [r["dp"] for r in ranks]
+        check(all(d["digests"] == dps[0]["digests"]
+                  and d["losses"] == dps[0]["losses"]
+                  and d["grad_norms"] == dps[0]["grad_norms"] for d in dps),
+              "dist_dp: the gloo ranks' params or metrics parted")
+        check(all(d["ef_norm"] > 0 and all(math.isfinite(v) for v in
+                                           d["losses"] + d["grad_norms"])
+                  for d in dps),
+              f"dist_dp: gloo ranks' residuals or metrics {dps}")
+        psum = world1.pop("world1_psum")
+        gaps = dict(_first_step_gaps(dps[0], psum),
+                    max_param_gap_to_psum=dps[0]["max_param_gap_to_psum"])
+        _int8_gates("dist_dp 2 gloo ranks", gaps)
+        dp = {"phase": "dist_dp", "arch": DIST_DP["arch"],
+              "n_layers": DIST_DP["n_layers"], "B": DIST_DP["batch"],
+              "S": DIST_DP["seq"], "steps": DIST_DP["steps"], **world1,
+              "gloo": {"ranks": len(ranks), "grad_comm": "int8",
+                       "against_world1_psum": gaps,
+                       "per_rank": [{k: v for k, v in d.items()
+                                     if k != "digests"} for d in dps],
+                       "spawn_s": spawn_s},
+              "world1_and_spawn_s": t1 - t0 + spawn_s}
+        emit(dp)
+        t2 = time.perf_counter()
+        ep = phase_dist_ep(torch, dev, tmp, ranks)
+        eps = [r["ep"] for r in ranks]
+        emit({"phase": "dist_ep", "arch": DIST_EP["arch"],
+              "n_layers": DIST_EP["n_layers"], "B": DIST_EP["batch"],
+              "S": DIST_EP["seq"], "model": len(ranks),
+              "capacity_factor": DIST_EP["capacity_factor"], **ep,
+              "ranks": [{k: v for k, v in r.items() if k not in ("on",
+                                                                 "off")}
+                        for r in eps],
+              "gspmd_and_compare_s": time.perf_counter() - t2})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {f"dist_dp/world1/{m}": v["launches"]
+                for m, v in world1["world1"].items()}
+    # kernel 3 twice a layer a step (the forward and remat's recompute);
+    # EP with the analog spec on: kernel 4 (the routed experts) and
+    # kernel 3 (the shared experts) once a layer, off: neither
+    per_run = {"fused_matmul_nladc": 2 * DIST_DP["n_layers"]
+               * DIST_DP["steps"]}
+    per_forward = {"moe_fused_matmul": DIST_EP["n_layers"],
+                   "fused_matmul_nladc": DIST_EP["n_layers"]}
+    launches.update({f"dist_dp/gloo/rank{r}": d["launches"]
+                     for r, d in enumerate(dps)})
+    for key in ("on", "off"):
+        launches.update({f"dist_ep/{key}/rank{r}": e[key]["launches"]
+                         for r, e in enumerate(eps)})
+        launches[f"dist_ep/{key}/gspmd"] = ep[key]["gspmd_launches"]
+    for path, got in launches.items():
+        on = path.startswith("dist_dp") or "/on/" in path
+        _dist_expected(got, (per_run if path.startswith("dist_dp")
+                             else per_forward) if on else {}, path)
+    return launches
+
+
 def free_device(torch) -> None:
     """Return the memory of a finished phase to the card."""
     import gc
@@ -6024,6 +6638,10 @@ def main(argv=None) -> int:
                     help="run only the device phase, kernel 3 at the "
                          "microbatch's GEMM shape and the LM trainer's "
                          "phases (train_lm, train_accum, train_remat)")
+    ap.add_argument("--dist", action="store_true",
+                    help="run only the device phase, kernel 4 at expert "
+                         "parallelism's split shape and the distribution "
+                         "phases (dist_dp, dist_ep)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6109,6 +6727,12 @@ def main(argv=None) -> int:
             phase_kernel_time(*case, floor_ms=floor_ms)
         free_device(torch)
         emit({"deepseek_launches": _deepseek_phases(torch, dev)})
+        return 0
+    if args.dist:
+        floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
+        phase_kernel_time(*dist_kernel_case(torch, dev), floor_ms=floor_ms)
+        free_device(torch)
+        emit({"dist_launches": phase_dist(torch, dev)})
         return 0
     if args.trainer:
         floor_ms = phase_launch_floor(torch, dev, launch_floor)["us"] / 1e3
@@ -6209,7 +6833,8 @@ def main(argv=None) -> int:
                          0, fill="serving"),
         phase_moe_matmul(torch, dev, "none_live", 64, 6, 2048, 1408, bf16, 0,
                          fill="none"),
-        phase_moe_matmul(torch, dev, "ragged_f32", 5, 7, 300, 1000, f32, 0)]
+        phase_moe_matmul(torch, dev, "ragged_f32", 5, 7, 300, 1000, f32, 0),
+        dist_kernel_case(torch, dev)]
     flash_checked = [
         phase_flash_decode(torch, dev, "serve", 4, 16, 16, 128, 128,
                            [128, 128, 128, 128], bf16),
@@ -6266,6 +6891,8 @@ def main(argv=None) -> int:
         phase_train_agreement(torch, dev, arch)
         free_device(torch)
     rec_trained = _recurrent_train_phases(torch, dev)
+    dist_paths = phase_dist(torch, dev)
+    free_device(torch)
     infer = phase_serve(torch, dev, "lm_infer", analog_mode="infer",
                         analog_device=LM_INFER_DEVICE, repeats=1)
     free_device(torch)
@@ -6360,7 +6987,8 @@ def main(argv=None) -> int:
                 "serve_granite34b/int8": dense["serve_granite34b"]["int8"][
                     "launches"]["fused_matmul_nladc"],
                 **{k: v["fused_matmul_nladc"] for k, v in whisper.items()},
-                **{k: v["fused_matmul_nladc"] for k, v in deepseek.items()}}
+                **{k: v["fused_matmul_nladc"] for k, v in deepseek.items()},
+                **{k: v["fused_matmul_nladc"] for k, v in dist_paths.items()}}
     fused = kernel_entry(
         "fused_matmul_nladc",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",
@@ -6422,7 +7050,9 @@ def main(argv=None) -> int:
     moe_paths = {"serve_moe": served_moe["launches"]["moe_fused_matmul"],
                  **mode_launches(served_moe_b, "moe_fused_matmul"),
                  "train_moe": moe_train["moe_fused_matmul"],
-                 **{k: v["moe_fused_matmul"] for k, v in deepseek.items()}}
+                 **{k: v["moe_fused_matmul"] for k, v in deepseek.items()},
+                 **{k: v["moe_fused_matmul"] for k, v in dist_paths.items()
+                    if v["moe_fused_matmul"]}}
     moe = kernel_entry(
         "moe_fused_matmul",
         "src/repro_torch/kernels/csrc/fused_matmul_nladc.cu",

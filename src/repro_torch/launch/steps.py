@@ -3,13 +3,11 @@ and serve steps.
 
 The torch twin of the JAX package's ``repro/launch/steps.py``
 (``make_optimizer``, ``make_train_step``, ``make_prefill_step``,
-``make_serve_step``, ``build_all``).  The reference derives every
-step's randomness from ``jax.random.PRNGKey(seed)``; here a step draws
-from the :class:`NoiseSource` that ``noise_for(seed)`` returns, by
+``make_serve_step``, ``build_all``, and the data-parallel
+``make_dp_train_step`` / ``make_dp_opt_state``).  The reference derives
+every step's randomness from ``jax.random.PRNGKey(seed)``; here a step
+draws from the :class:`NoiseSource` that ``noise_for(seed)`` returns, by
 default a ``torch.Generator`` on the model's device seeded with ``seed``.
-The data-parallel step with explicit gradient collectives
-(``make_dp_train_step``) belongs to distribution (``ROADMAP.md`` queue A
-item 6).
 """
 
 from __future__ import annotations
@@ -19,6 +17,9 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.crossbar import GeneratorNoise, NoiseSource
+from repro_torch.dist import collectives as C
+from repro_torch.dist import compress
+from repro_torch.dist.sharding import data_axes
 from repro_torch.nn.model import build
 from repro_torch.train import optim
 
@@ -75,6 +76,103 @@ def make_train_step(model, optimizer: optim.Adam, *, remat: bool = True,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_dp_train_step(model, optimizer: optim.Adam, mesh, *,
+                       grad_comm: str = "psum", remat: bool = True,
+                       noise_for: Optional[Callable[[int], NoiseSource]]
+                       = None) -> Callable:
+    """The data-parallel train step with explicit gradient collectives,
+    run by every rank of ``mesh``'s data-like dims (``pod``, ``data``):
+    ``train_step(params, opt_state, batch, seed) -> (params, opt_state,
+    metrics)`` on this rank's rows of the global batch (its slice by
+    :func:`repro_torch.dist.sharding.batch_specs`; the caller keeps the
+    batch divisible, see :func:`repro_torch.ft.elastic.plan_for_devices`)
+    and the replicated params, which it updates in place as
+    :func:`make_train_step` does.
+
+    ``grad_comm`` picks the reduction: ``psum`` (flat all-reduce),
+    ``hierarchical`` (:mod:`repro_torch.dist.collectives`) or ``int8``
+    (the shared-scale int8 wire format with error feedback,
+    :func:`repro_torch.dist.compress.compressed_psum_ef`): the optimizer
+    state is then ``{"opt": adam, "ef": residual}``, the residual this
+    rank's own (:func:`make_dp_opt_state`).
+
+    The reference's semantics: each rank's mean cross entropy is weighted
+    by its share of the global valid tokens (a rank without one counts
+    0), so the CE term equals the plain step's under any label masking;
+    the MoE load-balance loss is added as ``router_aux_coef * aux /
+    n_rep`` (the standard data-parallel average of per-rank losses over
+    local tokens).  Metrics: ``tokens`` summed over the ranks,
+    ``aux_loss`` averaged, the others share-weighted and summed; then
+    ``grad_norm`` of the reduced gradient.  A replica's noise comes from
+    ``noise_for(seed * n_rep + replica)`` (one stream a (seed, replica)
+    pair; at one replica the plain step's): the reference folds the
+    replica index into ``PRNGKey(seed)``, which this matches in
+    distribution, not in stream (torch generators are not threefry).
+    """
+    if grad_comm not in ("psum", "hierarchical", "int8"):
+        raise ValueError(f"unknown grad_comm {grad_comm!r}")
+    noise_for = noise_for or seeded_noise(model.device)
+    axes = data_axes(mesh)
+    pod_axis = "pod" if "pod" in axes else None
+    n_rep = 1
+    for ax in axes:
+        n_rep *= C.axis_size(mesh, ax)
+    rep = C.replica_index(mesh, axes)
+    use_ef = grad_comm == "int8"
+
+    def train_step(params, opt_state, batch, seed: int):
+        inner = opt_state["opt"] if use_ef else opt_state
+        n_valid = torch.sum(batch["labels"] >= 0).to(torch.float32)
+        share = n_valid / torch.clamp_min(C.psum(n_valid, mesh, axes), 1.0)
+        leaves = optim.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        _, metrics = model.loss(params, batch,
+                                noise=noise_for(seed * n_rep + rep),
+                                remat=remat)
+        obj = share * metrics["loss"]
+        if "aux_loss" in metrics:        # the encoder-decoder has no aux term
+            obj = obj + model.cfg.router_aux_coef * metrics["aux_loss"] / n_rep
+        grads = torch.autograd.grad(obj, leaves)
+        by_leaf = {id(p): g for p, g in zip(leaves, grads)}
+        del grads
+        grads = optim.tree_map(lambda p: by_leaf[id(p)], params)
+        del by_leaf
+        if use_ef:
+            grads, new_res = compress.compressed_psum_ef(
+                grads, opt_state["ef"], mesh, axes)
+        else:
+            grads = C.grad_allreduce(grads, mesh, mode=grad_comm,
+                                     data_axis="data", pod_axis=pod_axis)
+        metrics = {k: (C.psum(v.detach(), mesh, axes) if k == "tokens"
+                       else C.psum(v.detach(), mesh, axes) / n_rep
+                       if k == "aux_loss"
+                       else C.psum(v.detach() * share, mesh, axes))
+                   for k, v in metrics.items()}
+        metrics["grad_norm"] = optim.global_norm(grads)
+        inner = optimizer.update_(grads, inner, params,
+                                  norm=metrics["grad_norm"])
+        if use_ef:
+            return params, {"opt": inner, "ef": new_res}, metrics
+        return params, inner, metrics
+
+    return train_step
+
+
+def make_dp_opt_state(optimizer: optim.Adam, params, *,
+                      grad_comm: str = "gspmd"):
+    """The optimizer state for a train step of ``grad_comm``: Adam's, and
+    with ``int8`` beside it this rank's zero error-feedback residual
+    (``{"opt": adam, "ef": residual}``, float32 leaves of the params'
+    shapes).  The reference stacks every replica's residual on a leading
+    dim sized by its mesh; a rank holds its own here, so no mesh is
+    needed."""
+    opt_state = optimizer.init(params)
+    if grad_comm != "int8":
+        return opt_state
+    return {"opt": opt_state, "ef": compress.ef_init(params)}
 
 
 def make_prefill_step(model) -> Callable:

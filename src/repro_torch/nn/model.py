@@ -19,10 +19,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
-def build(cfg: ModelConfig, device=None):
+def build(cfg: ModelConfig, device=None, mesh=None):
     """Return the model object for a config, its ramps on ``device``:
     ``cuda`` unless the caller asks for another (``device="cpu"``); without
-    a GPU the default raises."""
+    a GPU the default raises.  ``mesh``: the ``DeviceMesh`` a MoE with
+    ``moe_impl="ep_shardmap"`` runs its experts over (:class:`LM`)."""
     if cfg.family == "encdec":
         from repro_torch.nn.encdec import EncDecLM
 
@@ -33,7 +34,7 @@ def build(cfg: ModelConfig, device=None):
             "repro_torch.launch.lstm_eval)")
     from repro_torch.nn.transformer import LM
 
-    return LM(cfg, device)
+    return LM(cfg, device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

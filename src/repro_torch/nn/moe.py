@@ -16,8 +16,9 @@ sort-based capacity formulation:
 A sigmoid router (``router_score="sigmoid"``, moonlight) is elementwise
 and is NL-ADC'd; a softmax router stays full precision.  The reference's
 sharding constraints (``_maybe_shard``) are the identity on one device;
-expert parallelism over ``torch.distributed`` is ROADMAP.md queue A item
-6.  Training adds the Switch-style load-balance loss
+expert parallelism over ``torch.distributed`` is
+:func:`repro_torch.dist.ep.moe_apply_ep`, which routes with this module's
+helpers.  Training adds the Switch-style load-balance loss
 (:func:`aux_load_balance_loss`, ``moe_apply(..., return_aux=True)``).
 
 Three places where a plain port would give another answer than the

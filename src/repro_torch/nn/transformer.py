@@ -42,8 +42,12 @@ selective checkpoint), ``"none"`` keeps everything; the bits are the same
 under all three.
 
 Another family raises ``ValueError`` (``nn/model.py::build`` gives the
-encoder-decoder its ``EncDecLM``); ``moe_impl="ep_shardmap"`` raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+encoder-decoder its ``EncDecLM``).  ``moe_impl="ep_shardmap"`` runs a MoE
+block's experts over the ``model`` dim of the ``DeviceMesh`` passed in
+(:func:`repro_torch.dist.ep.moe_apply_ep`; ``init`` then keeps only the
+rank's experts, ``dist.ep.place_experts``), and falls back to the GSPMD
+``moe_apply`` where the reference does (no mesh with a ``model`` dim
+above 1, shapes that do not divide it, a decode step).
 The model lives on the GPU unless the caller asks for the CPU.
 """
 
@@ -115,18 +119,14 @@ class LM:
     :class:`ModelConfig`, its activation ramps on ``device`` (default
     ``cuda``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None):
         if cfg.family not in FAMILIES:
             raise ValueError(
                 f"LM takes the decoder-only families {FAMILIES}, not "
                 f"{cfg.family!r}; repro_torch.nn.model.build returns the "
                 f"encoder-decoder's EncDecLM")
-        if cfg.family == "moe" and cfg.moe_impl != "gspmd":
-            raise NotImplementedError(
-                f"moe_impl={cfg.moe_impl!r} (expert parallelism) is not "
-                f"ported yet; ROADMAP.md queue A item 6 (distribution) "
-                f"brings it")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = _model_device(device)
         self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
             else torch.float32
@@ -236,6 +236,10 @@ class LM:
         if kind == "moe_attn":
             blk["moe"] = MOE.moe_init(generator, d, cfg.d_ff, cfg.n_experts,
                                       cfg.n_shared_experts, self.mlp_kind)
+            if cfg.moe_impl == "ep_shardmap" and self.mesh is not None:
+                from repro_torch.dist.ep import place_experts
+
+                blk["moe"] = place_experts(blk["moe"], self.mesh)
         else:
             blk["mlp"] = mlp_init(generator, d, cfg.d_ff, self.mlp_kind)
         return blk
@@ -244,7 +248,8 @@ class LM:
         """Seeded float32 params on the generator's device: ``embed``,
         ``final_norm``, ``lm_head`` (untied only), and the blocks as
         ``layers``, a list of per-layer dicts, or the hybrid's ``groups``
-        and ``tail`` (:meth:`blocks`)."""
+        and ``tail`` (:meth:`blocks`).  Expert parallel over a mesh, a MoE
+        block's expert stacks are this rank's experts alone."""
         cfg = self.cfg
         params: Dict[str, Any] = {
             "embed": L.embedding_init(generator, cfg.padded_vocab,
@@ -318,7 +323,7 @@ class LM:
             kv_chunk=self.kv_chunk)
         h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if kind == "moe_attn":
-            out = MOE.moe_apply(
+            out = self._moe(
                 p["moe"], h, top_k=cfg.top_k,
                 capacity_factor=cfg.capacity_factor, act=self.act,
                 router_score=cfg.router_score, router_act=self.sigmoid_act,
@@ -328,6 +333,17 @@ class LM:
             return x + out, aux
         return x + mlp_apply(p["mlp"], h, self.mlp_kind, self.act,
                              draws=draws), aux
+
+    def _moe(self, p, x, **kw):
+        """A MoE block's experts: the GSPMD ``moe_apply``, or with
+        ``moe_impl="ep_shardmap"`` the expert-parallel path over the
+        model's mesh (which falls back to it where the reference's
+        does)."""
+        if self.cfg.moe_impl == "ep_shardmap":
+            from repro_torch.dist.ep import moe_apply_ep
+
+            return moe_apply_ep(p, x, mesh=self.mesh, **kw)
+        return MOE.moe_apply(p, x, **kw)
 
     def _keyed_units(self, params) -> List[Tuple[list, bool]]:
         """The blocks grouped by the train-mode key they share, in layer
@@ -506,7 +522,7 @@ class LM:
         x = x + y
         h = L.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if kind == "moe_attn":
-            return x + MOE.moe_apply(
+            return x + self._moe(
                 p["moe"], h, top_k=cfg.top_k,
                 capacity_factor=max(cfg.capacity_factor, 2.0),
                 act=self.act, router_score=cfg.router_score,

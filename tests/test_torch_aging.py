@@ -20,6 +20,8 @@ from repro_torch.core import crossbar as TCB
 from repro_torch.core import device as TD
 from test_torch_lstm import SMOKE, _specs
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 BUILD_PRESETS = tuple(n for n in sorted(JD.device_names())
                       if JD.get_device(n).has_build_stage)
 # a partial-tile matrix under a small plan: row tiles 16, 16, 8;

@@ -26,6 +26,8 @@ from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels.ref import (closed_form_params, effective_operands,
                                     thermometer_count)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 RAMPS = ("tanh", "sigmoid", "swish", "selu")   # affine x 2, V-shape, signed
 SHAPES = ((50, 72, 128), (1, 33, 7))
 

@@ -21,6 +21,8 @@ from repro.nn import layers as JL
 from repro_torch.nn import attention as TA
 from repro_torch.nn import layers as TL
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 F32_ATOL = 1e-6
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -31,6 +31,8 @@ from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import prefill_attention as TPA
 from repro_torch.nn import attention as TA
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 F32_ATOL = 1e-6
 FLASH_ATOL = 1e-6
 GROUPS = [  # b, h, hkv, d, s

@@ -21,6 +21,8 @@ import torch
 from repro.core import circuit as JC
 from repro_torch.core import circuit as TC
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 RTOL = 1e-9
 CPU = dict(device="cpu")
 SHAPES = ((8, 8), (32, 32), (16, 32), (32, 16), (1, 5), (5, 1))

@@ -25,6 +25,8 @@ from repro_torch.launch import train as TTRAIN
 from repro_torch.launch.serve import make_config
 from repro_torch.train import optim as TO
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 def _numpy_tree(seed: int):
     """A nested tree of numpy arrays (bfloat16 as ml_dtypes)."""

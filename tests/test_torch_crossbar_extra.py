@@ -31,6 +31,8 @@ from repro.core import crossbar as JCB
 from repro_torch.core import crossbar as TCB
 from repro_torch.core.crossbar import GeneratorNoise, ReplayNoise
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 RTOL_NOISE, ATOL_NOISE = 1e-6, 1e-7
 TOL_VMM = 1e-6
 

@@ -35,6 +35,8 @@ from repro_torch.nn.model import build as tbuild
 from test_configs import N_PARAMS_PIN
 from test_torch_lm_forward import _check
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCHS = ("granite-3-8b", "qwen2.5-32b", "pixtral-12b", "granite-34b")
 
 

@@ -31,6 +31,8 @@ from test_torch_lm import _decode_diff
 from test_torch_lm_forward import (B, KERNELS_ON_CPU, LOSS_RTOL, S, _check,
                                    batch, noise_for, tbatch)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 def _vision_batch(cfg):
     b = batch(cfg)

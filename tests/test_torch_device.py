@@ -22,6 +22,8 @@ from repro_torch.core import crossbar as TCB
 from repro_torch.core import device as TD
 from repro_torch.core import nladc as TN
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PRESETS = ("paper-infer", "aged-1day", "stressed", "paper-ir",
            "stressed-ir")
 

@@ -31,6 +31,8 @@ from repro_torch.launch import lstm_eval, lstm_train
 from repro_torch.nn import lstm as TL
 from repro_torch.train import optim
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 CPU = torch.device("cpu")
 
 

@@ -30,6 +30,8 @@ from repro.nn import attention as JA
 from repro_torch.kernels import flash_decode as TFD
 from repro_torch.nn import attention as TA
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ATOL = 1e-6
 
 

@@ -33,6 +33,8 @@ from repro_torch.serve import fleet as TF
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.lifecycle import RecalPolicy
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 SIDES = {"jax": (JF, JRequest, JPolicy), "torch": (TF, Request, RecalPolicy)}
 
 

@@ -41,6 +41,8 @@ from repro_torch.core import nladc as TN
 from repro_torch.kernels import fused_matmul_nladc as TFM
 from repro_torch.kernels.ref import split_bf16x3, thermometer_count
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 VALUE_RTOL = 2.0 ** -23
 MAX_FLIP_SHARE = 0.01
 

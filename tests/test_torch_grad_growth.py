@@ -46,6 +46,8 @@ from repro_torch.nn import lstm as TL
 from test_torch_lstm import JAnalog, TAnalog, _draws, _nll_j, ramp_shape
 from test_torch_lstm_train import _reference_thresholds, _replay_thresholds
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 B, T, N_IN, N_CLASSES = 16, 128, 128, 50
 NAMES = (("lstm", "w_gates"), ("lstm", "w_proj"), ("fc", "w"))
 

@@ -16,6 +16,8 @@ import pytest
 from repro.core import hwcost as JHW
 from repro_torch.core import hwcost as HW
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 METRICS = ("area_um2", "energy_pj", "latency_ns", "n_mac_ops",
            "throughput_tops", "power_mw", "tops_per_w", "tops_per_mm2")
 

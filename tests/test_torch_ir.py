@@ -26,6 +26,8 @@ from repro.core import crossbar as JCB
 from repro_torch.core import crossbar as TCB
 from repro_torch.core.crossbar import ReplayNoise
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ULPS = 32
 RTOL_JAX = 4e-6
 SOURCING = ("single", "double")

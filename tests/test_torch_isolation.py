@@ -14,6 +14,8 @@ import torch
 from repro_torch.launch import (kernel_bench, kernel_tune, lstm_eval, serve,
                                  train)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
@@ -41,7 +43,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.recurrentgemma_9b",
                  "configs.granite_3_8b", "configs.qwen2_5_32b",
                  "configs.pixtral_12b", "configs.granite_34b",
-                 "nn.frontends", "nn.encdec", "configs.whisper_base"):
+                 "nn.frontends", "nn.encdec", "configs.whisper_base",
+                 "dist", "dist.sharding", "dist.collectives",
+                 "dist.compress", "dist.ep"):
         assert "repro_torch." + name in mods
     code = (
         "import importlib, json, sys\n"

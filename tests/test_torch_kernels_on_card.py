@@ -112,6 +112,8 @@ from repro_torch.kernels.ref import (ClosedForm, closed_form_decode_fma,
 from repro_torch.launch.common import configure_numerics
 from repro_torch.nn.model import build
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 MAX_FLIP_SHARE = 0.01
 F32_ATOL = 1e-6
 FLASH_ATOL = 1e-5

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.kernels import launch_floor as TLF
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 def test_writes_its_word_on_the_cpu():
     word = torch.zeros(1, dtype=torch.int32)

@@ -35,6 +35,8 @@ from repro_torch.nn.model import build as tbuild
 from repro_torch.serve import lifecycle as TL
 from repro_torch.train.optim import tree_leaves
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PRESETS = ("aged-1day", "stressed", "paper-ir")
 
 

@@ -50,6 +50,8 @@ from repro_torch.nn import transformer as TM
 from repro_torch.nn.encdec import EncDecLM
 from repro_torch.nn.model import build as tbuild
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, BATCH, MAX_LEN = 8, 2, 16
 BF16_ATOL = 1e-5
@@ -182,10 +184,13 @@ def test_init_layout_matches_jax():
 @pytest.mark.parametrize("what", ["family", "ep_shardmap", "train",
                                   "hybrid_grad_comm"])
 def test_outside_the_slice_raises(what):
-    """What is not ported raises, naming its ``ROADMAP.md`` item: expert
-    parallelism (``moe_impl="ep_shardmap"``) and the hybrid's training
-    under ``--grad-comm hierarchical`` (the two-level data-parallel
-    all-reduce).  The hybrid's training under ``remat_policy="dots"`` is
+    """Expert parallelism (``moe_impl="ep_shardmap"``) and the hybrid's
+    training under ``--grad-comm hierarchical`` are ported: without a mesh
+    the expert-parallel config falls back to the GSPMD path, as the
+    reference's does (the same logits and decode state), and the hybrid
+    trains data-parallel at world size 1 with the plain run's losses and
+    gradient norms, bitwise (tests/test_torch_dist*.py hold both across
+    ranks).  The hybrid's training under ``remat_policy="dots"`` is
     ported: ``launch.train --arch recurrentgemma-9b --override
     remat_policy=dots`` trains (train mode, a group and the tail that is
     never recomputed), with the losses and gradient norms of ``"full"``
@@ -216,15 +221,26 @@ def test_outside_the_slice_raises(what):
         for k in ("losses", "grad_norms"):
             assert dots[k] == full[k], k
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "hybrid_grad_comm":
-            TTRAIN.main(["--arch", "recurrentgemma-9b", "--smoke",
-                         "--device", "cpu", "--steps", "1", "--grad-comm",
-                         "hierarchical"])
-        else:
-            cfg = TC.get_smoke("moonshot-v1-16b-a3b").replace(
-                moe_impl="ep_shardmap")
-            tbuild(cfg, device="cpu").init_decode_state(1, 4)
+    if what == "hybrid_grad_comm":
+        argv = ["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu",
+                "--steps", "1", "--batch", "2", "--seq", "16"]
+        dp = TTRAIN.main(argv + ["--grad-comm", "hierarchical"])
+        plain = TTRAIN.main(argv)
+        assert dp["world"] == 1 and np.isfinite(dp["losses"][0])
+        for k in ("losses", "grad_norms"):
+            assert dp[k] == plain[k], k
+        return
+    cfg = TC.get_smoke("moonshot-v1-16b-a3b")
+    ep = tbuild(cfg.replace(moe_impl="ep_shardmap"), device="cpu")
+    gs = tbuild(cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = gs.init(gen)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    assert torch.equal(ep.forward(params, tokens), gs.forward(params, tokens))
+    state = ep.init_decode_state(1, 4)
+    assert sorted(state) == sorted(gs.init_decode_state(1, 4))
 
 
 def test_build_defaults_to_the_gpu(monkeypatch):

@@ -42,6 +42,8 @@ from repro_torch.train import optim as TO
 from test_torch_lm_forward import draws, models, tbatch
 from test_torch_lm_train import _at, _leaves_with_paths
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ROWS, S = 6, 12
 LOSS_RTOL, RTOL, ATOL = 1e-5, 2e-4, 2e-5
 SEED = 5

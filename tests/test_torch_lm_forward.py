@@ -45,6 +45,8 @@ from repro_torch.core.crossbar import ReplayNoise
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.nn.model import build as tbuild
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b", "deepseek-moe-16b")
 BANK_COLS = {"qwen2.5-3b": 64, "moonshot-v1-16b-a3b": 16,
              "deepseek-moe-16b": 16}

@@ -75,6 +75,8 @@ from repro_torch.serve.fleet import FleetEngine
 from repro_torch.serve.lifecycle import RecalPolicy
 from repro_torch.train.optim import tree_leaves
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCHS = ("mamba2-370m", "recurrentgemma-9b")
 ACT = {"mamba2-370m": "silu", "recurrentgemma-9b": "gelu"}
 BANK_COLS = 16

@@ -40,6 +40,8 @@ from repro_torch.core.crossbar import ReplayNoise
 from repro_torch.train import optim as TO
 from test_torch_lm_recurrent import KERNELS_ON_CPU, models
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCHS = ("mamba2-370m", "recurrentgemma-9b")
 OVERRIDES = {"mamba2-370m": (), "recurrentgemma-9b": (("n_layers", 5),)}
 BANK_COLS = 16

@@ -36,6 +36,8 @@ from test_torch_lm_recurrent_train import (ARCHS, B, BANK_COLS, OVERRIDES, S,
                                            _models, draws)
 from test_torch_trainer import hold_obs
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 @pytest.mark.parametrize("banked", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)

@@ -60,6 +60,8 @@ from repro_torch.train import optim as TO
 from test_torch_lm_forward import batch, draws, models, noise_for, tbatch
 from test_torch_trainer import hold_obs
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
 FN_TOL = 1e-5
@@ -463,6 +465,24 @@ def test_launcher_trains_smoke_on_cpu(arch, capsys):
                                   ["--production-mesh"],
                                   ["--grad-comm", "int8"]])
 def test_launcher_refuses_unported_options(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTRAIN.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
-                     "--steps", "1"] + flag)
+    """``--production-mesh`` is not ported: it raises, naming the next
+    slice and its ``ROADMAP.md`` item, and beside another ``--grad-comm``
+    it is a usage error, as the reference's launcher makes it.
+    ``--grad-comm psum`` and ``int8`` train at world size 1 (without
+    ``torch.distributed.run``): psum with the plain run's losses, bitwise;
+    int8 with a populated error-feedback residual."""
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16"]
+    if flag == ["--production-mesh"]:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP.*launch/\{mesh,specs,dryrun\}"):
+            TTRAIN.main(argv + flag)
+        return
+    with pytest.raises(SystemExit):
+        TTRAIN.main(argv + flag + ["--production-mesh"])
+    out = TTRAIN.main(argv + flag)
+    assert out["world"] == 1 and out["grad_comm"] == flag[1]
+    if flag[1] == "psum":
+        assert out["losses"] == TTRAIN.main(argv)["losses"]
+    else:
+        assert np.isfinite(out["losses"][0]) and out["ef_norm"] > 0

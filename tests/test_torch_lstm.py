@@ -54,6 +54,8 @@ from repro_torch.core.crossbar import GeneratorNoise, ReplayNoise
 from repro_torch.data import pipeline as TDATA
 from repro_torch.nn import lstm as TL
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 B, T = 4, 8
 SMOKE = JCFG.SMOKE
 RTOL = ATOL = 1e-5

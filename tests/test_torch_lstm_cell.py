@@ -27,6 +27,8 @@ from repro_torch.core import nladc as TN
 from repro_torch.kernels import lstm_cell as TLC
 from repro_torch.kernels import ref as TREF
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PRESET = "paper-infer"
 
 

@@ -33,6 +33,8 @@ from test_torch_lstm import (ATOL, RTOL, SMOKE, B, T, _draws, _nll_j,
                              _recording_tail, _reference_codes, _specs,
                              ramp_shape)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 IR_PRESETS = ("paper-ir", "stressed-ir")
 
 

@@ -36,6 +36,8 @@ from repro_torch.nn import lstm as TL
 from test_torch_lstm import (_draws, _nll_j, _recording_tail,
                              _reference_codes, ramp_shape)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 B, T = 2, 4
 N_IN, HIDDEN, PROJ, CLASSES = 16, 160, 16, 50
 IR_PRESETS = ("paper-ir", "stressed-ir")

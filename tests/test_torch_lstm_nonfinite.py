@@ -29,6 +29,8 @@ from repro.kernels.lstm_cell import lstm_gates_pallas
 from repro_torch.kernels import lstm_cell as TLC
 from repro_torch.kernels.ref import thermometer_count
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 THR = np.array([-1.0, 0.0, 1.0], np.float32)
 NAN, INF = np.float32(np.nan), np.float32(np.inf)
 H = 8

@@ -44,6 +44,8 @@ from repro_torch.nn import lstm as TL
 from repro_torch.train import optim as TO
 from test_torch_lstm import _draws, _specs, ramp_shape
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 SMOKE = JCFG.SMOKE
 B, T = 4, 8
 

@@ -63,6 +63,8 @@ from repro_torch.kernels.ref import thermometer_count
 from repro_torch.nn import moe as TMOE
 from repro_torch.nn.model import build as tbuild
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 MAX_FLIP_SHARE = 0.01
 VALUE_RTOL = 2.0 ** -23

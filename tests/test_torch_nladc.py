@@ -16,6 +16,8 @@ from repro.core import nladc as JN
 from repro_torch.core import nladc as TN
 from repro_torch.kernels import ref as TREF
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ACTS = ("sigmoid", "tanh", "gelu", "selu")
 
 

@@ -32,6 +32,8 @@ from repro_torch.core.analog_layer import AnalogActivation, AnalogConfig
 from repro_torch.kernels import nladc as TNK
 from repro_torch.kernels.ref import thermometer_count
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 VALUE_RTOL = 2.0 ** -23
 
 

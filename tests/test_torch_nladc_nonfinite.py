@@ -31,6 +31,8 @@ from repro_torch.core import nladc as TN
 from repro_torch.kernels import nladc as TNK
 from repro_torch.kernels.ref import thermometer_count
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 THR = np.array([-1.0, 0.0, 1.0], np.float32)
 X = np.array([[np.nan, np.inf, -np.inf, 0.5]], np.float32)
 SEARCHSORTED_CODES = [3, 3, 0, 2]     # JAX and port ``ref``

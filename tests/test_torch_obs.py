@@ -38,6 +38,8 @@ from repro_torch.nn.model import build as tbuild
 from repro_torch.obs import replay as TREPLAY
 from repro_torch.serve.engine import Request, ServingEngine
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 SIDES = {"jax": JOBS, "torch": TOBS}
 
 

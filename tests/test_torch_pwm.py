@@ -21,6 +21,8 @@ import torch
 from repro.core import nladc as JN
 from repro_torch.core import nladc as TN
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 def _boundary_inputs(bits: int, x_max: float) -> np.ndarray:
     """The float32 values at and next to every half-step of the grid."""

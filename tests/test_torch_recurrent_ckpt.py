@@ -32,6 +32,8 @@ from test_torch_recurrent_lifecycle import (ARCHS, _engine,
                                             _requests, _thresholds,
                                             state_leaves)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 HYBRID = "recurrentgemma-9b"
 
 

@@ -31,6 +31,8 @@ from repro_torch.serve import fleet as TF
 from repro_torch.serve.engine import Request
 from repro_torch.serve.lifecycle import RecalPolicy
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCHS = ("mamba2-370m", "recurrentgemma-9b")
 OVERRIDES = {"mamba2-370m": (), "recurrentgemma-9b": (("n_layers", 5),)}
 ANALOG = dict(enabled=True, mode="infer", device="aged-1day", backend="ref")

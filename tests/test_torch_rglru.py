@@ -35,6 +35,8 @@ from repro_torch.core import backend as TBK
 from repro_torch.nn import rglru as TRG
 from repro_torch.nn.model import build as tbuild
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 SCAN_TOL = 1e-6
 ATOL = 2e-5
 KERNELS_ON_CPU = "cuda-on-cpu"

@@ -34,6 +34,8 @@ from repro_torch.obs import Obs
 from repro_torch.serve.engine import ServingEngine as TEngine
 from repro_torch.serve.lifecycle import RecalPolicy
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 N_REQ, MAX_BATCH, MAX_NEW, MAX_LEN = 6, 4, 8, 64
 
@@ -266,13 +268,16 @@ def test_launcher_serves_every_analog_mode():
 
 
 def test_launcher_refuses_unported_modes(capsys):
-    """Expert parallelism stays unported, and its refusal names its
-    ROADMAP item; the lifecycle's flags outside infer mode are usage
-    errors, as the reference's launcher makes them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSERVE.main(["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device",
-                     "cpu", "--override", "moe_impl=ep_shardmap",
-                     "--requests", "1", "--max-new", "1"])
+    """Expert parallelism is ported: without a mesh the launcher serves
+    ``moe_impl=ep_shardmap`` through the GSPMD path, as the reference's
+    does, the same tokens as the default; the lifecycle's flags outside
+    infer mode are usage errors, as the reference's launcher makes
+    them."""
+    argv = ["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device", "cpu",
+            "--requests", "1", "--max-new", "1"]
+    ep = TSERVE.main(argv + ["--override", "moe_impl=ep_shardmap"])
+    plain = TSERVE.main(argv)
+    assert ep["tokens"] == plain["tokens"] > 0
     for flags in (["--age-per-step-s", "60"], ["--fleet", "2", "--canary",
                                                 "stressed"]):
         with pytest.raises(SystemExit):

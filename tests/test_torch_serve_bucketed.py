@@ -32,6 +32,8 @@ from repro_torch.nn import model as TM
 from repro_torch.nn.model import build as tbuild
 from repro_torch.serve.engine import Request, ServingEngine
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PROMPTS = [np.arange(1, 6, dtype=np.int32),        # short
            np.arange(2, 15, dtype=np.int32),       # medium
            np.asarray([7], np.int32),              # degenerate (no prefill)

@@ -37,6 +37,8 @@ from repro_torch.nn.model import build as tbuild
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.train.optim import tree_leaves
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PRESET = "aged-1day"
 _INT8 = {"kv_cache_dtype": "int8"}
 ARCHS = {"qwen": ("qwen2.5-3b", None),

@@ -37,6 +37,8 @@ from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.lifecycle import RecalPolicy
 from repro_torch.train.optim import tree_leaves
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PRESET = "aged-1day"
 PROMPTS = [np.arange(1, 6, dtype=np.int32), np.arange(2, 15, dtype=np.int32),
            np.asarray([7], np.int32), np.arange(3, 25, dtype=np.int32),
@@ -123,34 +125,35 @@ def _same_state(j, t):
         np.testing.assert_array_equal(b, a)
 
 
-@pytest.mark.parametrize("mode", [
-    dict(), dict(drain_before_rejit=True),
-    dict(prefill="bucketed", pack_prefill=True)],
-    ids=["at_once", "drain", "packed"])
+MODES = {"at_once": dict(), "drain": dict(drain_before_rejit=True),
+         "packed": dict(prefill="bucketed", pack_prefill=True)}
+
+
+@functools.lru_cache(maxsize=None)
+def _lifecycle_run(side, mode):
+    """(engine, streams) of one side's run of the requests in ``mode``,
+    run once for every test that reads it."""
+    eng = _engine(side, **MODES[mode])
+    reqs = _requests(side)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    return eng, [list(r.generated) for r in reqs]
+
+
+@pytest.mark.parametrize("mode", list(MODES))
 def test_lifecycle_matches_reference(mode):
     """Re-calibrations and re-aged crossbars, applied at once, after the
     wave drained, or on the packed bucketed path: streams, events,
     thresholds, params, invalidations and counters bitwise; the drain
     changes the streams (the re-program lands later)."""
-    out = {}
-    for side in SIDES:
-        eng = _engine(side, **mode)
-        reqs = _requests(side)
-        for r in reqs:
-            eng.submit(r)
-        eng.run_to_completion()
-        out[side] = (eng, [list(r.generated) for r in reqs])
-    (j, sj), (t, st) = out["jax"], out["torch"]
+    (j, sj), (t, st) = _lifecycle_run("jax", mode), \
+        _lifecycle_run("torch", mode)
     assert st == sj
     assert sum(e["recalibrated"] for e in t.scheduler.events) >= 2
     _same_state(j, t)
-    if mode.get("drain_before_rejit"):
-        eng = _engine("torch")
-        reqs = _requests("torch")
-        for r in reqs:
-            eng.submit(r)
-        eng.run_to_completion()
-        assert [list(r.generated) for r in reqs] != st
+    if mode == "drain":
+        assert _lifecycle_run("torch", "at_once")[1] != st
 
 
 @pytest.mark.parametrize("prefill", ["scan", "bucketed"])

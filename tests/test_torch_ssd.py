@@ -37,6 +37,8 @@ from repro_torch import configs as TC
 from repro_torch.nn import ssd as TSSD
 from repro_torch.nn.model import build as tbuild
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ATOL = 2e-5
 STATE_ATOL = 1e-5
 RTOL = 1e-5

@@ -31,6 +31,8 @@ from repro_torch.core import functions as TF
 from repro_torch.core import nladc as TN
 from repro_torch.kernels import lstm_cell as TLC
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 RTOL = ATOL = 1e-5
 NAMES = sorted(TF.REGISTRY)
 

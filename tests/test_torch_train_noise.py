@@ -30,6 +30,8 @@ from repro_torch.core.analog_layer import _noisy_weights as t_noisy_weights
 from repro_torch.core.crossbar import NoiseSource, ReplayNoise
 from repro_torch.nn import lstm as TL
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ULP_BOUND = 8
 WIDTH = 32
 

@@ -31,6 +31,8 @@ from repro_torch.ft import executor as TEX
 from repro_torch.obs import Obs as TObs
 from repro_torch.train import loop as TLOOP
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 def _retries(ex):
     calls = {"n": 0}

@@ -14,6 +14,8 @@ from repro.kernels import tune as JT
 from repro_torch.kernels import tune as TT
 from repro_torch.launch import kernel_tune, serve
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 
 @pytest.fixture(autouse=True)
 def clean_state(monkeypatch):

@@ -54,6 +54,8 @@ from repro_torch.train import optim as TO
 from test_configs import N_PARAMS_PIN
 from test_torch_lm_forward import KERNELS_ON_CPU
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCH = "whisper-base"
 B, S = 2, 12
 LOSS_RTOL = 1e-6

@@ -53,6 +53,8 @@ from repro_torch.serve.lifecycle import RecalPolicy
 from repro_torch.train.optim import tree_leaves
 from test_torch_serve_lifecycle import _leaf_paths, _no_wall, _thresholds
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 ARCH = "whisper-base"
 PRESET = "aged-1day"
 BANK_COLS = 32

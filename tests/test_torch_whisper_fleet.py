@@ -50,6 +50,8 @@ from test_torch_serve_lifecycle import _clone, _thresholds
 from test_torch_whisper_deploy import (ARCH, engine, models, params_np,
                                        requests, state_leaves)
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 CROSS = ("['state']['cross_k']", "['state']['cross_v']")
 
 

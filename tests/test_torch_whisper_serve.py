@@ -39,6 +39,8 @@ from repro_torch.serve.engine import Request, ServingEngine
 from test_torch_serve_bucketed import MAX_BATCH, MAX_LEN, MAX_NEW, PROMPTS
 from test_torch_whisper import models
 
+import _torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 PACKED_ATOL = 1e-5
 MODES = {
     "bucketed": dict(prefill="bucketed"),
